@@ -1,0 +1,558 @@
+"""Declarative fabric front door: composable policies + compile/run lifecycle.
+
+The PyTorch counterpart of the reference ``core/fabric.py``.  A
+:class:`Fabric` is topology plus four policies — ``routing``
+(:class:`StaticShortestPath` or a prebuilt ``RoutingTable``), ``timing``
+(scalar or per-link ``LinkTiming``), ``queues`` (:class:`QueuePolicy`)
+and ``engine`` (:class:`EngineSpec`) — and a device:
+
+    fab = Fabric(ring_topology(8), queues=QueuePolicy(max_burst=1))
+    cf = fab.compile(spec)          # bind one shape bucket, build kernels
+    res = cf.run(spec)
+    results = fab.run_many(specs)
+
+``device=None`` means the CUDA card and raises without one; the tests
+pass ``device="cpu"``.  PyTorch runs eagerly, so "compile" binds the
+bucket (the reference's slot-engine shape signature, kept identical)
+and builds the CUDA kernels its engine launches; nothing is traced.
+
+Ported so far: the slot engines (``"reference"``, ``"pallas"``) with
+``kernel="step"``, unicast and both multicast modes, every flow mode.
+Not yet: ``engine="ring"`` (ROADMAP A.6), ``kernel="multistep"``
+(ROADMAP A.5 / B3), batching and adaptive routing (A.6, A.7), and the
+static verifier that admits tables with broken route pairs (A.7).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .link import PAPER_TIMING, LinkTiming, link_timing_arrays
+from .network import (ENGINES, FabricResult, _check_reachable,
+                      _expand, _first_hop_queues,
+                      _overflow_guard, _overflow_guard_routed, _prefill,
+                      _route_link_tx, _routes_with_trees, _slot_run,
+                      _unicast_routes)
+from .router import (AddressSpec, MulticastTable, MulticastTree,
+                     RoutingTable, Topology, find_route_cycles)
+from .telemetry import Telemetry, _np
+from .traffic import TrafficSpec
+
+__all__ = ["Fabric", "CompiledFabric", "QueuePolicy", "FLOW_MODES",
+           "EngineSpec", "MulticastPolicy", "RoutingPolicy",
+           "StaticShortestPath", "PrebuiltRouting"]
+
+#: flow-control modes, in engine encoding order
+FLOW_MODES = ("drop", "credit", "onoff")
+
+
+@dataclass(frozen=True)
+class QueuePolicy:
+    """Per-endpoint queue behaviour (see the reference): ``capacity``
+    (None = lossless), ``max_burst`` (0 = paper-faithful grant rule),
+    ``initial_tx`` (scalar or (L,)), ``flow`` (``"drop"`` /
+    ``"credit"`` / ``"onoff"``) and ``xon`` (on/off resume threshold,
+    default ``capacity // 2``)."""
+    capacity: int | None = None
+    max_burst: int = 0
+    initial_tx: int | np.ndarray = 1
+    flow: str = "drop"
+    xon: int | None = None
+
+    def __post_init__(self):
+        if self.capacity is not None and int(self.capacity) < 1:
+            raise ValueError(f"queue capacity must be >= 1, got "
+                             f"{self.capacity}")
+        if int(self.max_burst) < 0:
+            raise ValueError(f"max_burst must be >= 0, got {self.max_burst}")
+        if self.flow not in FLOW_MODES:
+            raise ValueError(f"unknown flow mode {self.flow!r}; expected "
+                             f"one of {FLOW_MODES}")
+        if self.flow != "drop" and self.capacity is None:
+            raise ValueError(f"flow={self.flow!r} needs a finite queue "
+                             f"capacity (capacity=None is already "
+                             f"lossless)")
+        if self.xon is not None:
+            if self.flow != "onoff":
+                raise ValueError("xon only applies to flow='onoff'")
+            if not 0 <= int(self.xon) < int(self.capacity):
+                raise ValueError(f"xon must satisfy 0 <= xon < capacity, "
+                                 f"got xon={self.xon} with "
+                                 f"capacity={self.capacity}")
+
+
+@dataclass(frozen=True)
+class EngineSpec:
+    """Which bit-exact event-transport engine runs the simulation.
+
+    ``name`` — ``"pallas"``: the slot engine whose per-step queue scan
+    and pop/append scatter are the hand-written Hopper kernels of
+    ``kernels/fabric_queue.py`` (the name is kept for parity with the
+    reference package, where it is the Pallas TPU engine; on the CPU
+    the same wrappers run their plain versions).  ``"reference"``: the
+    same step over the plain-PyTorch versions on any device.
+    ``"auto"`` means ``"pallas"`` until the ring engine is ported
+    (ROADMAP A.6; every engine is bit-exact, so results do not change).
+    ``"ring"`` raises ``NotImplementedError`` for now.
+
+    ``kernel`` — ``"step"`` (two kernel launches per micro-transaction).
+    ``"multistep"`` raises ``NotImplementedError`` (ROADMAP A.5 / B3).
+    """
+    name: str = "auto"
+    kernel: str = "step"
+
+    def __post_init__(self):
+        if self.name == "ring":
+            raise NotImplementedError(
+                "engine='ring' is not ported yet (ROADMAP A.6); use "
+                "'pallas' (= 'auto') or 'reference'")
+        if self.resolved not in ENGINES:
+            raise ValueError(f"unknown engine {self.name!r}; expected one "
+                             f"of {ENGINES} (or 'auto')")
+        if self.kernel == "multistep":
+            raise NotImplementedError(
+                "kernel='multistep' (the fused multi-step kernel) is not "
+                "ported yet (ROADMAP A.5 / B3); use kernel='step'")
+        if self.kernel != "step":
+            raise ValueError(f"unknown kernel {self.kernel!r}; expected "
+                             f"'step'")
+
+    @property
+    def resolved(self) -> str:
+        return "pallas" if self.name == "auto" else self.name
+
+
+@dataclass(frozen=True)
+class MulticastPolicy:
+    """How tagged events traverse the fabric: ``"source_expand"`` (a tag
+    of fanout F becomes F unicast copies at the source) or
+    ``"in_fabric"`` (replicated where the per-(source, tag) Steiner tree
+    branches).  ``table`` resolves tags to member chips."""
+    mode: str = "source_expand"
+    table: MulticastTable | None = None
+
+    MODES = ("source_expand", "in_fabric")
+
+    def __post_init__(self):
+        if self.mode not in self.MODES:
+            raise ValueError(f"unknown multicast mode {self.mode!r}; "
+                             f"expected one of {self.MODES}")
+        if self.table is not None and not isinstance(self.table,
+                                                     MulticastTable):
+            raise TypeError(f"table must be a MulticastTable, got "
+                            f"{type(self.table).__name__}")
+
+
+@runtime_checkable
+class RoutingPolicy(Protocol):
+    """Anything that turns a topology into next-hop tables."""
+
+    def build(self, topo: Topology) -> RoutingTable: ...
+
+
+def _validate_tables(topo: Topology, rt: RoutingTable) -> RoutingTable:
+    n = topo.n_chips
+    for name in ("next_link", "out_side", "hops"):
+        a = np.asarray(getattr(rt, name))
+        if a.shape != (n, n):
+            raise ValueError(f"routing table {name} has shape {a.shape}, "
+                             f"expected ({n}, {n})")
+    if np.asarray(rt.next_link).max(initial=-1) >= topo.n_links:
+        raise ValueError("routing table names a link id outside the "
+                         "topology")
+    return rt
+
+
+@dataclass(frozen=True)
+class StaticShortestPath:
+    """Deterministic BFS shortest-path routing, with an optional
+    ``table_override(topo, built_table)`` hook."""
+    table_override: Callable[[Topology, RoutingTable],
+                             RoutingTable] | None = None
+
+    def build(self, topo: Topology) -> RoutingTable:
+        rt = RoutingTable.build(topo)
+        if self.table_override is not None:
+            rt = _validate_tables(topo, self.table_override(topo, rt))
+        return rt
+
+
+@dataclass(frozen=True)
+class PrebuiltRouting:
+    """Adapter: a ready-made ``RoutingTable`` as a ``RoutingPolicy``."""
+    table: RoutingTable
+
+    def build(self, topo: Topology) -> RoutingTable:
+        return _validate_tables(topo, self.table)
+
+
+class _Plan(NamedTuple):
+    """Everything one execution needs (host numpy): routed, prefilled
+    queues, replication tables, the flow-control scalars and the shape
+    bucket.  ``E`` counts expected deliveries, ``offered`` the events
+    before fanout, ``C`` the physical slot width."""
+    E: int
+    C: int
+    max_steps: int
+    q_time: np.ndarray
+    q_dest: np.ndarray
+    q_inj: np.ndarray
+    sizes: np.ndarray
+    route_out: np.ndarray   # (N, R, K), -1 = none
+    route_del: np.ndarray   # (N, R)
+    route_wt: np.ndarray    # (N, R, K)
+    offered: int
+    bucket: tuple
+    cap: int = 1
+    fc: int = 0
+    xon: int = 0
+
+
+class Fabric:
+    """A declarative N-chip AER fabric: topology + policies + device."""
+
+    def __init__(self, topo: Topology, *,
+                 routing: RoutingPolicy | RoutingTable | None = None,
+                 timing: LinkTiming = PAPER_TIMING,
+                 queues: QueuePolicy | None = None,
+                 engine: EngineSpec | str | None = None,
+                 addr: AddressSpec | None = None,
+                 mcast: MulticastTable | MulticastPolicy | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.topo = topo
+        if routing is None:
+            policy: RoutingPolicy = StaticShortestPath()
+        elif isinstance(routing, RoutingTable):
+            policy = PrebuiltRouting(routing)
+        elif isinstance(routing, RoutingPolicy):
+            policy = routing
+        else:
+            raise TypeError(f"routing must be a RoutingPolicy or a "
+                            f"RoutingTable, got {type(routing).__name__}")
+        self.routing_policy = policy
+        self.queues = queues if queues is not None else QueuePolicy()
+        if engine is None:
+            engine = EngineSpec()
+        elif isinstance(engine, str):
+            engine = EngineSpec(name=engine)
+        self.engine = engine
+        self.timing = timing
+        self.addr = addr
+        if mcast is None:
+            self.mcast_policy = MulticastPolicy()
+        elif isinstance(mcast, MulticastPolicy):
+            self.mcast_policy = mcast
+        elif isinstance(mcast, MulticastTable):
+            self.mcast_policy = MulticastPolicy(table=mcast)
+        else:
+            raise TypeError(f"mcast must be a MulticastTable or a "
+                            f"MulticastPolicy, got {type(mcast).__name__}")
+        self.mcast = self.mcast_policy.table
+
+        L = topo.n_links
+        self.timing_arrays = link_timing_arrays(timing, L)
+        tc, tv, ti = self.timing_arrays
+        # per-link worst single-transmission cost (routed clock guard)
+        # and its fabric-wide max (fallback when routes cannot be walked)
+        self._link_cost = tc.astype(np.int64) + np.maximum(tv, ti)
+        self._worst_cost = int(self._link_cost.max(initial=1))
+        self.routing_table = policy.build(topo)
+        # Lossless flow control needs every route to make progress.  The
+        # reference admits a table with broken (chip, dest) pairs when
+        # its static verifier proves the remaining channel-dependency
+        # graph acyclic, and quarantines those pairs; that verifier is
+        # not ported yet, so such tables are refused here.
+        if self.queues.flow != "drop":
+            bad = find_route_cycles(topo, self.routing_table)
+            if len(bad):
+                shown = ", ".join(f"{c}->{d}" for c, d in bad[:4].tolist())
+                raise NotImplementedError(
+                    f"routing table has {len(bad)} (chip, dest) pair(s) "
+                    f"whose route never reaches the destination, e.g. "
+                    f"{shown}; admitting them under flow="
+                    f"{self.queues.flow!r} needs the static verifier, "
+                    f"which is not ported yet (ROADMAP A.7) — fix the "
+                    f"table or use flow='drop'")
+        self._init_tx = np.broadcast_to(
+            np.asarray(self.queues.initial_tx, np.int32), (L,))
+        self._compiled: dict[tuple, CompiledFabric] = {}
+        self._plan_memo: tuple | None = None  # (spec, max_steps, plan)
+        self._tree_cache: dict[tuple[int, int], MulticastTree] = {}
+        self._unicast_tables_np: tuple | None = None
+
+    @property
+    def n_chips(self) -> int:
+        return self.topo.n_chips
+
+    @property
+    def n_links(self) -> int:
+        return self.topo.n_links
+
+    @property
+    def compiled_buckets(self) -> tuple[tuple, ...]:
+        """Shape buckets this fabric has bound so far."""
+        return tuple(self._compiled)
+
+    def __repr__(self) -> str:
+        return (f"Fabric({self.topo.name}: {self.n_chips} chips, "
+                f"{self.n_links} links, engine={self.engine.resolved!r}, "
+                f"device={self.device})")
+
+    # --- lifecycle ------------------------------------------------------
+
+    def compile(self, spec: TrafficSpec, *, max_steps: int | None = None,
+                warm: bool = True) -> "CompiledFabric":
+        """Bind the shape bucket ``spec`` needs; with ``warm`` also build
+        the kernels its engine launches."""
+        plan = self._plan(spec, max_steps)
+        cf = self._get_compiled(plan.bucket)
+        if warm:
+            cf.warmup()
+        return cf
+
+    def run(self, spec: TrafficSpec, *,
+            max_steps: int | None = None) -> FabricResult:
+        """Simulate one traffic spec."""
+        plan = self._plan(spec, max_steps)
+        return self._get_compiled(plan.bucket)._execute(plan)
+
+    def run_many(self, specs, *,
+                 max_steps: int | None = None) -> list[FabricResult]:
+        """Run a sequence of specs, one after another (the batched path
+        comes with ROADMAP A.6)."""
+        return [self.run(s, max_steps=max_steps) for s in specs]
+
+    # --- internals ------------------------------------------------------
+
+    def _get_compiled(self, bucket: tuple) -> "CompiledFabric":
+        cf = self._compiled.get(bucket)
+        if cf is None:
+            cf = CompiledFabric(self, bucket)
+            self._compiled[bucket] = cf
+        return cf
+
+    def _plan(self, spec: TrafficSpec, max_steps: int | None) -> _Plan:
+        # memoize the last plan by spec identity, so compile(spec) ->
+        # run(spec) pays the setup-time numpy once
+        memo = self._plan_memo
+        if memo is not None and memo[0] is spec and memo[1] == max_steps:
+            return memo[2]
+        plan = self._plan_impl(spec, max_steps)
+        self._plan_memo = (spec, max_steps, plan)
+        return plan
+
+    def _unicast_tables(self):
+        if self._unicast_tables_np is None:
+            self._unicast_tables_np = _unicast_routes(self.topo,
+                                                      self.routing_table)
+        return self._unicast_tables_np
+
+    def _tree(self, src: int, tag: int) -> MulticastTree:
+        tree = self._tree_cache.get((src, tag))
+        if tree is None:
+            tree = MulticastTree.build(self.topo, self.routing_table, src,
+                                       self.mcast_policy.table.expand(tag))
+            self._tree_cache[(src, tag)] = tree
+        return tree
+
+    def _route_in_fabric(self, spec: TrafficSpec):
+        """Setup for ``MulticastPolicy("in_fabric")``: split unicast from
+        tagged events, build one replication tree per unique (source,
+        tag) pair, and emit one prefill copy per source out-edge of the
+        tree, in original event order."""
+        topo, rt = self.topo, self.routing_table
+        N = topo.n_chips
+        src = _np(spec.src).astype(np.int32)
+        t = _np(spec.t).astype(np.int32)
+        dest = _np(spec.dest).astype(np.int32)
+        if self.addr is not None:
+            is_mc = np.asarray(self.addr.is_multicast(dest))
+            chip_or_tag, _ = self.addr.unpack(dest)
+        else:
+            is_mc = np.zeros(len(dest), bool)
+            chip_or_tag = dest
+        u_src, u_dest = src[~is_mc], chip_or_tag[~is_mc]
+        if np.any(u_src == u_dest):
+            raise ValueError("self-addressed events (src == dest)")
+        _check_reachable(rt, u_src, u_dest)
+        m_src, m_tag = src[is_mc], chip_or_tag[is_mc]
+        if len(m_src) and self.mcast_policy.table is None:
+            raise ValueError("multicast events but no MulticastTable")
+
+        route_ev = chip_or_tag.astype(np.int64)
+        n_copies = np.ones(len(src), np.int64)
+        fanout_ev = np.ones(len(src), np.int64)
+        if len(m_src):
+            pairs, inv = np.unique(np.stack([m_src, m_tag], 1), axis=0,
+                                   return_inverse=True)
+            inv = inv.reshape(-1)
+            trees = [self._tree(int(s), int(g)) for s, g in pairs]
+            tree_counts = np.bincount(inv, minlength=len(trees))
+            root_qs = [(e[:, 1] * 2 + e[:, 2]).astype(np.int64)
+                       for e in (tr.edges[tr.parent < 0] for tr in trees)]
+            route_ev[is_mc] = N + inv
+            n_copies[is_mc] = np.array([len(q) for q in root_qs],
+                                       np.int64)[inv]
+            fanout_ev[is_mc] = np.array([tr.fanout for tr in trees],
+                                        np.int64)[inv]
+        else:
+            trees, tree_counts, root_qs, inv = [], np.zeros(0, np.int64), \
+                [], np.zeros(0, np.int64)
+
+        ev_idx = np.repeat(np.arange(len(src)), n_copies)
+        is_mc_copy = is_mc[ev_idx]
+        grp = np.empty(len(ev_idx), np.int64)
+        grp[~is_mc_copy] = _first_hop_queues(rt, u_src, u_dest)
+        if len(m_src):
+            grp[is_mc_copy] = np.concatenate([root_qs[j] for j in inv])
+        expected = int(fanout_ev.sum())
+        total_tx = int(rt.hops[u_src, u_dest].sum()) + int(
+            sum(tr.n_edges * int(c) for tr, c in zip(trees, tree_counts)))
+        return (grp, t[ev_idx], route_ev[ev_idx].astype(np.int32),
+                t[ev_idx], u_src, u_dest, trees, tree_counts,
+                expected, total_tx)
+
+    def _plan_impl(self, spec: TrafficSpec, max_steps: int | None) -> _Plan:
+        topo, rt = self.topo, self.routing_table
+        L = topo.n_links
+        if self.mcast_policy.mode == "in_fabric":
+            (grp, copy_t, copy_route, copy_inj, u_src, u_dest, trees,
+             tree_counts, E, total_tx) = self._route_in_fabric(spec)
+            route_out, route_del, route_wt = _routes_with_trees(
+                topo, rt, trees)
+        else:
+            src, t, dest = _expand(spec, self.addr, self.mcast)
+            if np.any(src == dest):
+                raise ValueError("self-addressed events (src == dest)")
+            _check_reachable(rt, src, dest)
+            route_out, route_del, route_wt = self._unicast_tables()
+            grp = _first_hop_queues(rt, src, dest)
+            copy_t = copy_inj = t
+            copy_route = dest
+            u_src, u_dest, trees, tree_counts = src, dest, [], []
+            E = len(src)
+            total_tx = int(rt.hops[src, dest].sum())
+        if L == 0 or E == 0:
+            raise ValueError("need at least one link and one event")
+
+        cap_opt = self.queues.capacity
+        cap = int(cap_opt) if cap_opt is not None else max(E, 1)
+        fc = FLOW_MODES.index(self.queues.flow)
+        xon = (int(self.queues.xon) if self.queues.xon is not None
+               else (cap // 2 if fc == 2 else 0))
+        # drop mode: the logical budget binds the initial backlog too;
+        # the lossless modes only need the physical width
+        chk = cap if fc == 0 else max(E, 1)
+        # physical slot width: the expanded event count, so the capacity
+        # stays out of the shape bucket
+        C = max(E, 1)
+        if max_steps is None:
+            max_steps = 4 * total_tx + 2 * E + 64 * (rt.diameter + 2)
+        t_max = int(copy_t.max(initial=0))
+        link_tx, walk_ok = _route_link_tx(rt, topo.links, u_src, u_dest,
+                                          L, topo.n_chips)
+        if walk_ok:
+            for tr, cnt in zip(trees, tree_counts):
+                if tr.n_edges:
+                    np.add.at(link_tx, tr.edges[:, 1], int(cnt))
+            _overflow_guard_routed(t_max, link_tx, self._link_cost)
+        else:
+            _overflow_guard(t_max, total_tx, self._worst_cost)
+        R, K = route_out.shape[1], route_out.shape[2]
+
+        qt, qd, qi, sizes = _prefill(L, grp, copy_t, copy_route, copy_inj,
+                                     chk, width=C)
+        # the reference's slot-engine bucket, verbatim: chunk keys only
+        # the multi-step kernel, so it is 0 here
+        bucket = (self.engine.resolved, L, E, C, int(max_steps),
+                  int(self.queues.max_burst), R, K, self.engine.kernel, 0)
+        return _Plan(E=E, C=C, max_steps=int(max_steps), q_time=qt,
+                     q_dest=qd, q_inj=qi, sizes=sizes,
+                     route_out=route_out, route_del=route_del,
+                     route_wt=route_wt, offered=spec.n_events,
+                     bucket=bucket, cap=cap, fc=fc, xon=xon)
+
+
+def _dev_i32(a, device: torch.device) -> torch.Tensor:
+    """A fresh int32 device copy of a host array (never a view of it:
+    the engine updates its queue planes in place)."""
+    return torch.tensor(np.asarray(a, np.int32), device=device)
+
+
+class CompiledFabric:
+    """A :class:`Fabric` bound to ONE slot-engine shape bucket
+    ``(engine, L, E, C, max_steps, max_burst, R, K, kernel, chunk)`` —
+    the reference's tuple, field for field."""
+
+    def __init__(self, fabric: Fabric, bucket: tuple):
+        self.fabric = fabric
+        self.bucket = bucket
+        eng, L, E, C, max_steps, mb, _R, _K, _kern, _chunk = bucket
+        self._fn = _slot_run(L, E, C, max_steps, mb, eng == "pallas")
+        dev = fabric.device
+        tc, tv, ti = fabric.timing_arrays
+        self._tables = tuple(_dev_i32(a, dev) for a in (
+            fabric._init_tx, fabric.topo.links, tc, tv, ti))
+        self._warmed = False
+
+    @property
+    def engine_name(self) -> str:
+        return self.bucket[0]
+
+    def __repr__(self) -> str:
+        return f"CompiledFabric(bucket={self.bucket})"
+
+    def run(self, spec: TrafficSpec, *,
+            max_steps: int | None = None) -> FabricResult:
+        """Run one spec, refusing specs that fall outside this bucket."""
+        plan = self.fabric._plan(spec, max_steps)
+        if plan.bucket != self.bucket:
+            raise ValueError(
+                f"spec needs shape bucket {plan.bucket} but this "
+                f"CompiledFabric is bound to {self.bucket}; use "
+                f"Fabric.run (auto-routes) or Fabric.compile the new "
+                f"bucket")
+        return self._execute(plan)
+
+    def warmup(self) -> "CompiledFabric":
+        """Build the CUDA kernels this bucket's engine launches (the
+        counterpart of the reference's pre-compilation).  Idempotent."""
+        if not self._warmed and self.engine_name == "pallas" \
+                and self.fabric.device.type == "cuda":
+            from ..kernels import _build
+            with torch.cuda.device(self.fabric.device):
+                _build.load("fabric_queue")
+        self._warmed = True
+        return self
+
+    def _execute(self, plan: _Plan) -> FabricResult:
+        fab = self.fabric
+        dev = fab.device
+        E, L, C = plan.E, fab.topo.n_links, plan.C
+        init_tx, links, tc, tv, ti = self._tables
+        out = self._fn(
+            _dev_i32(plan.q_time.reshape(2 * L, C), dev),
+            _dev_i32(plan.q_dest.reshape(2 * L, C), dev),
+            _dev_i32(plan.q_inj.reshape(2 * L, C), dev),
+            _dev_i32(plan.sizes, dev), init_tx, links,
+            _dev_i32(plan.route_out, dev), _dev_i32(plan.route_del, dev),
+            _dev_i32(plan.route_wt, dev), tc, tv, ti,
+            plan.cap, plan.fc, plan.xon)
+        (log_n, log_inj, log_del, log_dest, sent, n_sw, t_link, t_end,
+         drops, busy_ns, busy_steps, q_drops, stall_steps,
+         credit_waits) = out
+        self._warmed = True
+        return FabricResult(
+            delivered=log_n, injected=E,
+            log_inj=log_inj, log_del=log_del, log_dest=log_dest,
+            sent=sent, n_switches=n_sw, t_link=t_link, t_end=t_end,
+            drops=drops, offered=plan.offered,
+            telemetry=Telemetry(busy_ns=busy_ns, busy_steps=busy_steps,
+                                q_drops=q_drops, stall_steps=stall_steps,
+                                credit_waits=credit_waits))
