@@ -9,25 +9,40 @@ and no network, builds the kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (into the git-ignored ``build/``), and imports nothing of
 JAX or of the JAX reference package.  Phases, one JSON line each:
 
-1. device   — name, capability (must be 9.0), nvidia-smi name and power
-              limit (also printed raw on a line of its own);
-2. build    — nvcc seconds and ptxas's resource report;
-3. kernels  — each CUDA kernel against its plain PyTorch version on the
-              card, bit for bit, at (Q, C) in {(4, 7), (32, 768),
-              (224, 3072)} and K in {1, 4}, with every edge case of the
-              contract; then each timed with CUDA events at the ring-16
-              full-width shape, beside its plain version and its bound;
-4. anchor   — the paper's Fig. 8 cell (ring-2 ping-pong, 1024 events a
-              side, max_burst 1) through the default engine: 28.6 MEv/s
-              within 0.1 %, and equal to ``protocol_sim.simulate``;
-5. full     — ring-16 hot-spot (48 events a chip, mean gap 300 ns,
-              hot_frac 0.65, capacity 64, credit flow): the kernel
-              engine against ``engine="reference"`` on the card, field
-              for field, every event delivered, no drops, and exactly
-              2·max_steps kernel launches; then an 8-chip in-fabric
-              multicast run with K > 1, compared the same way;
-6. profile  — a short torch.profiler window of the full-width run:
-              device-busy share and time by kernel.
+1. device    — name, capability (must be 9.0), nvidia-smi name and power
+               limit (also printed raw on a line of its own);
+2. build     — both libraries, one nvcc each, started together: seconds
+               and ptxas's resource report;
+3. kernels   — the per-step pair (B1, B2) against their plain PyTorch
+               versions on the card, bit for bit, at (Q, C) in {(4, 7),
+               (32, 768), (224, 3072)} and K in {1, 4}, with every edge
+               case of the contract; then each timed with CUDA events at
+               the ring-16 full-width shape, beside its plain version and
+               its bound;
+4. multistep — the multi-step kernel (B3) against its plain version on
+               packed carries of real plans (tests/_torch_cases.py):
+               the three cells' specs plus ring-16 at a binding capacity
+               under credit, drop and on/off, 300 steps each at chunk 1,
+               16 and/or 128 (launches with base > 0, max_steps binding
+               mid-chunk), K = 2, and one B = 3 launch (the three
+               binding ring-16 cases) against their solo plain runs;
+               then one launch timed at full width, beside its bound and
+               its plain version;
+5. anchor    — the paper's Fig. 8 cell (ring-2 ping-pong, 1024 events a
+               side, max_burst 1) through the default engine: 28.6 MEv/s
+               within 0.1 %, and equal to ``protocol_sim.simulate``;
+6. full      — ring-16 hot-spot (48 events a chip, mean gap 300 ns,
+               hot_frac 0.65, capacity 64, credit flow): the per-step
+               kernel engine against ``engine="reference"`` on the card,
+               field for field, every event delivered, no drops, and
+               exactly 2·max_steps kernel launches; then an 8-chip
+               in-fabric multicast run with K > 1, compared the same way;
+7. multistep path — each of those three cells again through
+               ``EngineSpec("pallas", kernel="multistep")`` at chunk 128:
+               equal to its per-step result field for field, exactly
+               ceil(max_steps / 128) B3 launches and no B1/B2 launch;
+8. profile   — torch.profiler windows of the full-width cell on both
+               paths: device-busy share and time by kernel.
 
 Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -68,32 +83,10 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
-# --- inputs (numpy, seeded) ----------------------------------------------
-# The kernels' edge-case inputs are the tests' own (tests/_torch_cases.py):
-# all-BIG_NS rows, fully released rows, ties, values next to BIG_NS,
-# clocks at / past it, and lanes whose queue id is >= Q.
-
-def hot_spot(n_chips, epc, mean_gap_ns, hot_frac, seed, hot_chip=0):
-    """Numpy hot-spot traffic with the reference generator's contract."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    col = np.repeat(np.arange(n_chips)[:, None], epc, 1)
-    times = np.cumsum(rng.exponential(mean_gap_ns, (n_chips, epc))
-                      .astype(np.int64), 1)
-    d = rng.integers(0, n_chips - 1, col.shape)
-    uni = d + (d >= col)
-    hot = (rng.random(col.shape) < hot_frac) & (col != hot_chip)
-    dest = np.where(hot, hot_chip, uni)
-    return col.reshape(-1), times.reshape(-1), dest.reshape(-1)
-
-
-def spec_of(src, t, dest):
-    import numpy as np
-    import torch
-    from repro_torch.core.traffic import TrafficSpec
-    return TrafficSpec(*(torch.from_numpy(np.asarray(a, np.int32))
-                         for a in (src, t, dest)))
-
+# The inputs (numpy, seeded) are the tests' own, in tests/_torch_cases.py:
+# the queue kernels' edge cases (all-BIG_NS rows, fully released rows,
+# ties, values next to BIG_NS, clocks at / past it, lanes whose queue id
+# is >= Q), the cells' traffic, and the multi-step kernel's cases.
 
 # --- timing --------------------------------------------------------------
 
@@ -148,14 +141,26 @@ def phase_device():
     return name, smi
 
 
+LIBRARIES = ("fabric_queue", "fabric_queue_multistep")
+
+
 def phase_build():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
-    path, secs, log = _build.build("fabric_queue")
-    _build.load("fabric_queue")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    emit("build", library=str(path.relative_to(ROOT)), nvcc_s=secs,
-         ptxas=ptxas)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        built = list(ex.map(_build.build, LIBRARIES))
+    wall = time.perf_counter() - t0
+    libs = {}
+    for name, (path, secs, log) in zip(LIBRARIES, built):
+        _build.load(name)
+        libs[name] = {"library": str(path.relative_to(ROOT)),
+                      "nvcc_s": secs,
+                      "ptxas": [ln.strip() for ln in log.splitlines()
+                                if "registers" in ln or "spill" in ln
+                                or "Compiling entry" in ln]}
+    emit("build", wall_s=wall, libraries=libs)
 
 
 def phase_kernels():
@@ -254,6 +259,150 @@ def phase_kernels():
     return out
 
 
+def phase_multistep_kernel():
+    """B3 against its plain version on the card, bit for bit, on packed
+    carries of real plans; then one launch timed at full width."""
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.kernels import fabric_queue as fq
+    from repro_torch.kernels import ref
+    from _torch_cases import (MS_BATCH, MS_STEPS, carry_err, clone,
+                              multistep_cases, multistep_operands,
+                              run_schedule)
+    dev = torch.device("cuda", 0)
+
+    def plain(carry, consts, step_fn, steps=MS_STEPS, chunk=128):
+        return run_schedule(
+            lambda c, b, ch: ref.fabric_queue_multistep(
+                c, consts, b, step_fn=step_fn, chunk=ch, max_steps=steps),
+            clone(carry), steps, chunk)
+
+    def kernel(carry, consts, chunk, max_burst, steps=MS_STEPS):
+        return run_schedule(
+            lambda c, b, ch: fq.fabric_queue_multistep(
+                c, consts, b, chunk=ch, max_steps=steps,
+                max_burst=max_burst),
+            clone(carry), steps, chunk)
+
+    def err_of(want, got, n_log):
+        torch.cuda.synchronize()
+        err = carry_err(want, got, n_log)
+        check(err is not None, "multistep carry changed shape or dtype")
+        return err
+
+    cases, solo, worst = [], {}, 0
+    for name, kw, arrays, chunks in multistep_cases():
+        carry, consts, step_fn, plan = multistep_operands(kw, arrays,
+                                                          MS_STEPS, dev)
+        t0 = time.perf_counter()
+        want = plain(carry, consts, step_fn)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        solo[name] = (carry, consts, want, plan)
+        for chunk in chunks:
+            err = err_of(want, kernel(carry, consts, chunk, plan.bucket[5]),
+                         plan.E)
+            worst = max(worst, err)
+            cases.append({"case": name, "chunk": chunk,
+                          "launches": -(-MS_STEPS // chunk),
+                          "K": plan.bucket[7], "flow": plan.fc,
+                          "cap": plan.cap, "max_abs_err": err,
+                          "delivered": int(want[6][0]),
+                          "drops": int(want[6][1]),
+                          "stall_steps": int(want[4][5].sum()),
+                          "plain_s": plain_s})
+    parts = [solo[n] for n in MS_BATCH]
+    carry = tuple(torch.stack([p[0][j] for p in parts]) for j in range(7))
+    consts = tuple(torch.stack([p[1][j] for p in parts]) for j in range(6))
+    got = kernel(carry, consts, 128, parts[0][3].bucket[5])
+    batch_err = max(err_of(p[2], tuple(g[i] for g in got), p[3].E)
+                    for i, p in enumerate(parts))
+    worst = max(worst, batch_err)
+    emit("multistep_vs_plain", steps=MS_STEPS, cases=cases,
+         batch={"instances": list(MS_BATCH), "chunk": 128,
+                "max_abs_err": batch_err},
+         max_abs_err=worst, equal=worst == 0)
+    check(worst == 0, f"multistep kernel disagrees with its plain version "
+                      f"(max abs err {worst})")
+    by = {c["case"]: c for c in cases}
+    check(by["ring16_drop"]["drops"] > 0, "drop case dropped nothing")
+    check(by["ring16_credit_tight"]["stall_steps"] > 0
+          and by["ring16_onoff"]["stall_steps"] > 0,
+          "credit / on-off cases never stalled")
+    check(by["mesh2x4_multicast"]["K"] == 2, "multicast case has K != 2")
+
+    # one launch (base 0, chunk 128) at the full-width shape: the
+    # ring-16 credit cell's reset-time carry, a fresh copy per launch
+    kw, arrays = next((k, a) for n, k, a, _ in multistep_cases()
+                      if n == "ring16_credit")
+    carry, consts, step_fn, plan = multistep_operands(kw, arrays, None, dev)
+    steps, chunk = plan.max_steps, 128
+    base = torch.zeros(1, dtype=torch.int32, device=dev)
+    n_steps = min(chunk, steps)
+
+    def launch(c):
+        return fq.fabric_queue_multistep(c, consts, base, chunk=chunk,
+                                         max_steps=steps, max_burst=0)
+
+    got = launch(clone(carry))
+    want = plain(carry, consts, step_fn, steps=n_steps, chunk=chunk)
+    timing_err = err_of(want, got, plan.E)
+    check(timing_err == 0, "timed launch disagrees with its plain version")
+    n = 50
+    copies = [clone(carry) for _ in range(n)]
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for (a, b), c in zip(ev, copies):
+        a.record()
+        launch(c)
+        b.record()
+    torch.cuda.synchronize()
+    event_ms = sum(a.elapsed_time(b) for a, b in ev) / n
+    from torch.profiler import ProfilerActivity, profile
+    copies = [clone(carry) for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in copies:
+            launch(c)
+        torch.cuda.synchronize()
+    dev_us = sum(_device_us(e) for e in prof.key_averages()
+                 if "fabric_queue_multistep" in e.key)
+    device_ms = dev_us / n / 1e3 if dev_us > 0 else None
+    reps = 2
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        plain(carry, consts, step_fn, steps=n_steps, chunk=chunk)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b) / reps
+    # bounds from this launch's inputs: the carry read once and written
+    # once plus the constants read once; the operations are the scan's
+    # compare / select / min / count over every slot, every step (the
+    # per-link and per-lane work is far smaller)
+    L, q, c = plan.sizes.shape[0], 2 * plan.sizes.shape[0], plan.C
+    byts = 2 * net.slot_carry_bytes(L, plan.E, c) + 4 + sum(
+        4 * t.numel() for t in consts)
+    ops = n_steps * 4 * q * c
+    tb, to = byts / HBM_BYTES_S * 1e3, ops / CUDA_CORE_OPS_S * 1e3
+    out = {"ms": device_ms if device_ms is not None else event_ms,
+           "ms_source": ("profiler device time per launch"
+                         if device_ms is not None
+                         else "CUDA events around each launch"),
+           "device_ms": device_ms, "event_ms": event_ms,
+           "plain_ms": plain_ms, "bound_ms": max(tb, to),
+           "bound_by": "bytes" if tb >= to else "operations",
+           "bytes": byts, "ops": ops,
+           "scan_traffic_bound_ms": n_steps * q * c * 4 / HBM_BYTES_S * 1e3,
+           "steps_per_launch": n_steps, "max_abs_err": worst}
+    emit("multistep_kernel_time",
+         shape={"L": L, "Q": q, "C": c, "E": plan.E, "chunk": chunk,
+                "carry_bytes": net.slot_carry_bytes(L, plan.E, c)},
+         **out)
+    return out
+
+
 def phase_anchor():
     import numpy as np
     import torch
@@ -262,9 +411,9 @@ def phase_anchor():
     from repro_torch.core.fabric import Fabric, QueuePolicy
     from repro_torch.core.router import ring_topology
     from repro_torch.kernels import fabric_queue as fq
+    from _torch_cases import anchor_arrays, spec_of
     n = 1024
-    spec = spec_of(np.r_[np.zeros(n), np.ones(n)], np.zeros(2 * n),
-                   np.r_[np.ones(n), np.zeros(n)])
+    spec = spec_of(*anchor_arrays(n))
     fab = Fabric(ring_topology(2), queues=QueuePolicy(max_burst=1))
     cf = fab.compile(spec)
     check(cf.bucket == ("pallas", 1, 2048, 2048, 12480, 1, 2, 1, "step",
@@ -300,6 +449,8 @@ def phase_anchor():
     check(err <= ANCHOR_TOL, f"anchor {thr} MEv/s off 28.6 by {err:.3%}")
     check(same, "ring-2 fabric differs from protocol_sim.simulate")
     check(d == 2 * n, "anchor did not deliver every event")
+    return ("anchor", dict(topo=ring_topology(2),
+                           queues=QueuePolicy(max_burst=1)), spec, res)
 
 
 def _run_pair(fab_kw, spec, label):
@@ -340,11 +491,11 @@ def _run_pair(fab_kw, spec, label):
 
 
 def phase_full():
-    import numpy as np
     from repro_torch.core.fabric import MulticastPolicy, QueuePolicy
     from repro_torch.core.router import (AddressSpec, MulticastTable,
                                          mesh2d_topology, ring_topology)
-    spec = spec_of(*hot_spot(16, 48, 300.0, 0.65, seed=2))
+    from _torch_cases import hot_spot_arrays, mesh_multicast_case, spec_of
+    spec = spec_of(*hot_spot_arrays(16, 48, 300.0, 0.65, seed=2))
     kw = dict(topo=ring_topology(16),
               queues=QueuePolicy(capacity=64, flow="credit"))
     res, bucket, launches, _ = _run_pair(kw, spec, "full_ring16_credit")
@@ -354,25 +505,57 @@ def phase_full():
     # in-fabric multicast on 8 chips with a branching tree (K = 2): on a
     # ring every tree node past the source has one way onward (K = 1), so
     # the 8-chip fabric here is the 2x4 mesh
-    addr = AddressSpec()
-    members = np.zeros((2, 8), bool)
-    members[0, [3, 6]] = True
-    members[1, [1, 2, 5, 7]] = True
-    rng = np.random.default_rng(8)
-    n = 8 * 24
-    src = rng.integers(0, 8, n)
-    t = np.sort(rng.integers(0, 20_000, n))
-    tag = rng.integers(0, 2, n)
-    src[tag == 0] = 0
-    dest = addr.pack_multicast(tag)
-    order = np.lexsort((t, src))
-    mspec = spec_of(src[order], t[order], dest[order])
-    mkw = dict(topo=mesh2d_topology(2, 4), addr=addr,
+    members, arrays = mesh_multicast_case(8 * 24)
+    mspec = spec_of(*arrays)
+    mkw = dict(topo=mesh2d_topology(2, 4), addr=AddressSpec(),
                mcast=MulticastPolicy("in_fabric", MulticastTable(members)))
     mres, mbucket, _, _ = _run_pair(mkw, mspec, "multicast_mesh2x4")
     check(mbucket[7] > 1, f"multicast K = {mbucket[7]}, expected > 1")
     check(int(mres.delivered) == mres.injected, "multicast lost events")
-    return spec, kw, bucket, launches
+    cells = [("full_ring16_credit", kw, spec, res),
+             ("multicast_mesh2x4", mkw, mspec, mres)]
+    return spec, kw, bucket, launches, cells
+
+
+def phase_multistep_path(cells):
+    """Each cell through ``kernel="multistep"`` at chunk 128, held field
+    for field against its per-step result (itself held against
+    ``engine="reference"``); returns the launch counts by cell."""
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import EngineSpec, Fabric
+    from repro_torch.kernels import fabric_queue as fq
+    counted = {}
+    for label, kw, spec, step_res in cells:
+        cf = Fabric(**kw, engine=EngineSpec("pallas", kernel="multistep")
+                    ).compile(spec)
+        torch.cuda.synchronize()
+        fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
+        fq.fabric_queue_multistep.launches = 0
+        t0 = time.perf_counter()
+        res = cf.run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(fq, k).launches for k in (
+            "fabric_queue_step", "fabric_queue_update",
+            "fabric_queue_multistep")}
+        net.assert_results_equal(res, step_res, f"{label} multistep")
+        steps, chunk = cf.bucket[4], cf.bucket[9]
+        thr = float(net.fabric_throughput_mev_s(res))
+        emit(f"{label}_multistep", bucket=list(cf.bucket), steps=steps,
+             launches=launches, wall_s=wall, us_per_step=wall / steps * 1e6,
+             equals_step=True, thr_mev_s=thr,
+             delivered=int(res.delivered), drops=int(res.drops))
+        check(chunk == 128, f"{label}: chunk {chunk}, expected 128")
+        check(launches == {"fabric_queue_step": 0, "fabric_queue_update": 0,
+                           "fabric_queue_multistep": -(-steps // chunk)},
+              f"{label}: launches {launches}, expected ceil({steps} / "
+              f"{chunk}) of fabric_queue_multistep and no other")
+        if label == "anchor":
+            check(abs(thr - ANCHOR_MEV_S) / ANCHOR_MEV_S <= ANCHOR_TOL,
+                  f"multistep anchor reads {thr} MEv/s")
+        counted[label] = launches
+    return counted
 
 
 def aten_ops_per_step(fab, spec, steps: int) -> float:
@@ -392,13 +575,14 @@ def aten_ops_per_step(fab, spec, steps: int) -> float:
     return Count.n / steps
 
 
-def phase_profile(spec, kw):
-    """Device-busy share and kernel time by name over a short window."""
+def phase_profile(spec, kw, engine="pallas", steps=300, label="profile"):
+    """Device-busy share and kernel time by name over a window of
+    ``steps`` micro-transactions (None: the whole run) of the cell
+    through ``engine``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.fabric import Fabric
-    steps = 300
-    fab = Fabric(**kw, engine="pallas")
+    fab = Fabric(**kw, engine=engine)
     cf = fab.compile(spec, max_steps=steps)
     cf.run(spec, max_steps=steps)            # warm the allocator
     torch.cuda.synchronize()
@@ -408,6 +592,7 @@ def phase_profile(spec, kw):
         cf.run(spec, max_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = cf.bucket[4]
     rows = []
     for e in prof.key_averages():
         dev_us = _device_us(e)
@@ -417,10 +602,10 @@ def phase_profile(spec, kw):
     busy_us = sum(r[0] for r in rows)
     ops = aten_ops_per_step(fab, spec, steps=20)
     if busy_us == 0:
-        emit("profile", steps=steps, wall_s=wall, aten_ops_per_step=ops,
+        emit(label, steps=steps, wall_s=wall, aten_ops_per_step=ops,
              device_busy="not measured")
         return
-    emit("profile", steps=steps, wall_s=wall,
+    emit(label, steps=steps, wall_s=wall,
          us_per_step=wall / steps * 1e6,
          device_busy_us_per_step=busy_us / steps,
          device_busy_share=busy_us / (wall * 1e6),
@@ -451,28 +636,48 @@ def main() -> int:
     torch.cuda.synchronize()
     ktimes = phase_kernels()
     torch.cuda.synchronize()
-    phase_anchor()
+    ktimes["fabric_queue_multistep"] = phase_multistep_kernel()
     torch.cuda.synchronize()
-    spec, kw, bucket, launches = phase_full()
+    anchor = phase_anchor()
+    torch.cuda.synchronize()
+    spec, kw, bucket, launches, cells = phase_full()
+    torch.cuda.synchronize()
+    ms_launches = phase_multistep_path([anchor] + cells)
     torch.cuda.synchronize()
     phase_profile(spec, kw)
     torch.cuda.synchronize()
+    from repro_torch.core.fabric import EngineSpec
+    ms_engine = EngineSpec("pallas", kernel="multistep")
+    phase_profile(spec, kw, engine=ms_engine, steps=None,
+                  label="profile_multistep")
+    torch.cuda.synchronize()
 
-    src = "src/repro_torch/kernels/csrc/fabric_queue.cu"
+    csrc = "src/repro_torch/kernels/csrc/"
+    main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
+            "fabric_queue_update": (launches["fabric_queue_update"], bucket),
+            "fabric_queue_multistep": (
+                ms_launches["full_ring16_credit"]["fabric_queue_multistep"],
+                bucket[:8] + ("multistep", 128))}
+    source = {"fabric_queue_step": csrc + "fabric_queue.cu",
+              "fabric_queue_update": csrc + "fabric_queue.cu",
+              "fabric_queue_multistep": csrc + "fabric_queue_multistep.cu"}
     replaces = {"fabric_queue_step":
                 "src/repro/kernels/fabric_queue.py:109",
                 "fabric_queue_update":
-                "src/repro/kernels/fabric_queue.py:195"}
+                "src/repro/kernels/fabric_queue.py:195",
+                "fabric_queue_multistep":
+                "src/repro/kernels/fabric_queue.py:238"}
     kernels = []
     for kname, k in ktimes.items():
+        n_launch, path_bucket = main[kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces[kname], "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": source[kname],
+            "replaces": replaces[kname], "launches": n_launch,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             "equal": k["max_abs_err"] == 0, "us": k["ms"] * 1e3,
-            "main_path_bucket": list(bucket)})
+            "main_path_bucket": list(path_bucket)})
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

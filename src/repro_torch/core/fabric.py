@@ -17,10 +17,10 @@ bucket (the reference's slot-engine shape signature, kept identical)
 and builds the CUDA kernels its engine launches; nothing is traced.
 
 Ported so far: the slot engines (``"reference"``, ``"pallas"``) with
-``kernel="step"``, unicast and both multicast modes, every flow mode.
-Not yet: ``engine="ring"`` (ROADMAP A.6), ``kernel="multistep"``
-(ROADMAP A.5 / B3), batching and adaptive routing (A.6, A.7), and the
-static verifier that admits tables with broken route pairs (A.7).
+``kernel="step"`` and ``kernel="multistep"``, unicast and both
+multicast modes, every flow mode.  Not yet: ``engine="ring"`` (ROADMAP
+A.6), batching and adaptive routing (A.6, A.7), and the static verifier
+that admits tables with broken route pairs (A.7).
 """
 
 from __future__ import annotations
@@ -33,11 +33,11 @@ import torch
 
 from ..device import resolve_device
 from .link import PAPER_TIMING, LinkTiming, link_timing_arrays
-from .network import (ENGINES, FabricResult, _check_reachable,
-                      _expand, _first_hop_queues,
+from .network import (DEFAULT_CHUNK_SIZE, ENGINES, FabricResult,
+                      _check_reachable, _expand, _first_hop_queues,
                       _overflow_guard, _overflow_guard_routed, _prefill,
                       _route_link_tx, _routes_with_trees, _slot_run,
-                      _unicast_routes)
+                      _slot_run_multistep, _unicast_routes)
 from .router import (AddressSpec, MulticastTable, MulticastTree,
                      RoutingTable, Topology, find_route_cycles)
 from .telemetry import Telemetry, _np
@@ -100,11 +100,19 @@ class EngineSpec:
     (ROADMAP A.6; every engine is bit-exact, so results do not change).
     ``"ring"`` raises ``NotImplementedError`` for now.
 
-    ``kernel`` — ``"step"`` (two kernel launches per micro-transaction).
-    ``"multistep"`` raises ``NotImplementedError`` (ROADMAP A.5 / B3).
+    ``kernel`` — pallas engine only.  ``"step"`` (default): two kernel
+    launches per micro-transaction.  ``"multistep"``: the whole step in
+    one kernel, ``chunk_size`` steps per launch, so a run costs
+    ``ceil(max_steps / chunk_size)`` launches.  It needs
+    ``name="pallas"`` given explicitly: the reference resolves
+    ``"auto"`` to its ring engine and refuses it there, so ``"auto"``
+    is refused here too.
     """
     name: str = "auto"
+    chunk_size: int = DEFAULT_CHUNK_SIZE
     kernel: str = "step"
+
+    KERNELS = ("step", "multistep")
 
     def __post_init__(self):
         if self.name == "ring":
@@ -114,13 +122,17 @@ class EngineSpec:
         if self.resolved not in ENGINES:
             raise ValueError(f"unknown engine {self.name!r}; expected one "
                              f"of {ENGINES} (or 'auto')")
-        if self.kernel == "multistep":
-            raise NotImplementedError(
-                "kernel='multistep' (the fused multi-step kernel) is not "
-                "ported yet (ROADMAP A.5 / B3); use kernel='step'")
-        if self.kernel != "step":
+        if int(self.chunk_size) < 1:
+            raise ValueError(f"chunk_size must be >= 1, got "
+                             f"{self.chunk_size}")
+        if self.kernel not in self.KERNELS:
             raise ValueError(f"unknown kernel {self.kernel!r}; expected "
-                             f"'step'")
+                             f"one of {self.KERNELS}")
+        if self.kernel == "multistep" and self.name != "pallas":
+            raise ValueError(
+                f"kernel='multistep' is a pallas-engine knob (the fused "
+                f"multi-step fabric kernel); engine {self.name!r} is not "
+                f"'pallas'")
 
     @property
     def resolved(self) -> str:
@@ -469,9 +481,11 @@ class Fabric:
         qt, qd, qi, sizes = _prefill(L, grp, copy_t, copy_route, copy_inj,
                                      chk, width=C)
         # the reference's slot-engine bucket, verbatim: chunk keys only
-        # the multi-step kernel, so it is 0 here
+        # the multi-step kernel (it is 0 under "step")
+        kern = self.engine.kernel
+        chunk = int(self.engine.chunk_size) if kern == "multistep" else 0
         bucket = (self.engine.resolved, L, E, C, int(max_steps),
-                  int(self.queues.max_burst), R, K, self.engine.kernel, 0)
+                  int(self.queues.max_burst), R, K, kern, chunk)
         return _Plan(E=E, C=C, max_steps=int(max_steps), q_time=qt,
                      q_dest=qd, q_inj=qi, sizes=sizes,
                      route_out=route_out, route_del=route_del,
@@ -493,8 +507,11 @@ class CompiledFabric:
     def __init__(self, fabric: Fabric, bucket: tuple):
         self.fabric = fabric
         self.bucket = bucket
-        eng, L, E, C, max_steps, mb, _R, _K, _kern, _chunk = bucket
-        self._fn = _slot_run(L, E, C, max_steps, mb, eng == "pallas")
+        eng, L, E, C, max_steps, mb, _R, _K, kern, chunk = bucket
+        if kern == "multistep":
+            self._fn = _slot_run_multistep(L, E, C, max_steps, mb, chunk)
+        else:
+            self._fn = _slot_run(L, E, C, max_steps, mb, eng == "pallas")
         dev = fabric.device
         tc, tv, ti = fabric.timing_arrays
         self._tables = tuple(_dev_i32(a, dev) for a in (
@@ -526,24 +543,32 @@ class CompiledFabric:
         if not self._warmed and self.engine_name == "pallas" \
                 and self.fabric.device.type == "cuda":
             from ..kernels import _build
+            kern = self.bucket[8]
+            lib = ("fabric_queue_multistep" if kern == "multistep"
+                   else "fabric_queue")
             with torch.cuda.device(self.fabric.device):
-                _build.load("fabric_queue")
+                _build.load(lib)
         self._warmed = True
         return self
 
-    def _execute(self, plan: _Plan) -> FabricResult:
-        fab = self.fabric
-        dev = fab.device
-        E, L, C = plan.E, fab.topo.n_links, plan.C
+    def _operands(self, plan: _Plan) -> tuple:
+        """The engine ``run``'s operands for one plan: fresh device
+        copies of the queue planes (updated in place by the run), the
+        bound tables, and the plain-int flow-control scalars."""
+        dev = self.fabric.device
+        L, C = self.fabric.topo.n_links, plan.C
         init_tx, links, tc, tv, ti = self._tables
-        out = self._fn(
-            _dev_i32(plan.q_time.reshape(2 * L, C), dev),
-            _dev_i32(plan.q_dest.reshape(2 * L, C), dev),
-            _dev_i32(plan.q_inj.reshape(2 * L, C), dev),
-            _dev_i32(plan.sizes, dev), init_tx, links,
-            _dev_i32(plan.route_out, dev), _dev_i32(plan.route_del, dev),
-            _dev_i32(plan.route_wt, dev), tc, tv, ti,
-            plan.cap, plan.fc, plan.xon)
+        return (_dev_i32(plan.q_time.reshape(2 * L, C), dev),
+                _dev_i32(plan.q_dest.reshape(2 * L, C), dev),
+                _dev_i32(plan.q_inj.reshape(2 * L, C), dev),
+                _dev_i32(plan.sizes, dev), init_tx, links,
+                _dev_i32(plan.route_out, dev), _dev_i32(plan.route_del, dev),
+                _dev_i32(plan.route_wt, dev), tc, tv, ti,
+                plan.cap, plan.fc, plan.xon)
+
+    def _execute(self, plan: _Plan) -> FabricResult:
+        E = plan.E
+        out = self._fn(*self._operands(plan))
         (log_n, log_inj, log_del, log_dest, sent, n_sw, t_link, t_end,
          drops, busy_ns, busy_steps, q_drops, stall_steps,
          credit_waits) = out

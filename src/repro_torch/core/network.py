@@ -12,7 +12,12 @@ model bit for bit:
 * ``_slot_step_body``: one micro-transaction over every link, as int32
   tensor ops on the engine's device;
 * ``_slot_run``: the step loop — ``lax.scan`` over ``max_steps``
-  becomes a Python loop that never reads a value back to the host.
+  becomes a Python loop that never reads a value back to the host;
+* ``_slot_run_multistep``: ``kernel="multistep"`` — the step loop in
+  chunks of ``chunk`` micro-transactions over the packed carry of
+  ``_pack_slot_state``, one ``kernels.ops.fabric_queue_multistep`` call
+  per chunk (one launch of the Hopper kernel that carries the whole
+  step on CUDA, a loop of ``_slot_step_body`` on the CPU).
 
 Engines (``simulate_fabric(engine=...)`` / ``fabric.EngineSpec``):
 
@@ -25,9 +30,11 @@ Engines (``simulate_fabric(engine=...)`` / ``fabric.EngineSpec``):
     The same step with the queue scan and the pop/append scatter
     dispatched through ``kernels/ops.py``: on CUDA the hand-written
     Hopper kernels of ``kernels/fabric_queue.py`` (two launches per
-    micro-transaction), on the CPU their plain versions.  The name is
-    kept for parity with the reference package, whose ``"pallas"``
-    engine runs the same step over its TPU kernels.
+    micro-transaction), on the CPU their plain versions.  With
+    ``kernel="multistep"`` the whole step runs inside one kernel launch
+    per chunk of steps instead.  The name is kept for parity with the
+    reference package, whose ``"pallas"`` engine runs the same step
+    over its TPU kernels.
 
 JAX semantics that PyTorch does not share are written out at each site:
 int32 sums and cumsums (PyTorch promotes them to int64), scatters with
@@ -48,18 +55,23 @@ from .router import (AddressSpec, MulticastTable, MulticastTree,
                      RoutingTable, Topology)
 from .telemetry import Telemetry, _np
 from .traffic import TrafficSpec
+from .transceiver import XcvrState
 
 __all__ = ["FabricResult", "simulate_fabric",
            "fabric_throughput_mev_s", "fabric_energy_pj", "link_energy_pj",
            "per_link_throughput_mev_s", "delivered_latencies",
            "delivery_multiset", "latency_stats", "ENGINES",
-           "RESULT_FIELDS", "assert_results_equal"]
+           "DEFAULT_CHUNK_SIZE", "RESULT_FIELDS", "assert_results_equal",
+           "slot_carry_bytes"]
 
 _BIG = BIG_NS
 _I32 = torch.int32
 
 #: Event-transport engines of the port (the ring engine comes later).
 ENGINES = ("reference", "pallas")
+
+#: Micro-transactions per launch of the multi-step kernel.
+DEFAULT_CHUNK_SIZE = 128
 
 
 class FabricResult(NamedTuple):
@@ -572,6 +584,147 @@ def _slot_run(L: int, E: int, C: int, max_steps: int, max_burst: int,
 
 
 # -----------------------------------------------------------------------
+# Multi-step slot engine (``kernel="multistep"``)
+# -----------------------------------------------------------------------
+
+#: packed-lane channel order of the multi-step carry, (16, L) int32
+_MS_LANES = ("t", "last_dir", "bus_busy", "prev_tx_l", "prev_tx_r",
+             "xl.mode", "xl.sw_ack", "xl.rx_p", "xl.burst",
+             "xr.mode", "xr.sw_ack", "xr.rx_p", "xr.burst",
+             "prev_mode_l", "n_sw", "busy_ns")
+#: packed per-endpoint-side channel order, (9, L, 2) int32
+_MS_SIDES = ("n_ins", "sent", "n_pop", "xoff", "in_stall",
+             "stall_steps", "credit_waits", "busy_steps", "q_drops")
+
+
+def _pack_slot_state(s: _SlotState):
+    """``_SlotState`` -> the multi-step kernel's packed int32 carry.
+
+    Seven contiguous tensors, in the reference's order: the three (Q, C)
+    slot planes (the same tensors, not copies), a (16, L) lane plane
+    (``_MS_LANES``), a (9, L, 2) side plane (``_MS_SIDES``), a
+    (3, E + 1) delivery-log plane and a (2,) counter vector
+    ``[log_n, drops]``.  The log plane is one column wider than the
+    reference's (3, E): the port's logs keep a scratch slot at index E
+    (see ``_slot_init``), so only the first E columns are compared with
+    JAX or between the kernel and its plain version.
+    """
+    lk = s.link
+    lanes = torch.stack([
+        lk.t, lk.last_dir, lk.bus_busy, lk.prev_tx_l, lk.prev_tx_r,
+        lk.xl.mode, lk.xl.sw_ack, lk.xl.rx_p, lk.xl.burst,
+        lk.xr.mode, lk.xr.sw_ack, lk.xr.rx_p, lk.xr.burst,
+        s.prev_mode_l, s.n_sw, s.busy_ns])
+    sides = torch.stack([s.n_ins, s.sent, s.n_pop, s.xoff, s.in_stall,
+                         s.stall_steps, s.credit_waits, s.busy_steps,
+                         s.q_drops])
+    logs = torch.stack([s.log_inj, s.log_del, s.log_dest])
+    counters = torch.stack([s.log_n, s.drops])
+    return (s.q_time, s.q_dest, s.q_inj, lanes, sides, logs, counters)
+
+
+def _unpack_slot_state(carry) -> _SlotState:
+    """The packed carry -> ``_SlotState`` of views into it."""
+    q_time, q_dest, q_inj, lanes, sides, logs, counters = carry
+    link = LinkState(
+        t=lanes[0], last_dir=lanes[1], bus_busy=lanes[2],
+        prev_tx_l=lanes[3], prev_tx_r=lanes[4],
+        xl=XcvrState(mode=lanes[5], sw_ack=lanes[6], rx_p=lanes[7],
+                     burst=lanes[8]),
+        xr=XcvrState(mode=lanes[9], sw_ack=lanes[10], rx_p=lanes[11],
+                     burst=lanes[12]))
+    return _SlotState(
+        link=link, q_time=q_time, q_dest=q_dest, q_inj=q_inj,
+        n_ins=sides[0], sent=sides[1],
+        prev_mode_l=lanes[13], n_sw=lanes[14],
+        log_inj=logs[0], log_del=logs[1], log_dest=logs[2],
+        log_n=counters[0], drops=counters[1],
+        busy_ns=lanes[15], busy_steps=sides[7], q_drops=sides[8],
+        n_pop=sides[2], xoff=sides[3], in_stall=sides[4],
+        stall_steps=sides[5], credit_waits=sides[6])
+
+
+def slot_carry_bytes(L: int, E: int, C: int) -> int:
+    """Bytes of the reference's packed multi-step carry:
+    ``3·(2L·C) + 16·L + 9·2L + 3·E + 2`` int32 words (the port's
+    scratch log column is not counted)."""
+    q = 2 * L
+    words = 3 * q * C + len(_MS_LANES) * L + len(_MS_SIDES) * q + 3 * E + 2
+    return 4 * words
+
+
+def _multistep_consts(links, route_out, route_del, route_wt, t_cycle_v,
+                      t_rev_v, t_idle_v, cap: int, fc_mode: int, xon: int):
+    """The multi-step launch's read-only operands, in the reference's
+    order: ``(links (L, 2), route_out (N, R, K), route_del (N, R),
+    route_wt (N, R, K), timing (3, L), params (3,) = [cap, fc_mode,
+    xon])``, contiguous int32 on the device of ``links``."""
+    params = torch.tensor([cap, fc_mode, xon], dtype=_I32,
+                          device=links.device)
+    return (links, route_out, route_del, route_wt,
+            torch.stack([t_cycle_v, t_rev_v, t_idle_v]), params)
+
+
+def _multistep_step_fn(L: int, E: int, C: int, max_burst: int, cap: int,
+                       fc_mode: int, xon: int, scan_fn, update_fn):
+    """``step_fn(carry, consts, step_i) -> carry``: one micro-transaction
+    of ``_slot_step_body`` on the packed carry — the step the plain
+    ``ref.fabric_queue_multistep`` loops over (the CUDA kernel carries
+    the same step itself).  The flow-control scalars are the plain ints
+    the body branches on; they equal ``consts[5]``, which the kernel
+    reads."""
+
+    def step_fn(carry, consts, step_i: int):
+        links, route_out, route_del, route_wt, timing, _params = consts
+        body = _slot_step_body(L, E, C, max_burst, scan_fn, update_fn,
+                               links, route_out, route_del, route_wt,
+                               timing[0], timing[1], timing[2], cap,
+                               fc_mode, xon)
+        return _pack_slot_state(body(_unpack_slot_state(carry), step_i))
+
+    return step_fn
+
+
+def _slot_run_multistep(L: int, E: int, C: int, max_steps: int,
+                        max_burst: int, chunk: int):
+    """Multi-step variant of :func:`_slot_run`: the same operand contract
+    and 14-tuple result, with the step loop run ``chunk`` steps per
+    ``kernels.ops.fabric_queue_multistep`` call over the packed carry.
+
+    A host loop makes ``ceil(max_steps / chunk)`` calls with ``base = 0,
+    chunk, 2·chunk, ...`` (a device tensor each); the last runs
+    ``min(chunk, max_steps - base)`` steps, so a binding ``max_steps``
+    is honoured exactly.  Nothing is read back to the host.  On CUDA
+    each call is one launch of the Hopper kernel, which updates the
+    carry in place; on the CPU it loops ``_slot_step_body`` over the
+    plain queue step.
+    """
+    from ..kernels import ops as kops
+    from ..kernels import ref as kref
+
+    def run(q_time, q_dest, q_inj, sizes, init_tx, links, route_out,
+            route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap,
+            fc_mode, xon):
+        s = _slot_init(L, E, q_time, q_dest, q_inj, sizes, init_tx)
+        carry = _pack_slot_state(s)
+        consts = _multistep_consts(links, route_out, route_del, route_wt,
+                                   t_cycle_v, t_rev_v, t_idle_v, cap,
+                                   fc_mode, xon)
+        step_fn = _multistep_step_fn(L, E, C, max_burst, cap, fc_mode, xon,
+                                     kref.fabric_queue_scan,
+                                     kref.fabric_queue_update)
+        bases = torch.arange(0, max(max_steps, 0), chunk, dtype=_I32,
+                             device=q_time.device)
+        for i in range(bases.numel()):
+            carry = kops.fabric_queue_multistep(
+                carry, consts, bases[i:i + 1], step_fn=step_fn,
+                chunk=chunk, max_steps=max_steps, max_burst=max_burst)
+        return _slot_results(_unpack_slot_state(carry), E)
+
+    return run
+
+
+# -----------------------------------------------------------------------
 # Public entry point
 # -----------------------------------------------------------------------
 
@@ -583,14 +736,19 @@ def simulate_fabric(topo: Topology, spec: TrafficSpec, *,
                     max_steps: int | None = None,
                     queue_capacity: int | None = None,
                     flow_control: str = "drop", xon: int | None = None,
-                    engine: str = "auto", device=None) -> FabricResult:
+                    engine: str = "auto",
+                    chunk_size: int = DEFAULT_CHUNK_SIZE,
+                    device=None) -> FabricResult:
     """Simulate an N-chip fabric of bi-directional AER links.
 
     The convenience wrapper around :class:`repro_torch.core.fabric.Fabric`
     (same keywords as the reference's ``simulate_fabric``; see there).
     ``engine`` is ``"auto"`` (= ``"pallas"``), ``"pallas"`` (queue step
     through the Hopper kernels on CUDA) or ``"reference"`` (plain
-    PyTorch).  ``device=None`` means CUDA and raises without it.
+    PyTorch); ``chunk_size`` is the steps per launch of
+    ``kernel="multistep"``, which takes a ``Fabric`` with
+    ``EngineSpec("pallas", kernel="multistep")``.  ``device=None``
+    means CUDA and raises without it.
     """
     from .fabric import EngineSpec, Fabric, QueuePolicy
     fab = Fabric(topo, routing=routing, timing=timing,
@@ -598,7 +756,8 @@ def simulate_fabric(topo: Topology, spec: TrafficSpec, *,
                                     max_burst=max_burst,
                                     initial_tx=initial_tx,
                                     flow=flow_control, xon=xon),
-                 engine=EngineSpec(name=engine), addr=addr, mcast=mcast,
+                 engine=EngineSpec(name=engine, chunk_size=chunk_size),
+                 addr=addr, mcast=mcast,
                  device=device)
     return fab.run(spec, max_steps=max_steps)
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under ``csrc/`` have a plain C interface, so one ``nvcc``
-call per source builds them in seconds, with no PyTorch headers:
+call per source (each its own library) builds them in seconds, with no
+PyTorch headers:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o <build>/fabric_queue-<hash>.so csrc/fabric_queue.cu
@@ -42,6 +43,10 @@ SIGNATURES = {
         "fabric_queue_step_launch": [_P, _P, _P, _I, _I] + [_P] * 6 + [_P],
         "fabric_queue_update_launch": [_P, _P, _P, _I, _I, _P, _P, _I,
                                        _P, _P, _P, _P, _P, _I, _P],
+    },
+    "fabric_queue_multistep": {
+        "fabric_queue_multistep_smem_bytes": [_I, _I],
+        "fabric_queue_multistep_launch": [_P] * 14 + [_I] * 10 + [_P],
     },
 }
 

@@ -1,12 +1,13 @@
-"""CUDA kernels of the slot engine's per-step queue work (Hopper, sm_90a).
+"""CUDA kernels of the slot engine's queue work (Hopper, sm_90a).
 
-Source: ``csrc/fabric_queue.cu``, built by ``_build`` at first use.  The
-wrappers check their operands, allocate outputs with ``torch.empty``,
-launch on PyTorch's current stream without synchronising, raise on a
-CUDA error, and count their launches (``<wrapper>.launches``, a plain
-int bumped once per kernel launch and nowhere else).  They take CUDA
-tensors only; ``ops`` sends CPU tensors to the plain versions in
-``ref``.
+Sources: ``csrc/fabric_queue.cu`` (the per-step pair) and
+``csrc/fabric_queue_multistep.cu``, each built by ``_build`` into a
+library of its own at first use.  The wrappers check their operands,
+allocate outputs with ``torch.empty``, launch on PyTorch's current
+stream without synchronising, raise on a CUDA error, and count their
+launches (``<wrapper>.launches``, a plain int bumped once per kernel
+launch and nowhere else).  They take CUDA tensors only; ``ops`` sends
+CPU tensors to the plain versions in ``ref``.
 
 ``fabric_queue_step`` — replaces ``fabric_queue_step_pallas``
 (``src/repro/kernels/fabric_queue.py:109``, body ``scan_math`` at
@@ -34,6 +35,29 @@ tensors only; ``ops`` sends CPU tensors to the plain versions in
     engine reads ``q_inj[qid, pop_slot]`` before it calls the update.
     Bound on an H100: bytes, about (Lp + 3·La)·4 B written plus the lane
     operands read once — a few hundred bytes; launch-bound.
+
+``fabric_queue_multistep`` — replaces ``fabric_queue_multistep_pallas``
+(``src/repro/kernels/fabric_queue.py:238``).
+    One launch runs ``min(chunk, max_steps - base)`` whole slot-engine
+    micro-transactions on the packed carry (``core.network.
+    _pack_slot_state``), **in place**.  The TPU kernel traces the step
+    in as a closure; this kernel carries ``_slot_step_body`` itself:
+    queue scan, flow gate, horizon, the two-pass link FSM, pops,
+    delivery log, replication, forward slots, appends and telemetry.
+    Design: one thread block per instance (a leading batch axis B; the
+    engine passes B = 1); a warp per queue row for the scan, a thread
+    per link or lane for the rest, a barrier between phases.  The slot
+    planes and the log stay in global memory (L2): at ring-16 full width
+    the carry is 306,312 B, over the 227 KB a block may have.  The lane
+    and side planes, counters and per-step temporaries live in shared
+    memory for the whole launch and are written back once.
+    Bound on an H100: bytes if each input is read once and each output
+    written once — about 2 × ``slot_carry_bytes`` (0.61 MB at full
+    width, ~0.18 µs at 3.35 TB/s) a launch; but each step re-scans the
+    Q·C slot plane (98 KB at full width, from L2), and the phases are a
+    chain of dependent block-wide steps, so latency (barriers, L2
+    round trips), not bandwidth, sets its time.  Nothing in the design
+    hides that yet: it is the simple, bit-exact first version.
 """
 
 from __future__ import annotations
@@ -42,7 +66,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fabric_queue_step", "fabric_queue_update"]
+__all__ = ["fabric_queue_step", "fabric_queue_update",
+           "fabric_queue_multistep"]
 
 _I32 = torch.int32
 
@@ -148,3 +173,89 @@ def fabric_queue_update(q_time, q_dest, q_inj, pop_q, pop_slot,
 
 
 fabric_queue_update.launches = 0
+
+
+#: the packed carry's lane / side channel counts (``core.network``)
+_N_LANES, _N_SIDES = 16, 9
+#: dynamic shared memory a block may opt in to on sm_90 (bytes)
+_MAX_SMEM = 232448
+
+
+def fabric_queue_multistep(carry, consts, base, *, chunk: int,
+                           max_steps: int, max_burst: int):
+    """``min(chunk, max_steps - base)`` micro-transactions on the card,
+    in one launch, **in place** on the carry, which it returns.
+
+    ``carry``: ``(q_time, q_dest, q_inj (Q, C), lanes (16, L), sides
+    (9, L, 2), logs (3, E + 1), counters (2,))``; ``consts``: ``(links
+    (L, 2), route_out (N, R, K), route_del (N, R), route_wt (N, R, K),
+    timing (3, L), params (3,))``; ``base``: (1,), read on the card.
+    Every carry and const tensor may carry one leading instance axis B
+    (all or none of them): the launch then runs B instances, one block
+    each, all from the same ``base``.
+    """
+    dev = carry[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fabric_queue_multistep launches a CUDA kernel; "
+                         f"got a tensor on {dev} (ops.fabric_queue_"
+                         f"multistep runs the plain version on the CPU)")
+    carry, consts = tuple(carry), tuple(consts)
+    if len(carry) != 7 or len(consts) != 6:
+        raise ValueError("fabric_queue_multistep: carry is 7 tensors and "
+                         "consts 6")
+    names = ("q_time", "q_dest", "q_inj", "lanes", "sides", "logs",
+             "counters", "links", "route_out", "route_del", "route_wt",
+             "timing", "params")
+    ops = dict(zip(names, carry + consts))
+    _check_cuda("fabric_queue_multistep", dev, base=base, **ops)
+    batched = carry[0].dim() == 3
+    n_inst = carry[0].shape[0] if batched else 1
+    lead = (n_inst,) if batched else ()
+    nq, nc = carry[0].shape[-2:]
+    n_links, n_log = nq // 2, carry[5].shape[-1] - 1
+    if consts[1].dim() != len(lead) + 3:
+        raise ValueError(f"fabric_queue_multistep: route_out must be "
+                         f"{len(lead) + 3}-d, got "
+                         f"{tuple(consts[1].shape)}")
+    n_chips, n_routes, k = consts[1].shape[-3:]
+    want = {"q_time": (nq, nc), "q_dest": (nq, nc), "q_inj": (nq, nc),
+            "lanes": (_N_LANES, n_links), "sides": (_N_SIDES, n_links, 2),
+            "logs": (3, n_log + 1), "counters": (2,), "links": (n_links, 2),
+            "route_out": (n_chips, n_routes, k),
+            "route_del": (n_chips, n_routes),
+            "route_wt": (n_chips, n_routes, k), "timing": (3, n_links),
+            "params": (3,)}
+    for arg, shape in want.items():
+        if tuple(ops[arg].shape) != lead + shape:
+            raise ValueError(f"fabric_queue_multistep: {arg} has shape "
+                             f"{tuple(ops[arg].shape)}, expected "
+                             f"{lead + shape}")
+    if nq % 2 or n_links < 1 or nc < 1 or n_log < 0 or n_chips < 1 \
+            or n_routes < 1 or k < 1:
+        raise ValueError(f"fabric_queue_multistep: empty or odd operands "
+                         f"(Q={nq}, C={nc}, E={n_log}, N={n_chips}, "
+                         f"R={n_routes}, K={k})")
+    if base.shape != (1,):
+        raise ValueError(f"fabric_queue_multistep: base must be (1,), got "
+                         f"{tuple(base.shape)}")
+    if chunk < 1 or max_steps < 0 or max_burst < 0:
+        raise ValueError(f"fabric_queue_multistep: chunk >= 1, max_steps "
+                         f">= 0 and max_burst >= 0, got {chunk}, "
+                         f"{max_steps}, {max_burst}")
+    lib = _build.load("fabric_queue_multistep")
+    smem = lib.fabric_queue_multistep_smem_bytes(n_links, k)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"fabric_queue_multistep: L={n_links} links with K={k} need "
+            f"{smem} bytes of shared memory per block, over the {_MAX_SMEM} "
+            f"an H100 block may have; use kernel='step' for this fabric")
+    rc = lib.fabric_queue_multistep_launch(
+        *(t.data_ptr() for t in carry + consts), base.data_ptr(), n_inst,
+        n_links, nc, n_log, n_chips, n_routes, k, chunk, max_steps,
+        max_burst, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fabric_queue_multistep")
+    fabric_queue_multistep.launches += 1
+    return carry
+
+
+fabric_queue_multistep.launches = 0

@@ -14,7 +14,8 @@ import torch
 from . import fabric_queue as fq
 from . import ref
 
-__all__ = ["fabric_queue_scan", "fabric_queue_update"]
+__all__ = ["fabric_queue_scan", "fabric_queue_update",
+           "fabric_queue_multistep"]
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -40,3 +41,17 @@ def fabric_queue_update(q_time, q_dest, q_inj, pop_q, pop_slot,
     if _on_cuda(q_time, "fabric_queue_update"):
         return fq.fabric_queue_update(*args)
     return ref.fabric_queue_update(*args)
+
+
+def fabric_queue_multistep(carry, consts, base, *, step_fn, chunk: int,
+                           max_steps: int, max_burst: int):
+    """``min(chunk, max_steps - base)`` micro-transactions on the packed
+    carry.  On CUDA one launch of the Hopper kernel, which carries the
+    step itself (``step_fn`` is not used) and updates the carry in
+    place; on the CPU the plain loop of ``step_fn``."""
+    if _on_cuda(carry[0], "fabric_queue_multistep"):
+        return fq.fabric_queue_multistep(carry, consts, base, chunk=chunk,
+                                         max_steps=max_steps,
+                                         max_burst=max_burst)
+    return ref.fabric_queue_multistep(carry, consts, base, step_fn=step_fn,
+                                      chunk=chunk, max_steps=max_steps)

@@ -2,10 +2,12 @@
 
 ``fabric_queue_scan`` / ``fabric_queue_update`` are the per-micro-
 transaction queue step of the slot engine, ported from the reference
-``kernels/ref.py``.  ``q_time`` is (Q, C) int32 release times with
-``BIG_NS`` (2**30) marking empty/consumed one-shot slots; ``t_q`` is
-the (Q,) per-queue clock.  The CUDA kernels in ``fabric_queue.py`` must
-match these bit for bit.  They run on any device: the CPU path of the
+``kernels/ref.py``; ``fabric_queue_multistep`` is one launch of the
+multi-step kernel, a loop of an injected step over the packed carry.
+``q_time`` is (Q, C) int32 release times with ``BIG_NS`` (2**30)
+marking empty/consumed one-shot slots; ``t_q`` is the (Q,) per-queue
+clock.  The CUDA kernels in ``fabric_queue.py`` must match these bit
+for bit.  They run on any device: the CPU path of the
 engine, and ``engine="reference"`` on the card.
 """
 
@@ -73,3 +75,25 @@ def fabric_queue_update(q_time, q_dest, q_inj, pop_q, pop_slot,
     _put(q_dest, app_q, app_slot, app_dest)
     _put(q_inj, app_q, app_slot, app_inj)
     return q_time, q_dest, q_inj
+
+
+def fabric_queue_multistep(carry, consts, base, *, step_fn, chunk: int,
+                           max_steps: int):
+    """One launch of the multi-step kernel, plainly: step the packed
+    carry ``min(chunk, max_steps - base)`` times (none when that is not
+    positive) with ``carry = step_fn(carry, consts, base + i)``.
+
+    ``base`` is a (1,) int32 tensor, the global index of the launch's
+    first step; it is read back to the host, which on the card costs a
+    synchronisation per call (the kernel reads it on the device).  The
+    engine injects ``step_fn`` (``core.network._multistep_step_fn``,
+    one ``_slot_step_body`` micro-transaction), as the reference does,
+    so this module needs nothing of the engine.  Returns the stepped
+    carry tuple.
+    """
+    b = int(torch.as_tensor(base).reshape(-1)[0])
+    carry = tuple(carry)
+    consts = tuple(consts)
+    for i in range(min(chunk, max_steps - b)):
+        carry = tuple(step_fn(carry, consts, b + i))
+    return carry

@@ -282,8 +282,15 @@ def test_lifecycle_and_engine_names():
     tnet.assert_results_equal(res, ref, "pallas vs reference engine")
     with pytest.raises(NotImplementedError, match="A.6"):
         tfab.EngineSpec(name="ring")
-    with pytest.raises(NotImplementedError, match="B3"):
-        tfab.EngineSpec(name="pallas", kernel="multistep")
+    ms = tfab.EngineSpec(name="pallas", kernel="multistep")
+    assert (ms.kernel, ms.chunk_size) == ("multistep", 128)
+    for name in ("reference", "auto"):    # as the reference refuses them
+        with pytest.raises(ValueError, match="multistep"):
+            tfab.EngineSpec(name=name, kernel="multistep")
+    with pytest.raises(ValueError, match="chunk_size"):
+        tfab.EngineSpec(name="pallas", kernel="multistep", chunk_size=0)
+    with pytest.raises(ValueError):
+        tfab.EngineSpec(name="pallas", kernel="nope")
     with pytest.raises(ValueError):
         tfab.EngineSpec(name="nope")
 
@@ -311,8 +318,10 @@ def test_results_stay_on_the_run_device():
 
 def test_kernel_operands_are_what_the_cuda_wrappers_take(monkeypatch):
     """Rehearse, on the CPU, the operand contract the CUDA wrappers
-    check: every tensor the engine hands the queue step is int32 and
-    contiguous, on one link (ring-2) and under multicast (K = 2)."""
+    check: every tensor the engine hands the queue step, and the packed
+    carry, constants and base it hands the multi-step kernel, are int32
+    and contiguous, with the shapes that wrapper checks — on one link
+    (ring-2) and under multicast (K = 2), on both kernels."""
     from repro_torch.kernels import ops
     seen = []
 
@@ -324,15 +333,40 @@ def test_kernel_operands_are_what_the_cuda_wrappers_take(monkeypatch):
             return fn(*args)
         return wrapped
 
+    def guard_ms(carry, consts, base, **kw):
+        for a in (*carry, *consts, base):
+            assert a.dtype == torch.int32 and a.is_contiguous()
+        q_time, _, _, lanes, sides, logs, counters = carry
+        links, route_out, route_del, route_wt, timing, params = consts
+        nq, nc = q_time.shape
+        n_chips, n_routes, k = route_out.shape
+        L = nq // 2
+        assert [tuple(t.shape) for t in carry] == [
+            (nq, nc)] * 3 + [(16, L), (9, L, 2), logs.shape, (2,)]
+        assert logs.shape[0] == 3 and counters.shape == (2,)
+        assert [tuple(t.shape) for t in consts] == [
+            (L, 2), (n_chips, n_routes, k), (n_chips, n_routes),
+            (n_chips, n_routes, k), (3, L), (3,)]
+        assert base.shape == (1,) and kw["chunk"] >= 1
+        seen.append("fabric_queue_multistep")
+        return ms_fn(carry, consts, base, **kw)
+
+    ms_fn = ops.fabric_queue_multistep
     monkeypatch.setattr(ops, "fabric_queue_scan",
                         guard(ops.fabric_queue_scan))
     monkeypatch.setattr(ops, "fabric_queue_update",
                         guard(ops.fabric_queue_update))
+    monkeypatch.setattr(ops, "fabric_queue_multistep", guard_ms)
+    multistep = tfab.EngineSpec("pallas", kernel="multistep", chunk_size=8)
     tspec = both([0, 0, 1], [0, 5, 9], [1, 1, 0])[1]
-    tnet.simulate_fabric(trt.ring_topology(2), tspec, device=CPU)
     members, arrays = _mcast_case()
-    tfab.Fabric(trt.mesh2d_topology(2, 4), addr=trt.AddressSpec(),
-                mcast=tfab.MulticastPolicy("in_fabric",
-                                           trt.MulticastTable(members)),
-                device=CPU).run(both(*arrays)[1], max_steps=50)
-    assert {"fabric_queue_scan", "fabric_queue_update"} <= set(seen)
+    for engine in ("pallas", multistep):
+        tfab.Fabric(trt.ring_topology(2), engine=engine,
+                    device=CPU).run(tspec)
+        tfab.Fabric(trt.mesh2d_topology(2, 4), addr=trt.AddressSpec(),
+                    mcast=tfab.MulticastPolicy(
+                        "in_fabric", trt.MulticastTable(members)),
+                    engine=engine, device=CPU).run(both(*arrays)[1],
+                                                   max_steps=50)
+    assert {"fabric_queue_scan", "fabric_queue_update",
+            "fabric_queue_multistep"} <= set(seen)

@@ -1,7 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the
-reference package, no source of the port (or ``chip_smoke.py``) imports
-them, and its entry points refuse to run without CUDA unless the caller
-asks for the CPU."""
+reference package, no source of the port (or ``chip_smoke.py``, or the
+test files that run on the card) imports them, and its entry points
+refuse to run without CUDA unless the caller asks for the CPU."""
 
 import pathlib
 import re
@@ -38,7 +38,10 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+     # what chip_smoke.py and the card tests import on the card's machine
+     ROOT / "tests" / "_torch_cases.py",
+     ROOT / "tests" / "test_torch_kernels_cuda.py"]))
 def test_sources_import_neither(path):
     text = (ROOT / path).read_text()
     assert not IMPORT_RE.search(text), path
