@@ -22,9 +22,12 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 4. multistep — the multi-step kernel (B3) against its plain version on
                packed carries of real plans (tests/_torch_cases.py):
                the three cells' specs plus ring-16 at a binding capacity
-               under credit, drop and on/off, 300 steps each at chunk 1,
-               16 and/or 128 (launches with base > 0, max_steps binding
-               mid-chunk), K = 2, and one B = 3 launch (the three
+               under credit, drop and on/off, ring-32 with per-link
+               timing and max_burst 2 under on/off, the 2x4 mesh
+               multicast (K = 2) under credit and a 14x14 mesh multicast
+               (K = 3, 1,092 lanes) under credit, 300 steps each at
+               chunk 1, 16 and/or 128 (launches with base > 0, max_steps
+               binding mid-chunk), and one B = 3 launch (the three
                binding ring-16 cases) against their solo plain runs;
                then one launch timed at full width, beside its bound and
                its plain version;
@@ -61,8 +64,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
-CUDA_CORE_OPS_S = 67e12      # H100 SXM non-tensor-core fp32 rate; used
-#                              as the int32 ALU ceiling (an upper bound)
+# H100 SXM int32 rate: 64 INT32 lanes per SM and clock x 132 SMs x
+# 1.98 GHz boost (the data sheet's 67 TFLOP/s fp32 counts 128 fp32 lanes
+# and an FMA as two operations); the kernels' operations are int32
+INT32_OPS_S = 64 * 132 * 1.98e9
 ANCHOR_MEV_S, ANCHOR_TOL = 28.6, 0.001
 
 
@@ -240,7 +245,7 @@ def phase_kernels():
     }
     out = {}
     for name, (b, o) in bounds.items():
-        tb, to = b / HBM_BYTES_S * 1e3, o / CUDA_CORE_OPS_S * 1e3
+        tb, to = b / HBM_BYTES_S * 1e3, o / INT32_OPS_S * 1e3
         tm = timing[name]
         seen = tm["device_ms"] is not None and \
             tm["plain_device_ms"] is not None
@@ -305,7 +310,8 @@ def phase_multistep_kernel():
             worst = max(worst, err)
             cases.append({"case": name, "chunk": chunk,
                           "launches": -(-MS_STEPS // chunk),
-                          "K": plan.bucket[7], "flow": plan.fc,
+                          "L": plan.bucket[1], "K": plan.bucket[7],
+                          "max_burst": plan.bucket[5], "flow": plan.fc,
                           "cap": plan.cap, "max_abs_err": err,
                           "delivered": int(want[6][0]),
                           "drops": int(want[6][1]),
@@ -330,6 +336,17 @@ def phase_multistep_kernel():
           and by["ring16_onoff"]["stall_steps"] > 0,
           "credit / on-off cases never stalled")
     check(by["mesh2x4_multicast"]["K"] == 2, "multicast case has K != 2")
+    ring32, credit2, wide = (by[n] for n in (
+        "ring32_perlink_burst_onoff", "mesh2x4_multicast_credit",
+        "mesh14x14_multicast_credit"))
+    check(ring32["L"] == 32 and ring32["max_burst"] == 2
+          and ring32["stall_steps"] > 0,
+          "ring-32 case: expected 32 links, max_burst 2 and on/off stalls")
+    check(credit2["K"] == 2 and credit2["stall_steps"] > 0,
+          "K = 2 credit case never stalled")
+    check(wide["K"] == 3 and wide["L"] * wide["K"] > 1024
+          and wide["stall_steps"] > 0,
+          "14x14 case: expected K = 3, over 1024 lanes and credit stalls")
 
     # one launch (base 0, chunk 128) at the full-width shape: the
     # ring-16 credit cell's reset-time carry, a fresh copy per launch
@@ -385,7 +402,7 @@ def phase_multistep_kernel():
     byts = 2 * net.slot_carry_bytes(L, plan.E, c) + 4 + sum(
         4 * t.numel() for t in consts)
     ops = n_steps * 4 * q * c
-    tb, to = byts / HBM_BYTES_S * 1e3, ops / CUDA_CORE_OPS_S * 1e3
+    tb, to = byts / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
     out = {"ms": device_ms if device_ms is not None else event_ms,
            "ms_source": ("profiler device time per launch"
                          if device_ms is not None

@@ -745,18 +745,26 @@ def simulate_fabric(topo: Topology, spec: TrafficSpec, *,
     (same keywords as the reference's ``simulate_fabric``; see there).
     ``engine`` is ``"auto"`` (= ``"pallas"``), ``"pallas"`` (queue step
     through the Hopper kernels on CUDA) or ``"reference"`` (plain
-    PyTorch); ``chunk_size`` is the steps per launch of
-    ``kernel="multistep"``, which takes a ``Fabric`` with
-    ``EngineSpec("pallas", kernel="multistep")``.  ``device=None``
-    means CUDA and raises without it.
+    PyTorch).  ``chunk_size`` is the ring engine's steps per chunk in the
+    reference; the port has no ring engine yet (ROADMAP A.6), so any
+    other value than the default raises ``NotImplementedError`` rather
+    than being ignored.  The multi-step kernel's chunk is set on a
+    ``Fabric`` with ``EngineSpec("pallas", kernel="multistep",
+    chunk_size=...)``.  ``device=None`` means CUDA and raises without it.
     """
+    if chunk_size != DEFAULT_CHUNK_SIZE:
+        raise NotImplementedError(
+            f"simulate_fabric(chunk_size={chunk_size}) sets the ring "
+            f"engine's chunk, and engine='ring' is not ported yet (ROADMAP "
+            f"A.6); for kernel='multistep' pass Fabric(engine=EngineSpec("
+            f"'pallas', kernel='multistep', chunk_size=...))")
     from .fabric import EngineSpec, Fabric, QueuePolicy
     fab = Fabric(topo, routing=routing, timing=timing,
                  queues=QueuePolicy(capacity=queue_capacity,
                                     max_burst=max_burst,
                                     initial_tx=initial_tx,
                                     flow=flow_control, xon=xon),
-                 engine=EngineSpec(name=engine, chunk_size=chunk_size),
+                 engine=EngineSpec(name=engine),
                  addr=addr, mcast=mcast,
                  device=device)
     return fab.run(spec, max_steps=max_steps)

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PI = ctypes.POINTER(ctypes.c_int)
 #: ctypes signatures of the C entry points, by library
 SIGNATURES = {
     "fabric_queue": {
@@ -46,6 +47,7 @@ SIGNATURES = {
     },
     "fabric_queue_multistep": {
         "fabric_queue_multistep_smem_bytes": [_I, _I],
+        "fabric_queue_multistep_smem_limit": [_PI],
         "fabric_queue_multistep_launch": [_P] * 14 + [_I] * 10 + [_P],
     },
 }

@@ -48,7 +48,6 @@ constexpr int kWarp = 32;
 constexpr int kMaxThreads = 1024;
 constexpr int kRx = 0;
 constexpr int kTx = 1;
-constexpr int kMaxSmem = 232448;  // bytes a block may opt in to on sm_90
 
 // lane plane channels, in core.network._MS_LANES order
 enum Lane {
@@ -457,6 +456,19 @@ int fabric_queue_multistep_smem_bytes(int n_links, int k) {
   return 4 * smem_words(n_links, k);
 }
 
+// Dynamic shared memory a block may opt in to on the current device, in
+// bytes, through *bytes; the return value is the CUDA error code.
+int fabric_queue_multistep_smem_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  }
+  return static_cast<int>(e);
+}
+
+// The caller has checked smem_bytes against smem_limit.
 int fabric_queue_multistep_launch(
     int* q_time, int* q_dest, int* q_inj, int* lanes, int* sides, int* logs,
     int* counters, const int* links, const int* route_out,
@@ -465,7 +477,6 @@ int fabric_queue_multistep_launch(
     int n_log, int n_chips, int n_routes, int k, int chunk, int max_steps,
     int max_burst, void* stream) {
   const int smem = fabric_queue_multistep_smem_bytes(n_links, k);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fabric_queue_multistep_kernel,

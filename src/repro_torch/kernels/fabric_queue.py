@@ -51,9 +51,11 @@ CPU tensors to the plain versions in ``ref``.
     the carry is 306,312 B, over the 227 KB a block may have.  The lane
     and side planes, counters and per-step temporaries live in shared
     memory for the whole launch and are written back once.
-    Bound on an H100: bytes if each input is read once and each output
-    written once — about 2 × ``slot_carry_bytes`` (0.61 MB at full
-    width, ~0.18 µs at 3.35 TB/s) a launch; but each step re-scans the
+    Bound on an H100: the scan's int32 operations, 4·Q·C a step (12.6 M
+    a 128-step launch at full width, ~0.75 µs at the int32 rate of
+    ~16.7 T/s), over the bytes if each input is read once and each
+    output written once — about 2 × ``slot_carry_bytes`` (0.61 MB at
+    full width, ~0.18 µs at 3.35 TB/s) a launch; but each step re-scans the
     Q·C slot plane (98 KB at full width, from L2), and the phases are a
     chain of dependent block-wide steps, so latency (barriers, L2
     round trips), not bandwidth, sets its time.  Nothing in the design
@@ -62,8 +64,11 @@ CPU tensors to the plain versions in ``ref``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..core.network import _MS_LANES, _MS_SIDES
 from . import _build
 
 __all__ = ["fabric_queue_step", "fabric_queue_update",
@@ -175,12 +180,6 @@ def fabric_queue_update(q_time, q_dest, q_inj, pop_q, pop_slot,
 fabric_queue_update.launches = 0
 
 
-#: the packed carry's lane / side channel counts (``core.network``)
-_N_LANES, _N_SIDES = 16, 9
-#: dynamic shared memory a block may opt in to on sm_90 (bytes)
-_MAX_SMEM = 232448
-
-
 def fabric_queue_multistep(carry, consts, base, *, chunk: int,
                            max_steps: int, max_burst: int):
     """``min(chunk, max_steps - base)`` micro-transactions on the card,
@@ -219,7 +218,8 @@ def fabric_queue_multistep(carry, consts, base, *, chunk: int,
                          f"{tuple(consts[1].shape)}")
     n_chips, n_routes, k = consts[1].shape[-3:]
     want = {"q_time": (nq, nc), "q_dest": (nq, nc), "q_inj": (nq, nc),
-            "lanes": (_N_LANES, n_links), "sides": (_N_SIDES, n_links, 2),
+            "lanes": (len(_MS_LANES), n_links),
+            "sides": (len(_MS_SIDES), n_links, 2),
             "logs": (3, n_log + 1), "counters": (2,), "links": (n_links, 2),
             "route_out": (n_chips, n_routes, k),
             "route_del": (n_chips, n_routes),
@@ -244,11 +244,15 @@ def fabric_queue_multistep(carry, consts, base, *, chunk: int,
                          f"{max_steps}, {max_burst}")
     lib = _build.load("fabric_queue_multistep")
     smem = lib.fabric_queue_multistep_smem_bytes(n_links, k)
-    if smem > _MAX_SMEM:
+    limit = ctypes.c_int()
+    _build.check(lib, lib.fabric_queue_multistep_smem_limit(limit),
+                 "fabric_queue_multistep")
+    if smem > limit.value:
         raise ValueError(
             f"fabric_queue_multistep: L={n_links} links with K={k} need "
-            f"{smem} bytes of shared memory per block, over the {_MAX_SMEM} "
-            f"an H100 block may have; use kernel='step' for this fabric")
+            f"{smem} bytes of shared memory per block, over the "
+            f"{limit.value} a block may have on this card; use "
+            f"kernel='step' for this fabric")
     rc = lib.fabric_queue_multistep_launch(
         *(t.data_ptr() for t in carry + consts), base.data_ptr(), n_inst,
         n_links, nc, n_log, n_chips, n_routes, k, chunk, max_steps,

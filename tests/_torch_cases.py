@@ -107,6 +107,26 @@ def mesh_multicast_case(n, seed=8):
     return members, (src[order], t[order], dest[order])
 
 
+def mesh_groups_case(rows, cols, n_groups, n_members, n_events, gap_ns,
+                     seed):
+    """In-fabric multicast on a ``rows`` x ``cols`` mesh: ``n_groups``
+    tags of ``n_members`` random member chips each, ``n_events`` events
+    from random sources at uniform times in ``[0, gap_ns)``; returns
+    ``(members, (src, t, dest))`` as ``mesh_multicast_case`` does."""
+    from repro_torch.core.router import AddressSpec
+    n = rows * cols
+    rng = np.random.default_rng(seed)
+    members = np.zeros((n_groups, n), bool)
+    for g in range(n_groups):
+        members[g, rng.choice(n, n_members, replace=False)] = True
+    src = rng.integers(0, n, n_events)
+    t = np.sort(rng.integers(0, gap_ns, n_events))
+    tag = rng.integers(0, n_groups, n_events)
+    dest = AddressSpec().pack_multicast(tag)
+    order = np.lexsort((t, src))
+    return members, (src[order], t[order], dest[order])
+
+
 def spec_of(src, t, dest):
     import torch
     from repro_torch.core.traffic import TrafficSpec
@@ -126,11 +146,20 @@ def multistep_cases():
     multicast with K = 2) and ring-16 at a binding capacity under each
     flow mode (credit, drop, on/off), each stepped ``MS_STEPS`` times.
     Those three share one shape bucket (``MS_BATCH`` launches them as
-    B = 3)."""
+    B = 3).  Three more reach the kernel's paths that the 16-link
+    fabrics do not: ring-32 (64 queue rows, so a warp scans several)
+    with per-link timing and ``max_burst`` 2 under on/off; the 2x4 mesh
+    multicast (K = 2) under credit, whose gate skips a route's absent
+    second target; and a 14x14 mesh multicast with K = 3 (L = 364 links,
+    1,092 lanes, so threads stride over lanes) under credit with
+    ``max_burst`` 1."""
     from repro_torch.core.fabric import MulticastPolicy, QueuePolicy
+    from repro_torch.core.link import (PAPER_TIMING, SERIAL_LVDS_TIMING,
+                                       per_link_timing)
     from repro_torch.core.router import (AddressSpec, MulticastTable,
                                          mesh2d_topology, ring_topology)
     members, mcast = mesh_multicast_case(8 * 24)
+    wide_members, wide = mesh_groups_case(14, 14, 2, 12, 48, 200, seed=1)
     return [
         ("anchor", dict(topo=ring_topology(2),
                         queues=QueuePolicy(max_burst=1)),
@@ -156,6 +185,23 @@ def multistep_cases():
                                        "in_fabric",
                                        MulticastTable(members))),
          mcast, (1, 16, 128)),
+        ("ring32_perlink_burst_onoff",
+         dict(topo=ring_topology(32),
+              timing=per_link_timing([PAPER_TIMING, SERIAL_LVDS_TIMING],
+                                     np.arange(32) % 2),
+              queues=QueuePolicy(capacity=16, flow="onoff", max_burst=2)),
+         hot_spot_arrays(32, 24, 300.0, 0.65, seed=6), (1, 16, 128)),
+        ("mesh2x4_multicast_credit",
+         dict(topo=mesh2d_topology(2, 4), addr=AddressSpec(),
+              queues=QueuePolicy(capacity=6, flow="credit"),
+              mcast=MulticastPolicy("in_fabric", MulticastTable(members))),
+         mcast, (16,)),
+        ("mesh14x14_multicast_credit",
+         dict(topo=mesh2d_topology(14, 14), addr=AddressSpec(),
+              queues=QueuePolicy(capacity=2, flow="credit", max_burst=1),
+              mcast=MulticastPolicy("in_fabric",
+                                    MulticastTable(wide_members))),
+         wide, (16, 128)),
     ]
 
 

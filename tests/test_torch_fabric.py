@@ -316,6 +316,20 @@ def test_results_stay_on_the_run_device():
     assert tres.log_del.dtype == torch.int32
 
 
+def test_simulate_fabric_refuses_a_chunk_size_it_cannot_honour():
+    """``chunk_size`` is the reference's ring-engine knob: the port has no
+    ring engine, so a value other than the default raises instead of
+    being ignored; the default runs."""
+    tspec = both(*np_traffic("poisson", 4, 8, 1))[1]
+    with pytest.raises(NotImplementedError, match="A.6"):
+        tnet.simulate_fabric(trt.ring_topology(4), tspec, chunk_size=16,
+                             device=CPU)
+    tres = tnet.simulate_fabric(trt.ring_topology(4), tspec,
+                                chunk_size=tnet.DEFAULT_CHUNK_SIZE,
+                                device=CPU)
+    assert int(tres.delivered) == tres.injected
+
+
 def test_kernel_operands_are_what_the_cuda_wrappers_take(monkeypatch):
     """Rehearse, on the CPU, the operand contract the CUDA wrappers
     check: every tensor the engine hands the queue step, and the packed

@@ -33,9 +33,9 @@ from repro_torch.core import network as tnet
 from repro_torch.core import router as trt
 from repro_torch.kernels import ref as tref
 
-from _torch_cases import (carry_err, clone, hot_spot_arrays,
-                          mesh_multicast_case, multistep_operands,
-                          run_schedule)
+from _torch_cases import (MS_STEPS, carry_err, clone, hot_spot_arrays,
+                          mesh_multicast_case, multistep_cases,
+                          multistep_operands, run_schedule)
 
 CPU = "cpu"
 
@@ -222,3 +222,37 @@ def test_plain_schedule_equals_one_flat_launch():
             c, consts, b, step_fn=step_fn, chunk=ch, max_steps=6),
         clone(carry), 6, 4)
     assert carry_err(six, flat, plan.E) != 0     # a step is not a no-op
+
+
+#: what the card's multi-step cases must reach in their MS_STEPS-step
+#: plain run (chip_smoke checks the same on the card): the kernel's
+#: paths that 16-link fabrics leave out
+_CASE_CLAIMS = {
+    "ring32_perlink_burst_onoff": dict(L=32, K=1, max_burst=2),
+    "mesh2x4_multicast_credit": dict(L=10, K=2, max_burst=0),
+    "mesh14x14_multicast_credit": dict(L=364, K=3, max_burst=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CASE_CLAIMS))
+def test_card_cases_reach_the_paths_they_claim(name):
+    """Shapes, per-link timing, and stalls under the stall modes; the
+    14x14 case has more lanes (L * K) than a block has threads."""
+    kw, arrays, _ = next((k, a, c) for n, k, a, c in multistep_cases()
+                         if n == name)
+    carry, consts, step_fn, plan = multistep_operands(kw, arrays, MS_STEPS,
+                                                      CPU)
+    claim = _CASE_CLAIMS[name]
+    L, K, burst = plan.bucket[1], plan.bucket[7], plan.bucket[5]
+    assert dict(L=L, K=K, max_burst=burst) == claim
+    if name.startswith("mesh14x14"):
+        assert L * K > 1024
+    timing = consts[4]
+    if name.startswith("ring32"):
+        assert len(set(map(tuple, timing.T.tolist()))) == 2
+    want = run_schedule(
+        lambda c, b, ch: tref.fabric_queue_multistep(
+            c, consts, b, step_fn=step_fn, chunk=ch, max_steps=MS_STEPS),
+        clone(carry), MS_STEPS, 128)
+    stall_steps = int(want[4][tnet._MS_SIDES.index("stall_steps")].sum())
+    assert stall_steps > 0 and int(want[6][0]) > 0
