@@ -11,8 +11,8 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 
 1. device    — name, capability (must be 9.0), nvidia-smi name and power
                limit (also printed raw on a line of its own);
-2. build     — both libraries, one nvcc each, started together: seconds
-               and ptxas's resource report;
+2. build     — the three libraries, one nvcc each, started together:
+               seconds and ptxas's resource report;
 3. kernels   — the per-step pair (B1, B2) against their plain PyTorch
                versions on the card, bit for bit, at (Q, C) in {(4, 7),
                (32, 768), (224, 3072)} and K in {1, 4}, with every edge
@@ -45,7 +45,28 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                equal to its per-step result field for field, exactly
                ceil(max_steps / 128) B3 launches and no B1/B2 launch;
 8. profile   — torch.profiler windows of the full-width cell on both
-               paths: device-busy share and time by kernel.
+               paths: device-busy share and time by kernel;
+9. lif       — the LIF kernel (B4) against its plain version on the card
+               (tests/_torch_cases.py::lif_cases at the test shapes,
+               (32, 128) and (65536, 128), with the threshold and
+               rounding edge inputs), bit for bit except where the plain
+               version's float64 route rounds twice, each such element
+               confirmed with exact rational arithmetic; then device ms
+               per launch at (16, 128) and (65536, 128) beside the bound
+               and the plain version;
+10. cosim    — the co-simulation cell COSIM_RING (ring-16 recurrent SNN,
+               128 neurons a chip, 24 ticks): open loop equal to
+               ``reference_rollout`` bit for bit with 24 B4 launches; the
+               closed loop over ``kernel="multistep"`` and credit flow at
+               capacity 96: conservation every tick, no drops, delivered
+               > 0, divergence from the open loop >= 16, 24 B4 launches
+               and sum(ceil(max_steps_t / 128)) B3 launches, no B1/B2;
+               the three busiest ticks replayed through
+               ``engine="reference"`` field for field; ms per tick;
+11. snn_fig6 — the Fig. 6 chip array (4x4 chips of 256 neurons, 50
+               ticks): 50 B4 launches, finite bus figures, ms per tick;
+12. profile_cosim — torch.profiler windows of the closed loop and of
+               the Fig. 6 array: device-busy share and time by kernel.
 
 Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -68,7 +89,12 @@ HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 # 1.98 GHz boost (the data sheet's 67 TFLOP/s fp32 counts 128 fp32 lanes
 # and an FMA as two operations); the kernels' operations are int32
 INT32_OPS_S = 64 * 132 * 1.98e9
+# H100 SXM fp32 rate outside the tensor cores (data sheet; an FMA is two)
+FP32_OPS_S = 67e12
 ANCHOR_MEV_S, ANCHOR_TOL = 28.6, 0.001
+# the cosim gate's floor on |closed - open| spike counts
+# (benchmarks/fabric_smoke.py:494, MIN_COSIM_DIVERGENCE)
+MIN_COSIM_DIVERGENCE = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -115,6 +141,25 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0)) or 0)
 
 
+def _device_rows(prof):
+    """``(device us, name, count)`` of the profile's device-side rows
+    (kernels and copies), largest first.  Operator rows (``aten::...``)
+    also carry the device time of the kernels they launched, so summing
+    every row would count that time twice."""
+    from torch.autograd import DeviceType
+    return sorted(((_device_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _device_us(e) > 0),
+                  reverse=True)
+
+
+def _op_rows_us(prof) -> float:
+    """Device us that operator rows carry (the double count above)."""
+    from torch.autograd import DeviceType
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type != DeviceType.CUDA)
+
+
 def device_ms(fn, n=500):
     """Mean device (kernel) ms per call over ``n`` calls, summed over the
     kernels the call launches, from torch.profiler; None when the
@@ -127,7 +172,7 @@ def device_ms(fn, n=500):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(_device_us(e) for e in prof.key_averages())
+    total_us = sum(r[0] for r in _device_rows(prof))
     return total_us / n / 1e3 if total_us > 0 else None
 
 
@@ -146,7 +191,7 @@ def phase_device():
     return name, smi
 
 
-LIBRARIES = ("fabric_queue", "fabric_queue_multistep")
+LIBRARIES = ("fabric_queue", "fabric_queue_multistep", "lif_step")
 
 
 def phase_build():
@@ -610,12 +655,7 @@ def phase_profile(spec, kw, engine="pallas", steps=300, label="profile"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = cf.bucket[4]
-    rows = []
-    for e in prof.key_averages():
-        dev_us = _device_us(e)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     ops = aten_ops_per_step(fab, spec, steps=20)
     if busy_us == 0:
@@ -628,8 +668,296 @@ def phase_profile(spec, kw, engine="pallas", steps=300, label="profile"):
          device_busy_share=busy_us / (wall * 1e6),
          aten_ops_per_step=ops,
          kernels_per_step=sum(r[2] for r in rows) / steps,
+         op_rows_device_us_per_step=_op_rows_us(prof) / steps,
          top=[{"kernel": k[:80], "us_per_step": us / steps,
                "calls_per_step": c / steps} for us, k, c in rows[:12]])
+
+
+def _counts_zero():
+    from repro_torch.kernels import fabric_queue as fq
+    from repro_torch.kernels import lif_step as lk
+    for f in (fq.fabric_queue_step, fq.fabric_queue_update,
+              fq.fabric_queue_multistep, lk.lif_step):
+        f.launches = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import fabric_queue as fq
+    from repro_torch.kernels import lif_step as lk
+    return {f.__name__: f.launches for f in (
+        fq.fabric_queue_step, fq.fabric_queue_update,
+        fq.fabric_queue_multistep, lk.lif_step)}
+
+
+def phase_lif_kernel():
+    """B4 against its plain version on the card, then its times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import lif_step as lk
+    from repro_torch.kernels import ref
+    from _torch_cases import (LIF_CARD_SHAPES, lif_cases,
+                              lif_double_roundings)
+    dev = torch.device("cuda", 0)
+    cases, confirmed, unexplained, worst = [], 0, 0, 0.0
+    for name, v, i, d, th, rst in lif_cases(LIF_CARD_SHAPES):
+        vt, it = (torch.from_numpy(a).to(dev) for a in (v, i))
+        got = lk.lif_step(vt, it, decay=d, v_th=th, v_reset=rst)
+        plain = ref.lif_step(vt, it, d, th, rst)
+        got = tuple(t.cpu().numpy() for t in got)
+        plain = tuple(t.cpu().numpy() for t in plain)
+        ok, bad = lif_double_roundings(v, i, d, th, rst, got, plain)
+        differ = (got[0].view(np.int32) != plain[0].view(np.int32)) | \
+            (got[1].view(np.int32) != plain[1].view(np.int32))
+        err = float(np.abs(got[0][differ].astype(np.float64)
+                           - plain[0][differ]).max(initial=0.0))
+        confirmed, unexplained = confirmed + ok, unexplained + bad
+        worst = max(worst, err)
+        cases.append({"case": name, "n": int(v.size),
+                      "spikes": int(got[1].sum()),
+                      "double_roundings": ok, "unexplained": bad,
+                      "max_abs_err": err})
+    emit("lif_vs_plain", cases=cases, double_roundings=confirmed,
+         unexplained=unexplained, max_abs_err=worst,
+         equal=confirmed + unexplained == 0)
+    check(unexplained == 0, f"LIF kernel disagrees with its plain version "
+                            f"on {unexplained} element(s) that are not "
+                            f"double roundings of the plain route")
+
+    # times: the cosim ring-16 state (16, 128) and a large (65536, 128)
+    out = {}
+    rng = np.random.default_rng(7)
+    for rows in (16, 65536):
+        v = torch.from_numpy(rng.uniform(-0.5, 1.2, (rows, 128))
+                             .astype(np.float32)).to(dev)
+        i = torch.from_numpy(rng.uniform(-0.2, 0.6, (rows, 128))
+                             .astype(np.float32)).to(dev)
+
+        def kern():
+            return lk.lif_step(v, i, decay=0.9, v_th=1.0, v_reset=0.0)
+
+        def plain():
+            return ref.lif_step(v, i, 0.9, 1.0, 0.0)
+
+        n = v.numel()
+        byts, ops = 16 * n, 3 * n        # 2 reads + 2 writes; FMA + compare
+        tb, to = byts / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+        dms, pdms = device_ms(kern), device_ms(plain)
+        seen = dms is not None and pdms is not None
+        out[f"{rows}x128"] = {
+            "ms": dms if seen else time_ms(kern),
+            "plain_ms": pdms if seen else time_ms(plain),
+            "ms_source": ("profiler device time per call" if seen
+                          else "CUDA events, back-to-back calls"),
+            "device_ms": dms, "plain_device_ms": pdms,
+            "call_ms": time_ms(kern), "plain_call_ms": time_ms(plain),
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": byts, "ops": ops, "library_ms": None}
+    emit("lif_kernel_time", shapes=out,
+         library="none: no single PyTorch call computes the LIF update")
+    return {**out["16x128"], "max_abs_err": worst, "at_65536x128": out[
+        "65536x128"]}
+
+
+def _cosim_cell():
+    from repro_torch.core.router import AddressSpec
+    from repro_torch.cosim.traffic_bridge import _ring_placement
+    from _torch_cases import COSIM_RING
+    return COSIM_RING, _ring_placement(COSIM_RING["n_chips"], "recurrent",
+                                       addr=AddressSpec())
+
+
+def phase_cosim():
+    """COSIM_RING open and closed loop on the card (the closed loop is the
+    main path of B4 and of the cosim's transport), then three ticks
+    replayed through the plain engine."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import EngineSpec, QueuePolicy
+    from repro_torch.cosim import CosimConfig, CosimEngine, reference_rollout
+    cfg, pl = _cosim_cell()
+    T = cfg["ticks"]
+    ccfg = CosimConfig(input_rate=cfg["input_rate"], feedback="none")
+
+    def gen():
+        return torch.Generator().manual_seed(cfg["seed"])
+
+    eng = CosimEngine(pl, ccfg, generator=gen())
+    eng.run(1)                               # warm the allocator and cuBLAS
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    opn = eng.run(T)
+    torch.cuda.synchronize()
+    open_wall = time.perf_counter() - t0
+    open_launches = _counts()
+    # untimed second pass: the membranes and rasters of every tick, held
+    # against reference_rollout bit for bit (each run redraws one drive)
+    rec = eng.run(T, record_state=True)
+    roll = reference_rollout(eng, T, record_state=True)
+    same = (np.array_equal(rec.v.view(np.int32), roll.v.view(np.int32))
+            and np.array_equal(rec.raster, roll.raster)
+            and np.array_equal(rec.spikes, roll.spikes)
+            and np.array_equal(opn.spikes, rec.spikes))
+    emit("cosim_open", ticks=T, spikes=opn.total_spikes,
+         launches=open_launches, wall_s=open_wall,
+         ms_per_tick=open_wall / T * 1e3, equals_reference_rollout=same)
+    check(same, "open loop differs from reference_rollout")
+    check(open_launches["lif_step"] == T, f"open loop: {open_launches}, "
+                                          f"expected {T} lif_step launches")
+    check(opn.total_spikes > 0, "open loop never spiked")
+
+    queues = QueuePolicy(capacity=cfg["capacity"], flow="credit")
+    fab = pl.fabric(engine=EngineSpec("pallas", kernel="multistep"),
+                    queues=queues)
+    eng = CosimEngine(pl, ccfg._replace(feedback="next_tick"), fabric=fab,
+                      generator=gen())
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    cls = eng.run(T, record_fabric=True, collect_events=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    buckets = [fab._plan(e.spec, None).bucket for e in cls.events]
+    want_b3 = sum(-(-b[4] // b[9]) for b in buckets)
+    divergence = int(np.abs(cls.spikes - opn.spikes).sum())
+    steps = sum(b[4] for b in buckets)
+    # replay the three ticks with the most events through the plain engine
+    busiest = sorted(cls.events, key=lambda e: -e.n_events)[:3]
+    ref_fab = pl.fabric(engine="reference", queues=queues)
+    by_tick = dict(cls.fabric_results)
+    t1 = time.perf_counter()
+    for e in busiest:
+        net.assert_results_equal(
+            by_tick[e.tick], interop.result_to_numpy(ref_fab.run(e.spec)),
+            f"cosim tick {e.tick}")
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t1
+    emit("cosim_closed", ticks=T, spikes=cls.total_spikes,
+         offered=int(cls.offered.sum()), injected=int(cls.injected.sum()),
+         delivered=int(cls.delivered.sum()), drops=int(cls.drops.sum()),
+         conservation_exact=cls.conservation_exact, divergence=divergence,
+         min_divergence=MIN_COSIM_DIVERGENCE, launches=launches,
+         expected_multistep_launches=want_b3, fabric_steps=steps,
+         wall_s=wall, ms_per_tick=wall / T * 1e3,
+         us_per_fabric_step=wall / steps * 1e6,
+         replayed_ticks=[e.tick for e in busiest],
+         replayed_events=[e.n_events for e in busiest],
+         replay_reference_s=replay_s, replay_equal=True,
+         latency=({"p50_ns": float(np.percentile(cls.latency_ns, 50)),
+                   "p99_ns": float(np.percentile(cls.latency_ns, 99)),
+                   "max_ns": int(cls.latency_ns.max())}
+                  if cls.latency_ns.size else None))
+    check(cls.conservation_exact, "cosim: delivered + drops != injected")
+    check(int(cls.drops.sum()) == 0
+          and int(cls.delivered.sum()) == int(cls.injected.sum()),
+          "cosim: the credit fabric was not lossless")
+    check(int(cls.delivered.sum()) > 0, "cosim: no spike crossed chips")
+    check(divergence >= MIN_COSIM_DIVERGENCE,
+          f"cosim: closed loop diverged from open by {divergence} "
+          f"(< {MIN_COSIM_DIVERGENCE})")
+    check(launches == {"fabric_queue_step": 0, "fabric_queue_update": 0,
+                       "fabric_queue_multistep": want_b3, "lif_step": T},
+          f"cosim: launches {launches}, expected {T} lif_step and "
+          f"{want_b3} fabric_queue_multistep, no per-step kernel")
+    return launches, wall / T * 1e3, open_wall / T * 1e3
+
+
+def phase_snn_fig6():
+    import numpy as np
+    import torch
+    from repro_torch.models import snn
+    from _torch_cases import SNN_FIG6 as cell
+    cfg = snn.SnnConfig(grid=cell["grid"], neurons=cell["neurons"])
+    params, st = snn.init_snn(cfg, torch.Generator().manual_seed(
+        cell["seed"]))
+    snn.run_snn(params, cfg, st, 1)          # warm the allocator and cuBLAS
+    torch.cuda.synchronize()
+    T = cell["ticks"]
+    _counts_zero()
+    t0 = time.perf_counter()
+    st2, ticks = snn.run_snn(params, cfg, st, T)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    rep = snn.link_report(ticks)
+    finite = all(np.isfinite(v) for v in rep.values())
+    emit("snn_fig6", grid=list(cfg.grid), neurons=cfg.neurons, ticks=T,
+         launches=launches, wall_s=wall, ms_per_tick=wall / T * 1e3,
+         spikes=float(ticks["spikes"].sum()),
+         rate=float(ticks["rate"].mean()), link_report=rep,
+         finite=finite, v_finite=bool(torch.isfinite(st2.v).all()))
+    check(launches["lif_step"] == T, f"snn_fig6: {launches}, expected {T} "
+                                     f"lif_step launches")
+    check(finite and bool(torch.isfinite(st2.v).all()),
+          "snn_fig6: non-finite figures")
+    check(float(ticks["spikes"].sum()) > 0, "snn_fig6 never spiked")
+    return launches["lif_step"], wall / T * 1e3
+
+
+def _profile_ticks(label: str, run, T: int) -> None:
+    """Device-busy share and device time by kernel (and by group) over a
+    profiled ``run()`` of ``T`` ticks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    if busy_us == 0:
+        emit(label, ticks=T, wall_s=wall, device_busy="not measured")
+        return
+    groups = {"lif_step (B4)": ("lif_step",),
+              "fabric_queue_multistep (B3)": ("fabric_queue_multistep",),
+              "matvec": ("gemv", "gemm", "dot_kernel", "cublas"),
+              "copies": ("Memcpy", "memcpy", "copy")}
+    by_group = {g: sum(us for us, k, _ in rows
+                       if any(p in k for p in pats)) / T
+                for g, pats in groups.items()}
+    emit(label, ticks=T, wall_s=wall, ms_per_tick=wall / T * 1e3,
+         device_busy_us_per_tick=busy_us / T,
+         device_busy_share=busy_us / (wall * 1e6),
+         us_per_tick_by_group=by_group,
+         kernels_per_tick=sum(r[2] for r in rows) / T,
+         op_rows_device_us_per_tick=_op_rows_us(prof) / T,
+         top=[{"kernel": k[:80], "us_per_tick": us / T,
+               "calls_per_tick": c / T} for us, k, c in rows[:12]])
+
+
+def phase_profile_cosim():
+    """Profiles of the closed loop and of the Fig. 6 array."""
+    import torch
+    from repro_torch.core.fabric import EngineSpec, QueuePolicy
+    from repro_torch.cosim import CosimConfig, CosimEngine
+    from repro_torch.models import snn
+    from _torch_cases import SNN_FIG6
+    cfg, pl = _cosim_cell()
+    T = cfg["ticks"]
+    fab = pl.fabric(engine=EngineSpec("pallas", kernel="multistep"),
+                    queues=QueuePolicy(capacity=cfg["capacity"],
+                                       flow="credit"))
+    eng = CosimEngine(pl, CosimConfig(input_rate=cfg["input_rate"]),
+                      fabric=fab, generator=torch.Generator().manual_seed(
+                          cfg["seed"]))
+    eng.run(2)
+    torch.cuda.synchronize()
+    _profile_ticks("profile_cosim", lambda: eng.run(T), T)
+
+    scfg = snn.SnnConfig(grid=SNN_FIG6["grid"], neurons=SNN_FIG6["neurons"])
+    params, st = snn.init_snn(scfg, torch.Generator().manual_seed(
+        SNN_FIG6["seed"]))
+    snn.run_snn(params, scfg, st, 2)
+    torch.cuda.synchronize()
+    T = SNN_FIG6["ticks"]
+    _profile_ticks("profile_snn_fig6",
+                   lambda: snn.run_snn(params, scfg, st, T), T)
 
 
 def main() -> int:
@@ -645,6 +973,10 @@ def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matrix products must run in full float32 (no TF32)")
     t_start = time.perf_counter()
 
     name, smi = phase_device()
@@ -654,6 +986,8 @@ def main() -> int:
     ktimes = phase_kernels()
     torch.cuda.synchronize()
     ktimes["fabric_queue_multistep"] = phase_multistep_kernel()
+    torch.cuda.synchronize()
+    ktimes["lif_step"] = phase_lif_kernel()
     torch.cuda.synchronize()
     anchor = phase_anchor()
     torch.cuda.synchronize()
@@ -668,22 +1002,31 @@ def main() -> int:
     phase_profile(spec, kw, engine=ms_engine, steps=None,
                   label="profile_multistep")
     torch.cuda.synchronize()
+    cosim_launches, closed_ms, open_ms = phase_cosim()
+    torch.cuda.synchronize()
+    snn_launches, snn_ms = phase_snn_fig6()
+    torch.cuda.synchronize()
+    phase_profile_cosim()
+    torch.cuda.synchronize()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
             "fabric_queue_update": (launches["fabric_queue_update"], bucket),
             "fabric_queue_multistep": (
                 ms_launches["full_ring16_credit"]["fabric_queue_multistep"],
-                bucket[:8] + ("multistep", 128))}
+                bucket[:8] + ("multistep", 128)),
+            "lif_step": (cosim_launches["lif_step"], ("cosim_closed",))}
     source = {"fabric_queue_step": csrc + "fabric_queue.cu",
               "fabric_queue_update": csrc + "fabric_queue.cu",
-              "fabric_queue_multistep": csrc + "fabric_queue_multistep.cu"}
+              "fabric_queue_multistep": csrc + "fabric_queue_multistep.cu",
+              "lif_step": csrc + "lif_step.cu"}
     replaces = {"fabric_queue_step":
                 "src/repro/kernels/fabric_queue.py:109",
                 "fabric_queue_update":
                 "src/repro/kernels/fabric_queue.py:195",
                 "fabric_queue_multistep":
-                "src/repro/kernels/fabric_queue.py:238"}
+                "src/repro/kernels/fabric_queue.py:238",
+                "lif_step": "src/repro/kernels/lif_step.py:29"}
     kernels = []
     for kname, k in ktimes.items():
         n_launch, path_bucket = main[kname]
@@ -695,6 +1038,11 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": None,
             "equal": k["max_abs_err"] == 0, "us": k["ms"] * 1e3,
             "main_path_bucket": list(path_bucket)})
+    kernels[-1].update(launches_snn_fig6=snn_launches,
+                       at_65536x128=ktimes["lif_step"]["at_65536x128"],
+                       cosim_closed_ms_per_tick=closed_ms,
+                       cosim_open_ms_per_tick=open_ms,
+                       snn_fig6_ms_per_tick=snn_ms)
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

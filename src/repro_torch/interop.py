@@ -1,11 +1,14 @@
 """Carry state across from the JAX reference package, and results back.
 
-The fabric simulator has no weights: its data is traffic, routing and
-timing.  Parity tests (and anyone migrating a workload) take the
-reference's arrays as numpy arrays and hand them to
-:func:`from_reference`, which builds the port's objects; results come
-back through :func:`result_to_numpy`, so the two packages' outputs can
-be compared field for field (the reference's
+The fabric simulator's data is traffic, routing and timing; the SNN and
+the co-simulation add weights and a Poisson drive.  Parity tests (and
+anyone migrating a workload) take the reference's arrays as numpy
+arrays and hand them to :func:`from_reference` (fabric objects),
+:func:`snn_params_from_reference` (``models.snn`` weights) or
+:func:`cosim_weights_from_reference` (``CosimEngine(weights=)``); the
+per-tick drive goes to the engines as a bool array (``drive=``).
+Results come back through :func:`result_to_numpy`, so the two packages'
+outputs can be compared field for field (the reference's
 ``network.assert_results_equal`` accepts the numpy result as is).
 This module never imports the reference package: it only reads arrays.
 """
@@ -22,8 +25,10 @@ from .core.network import FabricResult
 from .core.router import RoutingTable
 from .core.telemetry import Telemetry, _np
 from .core.traffic import TrafficSpec
+from .device import resolve_device
 
-__all__ = ["Converted", "from_reference", "result_to_numpy"]
+__all__ = ["Converted", "from_reference", "result_to_numpy",
+           "snn_params_from_reference", "cosim_weights_from_reference"]
 
 
 class Converted(NamedTuple):
@@ -76,3 +81,30 @@ def result_to_numpy(res: FabricResult) -> FabricResult:
         **{f: _np(getattr(res, f)) for f in res._fields
            if torch.is_tensor(getattr(res, f))},
         telemetry=None if tel is None else Telemetry(*map(_np, tel)))
+
+
+def _f32(a, ndim: int, what: str) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.ndim != ndim or not np.issubdtype(a.dtype, np.floating):
+        raise ValueError(f"{what} must be a {ndim}-d float array, got "
+                         f"{a.dtype} {a.shape}")
+    return torch.from_numpy(np.array(a, np.float32))   # a writable copy
+
+
+def snn_params_from_reference(params: Mapping, *,
+                              device=None) -> dict:
+    """``models.snn`` weights from the reference's ``{"w_rec", "w_in"}``
+    (each (R, C, n, n)), as float32 tensors on ``device`` (``None``: the
+    CUDA card)."""
+    dev = resolve_device(device)
+    out = {k: _f32(params[k], 4, k).to(dev) for k in ("w_rec", "w_in")}
+    if out["w_rec"].shape != out["w_in"].shape:
+        raise ValueError("w_rec and w_in must share one (R, C, n, n) shape")
+    return out
+
+
+def cosim_weights_from_reference(w) -> torch.Tensor:
+    """``CosimEngine(weights=)`` from the reference engine's projection
+    weights (its ``_w_np``, (n_proj, n, n)): a float32 CPU tensor (the
+    engine moves it to its device)."""
+    return _f32(w, 3, "cosim weights")

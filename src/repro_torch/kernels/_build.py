@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources under ``csrc/`` have a plain C interface, so one ``nvcc``
-call per source (each its own library) builds them in seconds, with no
-PyTorch headers:
+The sources under ``csrc/`` (``fabric_queue.cu``,
+``fabric_queue_multistep.cu``, ``lif_step.cu``) have a plain C
+interface, so one ``nvcc`` call per source (each its own library)
+builds them in seconds, with no PyTorch headers:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o <build>/fabric_queue-<hash>.so csrc/fabric_queue.cu
@@ -37,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
 #: ctypes signatures of the C entry points, by library
 SIGNATURES = {
@@ -49,6 +52,9 @@ SIGNATURES = {
         "fabric_queue_multistep_smem_bytes": [_I, _I],
         "fabric_queue_multistep_smem_limit": [_PI],
         "fabric_queue_multistep_launch": [_P] * 14 + [_I] * 10 + [_P],
+    },
+    "lif_step": {
+        "lif_step_launch": [_P, _P, _LL, _F, _F, _F, _P, _P, _P],
     },
 }
 
@@ -107,6 +113,26 @@ def load(name: str) -> ctypes.CDLL:
     err.restype = ctypes.c_char_p
     lib.error_string = err
     return lib
+
+
+def check_operands(name: str, dev: torch.device, dtype: torch.dtype,
+                   **tensors) -> None:
+    """Refuse operands a C entry point cannot take: another device than
+    the current CUDA one (the entry launches there, rather than
+    switching devices on every launch), another dtype, or a strided
+    layout."""
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors are on {dev} but the current "
+                         f"CUDA device is {torch.cuda.current_device()}")
+    for arg, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

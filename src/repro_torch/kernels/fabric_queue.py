@@ -78,19 +78,7 @@ _I32 = torch.int32
 
 
 def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
-    # the C entry launches on the current device: refuse another one
-    # rather than switching devices on every launch
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: tensors are on {dev} but the current "
-                         f"CUDA device is {torch.cuda.current_device()}")
-    for arg, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
-                             f"{dev}")
-        if t.dtype != _I32:
-            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
+    _build.check_operands(name, dev, _I32, **tensors)
 
 
 def fabric_queue_step(q_time: torch.Tensor, q_dest: torch.Tensor,

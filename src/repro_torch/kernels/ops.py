@@ -3,8 +3,8 @@
 A CUDA tensor goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain version in ``ref``.  There is no
 environment override and no fallback: on the card the plain path is
-reached only through ``engine="reference"``, which calls ``ref``
-directly.
+reached only when the caller asks for it — ``engine="reference"`` of the
+fabric, which calls ``ref`` directly.
 """
 
 from __future__ import annotations
@@ -12,10 +12,11 @@ from __future__ import annotations
 import torch
 
 from . import fabric_queue as fq
+from . import lif_step as lk
 from . import ref
 
 __all__ = ["fabric_queue_scan", "fabric_queue_update",
-           "fabric_queue_multistep"]
+           "fabric_queue_multistep", "lif_step"]
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -55,3 +56,12 @@ def fabric_queue_multistep(carry, consts, base, *, step_fn, chunk: int,
                                          max_burst=max_burst)
     return ref.fabric_queue_multistep(carry, consts, base, step_fn=step_fn,
                                       chunk=chunk, max_steps=max_steps)
+
+
+def lif_step(v, i_syn, *, decay: float = 0.9, v_th: float = 1.0,
+             v_reset: float = 0.0):
+    """Fused LIF update on (rows, lanes) float32 state; returns
+    ``(v_next, spikes)``."""
+    if not _on_cuda(v, "lif_step"):
+        return ref.lif_step(v, i_syn, decay, v_th, v_reset)
+    return lk.lif_step(v, i_syn, decay=decay, v_th=v_th, v_reset=v_reset)

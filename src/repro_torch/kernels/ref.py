@@ -3,21 +3,50 @@
 ``fabric_queue_scan`` / ``fabric_queue_update`` are the per-micro-
 transaction queue step of the slot engine, ported from the reference
 ``kernels/ref.py``; ``fabric_queue_multistep`` is one launch of the
-multi-step kernel, a loop of an injected step over the packed carry.
+multi-step kernel, a loop of an injected step over the packed carry;
+``lif_step`` is the LIF membrane update.
 ``q_time`` is (Q, C) int32 release times with ``BIG_NS`` (2**30)
 marking empty/consumed one-shot slots; ``t_q`` is the (Q,) per-queue
-clock.  The CUDA kernels in ``fabric_queue.py`` must match these bit
-for bit.  They run on any device: the CPU path of the
+clock.  The CUDA kernels in ``fabric_queue.py`` and ``lif_step.py`` must
+match these bit for bit.  They run on any device: the CPU path of the
 engine, and ``engine="reference"`` on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.protocol_sim import BIG_NS
 
 _I32 = torch.int32
+
+
+def lif_step(v: torch.Tensor, i_syn: torch.Tensor, decay: float,
+             v_th: float, v_reset: float):
+    """Fused LIF update on float32 state: ``v2 = v * decay + i_syn``,
+    ``spike = v2 >= v_th``, ``v_next = v_reset where spike else v2``.
+    Returns ``(v_next, spikes)``, spikes 0.0 / 1.0 in float32.
+
+    ``v2`` is rounded ONCE, as a fused multiply-add: the reference's
+    running paths call its LIF update under ``jax.jit``, and XLA
+    contracts ``v * decay + i`` into one FMA (the reference's
+    ``ref.lif_step`` called eagerly rounds twice and is not what runs).
+    The product of two float32 values is exact in float64, so
+    ``(v.double() * decay + i.double()).float()`` is that FMA, except
+    where the float64 sum itself rounds and the second rounding to
+    float32 lands on the other neighbour (a double rounding, about one
+    input in 2**29).  ``decay``, ``v_th`` and ``v_reset`` are rounded to
+    float32 first, as the reference's ``jnp.asarray(x, v.dtype)`` does.
+    """
+    if v.dtype != torch.float32 or i_syn.dtype != torch.float32:
+        raise TypeError(f"lif_step takes float32 state, got {v.dtype} and "
+                        f"{i_syn.dtype}")
+    d, th, rst = (float(np.float32(x)) for x in (decay, v_th, v_reset))
+    v2 = (v.double() * d + i_syn.double()).float()
+    spike = v2 >= th
+    v_next = torch.where(spike, torch.full_like(v2, rst), v2)
+    return v_next, spike.to(torch.float32)
 
 
 def fabric_queue_scan(q_time: torch.Tensor, q_dest: torch.Tensor,

@@ -8,8 +8,15 @@ to ``BIG_NS``, clocks at or past it, and lanes whose queue id is >= Q.
 The multi-step cases are packed carries from real plans of the
 chip_smoke cells (``multistep_cases``), with the helpers that build
 them and run the kernel and its plain version over a launch schedule.
-Only numpy is imported at module level; ``repro_torch`` inside the
-functions that need it."""
+The LIF cases (``lif_case``) hold membranes that land exactly on the
+threshold and one ulp either side, and inputs where one rounding of
+``v * decay + i`` and two roundings disagree; ``fma_f32`` is the exact
+single-rounded update they are checked with.  ``COSIM_RING`` and
+``SNN_FIG6`` are the configurations of chip_smoke's co-simulation and
+SNN phases.  Only numpy is imported at module level; ``repro_torch``
+inside the functions that need it."""
+
+from fractions import Fraction
 
 import numpy as np
 
@@ -262,3 +269,167 @@ def carry_err(a, b, n_log):
         d = (x.long() - y.long().to(x.device)).abs()
         worst = max(worst, int(d.max()) if d.numel() else 0)
     return worst
+
+
+# --- the LIF update's cases ----------------------------------------------
+
+#: (decay, v_th, v_reset) of the LIF cases
+LIF_PARAMS = ((0.9, 1.0, 0.0), (0.5, 0.3, 0.0), (1.0, 1.0, -0.2))
+#: (rows, lanes) of the CPU parity tests
+LIF_SHAPES = ((8, 128), (16, 128), (32, 256), (8, 384))
+#: the card's shapes: the tests', the SNN 4x4x256 state and a large one
+LIF_CARD_SHAPES = LIF_SHAPES + ((32, 128), (65536, 128))
+
+_F32 = np.float32
+
+
+def f32_round(x: Fraction) -> np.float32:
+    """The float32 nearest to the exact rational ``x`` (ties to even)."""
+    c = np.float32(float(x))          # within one float32 ulp of x
+    best = None
+    for y in (np.nextafter(c, _F32(-np.inf)), c,
+              np.nextafter(c, _F32(np.inf))):
+        if not np.isfinite(y):
+            continue
+        err = abs(Fraction(float(y)) - x)
+        even = int(np.asarray(y).view(np.int32)) % 2 == 0
+        if best is None or err < best[0] or (err == best[0] and even):
+            best = (err, y)
+    return best[1]
+
+
+def fma_f32(v, decay, i) -> np.float32:
+    """``v * decay + i`` rounded once to float32, exactly (finite
+    inputs; ``decay`` is rounded to float32 first)."""
+    return f32_round(Fraction(float(v)) * Fraction(float(_F32(decay)))
+                     + Fraction(float(i)))
+
+
+def _near_target(rng, decay, v_th, target, k):
+    """``k`` (v, i) pairs whose single-rounded ``v * decay + i`` is
+    exactly ``target``: v in a band that keeps ``i`` below the
+    threshold, ``i`` stepped an ulp at a time around ``target - v·d``."""
+    d = _F32(decay)
+    out = []
+    while len(out) < k:
+        v = _F32(rng.uniform(0.2, 0.8) * v_th / float(d))
+        i0 = _F32(float(target) - float(v) * float(d))
+        for step in range(-8, 9):
+            i = i0
+            for _ in range(abs(step)):
+                i = np.nextafter(i, _F32(np.inf if step > 0 else -np.inf))
+            if fma_f32(v, d, i) == target:
+                out.append((v, i))
+                break
+    return out
+
+
+def _rounding_splits(rng, decay, v_th, k, flip):
+    """``k`` (v, i) pairs where one rounding and two roundings of
+    ``v * decay + i`` disagree; with ``flip`` also on which side of
+    ``v_th`` they land (the spike flips)."""
+    d = _F32(decay)
+    out = []
+    while len(out) < k:
+        if flip:
+            v = _F32(rng.uniform(0.2, 0.8) * v_th / float(d))
+            i0 = _F32(float(v_th) - float(v) * float(d))
+            cand = [i0]
+            for _ in range(16):
+                cand.append(np.nextafter(cand[-1], _F32(np.inf)))
+                cand.insert(0, np.nextafter(cand[0], _F32(-np.inf)))
+        else:
+            v = _F32(rng.uniform(-0.5, 1.2))
+            cand = [_F32(rng.uniform(-0.2, 0.6))]
+        for i in cand:
+            one = fma_f32(v, d, i)
+            two = _F32(_F32(v * d) + i)
+            if one != two and (not flip
+                               or (one >= _F32(v_th)) != (two >= _F32(v_th))):
+                out.append((v, i))
+                break
+    return out
+
+
+def lif_case(seed, shape, decay, v_th, v_reset):
+    """Seeded float32 ``(v, i_syn)`` of ``shape``: random membranes and
+    currents, with edge elements at the front — updates landing exactly
+    on ``v_th`` and one ulp either side, ±inf membranes, and (for a
+    decay whose products round) inputs where one and two roundings
+    disagree, some of them across the threshold.  ``v_reset`` does not
+    shape the inputs; it is in the signature so a case names all of the
+    update's parameters."""
+    del v_reset
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(-0.5, 1.2, shape).astype(_F32)
+    i = rng.uniform(-0.2, 0.6, shape).astype(_F32)
+    th = _F32(v_th)
+    pairs = []
+    for target in (th, np.nextafter(th, _F32(-np.inf)),
+                   np.nextafter(th, _F32(np.inf))):
+        pairs += _near_target(rng, decay, v_th, target, 6)
+    pairs += [(_F32(np.inf), _F32(0.25)), (_F32(-np.inf), _F32(0.25))]
+    if np.frexp(np.float64(_F32(decay)))[0] != 0.5:
+        # decay is no power of two, so v * decay can round: one and two
+        # roundings of the update can differ
+        pairs += _rounding_splits(rng, decay, v_th, 12, flip=False)
+        pairs += _rounding_splits(rng, decay, v_th, 6, flip=True)
+    vf, i_f = v.reshape(-1), i.reshape(-1)
+    for k, (a, b) in enumerate(pairs):
+        vf[k], i_f[k] = a, b
+    return v, i
+
+
+def lif_cases(shapes=LIF_SHAPES, params=LIF_PARAMS):
+    """``[(name, v, i_syn, decay, v_th, v_reset)]`` over ``shapes`` x
+    ``params``, each seeded by its position."""
+    out = []
+    for si, shape in enumerate(shapes):
+        for pi, (d, th, rst) in enumerate(params):
+            v, i = lif_case(1000 + 10 * si + pi, shape, d, th, rst)
+            out.append((f"{shape[0]}x{shape[1]}_d{d}_th{th}_r{rst}", v, i,
+                        d, th, rst))
+    return out
+
+
+def lif_exact(v, i, decay, v_th, v_reset):
+    """The update of one element, exactly: ``(v_next, spike)`` float32
+    from the single-rounded :func:`fma_f32`."""
+    v2 = fma_f32(v, decay, i)
+    spike = bool(v2 >= _F32(v_th))
+    return (_F32(v_reset) if spike else v2), _F32(spike)
+
+
+def lif_double_roundings(v, i, decay, v_th, v_reset, got, plain):
+    """Elements where the kernel's ``got = (v_next, spikes)`` and the
+    plain version's ``plain`` differ, each checked against
+    :func:`lif_exact`.  Returns ``(n_confirmed, n_unexplained)``: a
+    confirmed element is one where ``got`` is exact and ``plain`` is not
+    (the float64 route rounded twice)."""
+    def bits(a):
+        return np.ascontiguousarray(a, _F32).reshape(-1).view(np.int32)
+
+    diff = np.flatnonzero((bits(got[0]) != bits(plain[0]))
+                          | (bits(got[1]) != bits(plain[1])))
+    vf, i_f = v.reshape(-1), i.reshape(-1)
+    ok = 0
+    for k in diff:
+        want = lif_exact(vf[k], i_f[k], decay, v_th, v_reset)
+        g = (got[0].reshape(-1)[k], got[1].reshape(-1)[k])
+        p = (plain[0].reshape(-1)[k], plain[1].reshape(-1)[k])
+        if g == want and p != want:
+            ok += 1
+    return ok, len(diff) - ok
+
+
+# --- the co-simulation and SNN phases ------------------------------------
+
+#: the closed-loop co-simulation cell: ``COSIM_RING`` of
+#: benchmarks/fabric_sweep.py:412 (the reference's key 9 becomes the
+#: generator seed 9): a recurrent SNN on ring-16, 128 neurons a chip,
+#: credit flow at capacity 96, input rate 0.06, 24 ticks
+COSIM_RING = dict(n_chips=16, seed=9, capacity=96, input_rate=0.06,
+                  ticks=24)
+#: the Fig. 6 chip array of benchmarks/paper_benches.py:136-139: a 4x4
+#: grid of 256-neuron chips, 50 ticks (key 0 -> seed 0)
+SNN_FIG6 = dict(grid=(4, 4), neurons=256, ticks=50, seed=0)

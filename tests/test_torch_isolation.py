@@ -24,7 +24,10 @@ def test_import_pulls_in_neither_jax_nor_reference():
     mods = ["repro_torch", "repro_torch.interop", "repro_torch.core.fabric",
             "repro_torch.core.network", "repro_torch.core.protocol_sim",
             "repro_torch.core.traffic", "repro_torch.core.telemetry",
-            "repro_torch.kernels.ops", "repro_torch.kernels._build"]
+            "repro_torch.kernels.ops", "repro_torch.kernels._build",
+            "repro_torch.core.events", "repro_torch.kernels.lif_step",
+            "repro_torch.models.snn", "repro_torch.cosim",
+            "repro_torch.cosim.traffic_bridge"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"
@@ -50,8 +53,11 @@ def test_sources_import_neither(path):
 def test_default_device_needs_cuda(monkeypatch):
     """``device=None`` means the card: without CUDA every entry point
     raises instead of quietly running on the CPU."""
+    from repro_torch import cosim, interop
     from repro_torch.core import fabric, network, protocol_sim, router
     from repro_torch.core.traffic import TrafficSpec
+    from repro_torch.cosim.traffic_bridge import spike_traffic
+    from repro_torch.models import snn
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = TrafficSpec(*(torch.tensor(a, dtype=torch.int32)
                          for a in ([0], [0], [1])))
@@ -64,3 +70,17 @@ def test_default_device_needs_cuda(monkeypatch):
         protocol_sim.simulate(np.zeros(1, np.int32), np.zeros(1, np.int32))
     with pytest.raises(RuntimeError, match="CUDA"):
         fabric.Fabric(topo, device="cuda")
+    pl = cosim.place([cosim.Population("a"), cosim.Population("b")],
+                     [cosim.Projection(0, (1,))], topo)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pl.fabric()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cosim.CosimEngine(pl)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        snn.init_snn(snn.SnnConfig(grid=(1, 2), neurons=128),
+                     torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spike_traffic(torch.Generator(), 2, 4)
+    w = np.zeros((1, 2, 128, 128), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.snn_params_from_reference({"w_rec": w, "w_in": w})
