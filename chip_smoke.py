@@ -11,7 +11,7 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 
 1. device    — name, capability (must be 9.0), nvidia-smi name and power
                limit (also printed raw on a line of its own);
-2. build     — the three libraries, one nvcc each, started together:
+2. build     — the five libraries, one nvcc each, started together:
                seconds and ptxas's resource report;
 3. kernels   — the per-step pair (B1, B2) against their plain PyTorch
                versions on the card, bit for bit, at (Q, C) in {(4, 7),
@@ -66,7 +66,35 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 11. snn_fig6 — the Fig. 6 chip array (4x4 chips of 256 neurons, 50
                ticks): 50 B4 launches, finite bus figures, ms per tick;
 12. profile_cosim — torch.profiler windows of the closed loop and of
-               the Fig. 6 array: device-busy share and time by kernel.
+               the Fig. 6 array: device-busy share and time by kernel;
+13. aer      — the AER encoder (B5) and decoder (B6) against their plain
+               versions on the card, bit for bit with NaN where NaN, on
+               every case of tests/_torch_cases.py::aer_cases (float32
+               and bfloat16, budget overflow, zero / NaN / infinite
+               thresholds, -0.0 rows, rows with infinities and NaNs,
+               duplicate and out-of-range decode addresses, blocks of
+               384 and 4999, 65536-entry rows whose decode row leaves
+               shared memory, the full-width (16384, 1024) weight and
+               the 8-peer decode (131072, 128) -> (131072, 1024)); then
+               both timed at (16384, 1024), budget 128, beside their
+               bounds, plain versions and, for B6, scatter_add_;
+14. aer_granite3_2b_layer — the slice's main path: five
+               ``reduce_gradients(mode="aer_topk")`` steps over one
+               granite-3.0-2b decoder layer's gradients (60.8 M float32
+               entries, 9 leaves, fresh seeded draws each step) in a
+               world of one over NCCL (an in-process HashStore, no
+               network): exact conservation ``y == residual' + decoded``
+               for every leaf, decoded values equal to y, the reduced
+               value and residual' of every leaf equal bit for bit to
+               the plain encoder and decoder's on the same tiles and
+               thresholds, wire words equal to the events decoded, to
+               the plain encoder's count and to min(mask total, budget)
+               summed over blocks, exactly one B5 and one B6
+               launch per leaf per step and no other kernel; ms per step
+               and a profiled step's device-busy share;
+15. aer_compress_feedback — ``compress_with_feedback`` at its defaults
+               on the ffn.wg.w gradient: exact mass conservation, one B5
+               and one B6 launch.
 
 Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -145,11 +173,13 @@ def _device_rows(prof):
     """``(device us, name, count)`` of the profile's device-side rows
     (kernels and copies), largest first.  Operator rows (``aten::...``)
     also carry the device time of the kernels they launched, so summing
-    every row would count that time twice."""
+    every row would count that time twice; so does the schedule's
+    ``ProfilerStep#`` range, which spans its step on the device."""
     from torch.autograd import DeviceType
     return sorted(((_device_us(e), e.key, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and _device_us(e) > 0),
+                   if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+                   and not e.key.startswith("ProfilerStep")),
                   reverse=True)
 
 
@@ -191,7 +221,8 @@ def phase_device():
     return name, smi
 
 
-LIBRARIES = ("fabric_queue", "fabric_queue_multistep", "lif_step")
+LIBRARIES = ("fabric_queue", "fabric_queue_multistep", "lif_step",
+             "aer_encode", "aer_decode")
 
 
 def phase_build():
@@ -673,20 +704,23 @@ def phase_profile(spec, kw, engine="pallas", steps=300, label="profile"):
                "calls_per_step": c / steps} for us, k, c in rows[:12]])
 
 
-def _counts_zero():
+def _wrappers():
+    from repro_torch.kernels import aer_decode as adk
+    from repro_torch.kernels import aer_encode as aek
     from repro_torch.kernels import fabric_queue as fq
     from repro_torch.kernels import lif_step as lk
-    for f in (fq.fabric_queue_step, fq.fabric_queue_update,
-              fq.fabric_queue_multistep, lk.lif_step):
+    return (fq.fabric_queue_step, fq.fabric_queue_update,
+            fq.fabric_queue_multistep, lk.lif_step, aek.aer_encode,
+            adk.aer_decode)
+
+
+def _counts_zero():
+    for f in _wrappers():
         f.launches = 0
 
 
 def _counts() -> dict:
-    from repro_torch.kernels import fabric_queue as fq
-    from repro_torch.kernels import lif_step as lk
-    return {f.__name__: f.launches for f in (
-        fq.fabric_queue_step, fq.fabric_queue_update,
-        fq.fabric_queue_multistep, lk.lif_step)}
+    return {f.__name__: f.launches for f in _wrappers()}
 
 
 def phase_lif_kernel():
@@ -860,9 +894,10 @@ def phase_cosim():
           f"cosim: closed loop diverged from open by {divergence} "
           f"(< {MIN_COSIM_DIVERGENCE})")
     check(launches == {"fabric_queue_step": 0, "fabric_queue_update": 0,
-                       "fabric_queue_multistep": want_b3, "lif_step": T},
+                       "fabric_queue_multistep": want_b3, "lif_step": T,
+                       "aer_encode": 0, "aer_decode": 0},
           f"cosim: launches {launches}, expected {T} lif_step and "
-          f"{want_b3} fabric_queue_multistep, no per-step kernel")
+          f"{want_b3} fabric_queue_multistep, no other kernel")
     return launches, wall / T * 1e3, open_wall / T * 1e3
 
 
@@ -898,37 +933,59 @@ def phase_snn_fig6():
     return launches["lif_step"], wall / T * 1e3
 
 
-def _profile_ticks(label: str, run, T: int) -> None:
+COSIM_GROUPS = {"lif_step (B4)": ("lif_step",),
+                "fabric_queue_multistep (B3)": ("fabric_queue_multistep",),
+                "matvec": ("gemv", "gemm", "dot_kernel", "cublas"),
+                "copies": ("Memcpy", "memcpy", "copy")}
+
+
+def _profile_ticks(label: str, run, T: int, groups=None,
+                   unit: str = "tick") -> dict:
     """Device-busy share and device time by kernel (and by group) over a
-    profiled ``run()`` of ``T`` ticks."""
+    profiled ``run()`` of ``T`` ticks (or steps: ``unit``).
+
+    The recorded window is the second step of the profiler's schedule:
+    the first, a one-element add, only warms it up, because kernels
+    launched right after the profiler starts can go unrecorded (a
+    one-step window of the AER layer once showed 7 of its 9 B5
+    launches)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
+    u = unit
     if busy_us == 0:
-        emit(label, ticks=T, wall_s=wall, device_busy="not measured")
-        return
-    groups = {"lif_step (B4)": ("lif_step",),
-              "fabric_queue_multistep (B3)": ("fabric_queue_multistep",),
-              "matvec": ("gemv", "gemm", "dot_kernel", "cublas"),
-              "copies": ("Memcpy", "memcpy", "copy")}
+        emit(label, **{f"{u}s": T}, wall_s=wall, device_busy="not measured")
+        return {"device_busy_share": None}
+    groups = groups or COSIM_GROUPS
     by_group = {g: sum(us for us, k, _ in rows
                        if any(p in k for p in pats)) / T
                 for g, pats in groups.items()}
-    emit(label, ticks=T, wall_s=wall, ms_per_tick=wall / T * 1e3,
-         device_busy_us_per_tick=busy_us / T,
-         device_busy_share=busy_us / (wall * 1e6),
-         us_per_tick_by_group=by_group,
-         kernels_per_tick=sum(r[2] for r in rows) / T,
-         op_rows_device_us_per_tick=_op_rows_us(prof) / T,
-         top=[{"kernel": k[:80], "us_per_tick": us / T,
-               "calls_per_tick": c / T} for us, k, c in rows[:12]])
+    calls_by_group = {g: sum(c for _, k, c in rows
+                             if any(p in k for p in pats)) / T
+                      for g, pats in groups.items()}
+    out = {f"{u}s": T, "wall_s": wall, f"ms_per_{u}": wall / T * 1e3,
+           f"device_busy_us_per_{u}": busy_us / T,
+           "device_busy_share": busy_us / (wall * 1e6),
+           f"us_per_{u}_by_group": by_group,
+           f"calls_per_{u}_by_group": calls_by_group,
+           f"kernels_per_{u}": sum(r[2] for r in rows) / T,
+           f"op_rows_device_us_per_{u}": _op_rows_us(prof) / T,
+           "top": [{"kernel": k[:80], f"us_per_{u}": us / T,
+                    f"calls_per_{u}": c / T} for us, k, c in rows[:12]]}
+    emit(label, **out)
+    return out
 
 
 def phase_profile_cosim():
@@ -958,6 +1015,282 @@ def phase_profile_cosim():
     T = SNN_FIG6["ticks"]
     _profile_ticks("profile_snn_fig6",
                    lambda: snn.run_snn(params, scfg, st, T), T)
+
+
+# --- the AER payload path (B5, B6) -----------------------------------------
+
+AER_NB, AER_BLOCK, AER_BUDGET = 16384, 1024, 128   # one granite MLP weight
+AER_FRAC = 0.02                                    # RunConfig.aer_frac
+AER_STEPS = 5
+
+
+def _host(t):
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+def _abs_err(want, got) -> float:
+    """Largest |want - got| over the elements both hold as numbers."""
+    import numpy as np
+    w, g = _host(want).astype(np.float64), _host(got).astype(np.float64)
+    both = np.isfinite(w) & np.isfinite(g)
+    return float(np.abs(w[both] - g[both]).max(initial=0.0))
+
+
+def phase_aer_kernels():
+    """B5 and B6 against their plain versions on the card, bit for bit
+    (NaN where NaN), on every ``aer_cases`` shape; then both timed at
+    (16384, 1024), budget 128."""
+    import torch
+    from repro_torch.kernels import aer_decode as adk
+    from repro_torch.kernels import aer_encode as aek
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+    from _torch_cases import aer_arrays, aer_mismatches, aer_specs
+    dev = torch.device("cuda", 0)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases, bad = [], 0
+    worst = {"aer_encode": 0.0, "aer_decode": 0.0}
+    seen = {"nan_slots": 0, "overflow_rows": 0, "zero_tau_rows": 0,
+            "bf16_cases": 0, "nan_dense": 0}
+    for spec in aer_specs(card=True):
+        name, kind, nb, block, budget, dtype = spec
+        a, b, n = aer_arrays(spec)
+        dt = dts[dtype]
+        if kind == "encode":
+            x, tau = (torch.from_numpy(v).to(dev).to(dt) for v in (a, b))
+            got = aek.aer_encode(x, tau, n)
+            want = ref.aer_encode(x, tau, n)
+            dec = (ref.aer_decode(want[0], want[1], block),
+                   adk.aer_decode(got[0], got[1], block))
+            pairs = {"aer_encode": list(zip(want, got)),
+                     "aer_decode": [dec]}
+            seen["nan_slots"] += int(torch.isnan(want[1].float()).sum())
+            seen["overflow_rows"] += int((want[3] > want[2]).sum())
+            seen["zero_tau_rows"] += int((tau == 0).sum())
+        else:
+            idx = torch.from_numpy(a).to(dev)
+            val = torch.from_numpy(b).to(dev).to(dt)
+            pairs = {"aer_decode": [(ref.aer_decode(idx, val, n),
+                                     adk.aer_decode(idx, val, n))]}
+        torch.cuda.synchronize()
+        mism = 0
+        for kname, ps in pairs.items():
+            for w, g in ps:
+                check(w.dtype == g.dtype and w.shape == g.shape,
+                      f"{name}: {kname} dtype or shape differs")
+                mism += aer_mismatches(_host(w), _host(g))
+                worst[kname] = max(worst[kname], _abs_err(w, g))
+        dense = pairs["aer_decode"][-1][0]
+        seen["nan_dense"] += int(torch.isnan(dense.float()).sum())
+        seen["bf16_cases"] += dtype == "bfloat16"
+        bad += mism
+        cases.append({"case": name, "nb": nb, "block": block,
+                      "budget": budget, "mismatches": mism})
+    emit("aer_vs_plain", cases=cases, mismatches=bad, edges=seen,
+         max_abs_err=worst, equal=bad == 0)
+    check(bad == 0, f"AER kernels disagree with their plain versions on "
+                    f"{bad} element(s)")
+    check(all(v > 0 for v in seen.values()),
+          f"an AER edge case never occurred: {seen}")
+
+    # times at one full-width weight, the main path's frac and budget
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((AER_NB, AER_BLOCK), generator=g, device=dev)
+    tau = K.tau_from_fraction(x, AER_FRAC)
+    idx, val, count, _ = aek.aer_encode(x, tau, AER_BUDGET)
+    col = torch.where(idx < 0, AER_BLOCK, idx).long()
+    calls = {
+        "aer_encode": (lambda: aek.aer_encode(x, tau, AER_BUDGET),
+                       lambda: ref.aer_encode(x, tau, AER_BUDGET), None),
+        "aer_decode": (lambda: adk.aer_decode(idx, val, AER_BLOCK),
+                       lambda: ref.aer_decode(idx, val, AER_BLOCK),
+                       # the nearest library call: a scatter-add into
+                       # zeroed rows with one spare column for the voids
+                       lambda: torch.zeros((AER_NB, AER_BLOCK + 1),
+                                           device=dev).scatter_add_(
+                                               1, col, val)),
+    }
+    nb, blk, bud = AER_NB, AER_BLOCK, AER_BUDGET
+    bounds = {"aer_encode": nb * blk * 4 + nb * 4 + nb * bud * 8 + nb * 8,
+              "aer_decode": nb * bud * 8 + nb * blk * 4}
+    out = {}
+    for kname, (kern, plain, lib) in calls.items():
+        dms, pdms = device_ms(kern, n=200), device_ms(plain, n=5)
+        lms = device_ms(lib, n=200) if lib is not None else None
+        seen_dev = dms is not None and pdms is not None
+        byts = bounds[kname]
+        out[kname] = {
+            "ms": dms if seen_dev else time_ms(kern, n=200, warm=20),
+            "plain_ms": pdms if seen_dev else time_ms(plain, n=5, warm=1),
+            "library_ms": lms if lib is None or lms is not None
+            else time_ms(lib, n=200, warm=20),
+            "ms_source": ("profiler device time per call" if seen_dev
+                          else "CUDA events, back-to-back calls"),
+            "call_ms": time_ms(kern, n=200, warm=20),
+            "bound_ms": byts / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": byts, "max_abs_err": worst[kname]}
+    emit("aer_kernel_time",
+         shape={"nb": nb, "block": blk, "budget": bud, "frac": AER_FRAC,
+                "events": int(count.sum())},
+         kernels=out,
+         library={"aer_encode": "none: no single PyTorch call compacts "
+                                "a thresholded row into slots",
+                  "aer_decode": "torch.zeros + scatter_add_ into "
+                                "(nb, block + 1)"})
+    return out
+
+
+def _layer_grads(step: int):
+    """Seeded float32 gradients of one granite-3.0-2b decoder layer, made
+    on the card (a fresh draw each step)."""
+    import torch
+    from _torch_cases import GRANITE_3_2B_LAYER
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1000 + step)
+
+    def make(tree):
+        if isinstance(tree, dict):
+            return {k: make(tree[k]) for k in sorted(tree)}
+        return torch.randn(tree, generator=g, device=dev) * 1e-3
+    return make(GRANITE_3_2B_LAYER)
+
+
+def _leaf_vs_plain(g, residual, red, new_residual):
+    """One leaf of one ``aer_topk`` step in a world of one, held against
+    the plain encoder and decoder on the same tiles and thresholds:
+    ``(reduced equal, residual' equal, events, events wanted)``.  The
+    reduced value and the new residual must equal, bit for bit, what
+    ``ref.aer_decode(ref.aer_encode(...))`` gives; ``wanted`` is also
+    counted straight from the mask, apart from either encoder."""
+    import torch
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+    y = g + residual
+    tiles, size = K.pad_to_blocks(y, AER_BLOCK)
+    tau = K.tau_from_fraction(tiles, AER_FRAC)
+    idx, val, count, wanted = R.aer_encode(tiles, tau, AER_BUDGET)
+    mask_total = ((tiles.abs() >= tau[:, None]) & (tiles != 0)).sum(
+        1, dtype=torch.int32)
+    check(torch.equal(wanted, mask_total),
+          "plain encoder's wanted != the mask's row totals")
+    dec = R.aer_decode(idx, val, AER_BLOCK)
+    return (torch.equal(red, K.unpad_from_blocks(dec, size, g.shape)),
+            torch.equal(new_residual,
+                        K.unpad_from_blocks(tiles - dec, size, g.shape)),
+            int(count.sum()), int(torch.clamp(mask_total,
+                                              max=AER_BUDGET).sum()))
+
+
+def phase_aer_layer():
+    """The slice's main path: ``reduce_gradients(mode="aer_topk")`` over
+    one granite-3.0-2b decoder layer, five steps in a world of one
+    (NCCL, an in-process HashStore), then one profiled step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import sparse_collectives as sc
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        grads = [_layer_grads(t) for t in range(AER_STEPS + 1)]
+        n_leaves = len(sc.tree_leaves(grads[0]))
+        n_entries = sum(t.numel() for t in sc.tree_leaves(grads[0]))
+        states = sc.init_aer_states(grads[0])
+        torch.cuda.synchronize()
+        _counts_zero()
+        steps = []
+        for t in range(AER_STEPS):
+            t0 = time.perf_counter()
+            red, new, words = sc.reduce_gradients(
+                grads[t], states, mode="aer_topk", frac=AER_FRAC,
+                budget=AER_BUDGET)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            exact = shipped_ok = plain_ok = True
+            nonzero = plain_events = mask_events = 0
+            for g, st, r, ns in zip(*(sc.tree_leaves(v) for v in (
+                    grads[t], states, red, new))):
+                y = g + st.residual
+                exact &= bool(torch.equal(ns.residual + r, y))
+                on = r != 0
+                shipped_ok &= bool(torch.equal(r[on], y[on]))
+                nonzero += int(on.sum())
+                # the selection itself: what B5 shipped and B6 decoded
+                # equals the plain encoder and decoder on the same input
+                red_eq, res_eq, ev_, ev_mask = _leaf_vs_plain(
+                    g, st.residual, r, ns.residual)
+                plain_ok &= red_eq and res_eq
+                plain_events += ev_
+                mask_events += ev_mask
+            steps.append({"step": t, "ms": wall * 1e3,
+                          "wire_words": int(words), "decoded": nonzero,
+                          "plain_events": plain_events,
+                          "mask_events": mask_events,
+                          "conserved": exact, "shipped_equal_y": shipped_ok,
+                          "equal_plain": plain_ok})
+            check(exact, f"step {t}: residual' + decoded != y")
+            check(shipped_ok, f"step {t}: a decoded value differs from y")
+            check(plain_ok, f"step {t}: reduced or residual differs from "
+                            f"the plain encoder and decoder's")
+            check(int(words) == nonzero == plain_events == mask_events,
+                  f"step {t}: wire words {int(words)}, events decoded "
+                  f"{nonzero}, plain {plain_events}, from the mask "
+                  f"{mask_events} differ")
+            states = new
+        launches = _counts()
+        res_abs = float(sum(st.residual.abs().sum() for st in
+                            sc.tree_leaves(states)))
+        _profile_ticks("profile_aer_layer", lambda: sc.reduce_gradients(
+            grads[AER_STEPS], states, mode="aer_topk", frac=AER_FRAC,
+            budget=AER_BUDGET), 1, groups={
+                "aer_encode (B5)": ("aer_encode",),
+                "aer_decode (B6)": ("aer_decode",),
+                "sort (tau)": ("sort", "Sort", "radix"),
+                "copies": ("Memcpy", "memcpy", "copy"),
+                "nccl": ("nccl",)}, unit="step")
+        # the profiled step launched n_leaves B5 and B6 (its calls per
+        # step above say how many the profiler recorded)
+    finally:
+        dist.destroy_process_group()
+    ms = [s["ms"] for s in steps]
+    emit("aer_granite3_2b_layer", leaves=n_leaves, entries=n_entries,
+         blocks=sum(-(-t.numel() // AER_BLOCK)
+                    for t in sc.tree_leaves(grads[0])),
+         frac=AER_FRAC, budget=AER_BUDGET, world=1, steps=steps,
+         ms_per_step=sum(ms) / len(ms), ms_per_step_after_first=(
+             sum(ms[1:]) / len(ms[1:])), launches=launches,
+         residual_abs_sum=res_abs)
+    want = {"aer_encode": AER_STEPS * n_leaves,
+            "aer_decode": AER_STEPS * n_leaves}
+    check(all(launches[k] == v for k, v in want.items())
+          and all(v == 0 for k, v in launches.items() if k not in want),
+          f"launches {launches}, expected {want} and nothing else")
+    return launches, sum(ms[1:]) / len(ms[1:])
+
+
+def phase_aer_compress_feedback():
+    """``compress_with_feedback`` at its defaults (frac 0.05, budget
+    128, block 1024) on the ffn.wg.w gradient: exact conservation."""
+    import torch
+    from repro_torch.kernels import ops as K
+    x = _layer_grads(0)["ffn"]["wg"]["w"]
+    res = _layer_grads(1)["ffn"]["wg"]["w"] * 0.5
+    _counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev, new_res, n = K.compress_with_feedback(x, res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    dec = K.unpad_from_blocks(K.aer_decompress(ev), n, x.shape)
+    conserved = bool(torch.equal(dec + new_res, x + res))
+    emit("aer_compress_feedback", shape=list(x.shape), frac=0.05,
+         events=int(ev.count.sum()), wanted=int(ev.wanted.sum()),
+         wire_bytes=int(ev.wire_bytes()), dense_bytes=4 * x.numel(),
+         ms=wall * 1e3, launches=launches, conserved=conserved)
+    check(conserved, "compress_with_feedback: decoded + residual' != "
+                     "x + residual")
+    check(launches["aer_encode"] == 1 and launches["aer_decode"] == 1,
+          f"compress_with_feedback launches {launches}")
 
 
 def main() -> int:
@@ -1008,6 +1341,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_profile_cosim()
     torch.cuda.synchronize()
+    ktimes.update(phase_aer_kernels())
+    torch.cuda.synchronize()
+    aer_launches, aer_ms = phase_aer_layer()
+    torch.cuda.synchronize()
+    phase_aer_compress_feedback()
+    torch.cuda.synchronize()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
@@ -1015,18 +1354,26 @@ def main() -> int:
             "fabric_queue_multistep": (
                 ms_launches["full_ring16_credit"]["fabric_queue_multistep"],
                 bucket[:8] + ("multistep", 128)),
-            "lif_step": (cosim_launches["lif_step"], ("cosim_closed",))}
+            "lif_step": (cosim_launches["lif_step"], ("cosim_closed",)),
+            "aer_encode": (aer_launches["aer_encode"],
+                           ("aer_granite3_2b_layer",)),
+            "aer_decode": (aer_launches["aer_decode"],
+                           ("aer_granite3_2b_layer",))}
     source = {"fabric_queue_step": csrc + "fabric_queue.cu",
               "fabric_queue_update": csrc + "fabric_queue.cu",
               "fabric_queue_multistep": csrc + "fabric_queue_multistep.cu",
-              "lif_step": csrc + "lif_step.cu"}
+              "lif_step": csrc + "lif_step.cu",
+              "aer_encode": csrc + "aer_encode.cu",
+              "aer_decode": csrc + "aer_decode.cu"}
     replaces = {"fabric_queue_step":
                 "src/repro/kernels/fabric_queue.py:109",
                 "fabric_queue_update":
                 "src/repro/kernels/fabric_queue.py:195",
                 "fabric_queue_multistep":
                 "src/repro/kernels/fabric_queue.py:238",
-                "lif_step": "src/repro/kernels/lif_step.py:29"}
+                "lif_step": "src/repro/kernels/lif_step.py:29",
+                "aer_encode": "src/repro/kernels/aer_encode.py:67",
+                "aer_decode": "src/repro/kernels/aer_decode.py:39"}
     kernels = []
     for kname, k in ktimes.items():
         n_launch, path_bucket = main[kname]
@@ -1035,10 +1382,13 @@ def main() -> int:
             "replaces": replaces[kname], "launches": n_launch,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
+            "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms"),
             "equal": k["max_abs_err"] == 0, "us": k["ms"] * 1e3,
             "main_path_bucket": list(path_bucket)})
-    kernels[-1].update(launches_snn_fig6=snn_launches,
+    by_name = {k["name"]: k for k in kernels}
+    by_name["aer_decode"]["aer_layer_ms_per_step"] = aer_ms
+    by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],
                        cosim_closed_ms_per_tick=closed_ms,
                        cosim_open_ms_per_tick=open_ms,

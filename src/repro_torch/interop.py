@@ -9,7 +9,10 @@ arrays and hand them to :func:`from_reference` (fabric objects),
 per-tick drive goes to the engines as a bool array (``drive=``).
 Results come back through :func:`result_to_numpy`, so the two packages'
 outputs can be compared field for field (the reference's
-``network.assert_results_equal`` accepts the numpy result as is).
+``network.assert_results_equal`` accepts the numpy result as is).  The
+AER payload path takes the reference's error-feedback residuals
+(:func:`aer_states_from_reference`) and its event slots
+(:func:`event_blocks_from_reference`), bfloat16 values included.
 This module never imports the reference package: it only reads arrays.
 """
 
@@ -23,12 +26,15 @@ import torch
 from .core.link import LinkTiming
 from .core.network import FabricResult
 from .core.router import RoutingTable
+from .core.sparse_collectives import AerState, tree_map
 from .core.telemetry import Telemetry, _np
 from .core.traffic import TrafficSpec
 from .device import resolve_device
+from .kernels.ops import EventBlocks
 
 __all__ = ["Converted", "from_reference", "result_to_numpy",
-           "snn_params_from_reference", "cosim_weights_from_reference"]
+           "snn_params_from_reference", "cosim_weights_from_reference",
+           "aer_states_from_reference", "event_blocks_from_reference"]
 
 
 class Converted(NamedTuple):
@@ -108,3 +114,40 @@ def cosim_weights_from_reference(w) -> torch.Tensor:
     weights (its ``_w_np``, (n_proj, n, n)): a float32 CPU tensor (the
     engine moves it to its device)."""
     return _f32(w, 3, "cosim weights")
+
+
+def _tensor(a) -> torch.Tensor:
+    """A writable CPU tensor of the numpy array ``a``, dtype kept;
+    bfloat16 arrays (numpy's ``ml_dtypes`` type, which torch cannot
+    read) travel as their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def aer_states_from_reference(residuals, *, device=None):
+    """``AerState`` tree from the reference's residuals: a nested dict of
+    arrays (or of the reference's ``AerState``s, whose one field is the
+    residual) -> the same tree of ``AerState`` on ``device`` (``None``:
+    the CUDA card)."""
+    dev = resolve_device(device)
+
+    def one(r):
+        r = getattr(r, "residual", r)
+        return AerState(residual=_tensor(r).to(dev))
+
+    return tree_map(one, residuals)
+
+
+def event_blocks_from_reference(events, *, device=None) -> EventBlocks:
+    """``EventBlocks`` from the reference's ``(idx, val, count, wanted)``
+    arrays (its ``EventBlocks`` or any 4-sequence), on ``device``."""
+    dev = resolve_device(device)
+    idx, val, count, wanted = (_tensor(a) for a in events)
+    for name, t in (("idx", idx), ("count", count), ("wanted", wanted)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    return EventBlocks(idx.to(dev), val.to(dev), count.to(dev),
+                       wanted.to(dev))

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under ``csrc/`` (``fabric_queue.cu``,
-``fabric_queue_multistep.cu``, ``lif_step.cu``) have a plain C
-interface, so one ``nvcc`` call per source (each its own library)
-builds them in seconds, with no PyTorch headers:
+``fabric_queue_multistep.cu``, ``lif_step.cu``, ``aer_encode.cu``,
+``aer_decode.cu``) have a plain C interface, so one ``nvcc`` call per
+source (each its own library) builds them in seconds, with no PyTorch
+headers:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o <build>/fabric_queue-<hash>.so csrc/fabric_queue.cu
@@ -55,6 +56,13 @@ SIGNATURES = {
     },
     "lif_step": {
         "lif_step_launch": [_P, _P, _LL, _F, _F, _F, _P, _P, _P],
+    },
+    "aer_encode": {
+        "aer_encode_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    },
+    "aer_decode": {
+        "aer_decode_fits_shared": [_I, _PI],
+        "aer_decode_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -4,12 +4,14 @@
 transaction queue step of the slot engine, ported from the reference
 ``kernels/ref.py``; ``fabric_queue_multistep`` is one launch of the
 multi-step kernel, a loop of an injected step over the packed carry;
-``lif_step`` is the LIF membrane update.
+``lif_step`` is the LIF membrane update; ``aer_encode`` / ``aer_decode``
+are the AER payload path's event encoder and decoder.
 ``q_time`` is (Q, C) int32 release times with ``BIG_NS`` (2**30)
 marking empty/consumed one-shot slots; ``t_q`` is the (Q,) per-queue
-clock.  The CUDA kernels in ``fabric_queue.py`` and ``lif_step.py`` must
-match these bit for bit.  They run on any device: the CPU path of the
-engine, and ``engine="reference"`` on the card.
+clock.  The CUDA kernels in ``fabric_queue.py``, ``lif_step.py``,
+``aer_encode.py`` and ``aer_decode.py`` must match these bit for bit
+(NaN where NaN).  They run on any device: the CPU path, and
+``engine="reference"`` or a direct call on the card.
 """
 
 from __future__ import annotations
@@ -126,3 +128,84 @@ def fabric_queue_multistep(carry, consts, base, *, step_fn, chunk: int,
     for i in range(min(chunk, max_steps - b)):
         carry = tuple(step_fn(carry, consts, b + i))
     return carry
+
+
+# --- AER payload path: event encoder (TX) and decoder (RX) --------------
+#
+# The reference computes both as one-hot contractions in float32
+# (``src/repro/kernels/ref.py:26-58``): slot e of the encoder receives
+# ``x[b_e] + sum over b != b_e of 0 * x[b]``, and ``0 * inf`` and
+# ``0 * NaN`` are NaN.  So a non-finite entry anywhere in a row turns
+# every slot of the row into NaN except the one that holds it (idx,
+# count and wanted are unaffected); the decoder does the same with its
+# slots.  The functions below compute that rule explicitly, from a
+# per-row count of non-finite entries, by cumsum and scatter: the
+# reference's (nb, block, budget) one-hot would take 8.6 GB for one
+# full-width MLP weight.
+
+def aer_encode(x: torch.Tensor, tau: torch.Tensor, budget: int):
+    """Threshold-encode (nb, block) tiles into ``budget`` event slots.
+
+    Selects ``|x| >= tau & x != 0`` (zeros never ship) in index order
+    and keeps the first ``budget``; returns ``(idx, val, count,
+    wanted)``: ``idx`` (nb, budget) int32 block-local addresses (-1 for
+    a void slot), ``val`` (nb, budget) in x's dtype, ``count =
+    min(wanted, budget)`` and ``wanted`` (the row's selected total),
+    both (nb,) int32.  ``tau`` is (nb,) or one value, taken in x's
+    dtype.  ``val`` of a slot is NaN when the row holds a non-finite
+    entry at another position; a void slot is NaN when the row holds
+    any, else 0.
+    """
+    nb, block = x.shape
+    tau = torch.as_tensor(tau, device=x.device).to(x.dtype).reshape(-1, 1)
+    xf = x.float()
+    mask = (xf.abs() >= tau.float()) & (xf != 0)
+    csum = mask.to(torch.int32).cumsum(1, dtype=torch.int32)
+    wanted = csum[:, -1] if block else torch.zeros(
+        nb, dtype=torch.int32, device=x.device)
+    bad = ~torch.isfinite(xf)
+    nf = bad.sum(1, dtype=torch.int32)[:, None]
+    nan = torch.tensor(float("nan"), dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    # a spare last column takes every unselected entry, then is dropped
+    dest = torch.where(mask & (csum <= budget), csum - 1, budget).long()
+    pos = torch.arange(block, dtype=torch.int32,
+                       device=x.device).expand(nb, block)
+    idx = torch.full((nb, budget + 1), -1, dtype=torch.int32,
+                     device=x.device).scatter_(1, dest, pos)
+    val = torch.where(nf > 0, nan, zero).expand(nb, budget + 1).clone()
+    val.scatter_(1, dest, torch.where(nf - bad.to(torch.int32) > 0, nan, x))
+    return (idx[:, :budget].contiguous(), val[:, :budget].contiguous(),
+            torch.clamp(wanted, max=budget), wanted)
+
+
+def aer_decode(idx: torch.Tensor, val: torch.Tensor, block: int):
+    """Event slots -> dense (nb, block) in val's dtype.
+
+    ``dense[r, b] = sum of val[r, e] over the slots with idx[r, e] == b``;
+    a slot whose idx is < 0 (void) or >= block addresses nothing.  The
+    sum runs in float32 from +0 in slot order (so duplicate addresses
+    give the same bits every run) and is rounded once to val's dtype.
+    ``dense[r, b]`` is NaN when a slot of the row that is not addressed
+    to b holds a non-finite value.
+    """
+    nb, budget = idx.shape
+    dev = idx.device
+    valid = (idx >= 0) & (idx < block)
+    col = torch.where(valid, idx, block).long()      # spare column
+    vf = val.float()
+    acc = torch.zeros((nb, block + 1), dtype=torch.float32, device=dev)
+    rows = torch.arange(nb, device=dev)
+    for e in range(budget):       # one slot a row: no colliding targets
+        acc[rows, col[:, e]] += vf[:, e]
+    # the one address (if any) that holds every non-finite slot keeps
+    # its own sum; every other address of such a row is NaN
+    bad = ~torch.isfinite(vf)
+    nf = bad.sum(1)
+    lo = torch.where(bad, col, block + 1).amin(1) if budget else nf
+    hi = torch.where(bad, col, -1).amax(1) if budget else nf
+    keep = torch.where((nf > 0) & (lo == hi) & (lo < block), lo, -1)
+    b = torch.arange(block, device=dev)
+    poison = (nf[:, None] > 0) & (b[None, :] != keep[:, None])
+    dense = torch.where(poison, float("nan"), acc[:, :block])
+    return dense.to(val.dtype)

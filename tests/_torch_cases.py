@@ -13,8 +13,14 @@ threshold and one ulp either side, and inputs where one rounding of
 ``v * decay + i`` and two roundings disagree; ``fma_f32`` is the exact
 single-rounded update they are checked with.  ``COSIM_RING`` and
 ``SNN_FIG6`` are the configurations of chip_smoke's co-simulation and
-SNN phases.  Only numpy is imported at module level; ``repro_torch``
-inside the functions that need it."""
+SNN phases.  The AER cases (``aer_cases``) hold the encoder's and the
+decoder's contract edges: budget overflow, zero, NaN and infinite
+thresholds, rows of -0.0, rows with infinities and NaNs (which the
+reference spreads over the row), duplicate and out-of-range decode
+addresses, bfloat16 values, blocks that are not multiples of 128 or 32,
+and, for the card, the full-width and 8-peer shapes of the
+``GRANITE_3_2B_LAYER`` gradient tree.  Only numpy is imported at module
+level; ``repro_torch`` inside the functions that need it."""
 
 from fractions import Fraction
 
@@ -433,3 +439,201 @@ COSIM_RING = dict(n_chips=16, seed=9, capacity=96, input_rate=0.06,
 #: the Fig. 6 chip array of benchmarks/paper_benches.py:136-139: a 4x4
 #: grid of 256-neuron chips, 50 ticks (key 0 -> seed 0)
 SNN_FIG6 = dict(grid=(4, 4), neurons=256, ticks=50, seed=0)
+
+
+# --- the AER payload path ------------------------------------------------
+
+#: the shapes of tests/test_kernels.py's encoder sweep, (nb, block,
+#: budget), and a block that is no multiple of 32 and spans five tiles
+AER_SHAPES = ((4, 256, 32), (8, 1024, 128), (16, 512, 64), (4, 2048, 256),
+              (2, 128, 128), (12, 384, 48), (3, 4999, 100))
+#: card-only shapes: one granite-3.0-2b MLP weight (2048 x 8192) in
+#: 1024-blocks at the default budget; a block whose decode row fills the
+#: 48 KB default of shared memory, so that only with the kernel's static
+#: scratch does it need the opt-in; and the largest block (16-bit
+#: addresses), whose float32 decode row does not fit shared memory
+AER_CARD_SHAPES = ((16384, 1024, 128), (4, 12288, 128), (2, 65536, 64))
+#: the decoder after an 8-rank all-gather of that weight's slots
+AER_PEERS = 8
+
+#: the gradient tree of one granite-3.0-2b decoder layer
+#: (src/repro/configs/granite_3_2b.py: d_model 2048, 32 heads of 64, 8
+#: kv heads, d_ff 8192; names as src/repro/models/transformer.py:60-70
+#: and layers.py:261-267,402-406 build them): 60.8 M float32 entries
+GRANITE_3_2B_LAYER = {
+    "ln1": {"scale": (2048,)},
+    "attn": {"wq": {"w": (2048, 2048)}, "wk": {"w": (2048, 512)},
+             "wv": {"w": (2048, 512)}, "wo": {"w": (2048, 2048)}},
+    "ln2": {"scale": (2048,)},
+    "ffn": {"wg": {"w": (2048, 8192)}, "wi": {"w": (2048, 8192)},
+            "wo": {"w": (8192, 2048)}},
+}
+
+
+def bf16_round(a) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even),
+    still float32, so both frameworks' casts to bfloat16 are exact.
+    NaN stays NaN."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    r = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16 << 16).astype(np.uint32)
+    out = r.view(np.float32)
+    return np.where(np.isnan(a), np.float32(np.nan), out).astype(np.float32)
+
+
+def _quantile_tau(x, keep):
+    """Per-row thresholds that keep about ``keep`` of each row's finite
+    magnitudes."""
+    a = np.where(np.isfinite(x), np.abs(x), np.nan)
+    return np.nanquantile(a, 1 - keep, axis=1).astype(np.float32)
+
+
+def aer_encode_case(seed, nb, block, budget, dtype="float32"):
+    """``(x, tau)`` float32 (bfloat16 values when ``dtype`` says so) with
+    the encoder's edge rows: row 0 over budget; row 1 an inf and a -inf;
+    row 2 a NaN; row 3 half zeros and -0.0 under a zero threshold
+    (overflow); row 4 one inf; row 5 a NaN threshold; row 6 all -0.0
+    under a zero threshold; row 7 an infinite threshold."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nb, block)).astype(np.float32)
+    keep = np.where(np.arange(nb) % 3 == 0,
+                    min(1.0, 1.5 * budget / block), 0.05)
+    rows = {}
+    if nb > 1:
+        x[1, 5 % block], x[1, 9 % block] = np.inf, -np.inf
+    if nb > 2:
+        x[2, 3 % block] = np.nan
+    if nb > 3:
+        x[3, ::2] = 0.0
+        x[3, 1::4] = -0.0
+        rows[3] = 0.0
+    if nb > 4:
+        x[4, 7 % block] = np.inf
+    if nb > 5:
+        rows[5] = np.nan
+    if nb > 6:
+        x[6] = -0.0
+        rows[6] = 0.0
+    if nb > 7:
+        rows[7] = np.inf
+    tau = np.empty(nb, np.float32)
+    for r in range(nb):
+        tau[r] = rows.get(r, _quantile_tau(x[r:r + 1], keep[r])[0])
+    if dtype == "bfloat16":
+        x, tau = bf16_round(x), bf16_round(tau)
+    return x, tau
+
+
+def aer_decode_case(seed, nb, budget, block, dtype="float32"):
+    """``(idx, val)``: (nb, budget) int32 addresses drawn from a narrow
+    range, so rows repeat addresses, with void slots (-1) and addresses
+    past the block; values float32 (bfloat16 values when ``dtype`` says
+    so).  Edge rows: row 1 an inf at a repeated address; row 2 a NaN in a
+    void slot; row 3 an inf and a -inf at one address; row 4 one inf at
+    an address of its own; row 5 a NaN at an address past the block."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-1, min(block, max(4, budget // 2)) + 2,
+                       (nb, budget)).astype(np.int32)
+    idx[idx >= min(block, max(4, budget // 2))] = block   # past the block
+    val = rng.standard_normal((nb, budget)).astype(np.float32)
+    if nb > 1:
+        idx[1, :3] = 2
+        val[1, 1] = np.inf
+    if nb > 2:
+        idx[2, 0] = -1
+        val[2, 0] = np.nan
+    if nb > 3:
+        idx[3, :2] = 1
+        val[3, 0], val[3, 1] = np.inf, -np.inf
+    if nb > 4:
+        idx[4, 0] = block - 1
+        idx[4, 1:][idx[4, 1:] == block - 1] = -1
+        val[4, 0] = np.inf
+    if nb > 5:
+        idx[5, 0] = block + 7
+        val[5, 0] = np.nan
+    if dtype == "bfloat16":
+        val = bf16_round(val)
+    return idx, val
+
+
+def aer_peer_case(seed, peers=AER_PEERS, nb=16384, budget=128,
+                  block=1024):
+    """``(idx, val)`` as ``peers`` all-gathered encoder outputs of an
+    (nb, block) tensor: each row's addresses increasing, distinct, and
+    void (-1) past the row's count."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.integers(1, 2 * block // budget, (peers * nb, budget))
+    idx = np.cumsum(gaps, axis=1) - 1
+    idx[idx >= block] = -1
+    val = rng.standard_normal((peers * nb, budget)).astype(np.float32)
+    return idx.astype(np.int32), val
+
+
+def aer_specs(card=False):
+    """``(name, kind, nb, block, budget, dtype)`` of every AER case,
+    without its arrays: ``kind`` is "encode", "decode" or "peers" (the
+    8-peer decode); ``card=True`` adds the card-only shapes."""
+    shapes = AER_SHAPES + (AER_CARD_SHAPES if card else ())
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        for nb, block, budget in shapes:
+            if nb * block > 2**22 and dtype != "float32":
+                continue
+            name = f"{dtype}-{nb}x{block}-b{budget}"
+            out.append((f"enc-{name}", "encode", nb, block, budget, dtype))
+            if nb * block <= 2**22:
+                out.append((f"dec-{name}", "decode", nb, block, budget,
+                            dtype))
+    if card:
+        out.append((f"dec-peers{AER_PEERS}-float32", "peers",
+                    AER_PEERS * 16384, 1024, 128, "float32"))
+    return out
+
+
+def aer_arrays(spec):
+    """The seeded arrays of one ``aer_specs`` entry: ``(x, tau, budget)``
+    for "encode", ``(idx, val, block)`` for the decodes."""
+    _, kind, nb, block, budget, dtype = spec
+    seed = nb * block + budget + (dtype == "bfloat16")
+    if kind == "encode":
+        return (*aer_encode_case(seed, nb, block, budget, dtype), budget)
+    if kind == "decode":
+        return (*aer_decode_case(seed, nb, budget, block, dtype), block)
+    return (*aer_peer_case(2014, AER_PEERS, nb // AER_PEERS, budget,
+                           block), block)
+
+
+def aer_cases(card=False):
+    """``(name, kind, a, b, n, dtype)``: every ``aer_specs`` entry with its
+    arrays (numpy float32 / int32; ``dtype`` is the value dtype to run
+    them in)."""
+    return [(spec[0], spec[1], *aer_arrays(spec), spec[5])
+            for spec in aer_specs(card)]
+
+
+def aer_mismatches(want, got) -> int:
+    """Elements where two numpy arrays differ bit for bit: floats are
+    compared as float32 bit patterns (bfloat16 widens exactly), except
+    that any NaN equals any NaN."""
+    w, g = np.asarray(want), np.asarray(got)
+    if w.shape != g.shape:
+        raise ValueError(f"shapes differ: {w.shape} and {g.shape}")
+    if w.dtype.kind != "f":
+        return int((w != g).sum())
+    w, g = w.astype(np.float32), g.astype(np.float32)
+    nw, ng = np.isnan(w), np.isnan(g)
+    return int(((nw != ng) | (~nw & (w.view(np.int32) != g.view(np.int32))))
+               .sum())
+
+
+def clear_of_tau(tiles, tau) -> bool:
+    """No entry of the (nb, block) tensor ``tiles`` lies within one
+    float32 ulp of its row's threshold ``tau`` (either side, or on it),
+    so a one-ulp difference in tau cannot change what is selected."""
+    import torch
+    a = tiles.float().abs()
+    t = tau.float()[:, None]
+    inf = torch.full_like(t, float("inf"))
+    near = (a == t) | (a == torch.nextafter(t, -inf)) | \
+        (a == torch.nextafter(t, inf))
+    return not bool(near.any())

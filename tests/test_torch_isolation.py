@@ -27,7 +27,12 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.kernels.ops", "repro_torch.kernels._build",
             "repro_torch.core.events", "repro_torch.kernels.lif_step",
             "repro_torch.models.snn", "repro_torch.cosim",
-            "repro_torch.cosim.traffic_bridge"]
+            "repro_torch.cosim.traffic_bridge", "repro_torch.core.fifo",
+            "repro_torch.core.halfduplex",
+            "repro_torch.core.sparse_collectives",
+            "repro_torch.kernels.aer_encode",
+            "repro_torch.kernels.aer_decode",
+            "repro_torch.parallel.compat"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"
@@ -84,3 +89,12 @@ def test_default_device_needs_cuda(monkeypatch):
     w = np.zeros((1, 2, 128, 128), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.snn_params_from_reference({"w_rec": w, "w_in": w})
+    from repro_torch.core import fifo
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fifo.make_fifo(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.aer_states_from_reference({"w": np.zeros(3, np.float32)})
+    i32 = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.event_blocks_from_reference(
+            (i32, np.zeros((1, 4), np.float32), i32[0, :1], i32[0, :1]))

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card, against their plain PyTorch versions
 (the per-step pair, the multi-step kernel on packed carries of the
-chip_smoke cells, solo and as B = 3 instances, and the LIF update on the
-shared LIF cases), and the co-simulation and SNN paths launching them.
+chip_smoke cells, solo and as B = 3 instances, the LIF update on the
+shared LIF cases, and the AER encoder and decoder on the shared AER
+cases, full width and 8-peer decode included), and the co-simulation,
+SNN and AER all-reduce paths launching them.
 
 Marked ``gpu``: each test skips where there is no CUDA card (the kernels
 have no CPU mode).  This file imports no JAX, so it runs on the machine
@@ -22,16 +24,20 @@ from repro_torch.core.router import ring_topology
 from repro_torch.core.traffic import hot_spot
 from repro_torch import cosim
 from repro_torch.core.router import AddressSpec
+from repro_torch.core import sparse_collectives as sc
+from repro_torch.kernels import aer_decode as adk
+from repro_torch.kernels import aer_encode as aek
 from repro_torch.kernels import fabric_queue as fq
 from repro_torch.kernels import lif_step as lk
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models import snn
 
 from _torch_cases import (LIF_CARD_SHAPES, LIF_PARAMS, MS_BATCH, MS_STEPS,
-                          carry_err, clone, lif_cases,
-                          lif_double_roundings, multistep_cases,
-                          multistep_operands, planes, run_schedule,
-                          scan_case, update_case)
+                          aer_arrays, aer_mismatches, aer_specs, carry_err,
+                          clone, lif_cases, lif_double_roundings,
+                          multistep_cases, multistep_operands, planes,
+                          run_schedule, scan_case, update_case)
 
 SHAPES = [(4, 7), (2, 5), (16, 96), (32, 768), (224, 3072)]
 
@@ -325,3 +331,109 @@ def test_snn_on_card_launches_and_matches_cpu(cuda):
     assert _spikes_agree(cpu, card)
     if np.array_equal(card.raster, cpu.raster):
         np.testing.assert_allclose(card.v, cpu.v, rtol=0, atol=1e-5)
+
+
+# --- the AER encoder (B5) and decoder (B6) ----------------------------------
+
+AER_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _host(t):
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", aer_specs(card=True), ids=lambda s: s[0])
+def test_aer_kernels_match_plain(cuda, spec):
+    """Bit for bit (NaN where NaN) against the plain versions on the
+    card; each encode case is also decoded by both."""
+    a, b, n = aer_arrays(spec)
+    dt = AER_DT[spec[5]]
+    before = (aek.aer_encode.launches, adk.aer_decode.launches)
+    if spec[1] == "encode":
+        x, tau = (torch.from_numpy(v).to(cuda).to(dt) for v in (a, b))
+        got = aek.aer_encode(x, tau, n)
+        want = ref.aer_encode(x, tau, n)
+        pairs = list(zip(want, got))
+        pairs.append((ref.aer_decode(want[0], want[1], x.shape[1]),
+                      adk.aer_decode(got[0], got[1], x.shape[1])))
+        launched = (1, 1)
+    else:
+        idx = torch.from_numpy(a).to(cuda)
+        val = torch.from_numpy(b).to(cuda).to(dt)
+        pairs = [(ref.aer_decode(idx, val, n), adk.aer_decode(idx, val, n))]
+        launched = (0, 1)
+    torch.cuda.synchronize()
+    assert (aek.aer_encode.launches - before[0],
+            adk.aer_decode.launches - before[1]) == launched
+    for w, g in pairs:
+        assert w.dtype == g.dtype and w.shape == g.shape
+        assert aer_mismatches(_host(w), _host(g)) == 0
+
+
+@pytest.mark.gpu
+def test_aer_wrappers_validate_operands(cuda):
+    x = torch.randn(4, 256, device=cuda)
+    tau = torch.ones(4, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        aek.aer_encode(x.double(), tau.double(), 8)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        aek.aer_encode(x, tau.to(torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        aek.aer_encode(x.t(), torch.ones(256, device=cuda), 4)
+    with pytest.raises(ValueError, match="tau must be"):
+        aek.aer_encode(x, tau[:2], 8)
+    with pytest.raises(ValueError, match="budget"):
+        aek.aer_encode(x, tau, 257)
+    with pytest.raises(ValueError, match="block"):
+        aek.aer_encode(torch.ones(1, 65537, device=cuda),
+                       torch.ones(1, device=cuda), 8)
+    idx = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        adk.aer_decode(idx.long(), x[:, :8].contiguous(), 16)
+    with pytest.raises(ValueError, match="shape"):
+        adk.aer_decode(idx, x[:, :4].contiguous(), 16)
+    with pytest.raises(ValueError, match="is on cpu"):
+        adk.aer_decode(idx, x[:, :8].cpu(), 16)
+
+
+@pytest.mark.gpu
+def test_compress_with_feedback_on_card_matches_cpu(cuda):
+    """The compress path on the card (tau, B5, B6) equals the CPU run on
+    the same input, bit for bit, and conserves exactly."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2048, 700, generator=g)
+    res = torch.randn(2048, 700, generator=g) * 0.01
+    out = {}
+    for dev in (cuda, "cpu"):
+        ev, new_res, n = ops.compress_with_feedback(x.to(dev), res.to(dev))
+        dec = ops.unpad_from_blocks(ops.aer_decompress(ev), n, x.shape)
+        assert torch.equal(dec + new_res, x.to(dev) + res.to(dev))
+        out[str(dev)] = [_host(t) for t in (*ev, new_res)]
+    for w, c in zip(out["cpu"], out[str(cuda)]):
+        assert aer_mismatches(w, c) == 0
+
+
+@pytest.mark.gpu
+def test_aer_allreduce_world_of_one_on_card(cuda):
+    """``reduce_gradients(mode="aer_topk")`` over NCCL in a world of one:
+    one B5 and one B6 launch a leaf, exact conservation."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        g = torch.Generator().manual_seed(1)
+        grads = {"w": torch.randn(512, 300, generator=g).to(cuda),
+                 "b": {"s": torch.randn(300, generator=g).to(cuda)}}
+        st = sc.init_aer_states(grads)
+        aek.aer_encode.launches = adk.aer_decode.launches = 0
+        red, st2, words = sc.reduce_gradients(grads, st, mode="aer_topk")
+        torch.cuda.synchronize()
+        assert (aek.aer_encode.launches, adk.aer_decode.launches) == (2, 2)
+        for r, s, x in zip(sc.tree_leaves(red), sc.tree_leaves(st2),
+                           sc.tree_leaves(grads)):
+            assert torch.equal(r + s.residual, x)
+        assert int(words) == int(sum((r != 0).sum()
+                                     for r in sc.tree_leaves(red)))
+    finally:
+        dist.destroy_process_group()
