@@ -94,7 +94,33 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                and a profiled step's device-busy share;
 15. aer_compress_feedback — ``compress_with_feedback`` at its defaults
                on the ffn.wg.w gradient: exact mass conservation, one B5
-               and one B6 launch.
+               and one B6 launch;
+16. scan     — the selective scan (B7) against its plain version on the
+               card on every case of tests/_torch_cases.py::scan_cases(
+               card=True) (the reference test's shapes, one-step
+               sequences, widths that are not multiples of 32, 1 to 32
+               states, subnormal and zero exp(dt·A), zero inputs, and
+               falcon-mamba-7b's prefill shape (4, 2048, 8192, 16) with
+               its real A and a softplus dt): max abs and relative error
+               of y and h_final, each within its stated tolerance; then
+               B7 timed at the serve shape beside its bound and its
+               plain version;
+17. serve_falcon_mamba_7b — the slice's main path, through
+               ``repro_torch.launch.serve``: falcon-mamba-7b at its full
+               published widths and depth (64 layers, 7.27 B float32
+               parameters drawn on the card from a seeded generator,
+               bf16 compute), 4 SyntheticLM prompts of 2048 tokens
+               prefilled, then 32 greedy tokens each: finite logits,
+               tokens in the vocabulary, exactly 64 B7 launches in the
+               run (a second prefill alone: 64; a decode step alone: 0)
+               and no other kernel of the port; prefill ms, ms per decode
+               step, tokens/s, peak memory, and a profiled decode step's
+               device-busy share;
+18. serve_consistency — the same weights in float32 compute: prefill's
+               last logits and 8 teacher-forced decode steps' logits
+               equal ``forward`` over the prompt and those tokens, to the
+               stated tolerance (the reference's serving contract,
+               tests/test_archs.py:88-114).
 
 Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -119,6 +145,9 @@ HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 INT32_OPS_S = 64 * 132 * 1.98e9
 # H100 SXM fp32 rate outside the tensor cores (data sheet; an FMA is two)
 FP32_OPS_S = 67e12
+# H100 SXM special function unit rate (one exponential each): 16 a clock
+# per SM x 132 SMs x 1.98 GHz boost
+SFU_OPS_S = 16 * 132 * 1.98e9
 ANCHOR_MEV_S, ANCHOR_TOL = 28.6, 0.001
 # the cosim gate's floor on |closed - open| spike counts
 # (benchmarks/fabric_smoke.py:494, MIN_COSIM_DIVERGENCE)
@@ -222,7 +251,7 @@ def phase_device():
 
 
 LIBRARIES = ("fabric_queue", "fabric_queue_multistep", "lif_step",
-             "aer_encode", "aer_decode")
+             "aer_encode", "aer_decode", "selective_scan")
 
 
 def phase_build():
@@ -709,9 +738,10 @@ def _wrappers():
     from repro_torch.kernels import aer_encode as aek
     from repro_torch.kernels import fabric_queue as fq
     from repro_torch.kernels import lif_step as lk
+    from repro_torch.kernels import selective_scan as ssk
     return (fq.fabric_queue_step, fq.fabric_queue_update,
             fq.fabric_queue_multistep, lk.lif_step, aek.aer_encode,
-            adk.aer_decode)
+            adk.aer_decode, ssk.selective_scan)
 
 
 def _counts_zero():
@@ -895,7 +925,8 @@ def phase_cosim():
           f"(< {MIN_COSIM_DIVERGENCE})")
     check(launches == {"fabric_queue_step": 0, "fabric_queue_update": 0,
                        "fabric_queue_multistep": want_b3, "lif_step": T,
-                       "aer_encode": 0, "aer_decode": 0},
+                       "aer_encode": 0, "aer_decode": 0,
+                       "selective_scan": 0},
           f"cosim: launches {launches}, expected {T} lif_step and "
           f"{want_b3} fabric_queue_multistep, no other kernel")
     return launches, wall / T * 1e3, open_wall / T * 1e3
@@ -1293,6 +1324,213 @@ def phase_aer_compress_feedback():
           f"compress_with_feedback launches {launches}")
 
 
+# --- the LM serve path (B7) -------------------------------------------------
+
+SERVE_ARGV = ["--arch", "falcon_mamba_7b", "--batch", "4", "--prompt-len",
+              "2048", "--gen", "32", "--seed", "0"]
+#: teacher-forced decode steps held against forward in float32 compute
+SERVE_FORCED = 8
+#: |decode or prefill logits - forward logits| <= tol + tol·|forward|,
+#: float32 compute, 64 layers (stated before the first run; PERF.md §6)
+SERVE_CONSISTENCY_TOL = 2e-4
+SERVE_GROUPS = {"selective_scan (B7)": ("selective_scan",),
+                "matmul": ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                           "splitK", "cublas"),
+                "copies and casts": ("copy", "Memcpy", "memcpy")}
+
+
+def phase_scan_kernel():
+    """B7 against its plain version on every ``scan_cases(card=True)``
+    case, then timed at the serve shape."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ssk
+    from _torch_cases import (SCAN_SERVE_SHAPE, scan_arrays, scan_errors,
+                              scan_specs)
+    dev = torch.device("cuda", 0)
+    cases, worst_abs, worst_rel, serve_args = [], 0.0, 0.0, None
+    underflow = 0
+    for spec in scan_specs(card=True):
+        name, shape, _opts, tol = spec
+        args = [torch.from_numpy(v).to(dev) for v in scan_arrays(spec)]
+        got = ssk.selective_scan(*args)
+        want = ref.selective_scan(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for label, w, g in zip(("y", "h_final"), want, got):
+            check(g.shape == w.shape and g.dtype == torch.float32,
+                  f"{name}: {label} shape or dtype differs")
+            check(bool(torch.isfinite(g).all()), f"{name}: {label} "
+                                                 f"not finite")
+            ab, rel, scaled = scan_errors(w.cpu().numpy(), g.cpu().numpy())
+            errs[label] = {"max_abs_err": ab, "max_rel_err": rel,
+                           "scaled_err": scaled}
+            check(scaled <= tol, f"{name}: {label} off by {scaled} "
+                                 f"(|d| / (1 + |plain|)) > {tol}")
+            worst_abs, worst_rel = max(worst_abs, ab), max(worst_rel, rel)
+        x, dt, b, c, a = args
+        if x.numel() < 2**22:
+            abar = torch.exp(dt[..., None] * a)
+            underflow += int((abar < torch.finfo(torch.float32).tiny).sum())
+        cases.append({"case": name, "shape": list(shape), "tol": tol,
+                      **errs})
+        if tuple(shape) == SCAN_SERVE_SHAPE:
+            serve_args = args
+        del got, want
+    emit("scan_vs_plain", cases=cases, max_abs_err=worst_abs,
+         max_rel_err=worst_rel, subnormal_or_zero_abar=underflow)
+    check(underflow > 0, "no scan case had a subnormal or zero exp(dt·A)")
+
+    x, dt, b, c, a = serve_args
+    B, S, d, N = SCAN_SERVE_SHAPE
+
+    def kern():
+        return ssk.selective_scan(x, dt, b, c, a)
+
+    def plain():
+        return ref.selective_scan(x, dt, b, c, a)
+
+    dms, pdms = device_ms(kern, n=20), device_ms(plain, n=2)
+    seen = dms is not None and pdms is not None
+    byts = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
+    exps = B * S * d * N
+    flops = 6 * B * S * d * N  # dt·A, abar·h, + bx, (dt·x)·B, h·C, the sum
+    tb = byts / HBM_BYTES_S * 1e3
+    to = max(exps / SFU_OPS_S, flops / FP32_OPS_S) * 1e3
+    out = {"ms": dms if seen else time_ms(kern, n=20, warm=3),
+           "plain_ms": pdms if seen else time_ms(plain, n=2, warm=1),
+           "ms_source": ("profiler device time per call" if seen
+                         else "CUDA events, back-to-back calls"),
+           "call_ms": time_ms(kern, n=20, warm=3),
+           "bound_ms": max(tb, to),
+           "bound_by": "bytes" if tb >= to else "operations",
+           "bytes": byts, "bytes_ms": tb, "exponentials": exps,
+           "exp_ms": exps / SFU_OPS_S * 1e3, "fp32_ops": flops,
+           "fp32_ms": flops / FP32_OPS_S * 1e3, "library_ms": None,
+           "max_abs_err": worst_abs, "max_rel_err": worst_rel}
+    emit("scan_kernel_time", shape=list(SCAN_SERVE_SHAPE), **out,
+         library="none: no PyTorch call computes the selective scan")
+    return out
+
+
+def phase_serve():
+    """The slice's main path: falcon-mamba-7b served through
+    ``repro_torch.launch.serve`` at full width and depth."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import param_count
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args, cfg, model, tokens = serve.setup(SERVE_ARGV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(not torch.backends.cuda.matmul
+          .allow_bf16_reduced_precision_reduction,
+          "bf16 products must accumulate in float32")
+    n_params = param_count(model)
+    _counts_zero()
+    res = serve.generate(model, tokens, args.gen)
+    launches = _counts()
+    live = res.logits[..., :cfg.vocab].float()
+    check(bool(torch.isfinite(live).all()), "serve: logits not finite")
+    check(tuple(res.tokens.shape) == (args.batch, args.gen)
+          and int(res.tokens.max()) < cfg.vocab
+          and int(res.tokens.min()) >= 0, "serve: tokens out of range")
+    check(launches["selective_scan"] == cfg.n_layers
+          and all(v == 0 for k, v in launches.items()
+                  if k != "selective_scan"),
+          f"serve: launches {launches}, expected {cfg.n_layers} "
+          f"selective_scan (one a layer, in prefill) and no other")
+    # the split of those launches: a prefill alone, a decode step alone
+    _counts_zero()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t0
+    prefill_launches = _counts()["selective_scan"]
+    same = bool(torch.equal(logits[:, -1], res.logits[:, 0]))
+    _counts_zero()
+    tok = res.tokens[:, :1]
+    with torch.no_grad():
+        model.decode_step(cache, tok, None)
+    torch.cuda.synchronize()
+    decode_launches = _counts()["selective_scan"]
+    check(prefill_launches == cfg.n_layers and decode_launches == 0,
+          f"serve: {prefill_launches} B7 launches a prefill and "
+          f"{decode_launches} a decode step, expected {cfg.n_layers} "
+          f"and 0")
+    with torch.no_grad():
+        prof = _profile_ticks("profile_serve_decode",
+                              lambda: model.decode_step(cache, tok, None),
+                              1, groups=SERVE_GROUPS, unit="step")
+    steps = args.gen - 1
+    out = {"params": n_params, "layers": cfg.n_layers,
+           "batch": args.batch, "prompt_len": args.prompt_len,
+           "gen": args.gen, "init_s": init_s,
+           "prefill_ms": res.prefill_s * 1e3,
+           "prefill_again_ms": prefill2_s * 1e3,
+           "prefill_again_equal": same,
+           "decode_ms_per_step": res.decode_s / steps * 1e3,
+           "decode_tok_s": steps * args.batch / res.decode_s,
+           "generated_tok_s": args.gen * args.batch / (res.prefill_s
+                                                       + res.decode_s),
+           "launches": launches, "prefill_launches": prefill_launches,
+           "decode_step_launches": decode_launches,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "decode_device_busy_share": prof["device_busy_share"],
+           "seq0": res.tokens[0, :12].tolist()}
+    emit("serve_falcon_mamba_7b", **out)
+    del cache, logits
+    return model, tokens, res.tokens, out
+
+
+def phase_serve_consistency(model, prompt, gen_tokens):
+    """Float32 compute on the same weights: prefill and teacher-forced
+    decode against ``forward`` over the prompt and the forced tokens."""
+    import copy
+    import torch
+    cfg32 = model.cfg.with_(compute_dtype=torch.float32)
+    # the same parameters under another compute dtype: the model's methods
+    # read their config from the model, the blocks hold none
+    m32 = copy.copy(model)
+    m32.cfg = cfg32
+    S = prompt.shape[1]
+    seq = torch.cat([prompt, gen_tokens[:, :SERVE_FORCED].to(prompt.dtype)],
+                    1)
+    errs = []
+
+    def err(want, got):
+        d = (got.float() - want.float()).abs()
+        return (float(d.max()), float((d / (1 + want.abs())).max()))
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = m32.forward({"tokens": seq})
+        check(full.dtype == torch.float32, "float32 compute gave "
+                                           f"{full.dtype} logits")
+        logits, cache = m32.prefill({"tokens": prompt})
+        errs.append(err(full[:, S - 1], logits[:, 0]))
+        for i in range(SERVE_FORCED):
+            logits, cache = m32.decode_step(cache, seq[:, S + i:S + i + 1],
+                                            None)
+            errs.append(err(full[:, S + i], logits[:, 0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst = max(e[1] for e in errs)
+    emit("serve_consistency", tokens=list(seq.shape), forced=SERVE_FORCED,
+         tol=SERVE_CONSISTENCY_TOL,
+         prefill_max_abs_err=errs[0][0], prefill_scaled_err=errs[0][1],
+         decode_max_abs_err=[e[0] for e in errs[1:]],
+         decode_scaled_err=[e[1] for e in errs[1:]], worst_scaled_err=worst,
+         max_abs_logit=float(full.abs().max()), wall_s=wall)
+    check(worst <= SERVE_CONSISTENCY_TOL,
+          f"serve_consistency: {worst} > {SERVE_CONSISTENCY_TOL}")
+    return worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1347,6 +1585,13 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_aer_compress_feedback()
     torch.cuda.synchronize()
+    ktimes["selective_scan"] = phase_scan_kernel()
+    torch.cuda.synchronize()
+    model, prompt, gen_tokens, serve_out = phase_serve()
+    torch.cuda.synchronize()
+    consistency = phase_serve_consistency(model, prompt, gen_tokens)
+    del model
+    torch.cuda.empty_cache()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
@@ -1358,13 +1603,16 @@ def main() -> int:
             "aer_encode": (aer_launches["aer_encode"],
                            ("aer_granite3_2b_layer",)),
             "aer_decode": (aer_launches["aer_decode"],
-                           ("aer_granite3_2b_layer",))}
+                           ("aer_granite3_2b_layer",)),
+            "selective_scan": (serve_out["launches"]["selective_scan"],
+                               ("serve_falcon_mamba_7b",))}
     source = {"fabric_queue_step": csrc + "fabric_queue.cu",
               "fabric_queue_update": csrc + "fabric_queue.cu",
               "fabric_queue_multistep": csrc + "fabric_queue_multistep.cu",
               "lif_step": csrc + "lif_step.cu",
               "aer_encode": csrc + "aer_encode.cu",
-              "aer_decode": csrc + "aer_decode.cu"}
+              "aer_decode": csrc + "aer_decode.cu",
+              "selective_scan": csrc + "selective_scan.cu"}
     replaces = {"fabric_queue_step":
                 "src/repro/kernels/fabric_queue.py:109",
                 "fabric_queue_update":
@@ -1373,7 +1621,8 @@ def main() -> int:
                 "src/repro/kernels/fabric_queue.py:238",
                 "lif_step": "src/repro/kernels/lif_step.py:29",
                 "aer_encode": "src/repro/kernels/aer_encode.py:67",
-                "aer_decode": "src/repro/kernels/aer_decode.py:39"}
+                "aer_decode": "src/repro/kernels/aer_decode.py:39",
+                "selective_scan": "src/repro/kernels/selective_scan.py:51"}
     kernels = []
     for kname, k in ktimes.items():
         n_launch, path_bucket = main[kname]
@@ -1393,6 +1642,11 @@ def main() -> int:
                        cosim_closed_ms_per_tick=closed_ms,
                        cosim_open_ms_per_tick=open_ms,
                        snn_fig6_ms_per_tick=snn_ms)
+    by_name["selective_scan"].update(
+        max_rel_err=ktimes["selective_scan"]["max_rel_err"],
+        serve_prefill_ms=serve_out["prefill_again_ms"],
+        serve_decode_ms_per_step=serve_out["decode_ms_per_step"],
+        serve_consistency_scaled_err=consistency)
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -12,7 +12,10 @@ outputs can be compared field for field (the reference's
 ``network.assert_results_equal`` accepts the numpy result as is).  The
 AER payload path takes the reference's error-feedback residuals
 (:func:`aer_states_from_reference`) and its event slots
-(:func:`event_blocks_from_reference`), bfloat16 values included.
+(:func:`event_blocks_from_reference`), bfloat16 values included.  The
+LM stack takes the reference's parameter tree
+(:func:`lm_params_from_reference`) and its Mamba decode caches
+(:func:`mamba_cache_from_reference`).
 This module never imports the reference package: it only reads arrays.
 """
 
@@ -31,10 +34,13 @@ from .core.telemetry import Telemetry, _np
 from .core.traffic import TrafficSpec
 from .device import resolve_device
 from .kernels.ops import EventBlocks
+from .models.model import LM
+from .models.transformer import n_periods, pattern_for
 
 __all__ = ["Converted", "from_reference", "result_to_numpy",
            "snn_params_from_reference", "cosim_weights_from_reference",
-           "aer_states_from_reference", "event_blocks_from_reference"]
+           "aer_states_from_reference", "event_blocks_from_reference",
+           "lm_params_from_reference", "mamba_cache_from_reference"]
 
 
 class Converted(NamedTuple):
@@ -151,3 +157,63 @@ def event_blocks_from_reference(events, *, device=None) -> EventBlocks:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     return EventBlocks(idx.to(dev), val.to(dev), count.to(dev),
                        wanted.to(dev))
+
+
+def _leaves(tree: Mapping, prefix: str = ""):
+    """``(dotted path, leaf)`` of a nested dict, in sorted-key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_reference(params: Mapping, cfg, *, device=None) -> LM:
+    """An ``LM`` holding the reference LM's parameters (its ``init``
+    tree, as numpy or JAX arrays) on ``device`` (``None``: the CUDA
+    card).  ``embed.table``, ``ln_f.scale`` and ``head.w`` carry over by
+    name; each stacked leaf ``stack/pos<i>/<path>[p]`` goes to layer
+    ``p·len(pattern) + i`` as ``stack.blocks.<layer>.<path>``.  Every
+    parameter must be given, in the port's shape and dtype."""
+    model = LM(cfg, device=device)
+    state = {"embed.table": params["embed"]["table"],
+             "ln_f.scale": params["ln_f"]["scale"],
+             "head.w": params["head"]["w"]}
+    pat = pattern_for(cfg)
+    for i in range(len(pat)):
+        for path, leaf in _leaves(params["stack"][f"pos{i}"]):
+            for p in range(n_periods(cfg)):
+                state[f"stack.blocks.{p * len(pat) + i}.{path}"] = leaf[p]
+    own = model.state_dict()
+    if set(state) != set(own):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(own) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(own))}")
+    for name, leaf in state.items():
+        t = _tensor(leaf)
+        if t.shape != own[name].shape or t.dtype != own[name].dtype:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, the "
+                             f"port holds {own[name].dtype} "
+                             f"{tuple(own[name].shape)}")
+        state[name] = t
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def mamba_cache_from_reference(cache: Mapping, *, device=None):
+    """A Mamba decode cache from the reference's ``{"h", "conv"}``
+    (h (B, d_in, N), conv (B, d_conv-1, d_in), float32) on ``device``
+    (``None``: the CUDA card).  The reference LM's cache stacks one such
+    cache over layers (``cache["pos0"]``, h (L, B, d_in, N)); that gives
+    the port's list of one cache a layer."""
+    dev = resolve_device(device)
+    h = _f32(cache["h"], np.ndim(cache["h"]), "h")
+    conv = _f32(cache["conv"], h.dim(), "conv")
+    if h.dim() == 4:
+        return [{"h": h[i].to(dev), "conv": conv[i].to(dev)}
+                for i in range(h.shape[0])]
+    if h.dim() != 3:
+        raise ValueError(f"h must be (B, d_in, N) or stacked over layers, "
+                         f"got {tuple(h.shape)}")
+    return {"h": h.to(dev), "conv": conv.to(dev)}

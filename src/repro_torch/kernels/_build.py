@@ -2,9 +2,9 @@
 
 The sources under ``csrc/`` (``fabric_queue.cu``,
 ``fabric_queue_multistep.cu``, ``lif_step.cu``, ``aer_encode.cu``,
-``aer_decode.cu``) have a plain C interface, so one ``nvcc`` call per
-source (each its own library) builds them in seconds, with no PyTorch
-headers:
+``aer_decode.cu``, ``selective_scan.cu``) have a plain C interface, so
+one ``nvcc`` call per source (each its own library) builds them in
+seconds, with no PyTorch headers:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o <build>/fabric_queue-<hash>.so csrc/fabric_queue.cu
@@ -63,6 +63,9 @@ SIGNATURES = {
     "aer_decode": {
         "aer_decode_fits_shared": [_I, _PI],
         "aer_decode_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    },
+    "selective_scan": {
+        "selective_scan_launch": [_P] * 5 + [_I] * 4 + [_P, _P, _P],
     },
 }
 

@@ -28,10 +28,12 @@ from . import aer_encode as aek
 from . import fabric_queue as fq
 from . import lif_step as lk
 from . import ref
+from . import selective_scan as ssk
 
 __all__ = ["fabric_queue_scan", "fabric_queue_update",
            "fabric_queue_multistep", "lif_step", "aer_encode",
-           "aer_decode", "DEFAULT_BLOCK", "DEFAULT_BUDGET", "EventBlocks",
+           "aer_decode", "selective_scan", "DEFAULT_BLOCK",
+           "DEFAULT_BUDGET", "EventBlocks",
            "pad_to_blocks", "unpad_from_blocks", "tau_from_fraction",
            "aer_compress", "aer_decompress", "compress_with_feedback"]
 
@@ -100,6 +102,15 @@ def aer_decode(idx, val, block: int):
     if not _on_cuda(idx, "aer_decode"):
         return ref.aer_decode(idx, val, block)
     return adk.aer_decode(idx, val, block)
+
+
+def selective_scan(x, dt, b_ssm, c_ssm, a):
+    """The Mamba S6 scan: x, dt (B, S, d_in), b_ssm/c_ssm (B, S, N), a
+    (d_in, N), float32.  Returns ``(y (B, S, d_in), h_final (B, d_in,
+    N))``."""
+    if not _on_cuda(x, "selective_scan"):
+        return ref.selective_scan(x, dt, b_ssm, c_ssm, a)
+    return ssk.selective_scan(x, dt, b_ssm, c_ssm, a)
 
 
 # --- the AER compress path ---------------------------------------------

@@ -5,12 +5,14 @@ transaction queue step of the slot engine, ported from the reference
 ``kernels/ref.py``; ``fabric_queue_multistep`` is one launch of the
 multi-step kernel, a loop of an injected step over the packed carry;
 ``lif_step`` is the LIF membrane update; ``aer_encode`` / ``aer_decode``
-are the AER payload path's event encoder and decoder.
+are the AER payload path's event encoder and decoder;
+``selective_scan`` is the Mamba S6 recurrence.
 ``q_time`` is (Q, C) int32 release times with ``BIG_NS`` (2**30)
 marking empty/consumed one-shot slots; ``t_q`` is the (Q,) per-queue
 clock.  The CUDA kernels in ``fabric_queue.py``, ``lif_step.py``,
 ``aer_encode.py`` and ``aer_decode.py`` must match these bit for bit
-(NaN where NaN).  They run on any device: the CPU path, and
+(NaN where NaN); ``selective_scan.py`` matches its plain version to a
+stated tolerance (the order of its N-term sum differs).  They run on any device: the CPU path, and
 ``engine="reference"`` or a direct call on the card.
 """
 
@@ -209,3 +211,28 @@ def aer_decode(idx: torch.Tensor, val: torch.Tensor, block: int):
     poison = (nf[:, None] > 0) & (b[None, :] != keep[:, None])
     dense = torch.where(poison, float("nan"), acc[:, :block])
     return dense.to(val.dtype)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
+                   c_ssm: torch.Tensor, a: torch.Tensor):
+    """The S6 recurrence as a float32 time-step loop, the counterpart of
+    the reference's ``ref.selective_scan_ref``:
+
+        h_t = exp(dt_t·A) ⊙ h_{t-1} + (dt_t·x_t) ⊗ B_t,  h_0 = 0
+        y_t = Σ_n h_t·C_t
+
+    x, dt: (B, S, d_in); b_ssm, c_ssm: (B, S, N); a: (d_in, N).  Returns
+    ``(y (B, S, d_in), h_final (B, d_in, N))``, float32.
+    """
+    x, dt = x.float(), dt.float()
+    b_ssm, c_ssm, a = b_ssm.float(), c_ssm.float(), a.float()
+    bsz, seq, d_in = x.shape
+    h = torch.zeros((bsz, d_in, a.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    y = torch.empty_like(x)
+    for t in range(seq):
+        abar = torch.exp(dt[:, t, :, None] * a)
+        bx = (dt[:, t] * x[:, t])[..., None] * b_ssm[:, t, None, :]
+        h = abar * h + bx
+        y[:, t] = (h * c_ssm[:, t, None, :]).sum(-1)
+    return y, h

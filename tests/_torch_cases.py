@@ -19,8 +19,12 @@ thresholds, rows of -0.0, rows with infinities and NaNs (which the
 reference spreads over the row), duplicate and out-of-range decode
 addresses, bfloat16 values, blocks that are not multiples of 128 or 32,
 and, for the card, the full-width and 8-peer shapes of the
-``GRANITE_3_2B_LAYER`` gradient tree.  Only numpy is imported at module
-level; ``repro_torch`` inside the functions that need it."""
+``GRANITE_3_2B_LAYER`` gradient tree.  The selective-scan cases
+(``scan_cases``) hold the Pallas test's shapes, one-step sequences,
+widths that are not multiples of 32, 1 to 32 states (powers of two and
+not), steps whose ``exp(dt·A)`` is subnormal or 0, zero inputs and, for
+the card, falcon-mamba-7b's prefill shape.  Only numpy is imported at
+module level; ``repro_torch`` inside the functions that need it."""
 
 from fractions import Fraction
 
@@ -637,3 +641,113 @@ def clear_of_tau(tiles, tau) -> bool:
     near = (a == t) | (a == torch.nextafter(t, -inf)) | \
         (a == torch.nextafter(t, inf))
     return not bool(near.any())
+
+
+# --- the selective scan's cases (B7) --------------------------------------
+
+#: (B, S, d_in, N) of the reference's tests/test_kernels_scan.py
+SCAN_SHAPES = ((1, 32, 16, 4), (2, 64, 32, 8), (2, 48, 8, 16),
+               (1, 16, 128, 4))
+#: falcon-mamba-7b's prefill scan on the serve path: 4 prompts of 2048
+#: tokens, d_inner 8192, d_state 16
+SCAN_SERVE_SHAPE = (4, 2048, 8192, 16)
+#: |kernel - plain| <= tol + tol·|plain| for y and h_final: the
+#: reference's own tolerance at the test shapes
+#: (tests/test_kernels_scan.py:33), ten times that over the serve
+#: shape's 2048 steps (PERF.md says why)
+SCAN_TOL = 1e-5
+SCAN_SERVE_TOL = 1e-4
+
+
+def _softplus(v):
+    return np.logaddexp(v, np.float32(0)).astype(np.float32)
+
+
+def selective_scan_case(seed, bsz, seq, d_in, n, *, falcon=False,
+                        underflow=False, zero_x=False):
+    """``(x, dt, b, c, a)`` float32.  By default the distributions of the
+    reference test's ``make_inputs`` (x, B, C normal, dt =
+    softplus(normal - 1), A = -exp(0.5·normal)); ``falcon``: the model's
+    A = -exp(log(1..N)) and dt = softplus(0.5·normal + dt_bias) with
+    softplus(dt_bias) in [1e-3, 1e-1], as ``mamba_init`` draws it.
+    ``underflow`` (with the model's A): every third step of every other
+    channel has dt in [100, 300], so exp(dt·A) is subnormal or 0, with x
+    divided by dt there so that dt·x stays O(1).  ``zero_x``: every
+    fourth step, and the second sequence, are all zeros."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bsz, seq, d_in), np.float32)
+    if falcon or underflow:
+        a = -np.broadcast_to(np.arange(1, n + 1, dtype=np.float32),
+                             (d_in, n)).copy()
+        u = rng.random(d_in)
+        dt0 = np.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+        bias = (dt0 + np.log(-np.expm1(-dt0))).astype(np.float32)
+        dt = _softplus(np.float32(0.5)
+                       * rng.standard_normal((bsz, seq, d_in), np.float32)
+                       + bias)
+    else:
+        dt = _softplus(rng.standard_normal((bsz, seq, d_in), np.float32)
+                       - np.float32(1.0))
+        a = -np.exp(np.float32(0.5)
+                    * rng.standard_normal((d_in, n), np.float32))
+    b = rng.standard_normal((bsz, seq, n), np.float32)
+    c = rng.standard_normal((bsz, seq, n), np.float32)
+    if underflow:
+        at = (slice(None), slice(0, None, 3), slice(0, None, 2))
+        dt[at] = rng.uniform(100.0, 300.0, dt[at].shape)
+        x[at] /= dt[at]
+    if zero_x:
+        x[:, ::4] = 0.0
+        x[1:2] = 0.0
+    return tuple(np.ascontiguousarray(v, np.float32)
+                 for v in (x, dt, b, c, a))
+
+
+def scan_specs(card=False):
+    """``(name, (B, S, d_in, N), options, tol)`` of every selective-scan
+    case; ``card=True`` adds the card-only shapes."""
+    specs = [(f"test-{b}x{s}x{d}x{n}", (b, s, d, n), {}, SCAN_TOL)
+             for b, s, d, n in SCAN_SHAPES]
+    specs += [
+        ("one-step", (2, 1, 48, 16), {}, SCAN_TOL),
+        ("d40-N1", (2, 24, 40, 1), {}, SCAN_TOL),
+        ("d33-N5", (3, 20, 33, 5), {}, SCAN_TOL),
+        ("d24-N32", (1, 40, 24, 32), {}, SCAN_TOL),
+        ("d72-N12", (2, 17, 72, 12), {}, SCAN_TOL),
+        ("underflow-N16", (2, 64, 40, 16), {"underflow": True}, SCAN_TOL),
+        ("zero-x-N4", (2, 32, 24, 4), {"zero_x": True}, SCAN_TOL),
+    ]
+    if card:
+        specs += [
+            ("falcon-1x256x1000", (1, 256, 1000, 16), {"falcon": True},
+             SCAN_TOL),
+            ("falcon-serve", SCAN_SERVE_SHAPE, {"falcon": True},
+             SCAN_SERVE_TOL),
+        ]
+    return specs
+
+
+def scan_arrays(spec):
+    """The seeded ``(x, dt, b, c, a)`` of one ``scan_specs`` entry."""
+    _, (bsz, seq, d_in, n), opts, _ = spec
+    return selective_scan_case(bsz * 1000003 + seq * 1009 + d_in * 31 + n,
+                               bsz, seq, d_in, n, **opts)
+
+
+def scan_cases(card=False):
+    """``(name, x, dt, b, c, a, tol)``: every ``scan_specs`` entry with
+    its arrays."""
+    return [(spec[0], *scan_arrays(spec), spec[3])
+            for spec in scan_specs(card)]
+
+
+def scan_errors(want, got):
+    """``(max abs error, max relative error, worst |got - want| /
+    (1 + |want|))`` over the elements of two float arrays; the last is
+    the one a tolerance ``tol`` bounds as ``|d| <= tol + tol·|want|``."""
+    w = np.asarray(want, np.float64)
+    g = np.asarray(got, np.float64)
+    d = np.abs(g - w)
+    rel = d / np.maximum(np.abs(w), np.finfo(np.float32).tiny)
+    return (float(d.max(initial=0.0)), float(rel.max(initial=0.0)),
+            float((d / (1.0 + np.abs(w))).max(initial=0.0)))

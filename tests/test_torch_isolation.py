@@ -32,7 +32,12 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.core.sparse_collectives",
             "repro_torch.kernels.aer_encode",
             "repro_torch.kernels.aer_decode",
-            "repro_torch.parallel.compat"]
+            "repro_torch.parallel.compat", "repro_torch.configs",
+            "repro_torch.configs.falcon_mamba_7b", "repro_torch.data",
+            "repro_torch.kernels.selective_scan",
+            "repro_torch.models.layers", "repro_torch.models.mamba",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.launch.serve"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"
@@ -98,3 +103,27 @@ def test_default_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.event_blocks_from_reference(
             (i32, np.zeros((1, 4), np.float32), i32[0, :1], i32[0, :1]))
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config("falcon_mamba_7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, device="cuda")
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", "falcon_mamba_7b", "--smoke", *argv])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.lm_params_from_reference({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.mamba_cache_from_reference(
+            {"h": np.zeros((1, 4, 2), np.float32),
+             "conv": np.zeros((1, 3, 4), np.float32)})
+    # the scan runs on the card or, for CPU tensors, as its plain
+    # version; a tensor anywhere else is refused, not moved
+    meta = torch.empty((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.selective_scan(meta, meta, meta[..., :2], meta[..., :2],
+                           meta[0, :, :2])

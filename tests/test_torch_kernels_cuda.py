@@ -1,9 +1,11 @@
 """The CUDA kernels on the card, against their plain PyTorch versions
 (the per-step pair, the multi-step kernel on packed carries of the
 chip_smoke cells, solo and as B = 3 instances, the LIF update on the
-shared LIF cases, and the AER encoder and decoder on the shared AER
-cases, full width and 8-peer decode included), and the co-simulation,
-SNN and AER all-reduce paths launching them.
+shared LIF cases, the AER encoder and decoder on the shared AER
+cases, full width and 8-peer decode included, and the selective scan on
+the shared scan cases, falcon-mamba-7b's prefill shape included), and
+the co-simulation, SNN, AER all-reduce and LM serve paths launching
+them.
 
 Marked ``gpu``: each test skips where there is no CUDA card (the kernels
 have no CPU mode).  This file imports no JAX, so it runs on the machine
@@ -31,13 +33,18 @@ from repro_torch.kernels import fabric_queue as fq
 from repro_torch.kernels import lif_step as lk
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as ssk
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
 from repro_torch.models import snn
+from repro_torch.models.model import LM, build_model
 
 from _torch_cases import (LIF_CARD_SHAPES, LIF_PARAMS, MS_BATCH, MS_STEPS,
                           aer_arrays, aer_mismatches, aer_specs, carry_err,
                           clone, lif_cases, lif_double_roundings,
                           multistep_cases, multistep_operands, planes,
-                          run_schedule, scan_case, update_case)
+                          run_schedule, scan_arrays, scan_case, scan_errors,
+                          scan_specs, update_case)
 
 SHAPES = [(4, 7), (2, 5), (16, 96), (32, 768), (224, 3072)]
 
@@ -437,3 +444,73 @@ def test_aer_allreduce_world_of_one_on_card(cuda):
                                      for r in sc.tree_leaves(red)))
     finally:
         dist.destroy_process_group()
+
+
+# --- the selective scan (B7) and the LM serve path ------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", scan_specs(card=True), ids=lambda s: s[0])
+def test_selective_scan_kernel_matches_plain(cuda, spec):
+    """|kernel - plain| <= tol + tol·|plain| for y and h_final (the
+    tolerance of ``_torch_cases.SCAN_TOL`` / ``SCAN_SERVE_TOL``)."""
+    args = [torch.from_numpy(v).to(cuda) for v in scan_arrays(spec)]
+    got = ssk.selective_scan(*args)
+    want = ref.selective_scan(*args)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        worst = scan_errors(w.cpu().numpy(), g.cpu().numpy())[2]
+        assert worst <= spec[3], (spec[0], worst)
+
+
+@pytest.mark.gpu
+def test_selective_scan_wrapper_validates_operands(cuda):
+    x = torch.zeros((2, 8, 16), device=cuda)
+    bc = torch.zeros((2, 8, 4), device=cuda)
+    a = -torch.ones((16, 4), device=cuda)
+    with pytest.raises(TypeError):
+        ssk.selective_scan(x.double(), x, bc, bc, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssk.selective_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                           x, bc, bc, a)
+    with pytest.raises(ValueError, match="shapes"):
+        ssk.selective_scan(x, x, bc[:, :4].contiguous(), bc, a)
+    wide = torch.zeros((2, 8, 33), device=cuda)
+    with pytest.raises(ValueError, match="N = 33"):
+        ssk.selective_scan(x, x, wide, wide, -torch.ones((16, 33),
+                                                         device=cuda))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssk.selective_scan(x.requires_grad_(), x.detach(), bc, bc, a)
+
+
+@pytest.mark.gpu
+def test_serve_smoke_on_card_launches_scan_in_prefill_only(cuda):
+    cfg = get_smoke_config("falcon_mamba_7b")
+    model = build_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 12), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    ssk.selective_scan.launches = 0
+    res = serve.generate(model, toks, 6)
+    assert ssk.selective_scan.launches == cfg.n_layers
+    assert res.tokens.shape == (2, 6) and int(res.tokens.max()) < cfg.vocab
+    assert torch.isfinite(res.logits.float()).all()
+    _, cache = model.prefill({"tokens": toks})
+    ssk.selective_scan.launches = 0
+    model.decode_step(cache, res.tokens[:, :1], None)
+    assert ssk.selective_scan.launches == 0
+
+
+@pytest.mark.gpu
+def test_lm_on_card_matches_cpu(cuda):
+    """The same float32-compute parameters on the card (B7) and the CPU
+    (the plain scan): logits to the serving contract's 2e-4."""
+    cfg = get_smoke_config("falcon_mamba_7b").with_(
+        compute_dtype=torch.float32)
+    cpu_model = build_model(cfg, seed=2, device="cpu")
+    card = LM(cfg, device=cuda)
+    card.load_state_dict(cpu_model.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(3))
+    want, _ = cpu_model.forward({"tokens": toks})
+    got, _ = card.forward({"tokens": toks.to(cuda)})
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
