@@ -24,13 +24,17 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                the three cells' specs plus ring-16 at a binding capacity
                under credit, drop and on/off, ring-32 with per-link
                timing and max_burst 2 under on/off, the 2x4 mesh
-               multicast (K = 2) under credit and a 14x14 mesh multicast
-               (K = 3, 1,092 lanes) under credit, 300 steps each at
-               chunk 1, 16 and/or 128 (launches with base > 0, max_steps
-               binding mid-chunk), and one B = 3 launch (the three
-               binding ring-16 cases) against their solo plain runs;
-               then one launch timed at full width, beside its bound and
-               its plain version;
+               multicast (K = 2) under credit, a 14x14 mesh multicast
+               (K = 3, 1,092 lanes) under credit, ring-3 with clocks near
+               and past BIG_NS, ring-16 hot spots whose q_time plane just
+               fits shared memory and does not, and ring-40 (two warps of
+               links), 300 steps each at chunk 1, 16 and/or 128
+               (launches with base > 0, max_steps binding mid-chunk),
+               every shared-memory tier among them, the kernel's and the
+               wrapper's layouts held equal; and one B = 3 launch (the
+               three binding ring-16 cases) against their solo plain
+               runs; then one launch timed at full width with CUDA events
+               and the profiler, beside its bound and its plain version;
 5. anchor    — the paper's Fig. 8 cell (ring-2 ping-pong, 1024 events a
                side, max_burst 1) through the default engine: 28.6 MEv/s
                within 0.1 %, and equal to ``protocol_sim.simulate``;
@@ -77,7 +81,9 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                shared memory, the full-width (16384, 1024) weight and
                the 8-peer decode (131072, 128) -> (131072, 1024)); then
                both timed at (16384, 1024), budget 128, beside their
-               bounds, plain versions and, for B6, scatter_add_;
+               bounds, plain versions and, for B6, scatter_add_, which
+               B6 is also timed against in five rounds of B6, library,
+               library, B6 (median and spread);
 14. aer_granite3_2b_layer — the slice's main path: five
                ``reduce_gradients(mode="aer_topk")`` steps over one
                granite-3.0-2b decoder layer's gradients (60.8 M float32
@@ -101,9 +107,11 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                sequences, widths that are not multiples of 32, 1 to 32
                states, subnormal and zero exp(dt·A), zero inputs, and
                falcon-mamba-7b's prefill shape (4, 2048, 8192, 16) with
-               its real A and a softplus dt): max abs and relative error
-               of y and h_final, each within its stated tolerance; then
-               B7 timed at the serve shape beside its bound and its
+               its real A and a softplus dt, and shapes at the kernel's
+               tile edges): max abs and relative error of y and h_final,
+               each within its stated tolerance, and whether each is
+               bit-equal; then B7 timed at the serve shape with the
+               profiler and with CUDA events, beside its bound and its
                plain version;
 17. serve_falcon_mamba_7b — the slice's main path, through
                ``repro_torch.launch.serve``: falcon-mamba-7b at its full
@@ -376,7 +384,7 @@ def phase_multistep_kernel():
     from repro_torch.core import network as net
     from repro_torch.kernels import fabric_queue as fq
     from repro_torch.kernels import ref
-    from _torch_cases import (MS_BATCH, MS_STEPS, carry_err, clone,
+    from _torch_cases import (BIG, MS_BATCH, MS_STEPS, carry_err, clone,
                               multistep_cases, multistep_operands,
                               run_schedule)
     dev = torch.device("cuda", 0)
@@ -400,6 +408,16 @@ def phase_multistep_kernel():
         check(err is not None, "multistep carry changed shape or dtype")
         return err
 
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("fabric_queue_multistep")
+    limit = ctypes.c_int()
+    _build.check(lib, lib.fabric_queue_multistep_smem_limit(limit),
+                 "fabric_queue_multistep")
+    check(limit.value == fq.H100_SMEM_OPTIN,
+          f"shared memory a block may opt in to: {limit.value} bytes, "
+          f"the tiers assume {fq.H100_SMEM_OPTIN}")
+    t_ch = net._MS_LANES.index("t")
     cases, solo, worst = [], {}, 0
     for name, kw, arrays, chunks in multistep_cases():
         carry, consts, step_fn, plan = multistep_operands(kw, arrays,
@@ -409,6 +427,14 @@ def phase_multistep_kernel():
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         solo[name] = (carry, consts, want, plan)
+        n_chips, n_routes, k = consts[1].shape
+        shape = (plan.bucket[1], k, plan.C, n_chips, n_routes)
+        for tier in range(len(fq.MS_TIERS)):
+            check(lib.fabric_queue_multistep_layout_bytes(*shape, tier)
+                  == min(fq.multistep_layout_bytes(*shape, tier), 2**31 - 1),
+                  f"{name}: the kernel's and the wrapper's shared-memory "
+                  f"layouts differ at tier {tier}")
+        tier = fq.multistep_tier(*shape, limit.value)
         for chunk in chunks:
             err = err_of(want, kernel(carry, consts, chunk, plan.bucket[5]),
                          plan.E)
@@ -416,11 +442,16 @@ def phase_multistep_kernel():
             cases.append({"case": name, "chunk": chunk,
                           "launches": -(-MS_STEPS // chunk),
                           "L": plan.bucket[1], "K": plan.bucket[7],
+                          "C": plan.C, "tier": fq.MS_TIERS[tier],
+                          "smem_bytes": fq.multistep_layout_bytes(*shape,
+                                                                  tier),
                           "max_burst": plan.bucket[5], "flow": plan.fc,
                           "cap": plan.cap, "max_abs_err": err,
                           "delivered": int(want[6][0]),
                           "drops": int(want[6][1]),
                           "stall_steps": int(want[4][5].sum()),
+                          "t_end_minus_big_ns":
+                              int(want[3][t_ch].max()) - BIG,
                           "plain_s": plain_s})
     parts = [solo[n] for n in MS_BATCH]
     carry = tuple(torch.stack([p[0][j] for p in parts]) for j in range(7))
@@ -452,6 +483,19 @@ def phase_multistep_kernel():
     check(wide["K"] == 3 and wide["L"] * wide["K"] > 1024
           and wide["stall_steps"] > 0,
           "14x14 case: expected K = 3, over 1024 lanes and credit stalls")
+    check({c["tier"] for c in cases} == set(fq.MS_TIERS),
+          f"the cases reach tiers {sorted({c['tier'] for c in cases})}, "
+          f"not all of {fq.MS_TIERS}")
+    tiers = {n: by[n]["tier"] for n in (
+        "ring16_credit", "ring16_plane_just_fits", "ring16_plane_spills")}
+    check(tiers == {"ring16_credit": "q_dest",
+                    "ring16_plane_just_fits": "q_time",
+                    "ring16_plane_spills": "tables"},
+          f"ring-16 cases at tiers {tiers}")
+    near = by["ring3_near_sentinel"]["t_end_minus_big_ns"]
+    past = by["ring3_past_sentinel"]["t_end_minus_big_ns"]
+    check(-512 < near < 0 and past >= 0,
+          f"sentinel cases end {near} and {past} ns from BIG_NS")
 
     # one launch (base 0, chunk 128) at the full-width shape: the
     # ring-16 credit cell's reset-time carry, a fresh copy per launch
@@ -513,14 +557,18 @@ def phase_multistep_kernel():
                          if device_ms is not None
                          else "CUDA events around each launch"),
            "device_ms": device_ms, "event_ms": event_ms,
+           "us_per_step_event": event_ms / n_steps * 1e3,
            "plain_ms": plain_ms, "bound_ms": max(tb, to),
            "bound_by": "bytes" if tb >= to else "operations",
            "bytes": byts, "ops": ops,
            "scan_traffic_bound_ms": n_steps * q * c * 4 / HBM_BYTES_S * 1e3,
            "steps_per_launch": n_steps, "max_abs_err": worst}
+    n_chips, n_routes, k = consts[1].shape
     emit("multistep_kernel_time",
          shape={"L": L, "Q": q, "C": c, "E": plan.E, "chunk": chunk,
-                "carry_bytes": net.slot_carry_bytes(L, plan.E, c)},
+                "carry_bytes": net.slot_carry_bytes(L, plan.E, c),
+                "tier": fq.MS_TIERS[fq.multistep_tier(L, k, c, n_chips,
+                                                      n_routes)]},
          **out)
     return out
 
@@ -1160,6 +1208,22 @@ def phase_aer_kernels():
             "call_ms": time_ms(kern, n=200, warm=20),
             "bound_ms": byts / HBM_BYTES_S * 1e3, "bound_by": "bytes",
             "bytes": byts, "max_abs_err": worst[kname]}
+    # B6 against its library call in turns: five rounds of B6, library,
+    # library, B6, each a CUDA-event mean over back-to-back calls
+    dec, lib = calls["aer_decode"][0], calls["aer_decode"][2]
+    rounds = {"aer_decode": [], "library": []}
+    for _ in range(5):
+        for key, fn in (("aer_decode", dec), ("library", lib),
+                        ("library", lib), ("aer_decode", dec)):
+            rounds[key].append(time_ms(fn, n=200, warm=20))
+    turns = {}
+    for key, v in rounds.items():
+        v = sorted(v)
+        turns[key] = {"median_ms": (v[4] + v[5]) / 2, "min_ms": v[0],
+                      "max_ms": v[-1], "all_ms": rounds[key]}
+    turns["decode_slower"] = (turns["aer_decode"]["median_ms"]
+                              > turns["library"]["median_ms"])
+    out["aer_decode"]["in_turns"] = turns
     emit("aer_kernel_time",
          shape={"nb": nb, "block": blk, "budget": bud, "frac": AER_FRAC,
                 "events": int(count.sum())},
@@ -1350,7 +1414,26 @@ def phase_scan_kernel():
                               scan_specs)
     dev = torch.device("cuda", 0)
     cases, worst_abs, worst_rel, serve_args = [], 0.0, 0.0, None
-    underflow = 0
+    underflow, unequal = 0, {"y": [], "h_final": []}
+
+    def held(name, tol, want, got, errs):
+        nonlocal worst_abs, worst_rel
+        for label, w, g in zip(("y", "h_final"), want, got):
+            check(g.shape == w.shape and g.dtype == torch.float32,
+                  f"{name}: {label} shape or dtype differs")
+            check(bool(torch.isfinite(g).all()), f"{name}: {label} "
+                                                 f"not finite")
+            ab, rel, scaled = scan_errors(w.cpu().numpy(), g.cpu().numpy())
+            bits = bool(torch.equal(w.view(torch.int32),
+                                    g.view(torch.int32)))
+            errs[label] = {"max_abs_err": ab, "max_rel_err": rel,
+                           "scaled_err": scaled, "bit_equal": bits}
+            if not bits:
+                unequal[label].append(name)
+            check(scaled <= tol, f"{name}: {label} off by {scaled} "
+                                 f"(|d| / (1 + |plain|)) > {tol}")
+            worst_abs, worst_rel = max(worst_abs, ab), max(worst_rel, rel)
+
     for spec in scan_specs(card=True):
         name, shape, _opts, tol = spec
         args = [torch.from_numpy(v).to(dev) for v in scan_arrays(spec)]
@@ -1358,17 +1441,7 @@ def phase_scan_kernel():
         want = ref.selective_scan(*args)
         torch.cuda.synchronize()
         errs = {}
-        for label, w, g in zip(("y", "h_final"), want, got):
-            check(g.shape == w.shape and g.dtype == torch.float32,
-                  f"{name}: {label} shape or dtype differs")
-            check(bool(torch.isfinite(g).all()), f"{name}: {label} "
-                                                 f"not finite")
-            ab, rel, scaled = scan_errors(w.cpu().numpy(), g.cpu().numpy())
-            errs[label] = {"max_abs_err": ab, "max_rel_err": rel,
-                           "scaled_err": scaled}
-            check(scaled <= tol, f"{name}: {label} off by {scaled} "
-                                 f"(|d| / (1 + |plain|)) > {tol}")
-            worst_abs, worst_rel = max(worst_abs, ab), max(worst_rel, rel)
+        held(name, tol, want, got, errs)
         x, dt, b, c, a = args
         if x.numel() < 2**22:
             abar = torch.exp(dt[..., None] * a)
@@ -1379,7 +1452,8 @@ def phase_scan_kernel():
             serve_args = args
         del got, want
     emit("scan_vs_plain", cases=cases, max_abs_err=worst_abs,
-         max_rel_err=worst_rel, subnormal_or_zero_abar=underflow)
+         max_rel_err=worst_rel, subnormal_or_zero_abar=underflow,
+         not_bit_equal=unequal)
     check(underflow > 0, "no scan case had a subnormal or zero exp(dt·A)")
 
     x, dt, b, c, a = serve_args

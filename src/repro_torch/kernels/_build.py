@@ -51,8 +51,9 @@ SIGNATURES = {
     },
     "fabric_queue_multistep": {
         "fabric_queue_multistep_smem_bytes": [_I, _I],
+        "fabric_queue_multistep_layout_bytes": [_I] * 6,
         "fabric_queue_multistep_smem_limit": [_PI],
-        "fabric_queue_multistep_launch": [_P] * 14 + [_I] * 10 + [_P],
+        "fabric_queue_multistep_launch": [_P] * 14 + [_I] * 11 + [_P],
     },
     "lif_step": {
         "lif_step_launch": [_P, _P, _LL, _F, _F, _F, _P, _P, _P],

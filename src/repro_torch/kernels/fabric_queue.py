@@ -44,22 +44,26 @@ CPU tensors to the plain versions in ``ref``.
     in as a closure; this kernel carries ``_slot_step_body`` itself:
     queue scan, flow gate, horizon, the two-pass link FSM, pops,
     delivery log, replication, forward slots, appends and telemetry.
-    Design: one thread block per instance (a leading batch axis B; the
-    engine passes B = 1); a warp per queue row for the scan, a thread
-    per link or lane for the rest, a barrier between phases.  The slot
-    planes and the log stay in global memory (L2): at ring-16 full width
-    the carry is 306,312 B, over the 227 KB a block may have.  The lane
-    and side planes, counters and per-step temporaries live in shared
-    memory for the whole launch and are written back once.
-    Bound on an H100: the scan's int32 operations, 4·Q·C a step (12.6 M
-    a 128-step launch at full width, ~0.75 µs at the int32 rate of
-    ~16.7 T/s), over the bytes if each input is read once and each
-    output written once — about 2 × ``slot_carry_bytes`` (0.61 MB at
-    full width, ~0.18 µs at 3.35 TB/s) a launch; but each step re-scans the
-    Q·C slot plane (98 KB at full width, from L2), and the phases are a
-    chain of dependent block-wide steps, so latency (barriers, L2
-    round trips), not bandwidth, sets its time.  Nothing in the design
-    hides that yet: it is the simple, bit-exact first version.
+    Bound on an H100: latency.  The int32 operations of a full-width
+    scan (4·Q·C a step, ~0.75 µs a 128-step launch at ring-16 full
+    width) and the carry's bytes (~0.2 µs) are far below what a chain of
+    dependent phases, 128 steps long, takes on one SM.
+    Design (``csrc/fabric_queue_multistep.cu`` says more): one block per
+    instance (a leading batch axis B; the engine passes B = 1), a thread
+    a link holding its link's state in registers for the launch (at most
+    ``MS_MAX_LINKS`` links; at every main-path cell all in the first
+    warp, whose link phases need only ``__syncwarp``), and the whole
+    block (at least eight warps) on the queue scan, several lanes a row.
+    Each queue row keeps a live window ``[lo, hi)`` outside which every
+    column holds ``BIG_NS`` and, from tier 1, a bitmap of its slots that
+    are not ``BIG_NS``; the scan visits only those (the full row where
+    the clock is at or past ``BIG_NS``), and skips a row whose results
+    cannot have changed.  The delivery prefix is a ballot, the append
+    offsets a ``__match_any_sync``.  What fits the 227 KB of shared memory a block
+    may opt in to stays there for the launch, by tier
+    (``multistep_tier``): the routing tables and the bitmap, then
+    ``q_time``, ``q_dest`` and ``q_inj``, copied in and out once with
+    Hopper's bulk copy.
 """
 
 from __future__ import annotations
@@ -72,9 +76,63 @@ from ..core.network import _MS_LANES, _MS_SIDES
 from . import _build
 
 __all__ = ["fabric_queue_step", "fabric_queue_update",
-           "fabric_queue_multistep"]
+           "fabric_queue_multistep", "multistep_layout_bytes",
+           "multistep_tier", "H100_SMEM_OPTIN", "MS_TIERS",
+           "MS_MAX_LINKS"]
 
 _I32 = torch.int32
+
+#: dynamic shared memory a block may opt in to on an H100, in bytes
+H100_SMEM_OPTIN = 232_448
+#: the multi-step kernel's shared scalars (mbarrier included) and its
+#: per-queue, per-link and per-lane arrays
+_MS_SCALARS, _MS_PER_QUEUE, _MS_PER_LINK, _MS_PER_LANE = 8, 16, 5, 4
+#: residency tiers: nothing, + tables and slot bitmap, + q_time,
+#: + q_dest, + q_inj
+MS_TIERS = ("base", "tables", "q_time", "q_dest", "q_inj")
+#: the most links a launch takes (a thread a link)
+MS_MAX_LINKS = 1024
+
+
+def _ms_base_words(n_links: int, k: int) -> int:
+    words = (_MS_SCALARS + _MS_PER_QUEUE * 2 * n_links
+             + _MS_PER_LINK * n_links + _MS_PER_LANE * n_links * k)
+    return -(-words // 4) * 4
+
+
+def _ms_plane_pitch(n_cols: int) -> int:
+    pitch = -(-n_cols // 4) * 4
+    return pitch + 4 if pitch % 8 == 0 else pitch
+
+
+def multistep_layout_bytes(n_links: int, k: int, n_cols: int, n_chips: int,
+                           n_routes: int, tier: int) -> int:
+    """Dynamic shared memory of a multi-step launch at ``tier`` (0 to 4),
+    in bytes: the base section (``fabric_queue_multistep_smem_bytes``),
+    then ``tier - 1`` resident (Q, C) planes at a row pitch of C rounded
+    up to 4 words and to 4 mod 8, then (tier >= 1) a bitmap of the slots
+    that are not ``BIG_NS`` (ceil(C / 32) words a row) and ``route_out``,
+    ``route_wt`` and ``route_del``.  The kernel's ``layout_bytes``
+    computes the same; chip_smoke holds the two equal."""
+    words = _ms_base_words(n_links, k)
+    if tier >= 1:
+        words += 2 * n_links * -(-n_cols // 32)
+        words += n_chips * n_routes * (2 * k + 1)
+    if tier >= 2:
+        words += (tier - 1) * 2 * n_links * _ms_plane_pitch(n_cols)
+    return 4 * words
+
+
+def multistep_tier(n_links: int, k: int, n_cols: int, n_chips: int,
+                   n_routes: int, limit: int = H100_SMEM_OPTIN) -> int:
+    """The highest residency tier whose layout fits ``limit`` bytes
+    (``MS_TIERS`` names them), or -1 where even the base section does
+    not fit (the kernel cannot run the fabric)."""
+    for tier in range(len(MS_TIERS) - 1, -1, -1):
+        if multistep_layout_bytes(n_links, k, n_cols, n_chips, n_routes,
+                                  tier) <= limit:
+            return tier
+    return -1
 
 
 def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
@@ -226,25 +284,31 @@ def fabric_queue_multistep(carry, consts, base, *, chunk: int,
     if base.shape != (1,):
         raise ValueError(f"fabric_queue_multistep: base must be (1,), got "
                          f"{tuple(base.shape)}")
+    if nq * nc >= 2**31 or n_chips * n_routes * k >= 2**31:
+        raise ValueError(f"fabric_queue_multistep: a (Q, C) = ({nq}, {nc}) "
+                         f"plane or an (N, R, K) table of 2**31 words or "
+                         f"more; the kernel indexes them with int32")
     if chunk < 1 or max_steps < 0 or max_burst < 0:
         raise ValueError(f"fabric_queue_multistep: chunk >= 1, max_steps "
                          f">= 0 and max_burst >= 0, got {chunk}, "
                          f"{max_steps}, {max_burst}")
     lib = _build.load("fabric_queue_multistep")
-    smem = lib.fabric_queue_multistep_smem_bytes(n_links, k)
     limit = ctypes.c_int()
     _build.check(lib, lib.fabric_queue_multistep_smem_limit(limit),
                  "fabric_queue_multistep")
-    if smem > limit.value:
+    tier = multistep_tier(n_links, k, nc, n_chips, n_routes, limit.value)
+    if tier < 0 or n_links > MS_MAX_LINKS:
+        smem = lib.fabric_queue_multistep_smem_bytes(n_links, k)
         raise ValueError(
             f"fabric_queue_multistep: L={n_links} links with K={k} need "
-            f"{smem} bytes of shared memory per block, over the "
-            f"{limit.value} a block may have on this card; use "
-            f"kernel='step' for this fabric")
+            f"{n_links} threads and {smem} bytes of shared memory per "
+            f"block, over the {MS_MAX_LINKS} threads or the {limit.value} "
+            f"bytes a block may have on this card; use kernel='step' for "
+            f"this fabric")
     rc = lib.fabric_queue_multistep_launch(
         *(t.data_ptr() for t in carry + consts), base.data_ptr(), n_inst,
         n_links, nc, n_log, n_chips, n_routes, k, chunk, max_steps,
-        max_burst, torch.cuda.current_stream(dev).cuda_stream)
+        max_burst, tier, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "fabric_queue_multistep")
     fabric_queue_multistep.launches += 1
     return carry

@@ -11,13 +11,16 @@ of its own at first use.  Replaces ``selective_scan_pallas``
 on x, dt (B, S, d_in), B/C (B, S, N) and A (d_in, N), all float32;
 returns ``(y (B, S, d_in), h_final (B, d_in, N))``.
 
-Design: one thread per state element (b, d, n), h in a register for the
-whole sequence, a width-N warp-shuffle sum for y; any N from 1 to 32 and
-any d_in.  Bound on an H100 at the serve shape (4, 2048, 8192, 16): the
-1.07e9 exponentials (0.257 ms on the special function units) over the
-809.0 MB moved (0.241 ms at 3.35 TB/s); each thread walks S dependent
-steps, and the kernel takes 3.42 ms there on an H100 SXM at 700 W (see
-the source's note).
+Design (``csrc/selective_scan.cu`` says more): a channel (b, d) belongs
+to two threads (one where N = 1), which hold its states' h in registers
+for the whole sequence, form dt·x once a step and sum h·C in registers
+(in the first version's butterfly order); a block of 128 threads walks
+the sequence in 32-step tiles of dt, x, B and C that arrive by
+``cp.async`` into a two-stage ring in shared memory, and writes y
+through a staged tile.  Any N from 1 to 32, any d_in, B <= 65535.
+Bound on an H100 at the serve shape (4, 2048, 8192, 16): the 1.07e9
+exponentials (0.257 ms on the special function units) over the 809.0 MB
+moved (0.241 ms at 3.35 TB/s).
 
 The wrapper checks its operands (CUDA, float32, contiguous, matching
 shapes, 1 <= N <= 32), allocates the outputs with ``torch.empty``,
@@ -36,7 +39,7 @@ from . import _build
 
 __all__ = ["selective_scan", "MAX_STATE"]
 
-#: the widest state the kernel takes (one warp's lanes a channel)
+#: the widest state the kernel takes
 MAX_STATE = 32
 
 
@@ -63,6 +66,9 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
             f"{tuple(dt.shape)}, b {tuple(b_ssm.shape)}, c "
             f"{tuple(c_ssm.shape)}, a {tuple(a.shape)} do not fit "
             f"(B, S, d_in), (B, S, d_in), (B, S, N), (B, S, N), (d_in, N)")
+    if bsz > 65535:
+        raise ValueError(f"selective_scan: B = {bsz}; the kernel takes at "
+                         f"most 65535 sequences a launch")
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"selective_scan: N = {n}; the kernel takes 1 to "
                          f"{MAX_STATE} states a channel")

@@ -22,8 +22,9 @@ and, for the card, the full-width and 8-peer shapes of the
 ``GRANITE_3_2B_LAYER`` gradient tree.  The selective-scan cases
 (``scan_cases``) hold the Pallas test's shapes, one-step sequences,
 widths that are not multiples of 32, 1 to 32 states (powers of two and
-not), steps whose ``exp(dt·A)`` is subnormal or 0, zero inputs and, for
-the card, falcon-mamba-7b's prefill shape.  Only numpy is imported at
+not), steps whose ``exp(dt·A)`` is subnormal or 0, zero inputs, shapes at
+the kernel's tile edges and, for the card, falcon-mamba-7b's prefill
+shape.  Only numpy is imported at
 module level; ``repro_torch`` inside the functions that need it."""
 
 from fractions import Fraction
@@ -168,8 +169,17 @@ def multistep_cases():
     with per-link timing and ``max_burst`` 2 under on/off; the 2x4 mesh
     multicast (K = 2) under credit, whose gate skips a route's absent
     second target; and a 14x14 mesh multicast with K = 3 (L = 364 links,
-    1,092 lanes, so threads stride over lanes) under credit with
-    ``max_burst`` 1."""
+    1,092 lanes, so the appends take 35 chunks of a warp) under credit
+    with ``max_burst`` 1.  Four more sit at the edges of the kernel's
+    redesign: ring-3 with the near-sentinel shift of
+    ``test_torch_fabric.py::test_near_sentinel_switch_count_pinned``
+    (clocks a few hundred ns under ``BIG_NS``), the same with every
+    link's clock started 20 ns under ``BIG_NS`` (``start_clock``, read
+    by ``multistep_operands``), so that clocks pass the sentinel and the
+    kernel scans whole rows, and ring-16 hot spots whose ``q_time``
+    plane just fits the H100's shared memory (C = 1712: one more event a
+    chip would not) and does not (C = 1728).  Ring-40 under credit takes
+    two warps (a thread a link) with ``q_time`` resident."""
     from repro_torch.core.fabric import MulticastPolicy, QueuePolicy
     from repro_torch.core.link import (PAPER_TIMING, SERIAL_LVDS_TIMING,
                                        per_link_timing)
@@ -219,7 +229,34 @@ def multistep_cases():
               mcast=MulticastPolicy("in_fabric",
                                     MulticastTable(wide_members))),
          wide, (16, 128)),
+        ("ring3_near_sentinel", dict(topo=ring_topology(3)),
+         near_sentinel_arrays(), (1, 16, 128)),
+        ("ring3_past_sentinel", dict(topo=ring_topology(3),
+                                     start_clock=BIG - 20),
+         near_sentinel_arrays(), (16, 128)),
+        ("ring16_plane_just_fits",
+         dict(topo=ring_topology(16),
+              queues=QueuePolicy(capacity=64, flow="credit")),
+         hot_spot_arrays(16, 107, 300.0, 0.65, seed=7), (16, 128)),
+        ("ring16_plane_spills",
+         dict(topo=ring_topology(16),
+              queues=QueuePolicy(capacity=64, flow="credit")),
+         hot_spot_arrays(16, 108, 300.0, 0.65, seed=8), (128,)),
+        ("ring40_two_warps_credit",
+         dict(topo=ring_topology(40),
+              queues=QueuePolicy(capacity=4, flow="credit")),
+         hot_spot_arrays(40, 12, 50.0, 0.65, seed=9), (16, 128)),
     ]
+
+
+def near_sentinel_arrays():
+    """One event 2 -> 1 on ring-3 at the near-sentinel shift of
+    ``test_near_sentinel_switch_count_pinned``: ``BIG_NS`` less seven
+    worst-case link costs (41 ns at the paper's timing)."""
+    from repro_torch.core.link import PAPER_TIMING
+    worst = PAPER_TIMING.t_req2req_ns + max(
+        PAPER_TIMING.t_reverse_penalty_ns, PAPER_TIMING.t_idle_switch_ns)
+    return [2], [BIG - (3 + 4) * worst], [1]
 
 
 #: the cases launched together as B = 3 instances
@@ -230,10 +267,13 @@ def multistep_operands(fab_kw, arrays, steps, device):
     """``(carry, consts, step_fn, plan)`` of a ``steps``-step run of the
     ``kernel="multistep"`` engine on ``device``: the packed reset-time
     carry, the launch's read-only operands, and the plain step over
-    ``ref``'s queue step."""
+    ``ref``'s queue step.  A ``start_clock`` entry of ``fab_kw`` (not a
+    ``Fabric`` keyword) sets every link's clock in the carry."""
     from repro_torch.core import network as net
     from repro_torch.core.fabric import EngineSpec, Fabric
     from repro_torch.kernels import ref
+    fab_kw = dict(fab_kw)
+    start_clock = fab_kw.pop("start_clock", None)
     fab = Fabric(**fab_kw, engine=EngineSpec("pallas", kernel="multistep"),
                  device=device)
     plan = fab._plan(spec_of(*arrays), steps)
@@ -243,6 +283,8 @@ def multistep_operands(fab_kw, arrays, steps, device):
     L = fab.n_links
     carry = net._pack_slot_state(net._slot_init(
         L, plan.E, q_time, q_dest, q_inj, sizes, init_tx))
+    if start_clock is not None:
+        carry[3][net._MS_LANES.index("t")] = start_clock
     consts = net._multistep_consts(links, route_out, route_del, route_wt,
                                    tc, tv, ti, cap, fc, xon)
     step_fn = net._multistep_step_fn(
@@ -651,6 +693,12 @@ SCAN_SHAPES = ((1, 32, 16, 4), (2, 64, 32, 8), (2, 48, 8, 16),
 #: falcon-mamba-7b's prefill scan on the serve path: 4 prompts of 2048
 #: tokens, d_inner 8192, d_state 16
 SCAN_SERVE_SHAPE = (4, 2048, 8192, 16)
+#: (B, S, d_in, N) at the kernel's tile edges, small enough for the CPU:
+#: S one 32-step tile +- 1, d_in a block's channels +- 1 (64 at two
+#: threads a channel, 128 at N = 1), N in {1, 17, 32}
+SCAN_EDGE_SHAPES = ((2, 31, 127, 1), (2, 33, 65, 17), (1, 33, 129, 32))
+#: the same edges over many sequences (a tall grid), on the card
+SCAN_CARD_EDGE_SHAPES = ((64, 33, 63, 17), (66, 31, 129, 32))
 #: |kernel - plain| <= tol + tol·|plain| for y and h_final: the
 #: reference's own tolerance at the test shapes
 #: (tests/test_kernels_scan.py:33), ten times that over the serve
@@ -717,7 +765,12 @@ def scan_specs(card=False):
         ("underflow-N16", (2, 64, 40, 16), {"underflow": True}, SCAN_TOL),
         ("zero-x-N4", (2, 32, 24, 4), {"zero_x": True}, SCAN_TOL),
     ]
+    # the kernel's tile edges (SCAN_EDGE_SHAPES)
+    specs += [(f"edge-S{s}-d{d}-N{n}", (b, s, d, n), {}, SCAN_TOL)
+              for b, s, d, n in SCAN_EDGE_SHAPES]
     if card:
+        specs += [(f"edge-S{s}-d{d}-N{n}-B{b}", (b, s, d, n), {}, SCAN_TOL)
+                  for b, s, d, n in SCAN_CARD_EDGE_SHAPES]
         specs += [
             ("falcon-1x256x1000", (1, 256, 1000, 16), {"falcon": True},
              SCAN_TOL),

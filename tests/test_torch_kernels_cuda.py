@@ -464,6 +464,26 @@ def test_selective_scan_kernel_matches_plain(cuda, spec):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("spec", [s for s in scan_specs(card=True)
+                                  if s[0].startswith("edge-")],
+                         ids=lambda s: s[0])
+def test_selective_scan_misaligned_operands_match_plain(cuda, spec):
+    """Operands one element into a larger buffer (4-byte copies, no
+    16-byte ones) give what aligned ones give, within tolerance of the
+    plain version."""
+    args = [torch.from_numpy(v).to(cuda) for v in scan_arrays(spec)]
+    want = ref.selective_scan(*args)
+    ops = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+           for t in args]
+    assert all(t.data_ptr() % 16 for t in ops)
+    got = ssk.selective_scan(*ops)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        worst = scan_errors(w.cpu().numpy(), g.cpu().numpy())[2]
+        assert worst <= spec[3], (spec[0], worst)
+
+
+@pytest.mark.gpu
 def test_selective_scan_wrapper_validates_operands(cuda):
     x = torch.zeros((2, 8, 16), device=cuda)
     bc = torch.zeros((2, 8, 4), device=cuda)

@@ -74,6 +74,20 @@ def test_plain_scan_matches_chunked_path(spec):
            1e-4)
 
 
+@pytest.mark.parametrize("spec", [s for s in scan_specs(card=True)
+                                  if s[0].startswith("edge-")],
+                         ids=lambda s: s[0])
+def test_scan_edge_specs_sit_on_tile_edges(spec):
+    """Each edge case is one 32-step tile +- 1 long and one block's
+    channels +- 1 wide (a block of 128 threads holds 64 channels at two
+    threads a channel, 128 at N = 1), with N in {1, 17, 32}."""
+    bsz, seq, d_in, n = spec[1]
+    block = 128 if n == 1 else 64
+    assert seq % 32 in (1, 31)
+    assert d_in % block in (1, block - 1)
+    assert n in (1, 17, 32)
+
+
 def test_scan_routing_by_device():
     """CPU tensors take the plain version (the same tensors); the kernel
     wrapper refuses them, and an unsupported device is refused."""
