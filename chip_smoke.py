@@ -14,11 +14,15 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 2. build     — the five libraries, one nvcc each, started together:
                seconds and ptxas's resource report;
 3. kernels   — the per-step pair (B1, B2) against their plain PyTorch
-               versions on the card, bit for bit, at (Q, C) in {(4, 7),
-               (32, 768), (224, 3072)} and K in {1, 4}, with every edge
-               case of the contract; then each timed with CUDA events at
-               the ring-16 full-width shape, beside its plain version and
-               its bound;
+               versions on the card, bit for bit: B1 at every
+               (Q, C) of tests/_torch_cases.py::STEP_SHAPES (C = 1, 3,
+               6, 33, (32, 768), (224, 3072), rows wider than one pass),
+               on planes 1-3 words past a 16-byte boundary, and on empty
+               rows under clocks at and past BIG_NS; B2 at (Q, C) in
+               {(4, 7), (32, 768), (224, 3072)} and K in {1, 4}, with
+               every edge case of the contract; then each timed at the
+               ring-16 full-width shape, beside its plain version, its
+               bound and the card's launch floor (a one-element fill_);
 4. multistep — the multi-step kernel (B3) against its plain version on
                packed carries of real plans (tests/_torch_cases.py):
                the three cells' specs plus ring-16 at a binding capacity
@@ -40,16 +44,28 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                within 0.1 %, and equal to ``protocol_sim.simulate``;
 6. full      — ring-16 hot-spot (48 events a chip, mean gap 300 ns,
                hot_frac 0.65, capacity 64, credit flow): the per-step
-               kernel engine against ``engine="reference"`` on the card,
-               field for field, every event delivered, no drops, and
-               exactly 2·max_steps kernel launches; then an 8-chip
-               in-fabric multicast run with K > 1, compared the same way;
+               kernel engine, replayed from a CUDA graph captured once
+               per run, against ``engine="reference"`` (the eager loop
+               of the plain step) on the card, field for field, every
+               event delivered, no drops, and exactly max_steps
+               launches of each kernel; then an 8-chip in-fabric
+               multicast run with K > 1, compared the same way; each
+               with its graph's replays, capture and instantiate seconds,
+               the replays' span on the card (CUDA events) beside the
+               host time that issued them, and peak memory; then the
+               ring-16 cell cut to 34, 66, 100 and 130 steps, on either
+               side of network.GRAPH_MIN_REPLAYS, each equal to
+               ``engine="reference"`` and timed end to end;
 7. multistep path — each of those three cells again through
                ``EngineSpec("pallas", kernel="multistep")`` at chunk 128:
                equal to its per-step result field for field, exactly
                ceil(max_steps / 128) B3 launches and no B1/B2 launch;
 8. profile   — torch.profiler windows of the full-width cell on both
-               paths: device-busy share and time by kernel;
+               paths: device-busy share and time by kernel; for the
+               per-step path also over its graph replays alone, where
+               the profiler must record exactly GRAPH_STEPS B1 and B2
+               calls a replay and the wrappers must count 2 + 8 *
+               GRAPH_STEPS launches each;
 9. lif       — the LIF kernel (B4) against its plain version on the card
                (tests/_torch_cases.py::lif_cases at the test shapes,
                (32, 128) and (65536, 128), with the threshold and
@@ -210,13 +226,16 @@ def _device_rows(prof):
     """``(device us, name, count)`` of the profile's device-side rows
     (kernels and copies), largest first.  Operator rows (``aten::...``)
     also carry the device time of the kernels they launched, so summing
-    every row would count that time twice; so does the schedule's
-    ``ProfilerStep#`` range, which spans its step on the device."""
+    every row would count that time twice; so do the schedule's
+    ``ProfilerStep#`` range and the slot engine's graph-replay range,
+    which span their window on the device."""
     from torch.autograd import DeviceType
+    from repro_torch.core.network import REPLAY_RANGE
     return sorted(((_device_us(e), e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-                   and not e.key.startswith("ProfilerStep")),
+                   and not e.key.startswith("ProfilerStep")
+                   and e.key != REPLAY_RANGE),
                   reverse=True)
 
 
@@ -287,37 +306,59 @@ def phase_kernels():
     import torch
     from repro_torch.kernels import fabric_queue as fq
     from repro_torch.kernels import ref
-    from _torch_cases import planes, scan_case, update_case
+    from _torch_cases import (STEP_OFFSETS, STEP_SHAPES, offset_tensor,
+                              planes, scan_case, sentinel_scan_case,
+                              update_case)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
 
     def t(a):
         return torch.tensor(a, device=dev)
 
+    def err_of(got, want):
+        torch.cuda.synchronize()
+        return max(int((g.long() - w.long()).abs().max()) for g, w in
+                   zip(got, want))
+
     worst = {"fabric_queue_step": 0, "fabric_queue_update": 0}
+    # B1: every shape; rows 1-3 words past a 16-byte boundary; empty
+    # rows and values next to BIG_NS under clocks at and past it
+    step_cases = []
+    for nq, nc in STEP_SHAPES:
+        q, qd, tq = scan_case(rng, nq, nc)
+        want = ref.fabric_queue_scan(t(q), t(qd), t(tq))
+        step_cases.append({"Q": nq, "C": nc, "err": {"wrapper": err_of(
+            fq.fabric_queue_step(t(q), t(qd), t(tq)), want)}})
+    for nq, nc in ((4, 3), (5, 33), (32, 768)):
+        q, qd, tq = scan_case(rng, nq, nc)
+        want = ref.fabric_queue_scan(t(q), t(qd), t(tq))
+        for oq, od in STEP_OFFSETS:
+            got = fq.fabric_queue_step(offset_tensor(q, dev, oq),
+                                       offset_tensor(qd, dev, od), t(tq))
+            step_cases.append({"Q": nq, "C": nc, "offsets_words": [oq, od],
+                               "err": {"wrapper": err_of(got, want)}})
+    for nq, nc in ((8, 1), (8, 33), (8, 768)):
+        q, qd, tq = sentinel_scan_case(nq, nc)
+        got = fq.fabric_queue_step(t(q), t(qd), t(tq))
+        step_cases.append({"Q": nq, "C": nc, "sentinel_rows": True,
+                           "err": {"wrapper": err_of(
+                               got, ref.fabric_queue_scan(t(q), t(qd),
+                                                          t(tq)))}})
+    worst["fabric_queue_step"] = max(max(c["err"].values())
+                                     for c in step_cases)
     cases = []
     for nq, nc in ((4, 7), (32, 768), (224, 3072)):
-        q, qd, tq = scan_case(rng, nq, nc)
-        got = fq.fabric_queue_step(t(q), t(qd), t(tq))
-        want = ref.fabric_queue_scan(t(q), t(qd), t(tq))
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in
-                  zip(got, want))
-        worst["fabric_queue_step"] = max(worst["fabric_queue_step"], err)
         for k in (1, 4):
             pl = planes(rng, nq, nc)
             lanes = update_case(rng, nq, nc, k)
             got = fq.fabric_queue_update(*map(t, pl), *map(t, lanes))
             want = ref.fabric_queue_update(*map(t, pl), *map(t, lanes))
-            torch.cuda.synchronize()
-            e2 = max(int((g.long() - w.long()).abs().max()) for g, w in
-                     zip(got, want))
+            e2 = err_of(got, want)
             worst["fabric_queue_update"] = max(
                 worst["fabric_queue_update"], e2)
-            cases.append({"Q": nq, "C": nc, "K": k, "scan_err": err,
-                          "update_err": e2})
-    emit("kernels_vs_plain", cases=cases, max_abs_err=worst,
-         equal=all(v == 0 for v in worst.values()))
+            cases.append({"Q": nq, "C": nc, "K": k, "update_err": e2})
+    emit("kernels_vs_plain", step_cases=step_cases, update_cases=cases,
+         max_abs_err=worst, equal=all(v == 0 for v in worst.values()))
     check(all(v == 0 for v in worst.values()),
           f"kernels disagree with their plain versions: {worst}")
 
@@ -342,6 +383,9 @@ def phase_kernels():
                      "plain_device_ms": device_ms(plain),
                      "plain_call_ms": time_ms(plain)}
               for name, (kern, plain) in calls.items()}
+    # the card's launch floor: device time of a one-element fill_
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(1))
     # bounds from these inputs: each input read once, each output
     # written once (the update writes only its valid lanes)
     pop_q, pop_slot, app_q = (a.cpu().numpy() for a in lanes[:3])
@@ -371,9 +415,10 @@ def phase_kernels():
                      "bound_ms": max(tb, to),
                      "bound_by": "bytes" if tb >= to else "operations",
                      "bytes": b, "ops": o,
+                     "launch_floor_ms": floor_ms,
                      "max_abs_err": worst[name]}
     emit("kernel_times", shape={"Q": nq, "C": nc, "Lp": lp, "La": la},
-         kernels=out)
+         launch_floor_ms=floor_ms, kernels=out)
     return out
 
 
@@ -588,6 +633,7 @@ def phase_anchor():
     cf = fab.compile(spec)
     check(cf.bucket == ("pallas", 1, 2048, 2048, 12480, 1, 2, 1, "step",
                         0), f"anchor bucket {cf.bucket}")
+    torch.cuda.reset_peak_memory_stats()
     fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
     t0 = time.perf_counter()
     res = cf.run(spec)
@@ -595,6 +641,7 @@ def phase_anchor():
     wall = time.perf_counter() - t0
     launches = (fq.fabric_queue_step.launches,
                 fq.fabric_queue_update.launches)
+    peak = torch.cuda.max_memory_allocated()
     thr = float(net.fabric_throughput_mev_s(res))
     err = abs(thr - ANCHOR_MEV_S) / ANCHOR_MEV_S
     sim = ps.simulate(np.zeros(n, np.int32), np.zeros(n, np.int32),
@@ -615,12 +662,31 @@ def phase_anchor():
     emit("anchor", thr_mev_s=thr, paper_mev_s=ANCHOR_MEV_S, rel_err=err,
          delivered=d, t_end=int(res.t_end), bucket=list(cf.bucket),
          launches=list(launches), wall_s=wall,
-         us_per_step=wall / cf.bucket[4] * 1e6, equals_simulate=same)
+         us_per_step=wall / cf.bucket[4] * 1e6, graph=_per_step(cf.graph),
+         peak_memory_bytes=peak, equals_simulate=same)
     check(err <= ANCHOR_TOL, f"anchor {thr} MEv/s off 28.6 by {err:.3%}")
+    check(launches == (cf.bucket[4],) * 2 and cf.graph["replays"] > 0,
+          f"anchor: launches {launches} over {cf.bucket[4]} steps, graph "
+          f"{cf.graph}")
     check(same, "ring-2 fabric differs from protocol_sim.simulate")
     check(d == 2 * n, "anchor did not deliver every event")
     return ("anchor", dict(topo=ring_topology(2),
                            queues=QueuePolicy(max_burst=1)), spec, res)
+
+
+def _per_step(graph):
+    """A run's graph report with the replays' span on the card (CUDA
+    events) and the host time that issued them, per replayed step, and
+    the host time of the first replay (issued to an idle card) per step
+    of the graph."""
+    g = dict(graph)
+    if g["replays"]:
+        n = g["replays"] * g["graph_steps"]
+        g["replay_device_us_per_step"] = g["replay_device_s"] / n * 1e6
+        g["replay_host_us_per_step"] = g["replay_host_s"] / n * 1e6
+        g["first_replay_host_us_per_step"] = (g["first_replay_host_s"]
+                                              / g["graph_steps"] * 1e6)
+    return g
 
 
 def _run_pair(fab_kw, spec, label):
@@ -633,6 +699,7 @@ def _run_pair(fab_kw, spec, label):
     fab = Fabric(**fab_kw, engine="pallas")
     cf = fab.compile(spec)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
     t0 = time.perf_counter()
     res = cf.run(spec)
@@ -640,6 +707,7 @@ def _run_pair(fab_kw, spec, label):
     wall = time.perf_counter() - t0
     launches = {"fabric_queue_step": fq.fabric_queue_step.launches,
                 "fabric_queue_update": fq.fabric_queue_update.launches}
+    peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     ref = Fabric(**fab_kw, engine="reference").run(spec)
     torch.cuda.synchronize()
@@ -649,7 +717,8 @@ def _run_pair(fab_kw, spec, label):
     emit(label, bucket=list(cf.bucket), steps=steps,
          delivered=int(res.delivered), injected=res.injected,
          drops=int(res.drops), launches=launches, wall_s=wall,
-         us_per_step=wall / steps * 1e6, reference_wall_s=ref_wall,
+         us_per_step=wall / steps * 1e6, graph=_per_step(cf.graph),
+         peak_memory_bytes=peak, reference_wall_s=ref_wall,
          reference_us_per_step=ref_wall / steps * 1e6,
          equals_reference=True,
          thr_mev_s=float(net.fabric_throughput_mev_s(res)),
@@ -657,7 +726,9 @@ def _run_pair(fab_kw, spec, label):
     check(all(v == steps for v in launches.values()),
           f"{label}: launches {launches}, expected {steps} each "
           f"(2·max_steps in all)")
-    return res, cf.bucket, launches, wall
+    check(cf.graph["replays"] > 0, f"{label}: no graph replay "
+          f"({cf.graph})")
+    return res, cf, launches, wall
 
 
 def phase_full():
@@ -668,7 +739,8 @@ def phase_full():
     spec = spec_of(*hot_spot_arrays(16, 48, 300.0, 0.65, seed=2))
     kw = dict(topo=ring_topology(16),
               queues=QueuePolicy(capacity=64, flow="credit"))
-    res, bucket, launches, _ = _run_pair(kw, spec, "full_ring16_credit")
+    res, cf, launches, _ = _run_pair(kw, spec, "full_ring16_credit")
+    bucket = cf.bucket
     check(int(res.delivered) == res.injected and int(res.drops) == 0,
           "credit flow lost events")
 
@@ -679,12 +751,52 @@ def phase_full():
     mspec = spec_of(*arrays)
     mkw = dict(topo=mesh2d_topology(2, 4), addr=AddressSpec(),
                mcast=MulticastPolicy("in_fabric", MulticastTable(members)))
-    mres, mbucket, _, _ = _run_pair(mkw, mspec, "multicast_mesh2x4")
+    mres, mcf, _, _ = _run_pair(mkw, mspec, "multicast_mesh2x4")
+    mbucket = mcf.bucket
     check(mbucket[7] > 1, f"multicast K = {mbucket[7]}, expected > 1")
     check(int(mres.delivered) == mres.injected, "multicast lost events")
     cells = [("full_ring16_credit", kw, spec, res),
              ("multicast_mesh2x4", mkw, mspec, mres)]
+    phase_short_runs(spec, kw)
     return spec, kw, bucket, launches, cells
+
+
+#: step counts of the short runs: 34 leaves room for one graph replay
+#: and stays eager, 66, 100 and 130 replay 2-4 times (GRAPH_STEPS = 32,
+#: GRAPH_MIN_REPLAYS = 2)
+SHORT_RUN_STEPS = (34, 66, 100, 130)
+
+
+def phase_short_runs(spec, kw):
+    """The ring-16 cell cut to SHORT_RUN_STEPS through the default
+    engine, in turns (up, then down): wall seconds of ``run`` and its
+    plan, each result equal to ``engine="reference"`` field for field.
+    Where a short run stops paying for its graph."""
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import Fabric
+    fab = Fabric(**kw, engine="pallas")
+    fab.run(spec, max_steps=SHORT_RUN_STEPS[-1])     # warm up
+    runs, last = [], {}
+    for n in SHORT_RUN_STEPS + SHORT_RUN_STEPS[::-1]:
+        cf = fab.compile(spec, max_steps=n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last[n] = cf.run(spec, max_steps=n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = getattr(cf, "graph", None) or {}
+        runs.append({"steps": n, "wall_s": wall,
+                     "replays": g.get("replays"),
+                     "capture_s": g.get("capture_s"),
+                     "instantiate_s": g.get("instantiate_s")})
+    ref = Fabric(**kw, engine="reference")
+    for n, res in last.items():
+        net.assert_results_equal(res, ref.run(spec, max_steps=n),
+                                 f"short run of {n} steps")
+    emit("short_runs", graph_min_replays=getattr(net, "GRAPH_MIN_REPLAYS",
+                                                 None),
+         runs=runs, equals_reference=True)
 
 
 def phase_multistep_path(cells):
@@ -728,9 +840,12 @@ def phase_multistep_path(cells):
     return counted
 
 
-def aten_ops_per_step(fab, spec, steps: int) -> float:
-    """PyTorch operator calls per micro-transaction (dispatcher count
-    over a ``steps``-step run of the fabric's engine)."""
+def aten_ops_per_step(fab, spec, steps=None) -> float:
+    """PyTorch operator calls on the host per micro-transaction
+    (dispatcher count over a ``steps``-step run of the fabric's engine;
+    None: the whole run).  For the captured per-step engine this counts
+    the whole run, capture included (replays call no operator), divided
+    by its steps."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -740,45 +855,105 @@ def aten_ops_per_step(fab, spec, steps: int) -> float:
             Count.n += 1
             return func(*args, **(kwargs or {}))
 
+    n_steps = fab.compile(spec, max_steps=steps).bucket[4]
     with Count():
         fab.run(spec, max_steps=steps)
-    return Count.n / steps
+    return Count.n / n_steps
 
 
-def phase_profile(spec, kw, engine="pallas", steps=300, label="profile"):
-    """Device-busy share and kernel time by name over a window of
+def _replay_window(prof, steps: int) -> dict:
+    """The graph replays of a profiled per-step run: the device span of
+    the runner's replay range (from its first kernel to its last: the
+    capture before it ran nothing on the card, and the run has no eager
+    tail), the kernels' device time in it, a step, and the per-step
+    kernels' calls there."""
+    from torch.autograd import DeviceType
+    from repro_torch.core.network import REPLAY_RANGE
+    evs = prof.events()
+    opened = min(e.time_range.start for e in evs
+                 if e.name == REPLAY_RANGE)
+    rows = [e for e in evs if e.device_type == DeviceType.CUDA
+            and e.time_range.start >= opened and e.name != REPLAY_RANGE]
+    if not rows:
+        return {"device_busy": "not measured"}
+    t0 = min(e.time_range.start for e in rows)
+    t1 = max(e.time_range.end for e in rows)
+    busy = sum(e.time_range.elapsed_us() for e in rows)
+    return {"steps": steps, "window_us": t1 - t0,
+            "device_us_per_step": busy / steps,
+            "profiled_busy_share": busy / (t1 - t0),
+            "kernels_per_step": len(rows) / steps,
+            "calls": {k: sum(k + "_kernel" in e.name for e in rows)
+                      for k in ("fabric_queue_step",
+                                "fabric_queue_update")}}
+
+
+def phase_profile(spec, kw, engine="pallas", steps=None, label="profile"):
+    """Device-busy share and kernel time by name over a profiled run of
     ``steps`` micro-transactions (None: the whole run) of the cell
-    through ``engine``."""
+    through ``engine``.  The per-step engine runs 2 + 8·GRAPH_STEPS
+    steps (two eager, eight replays, no eager tail), read over the
+    replays alone, where the profiler must record GRAPH_STEPS calls of
+    B1 and of B2 a replay: the replays' launches, which the wrappers do
+    not see.  The profiler slows replays down, so this window's busy
+    share is the profiled one only; the full cells' phases give the
+    replays' unprofiled span (CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import network as net
     from repro_torch.core.fabric import Fabric
+    from repro_torch.kernels import fabric_queue as fq
     fab = Fabric(**kw, engine=engine)
+    per_step = fab.engine.kernel == "step"
+    if per_step:
+        steps = 2 + 8 * net.GRAPH_STEPS
     cf = fab.compile(spec, max_steps=steps)
     cf.run(spec, max_steps=steps)            # warm the allocator
     torch.cuda.synchronize()
+    fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         cf.run(spec, max_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = {"fabric_queue_step": fq.fabric_queue_step.launches,
+               "fabric_queue_update": fq.fabric_queue_update.launches}
     steps = cf.bucket[4]
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    ops = aten_ops_per_step(fab, spec, steps=20)
+    extra = {}
+    if per_step:
+        replayed = net.GRAPH_STEPS * cf.graph["replays"]
+        rep = _replay_window(prof, replayed)
+        extra = {"graph": _per_step(cf.graph), "wrapper_launches": counted,
+                 "replays": rep,
+                 "host_ops_per_step_whole_run": aten_ops_per_step(fab,
+                                                                  spec)}
+    ops = aten_ops_per_step(fab, spec, steps=steps)
     if busy_us == 0:
         emit(label, steps=steps, wall_s=wall, aten_ops_per_step=ops,
-             device_busy="not measured")
-        return
-    emit(label, steps=steps, wall_s=wall,
-         us_per_step=wall / steps * 1e6,
-         device_busy_us_per_step=busy_us / steps,
-         device_busy_share=busy_us / (wall * 1e6),
-         aten_ops_per_step=ops,
-         kernels_per_step=sum(r[2] for r in rows) / steps,
-         op_rows_device_us_per_step=_op_rows_us(prof) / steps,
-         top=[{"kernel": k[:80], "us_per_step": us / steps,
-               "calls_per_step": c / steps} for us, k, c in rows[:12]])
+             device_busy="not measured", **extra)
+    else:
+        emit(label, steps=steps, wall_s=wall,
+             us_per_step=wall / steps * 1e6,
+             device_busy_us_per_step=busy_us / steps,
+             device_busy_share=busy_us / (wall * 1e6),
+             aten_ops_per_step=ops,
+             kernels_per_step=sum(r[2] for r in rows) / steps,
+             op_rows_device_us_per_step=_op_rows_us(prof) / steps,
+             top=[{"kernel": k[:80], "us_per_step": us / steps,
+                   "calls_per_step": c / steps}
+                  for us, k, c in rows[:12]],
+             **extra)
+    if per_step:
+        want = 8 * net.GRAPH_STEPS
+        check(rep.get("calls") == {"fabric_queue_step": want,
+                                   "fabric_queue_update": want},
+              f"{label}: the profiler saw {rep.get('calls')} B1/B2 calls "
+              f"in 8 replays, expected {want} each")
+        check(all(v == 2 + want for v in counted.values()),
+              f"{label}: wrappers counted {counted}, expected {2 + want}")
 
 
 def _wrappers():
@@ -1710,6 +1885,8 @@ def main() -> int:
             "equal": k["max_abs_err"] == 0, "us": k["ms"] * 1e3,
             "main_path_bucket": list(path_bucket)})
     by_name = {k["name"]: k for k in kernels}
+    for kname in ("fabric_queue_step", "fabric_queue_update"):
+        by_name[kname]["launch_floor_ms"] = ktimes[kname]["launch_floor_ms"]
     by_name["aer_decode"]["aer_layer_ms_per_step"] = aer_ms
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],

@@ -15,6 +15,8 @@ and ``engine`` (:class:`EngineSpec`) — and a device:
 pass ``device="cpu"``.  PyTorch runs eagerly, so "compile" binds the
 bucket (the reference's slot-engine shape signature, kept identical)
 and builds the CUDA kernels its engine launches; nothing is traced.
+On the card, each run of ``kernel="step"`` captures its step into a CUDA
+graph and replays it (``network._slot_run``; ``CompiledFabric.graph``).
 
 Ported so far: the slot engines (``"reference"``, ``"pallas"``) with
 ``kernel="step"`` and ``kernel="multistep"``, unicast and both
@@ -101,9 +103,12 @@ class EngineSpec:
     ``"ring"`` raises ``NotImplementedError`` for now.
 
     ``kernel`` — pallas engine only.  ``"step"`` (default): two kernel
-    launches per micro-transaction.  ``"multistep"``: the whole step in
-    one kernel, ``chunk_size`` steps per launch, so a run costs
-    ``ceil(max_steps / chunk_size)`` launches.  It needs
+    launches per micro-transaction, replayed on the card from a CUDA
+    graph of ``network.GRAPH_STEPS`` steps captured once per run (runs
+    too short for ``network.GRAPH_MIN_REPLAYS`` replays stay eager).
+    ``"multistep"``: the whole step in one kernel, ``chunk_size`` steps
+    per launch, so a run costs ``ceil(max_steps / chunk_size)``
+    launches.  It needs
     ``name="pallas"`` given explicitly: the reference resolves
     ``"auto"`` to its ring engine and refuses it there, so ``"auto"``
     is refused here too.
@@ -524,6 +529,26 @@ class CompiledFabric:
 
     def __repr__(self) -> str:
         return f"CompiledFabric(bucket={self.bucket})"
+
+    @property
+    def graph(self) -> dict | None:
+        """How the last run of the per-step kernel engine ran:
+        ``graph_steps``, its eager ``head`` and ``tail`` steps, its
+        ``replays`` and, where it captured a graph on the card,
+        ``capture_s``, ``instantiate_s``, the host seconds spent issuing
+        the replays (``replay_host_s``) and the first of them
+        (``first_replay_host_s``), and the card's seconds from the
+        first replay's start to the last one's end (``replay_device_s``,
+        read from CUDA events; this waits for the replays to finish).
+        None for the other engines and before a run."""
+        stats = getattr(self._fn, "graph", None)
+        if stats is None or "replay_events" not in stats:
+            return stats
+        stats = dict(stats)
+        start, end = stats.pop("replay_events")
+        end.synchronize()
+        stats["replay_device_s"] = start.elapsed_time(end) / 1e3
+        return stats
 
     def run(self, spec: TrafficSpec, *,
             max_steps: int | None = None) -> FabricResult:

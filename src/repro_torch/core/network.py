@@ -11,8 +11,12 @@ model bit for bit:
   replication tables, the ``BIG_NS`` clock guards), copied;
 * ``_slot_step_body``: one micro-transaction over every link, as int32
   tensor ops on the engine's device;
-* ``_slot_run``: the step loop — ``lax.scan`` over ``max_steps``
-  becomes a Python loop that never reads a value back to the host;
+* ``_slot_run``: the step loop — ``lax.scan`` over ``max_steps``,
+  which the reference jits once, becomes, for the kernel engine on
+  CUDA, a CUDA graph of ``GRAPH_STEPS`` steps captured once per run and
+  replayed (a Python loop of the same static-carry step on the CPU, and
+  a plain host loop for ``engine="reference"``); no step reads a value
+  back to the host or copies one to the device;
 * ``_slot_run_multistep``: ``kernel="multistep"`` — the step loop in
   chunks of ``chunk`` micro-transactions over the packed carry of
   ``_pack_slot_state``, one ``kernels.ops.fabric_queue_multistep`` call
@@ -30,7 +34,8 @@ Engines (``simulate_fabric(engine=...)`` / ``fabric.EngineSpec``):
     The same step with the queue scan and the pop/append scatter
     dispatched through ``kernels/ops.py``: on CUDA the hand-written
     Hopper kernels of ``kernels/fabric_queue.py`` (two launches per
-    micro-transaction), on the CPU their plain versions.  With
+    micro-transaction, replayed from a captured CUDA graph), on the CPU
+    their plain versions.  With
     ``kernel="multistep"`` the whole step runs inside one kernel launch
     per chunk of steps instead.  The name is kept for parity with the
     reference package, whose ``"pallas"`` engine runs the same step
@@ -44,6 +49,7 @@ duplicate-target ``.add`` scatters (dense one-hot sums).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -72,6 +78,16 @@ ENGINES = ("reference", "pallas")
 
 #: Micro-transactions per launch of the multi-step kernel.
 DEFAULT_CHUNK_SIZE = 128
+
+#: Micro-transactions per CUDA graph replay of the per-step kernel engine.
+GRAPH_STEPS = 32
+#: Fewest replays for which a run captures its graph.  Capturing costs
+#: about the host time of GRAPH_STEPS eager steps, and instantiating a
+#: few more, so a run with room for one replay is faster left eager
+#: (the break-even in PERF.md).
+GRAPH_MIN_REPLAYS = 2
+#: profiler range around a run's graph replays
+REPLAY_RANGE = "slot_graph_replays"
 
 
 class FabricResult(NamedTuple):
@@ -551,6 +567,111 @@ def _slot_step_body(L: int, E: int, C: int, max_burst: int,
     return body
 
 
+def _graph_plan(max_steps: int, graph_steps: int,
+                min_replays: int) -> tuple[int, int, int]:
+    """How the per-step kernel engine runs ``max_steps`` steps:
+    ``(head, replays, tail)`` — ``head`` (at most 2) eager warm-up steps,
+    then ``replays`` runs of ``graph_steps`` captured steps, then
+    ``tail`` eager steps, so a binding ``max_steps`` is honoured
+    exactly.  Fewer than ``min_replays`` replays become eager steps."""
+    head = min(max(max_steps, 0), 2)
+    rest = max(max_steps, 0) - head
+    replays = rest // graph_steps
+    if replays < min_replays:
+        replays = 0
+    return head, replays, rest - replays * graph_steps
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of equally shaped (nested)
+    NamedTuples, rebuilt in the first one's types."""
+    a = trees[0]
+    if isinstance(a, tuple):
+        return type(a)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _static_carry(s: _SlotState) -> _SlotState:
+    """``s`` with a tensor of its own for every field (a field that
+    shares its tensor with an earlier one, as ``prev_mode_l`` shares
+    ``link.xl.mode``, is cloned): the carry that ``step_static``
+    overwrites in place."""
+    seen = set()
+
+    def own(t):
+        if id(t) in seen:
+            return t.clone()
+        seen.add(id(t))
+        return t
+
+    return _tree_map(own, s)
+
+
+def _copy_carry(dst: _SlotState, src: _SlotState) -> None:
+    """Overwrite the static carry ``dst`` with the step's result ``src``,
+    field for field.  A field that the step returned unchanged (the
+    planes and logs, written in place) is skipped; one that holds
+    another field's static tensor is read before anything is written."""
+    dst_l = _leaves(dst)
+    owned = {id(d) for d in dst_l}
+    pairs = [(d, v.clone() if id(v) in owned else v)
+             for d, v in zip(dst_l, _leaves(src)) if v is not d]
+    if pairs:
+        # one multi-tensor copy, not a launch a field (all int32)
+        torch._foreach_copy_([d for d, _ in pairs], [v for _, v in pairs])
+
+
+def _capture_steps(step, n_steps: int, wrappers, stats: dict):
+    """Capture ``n_steps`` calls of ``step`` into one CUDA graph on the
+    current device; returns ``replay(n)``, which replays it ``n`` times.
+    ``stats`` gets the capture and instantiate seconds, and from each
+    ``replay(n)`` the host seconds it took to issue the replays
+    (``replay_host_s``) and the first of them (``first_replay_host_s``,
+    issued to an idle card, so no queue holds it back), and CUDA events
+    recorded before and after them (``replay_events``).  A failed
+    capture raises.
+
+    Replays do not call the kernel wrappers, so their launch counts are
+    kept here: the launches recorded during capture are taken back (none
+    ran) and each replay adds them again."""
+    before = [w.launches for w in wrappers]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        for _ in range(n_steps):
+            step()
+    t1 = time.perf_counter()
+    graph.instantiate()
+    stats.update(capture_s=t1 - t0,
+                 instantiate_s=time.perf_counter() - t1)
+    per_replay = [w.launches - b for w, b in zip(wrappers, before)]
+    for w, b in zip(wrappers, before):
+        w.launches = b
+
+    def replay(n: int):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        t0 = time.perf_counter()
+        graph.replay()
+        t1 = time.perf_counter()
+        for _ in range(n - 1):
+            graph.replay()
+        events[1].record()
+        stats.update(first_replay_host_s=t1 - t0,
+                     replay_host_s=time.perf_counter() - t0,
+                     replay_events=tuple(events))
+        for w, k in zip(wrappers, per_replay):
+            w.launches += k * n
+
+    return replay
+
+
 def _slot_run(L: int, E: int, C: int, max_steps: int, max_burst: int,
               use_kernels: bool):
     """The slot-engine ``run`` for one shape signature.
@@ -560,7 +681,21 @@ def _slot_run(L: int, E: int, C: int, max_steps: int, max_burst: int,
     xon)`` takes device tensors (the (Q, C) planes are updated in place)
     and plain-int flow-control scalars, steps ``max_steps`` times and
     returns the 14-tuple of ``_slot_results``.
+
+    ``engine="reference"`` (``use_kernels=False``) loops ``body`` on the
+    host.  The kernel engine runs step 0 (the one whose switches are not
+    counted) through ``body``; every later step is ``step_static()``,
+    which runs ``body`` on one static carry and copies the result back
+    into it.  On CUDA, after step 1 has run eagerly (it loads both kernel
+    libraries and every kernel module before any capture),
+    ``GRAPH_STEPS`` calls of ``step_static`` are captured into a CUDA
+    graph once per run and replayed; the steps left over, and every step
+    of a run too short for ``GRAPH_MIN_REPLAYS`` replays, run eagerly
+    (``_graph_plan``).  On the CPU the same ``step_static`` runs in a
+    plain loop of the same plan.  ``run.graph`` reports the last run's
+    plan and, on CUDA, what ``_capture_steps`` records.
     """
+    from ..kernels import fabric_queue as kfq
     from ..kernels import ops as kops
     from ..kernels import ref as kref
     if use_kernels:
@@ -576,10 +711,42 @@ def _slot_run(L: int, E: int, C: int, max_steps: int, max_burst: int,
             L, E, C, max_burst, scan_fn, update_fn, links, route_out,
             route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap,
             fc_mode, xon)
-        for step_i in range(max_steps):
-            s = body(s, step_i)
-        return _slot_results(s, E)
+        if not use_kernels:
+            for step_i in range(max_steps):
+                s = body(s, step_i)
+            return _slot_results(s, E)
 
+        graph_steps = GRAPH_STEPS
+        head, replays, tail = _graph_plan(max_steps, graph_steps,
+                                          GRAPH_MIN_REPLAYS)
+        stats = {"graph_steps": graph_steps, "head": head,
+                 "replays": replays, "tail": tail}
+        run.graph = stats
+        if head:
+            s = body(s, 0)
+        static = _static_carry(s)
+
+        def step_static():
+            _copy_carry(static, body(static, 1))
+
+        for _ in range(head - 1):
+            step_static()
+        if replays:
+            if q_time.device.type == "cuda":
+                replay = _capture_steps(
+                    step_static, graph_steps,
+                    (kfq.fabric_queue_step, kfq.fabric_queue_update), stats)
+            else:
+                def replay(n):
+                    for _ in range(n * graph_steps):
+                        step_static()
+            with torch.profiler.record_function(REPLAY_RANGE):
+                replay(replays)
+        for _ in range(tail):
+            step_static()
+        return _slot_results(static, E)
+
+    run.graph = None
     return run
 
 

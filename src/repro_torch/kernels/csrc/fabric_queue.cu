@@ -20,72 +20,175 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int kBigNs = 1 << 30;   // empty / consumed slot sentinel
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kStepThreads = 256;   // 8 rows (warps) per block
 constexpr int kUpdateThreads = 256;
+// 16-byte vectors a thread loads per pass over a row, for each plane
+constexpr int kVecs = 8;
 
-// One warp per queue row; lanes stride over the C columns (neighbouring
-// lanes read neighbouring words).  Each lane keeps its released count,
-// its (minimum value, lowest column) of val = released ? q : BIG_NS and
-// its minimum unreleased time; a shuffle reduction then combines lanes,
-// breaking value ties toward the lower column — the first-minimum rule
-// of jnp.argmin / torch.argmin.  Every column takes part in the argmin
-// (unreleased ones as BIG_NS), so a row with nothing released gives
-// amin = 0 and head_route = q_dest[row, 0], as the oracle does.
-__global__ void __launch_bounds__(kStepThreads)
+// fabric_queue_step: one block per queue row, so Q = 32 rows keep 32
+// SMs busy.  Bound: bytes (q_time once, 7 words a row besides), far
+// below a launch at every main-path shape, so the design cuts the
+// kernel's own latency to one memory round trip:
+//  * every load of a row is made before any reduction: the aligned
+//    middle of the row as 16-byte int4 loads, kVecs a thread, unrolled
+//    and independent, the 0-3 columns before the first 16-byte boundary
+//    and after the last as scalar loads in the same pass (a second,
+//    strided pass only for rows wider than kVecs * threads vectors, and
+//    a scalar pass when q_time and q_dest differ in 16-byte alignment);
+//  * q_dest is read in that pass too, and each thread carries (value,
+//    column, dest) of its minimum, so head_route needs no dependent
+//    gather of q_dest[row, amin].  That doubles the bytes read, but the
+//    planes are updated in place every step and stay in the 50 MB L2
+//    at every main-path shape, where a second, dependent trip would
+//    cost more than the extra bytes;
+//  * warp reductions (redux.sync), then one shared-memory exchange
+//    across the block's warps.
+// The argmin rule is torch.argmin's (and jnp's): (value, column) pairs
+// compare lexicographically, so the lowest column wins a tie.  Every
+// column takes part (unreleased ones as BIG_NS), so a row with nothing
+// released gives amin = 0 and head_route = q_dest[row, 0]; a row whose
+// clock is at or past BIG_NS releases its empty slots, as in
+// ref.fabric_queue_scan.
+struct RowAcc {
+  int cnt;    // released count
+  int vmin;   // minimum of val = released ? q : BIG_NS ...
+  int imin;   // ... at this column
+  int dmin;   // ... with this q_dest
+  int nmin;   // minimum unreleased time
+};
+
+__device__ __forceinline__ void take(RowAcc& a, int v, int c, int d,
+                                     int t) {
+  const bool rel = v <= t;
+  a.cnt += rel;
+  const int val = rel ? v : kBigNs;
+  if (val < a.vmin || (val == a.vmin && c < a.imin)) {
+    a.vmin = val;
+    a.imin = c;
+    a.dmin = d;
+  }
+  a.nmin = min(a.nmin, rel ? kBigNs : v);
+}
+
+__device__ __forceinline__ void merge(RowAcc& a, const RowAcc& o) {
+  a.cnt += o.cnt;
+  if (o.vmin < a.vmin || (o.vmin == a.vmin && o.imin < a.imin)) {
+    a.vmin = o.vmin;
+    a.imin = o.imin;
+    a.dmin = o.dmin;
+  }
+  a.nmin = min(a.nmin, o.nmin);
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
 fabric_queue_step_kernel(const int* __restrict__ q_time,
                          const int* __restrict__ q_dest,
-                         const int* __restrict__ t_q, int n_q, int n_c,
+                         const int* __restrict__ t_q, int n_c,
                          int* __restrict__ pend, int* __restrict__ r_min,
                          int* __restrict__ nxt, int* __restrict__ amin,
                          int* __restrict__ busy,
                          int* __restrict__ head_route) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= n_q) return;   // uniform across the warp
+  constexpr int kWarps = kThreads / kWarp;
+  __shared__ RowAcc part[kWarps];
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
   const int* q = q_time + static_cast<size_t>(row) * n_c;
-  const int t = t_q[row];
+  const int* d = q_dest + static_cast<size_t>(row) * n_c;
+  const int t = __ldg(t_q + row);
 
-  int cnt = 0;
-  int vmin = INT_MAX;
-  int imin = INT_MAX;
-  int nmin = INT_MAX;
-  for (int c = lane; c < n_c; c += kWarp) {
-    const int v = q[c];
-    const bool rel = v <= t;
-    cnt += rel;
-    const int val = rel ? v : kBigNs;
-    // ascending c: the lane keeps its first minimum; its first column
-    // always seeds the pair (so a val of INT_MAX still has an index)
-    if (val < vmin || c == lane) {
-      vmin = val;
-      imin = c;
-    }
-    nmin = min(nmin, rel ? kBigNs : v);
-  }
+  // columns [0, head) and [head + 4 * n_vec, n_c) are scalar, the rest
+  // int4 vectors; both planes share the split when their bases agree
+  // modulo 16 bytes, else the whole row is scalar
+  const auto qa = reinterpret_cast<uintptr_t>(q);
+  const bool vec = ((qa ^ reinterpret_cast<uintptr_t>(d)) & 15u) == 0;
+  const int head = vec ? min(static_cast<int>(((16u - (qa & 15u)) & 15u)
+                                              >> 2), n_c) : 0;
+  const int n_vec = vec ? (n_c - head) >> 2 : 0;
+  const int tail = head + 4 * n_vec;
+  const int4* q4 = reinterpret_cast<const int4*>(q + head);
+  const int4* d4 = reinterpret_cast<const int4*>(d + head);
+
+  // one pass: every load first ...
+  int4 tv[kVecs], dv[kVecs];
 #pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    cnt += __shfl_down_sync(kFull, cnt, off);
-    const int ov = __shfl_down_sync(kFull, vmin, off);
-    const int oi = __shfl_down_sync(kFull, imin, off);
-    if (ov < vmin || (ov == vmin && oi < imin)) {
-      vmin = ov;
-      imin = oi;
+  for (int k = 0; k < kVecs; ++k) {
+    const int j = tid + k * kThreads;
+    if (j < n_vec) {
+      tv[k] = __ldg(q4 + j);
+      dv[k] = __ldg(d4 + j);
     }
-    nmin = min(nmin, __shfl_down_sync(kFull, nmin, off));
   }
-  if (lane == 0) {
-    pend[row] = cnt;
-    r_min[row] = vmin;
-    nxt[row] = nmin;
-    amin[row] = imin;
-    busy[row] = cnt > 0;
-    head_route[row] = q_dest[static_cast<size_t>(row) * n_c + imin];
+  int hq = 0, hd = 0, sq = 0, sd = 0;
+  const bool has_head = tid < head;
+  const bool has_tail = vec && tid < n_c - tail;
+  if (has_head) {
+    hq = __ldg(q + tid);
+    hd = __ldg(d + tid);
+  }
+  if (has_tail) {
+    sq = __ldg(q + tail + tid);
+    sd = __ldg(d + tail + tid);
+  }
+  // ... then the reduction of what arrived
+  RowAcc a{0, INT_MAX, INT_MAX, 0, INT_MAX};
+  if (has_head) take(a, hq, tid, hd, t);
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const int j = tid + k * kThreads;
+    if (j < n_vec) {
+      const int c = head + 4 * j;
+      take(a, tv[k].x, c, dv[k].x, t);
+      take(a, tv[k].y, c + 1, dv[k].y, t);
+      take(a, tv[k].z, c + 2, dv[k].z, t);
+      take(a, tv[k].w, c + 3, dv[k].w, t);
+    }
+  }
+  if (has_tail) take(a, sq, tail + tid, sd, t);
+  // rows wider than one pass, and rows that could not be vectorised
+  for (int j = tid + kVecs * kThreads; j < n_vec; j += kThreads) {
+    const int4 v = __ldg(q4 + j);
+    const int4 w = __ldg(d4 + j);
+    const int c = head + 4 * j;
+    take(a, v.x, c, w.x, t);
+    take(a, v.y, c + 1, w.y, t);
+    take(a, v.z, c + 2, w.z, t);
+    take(a, v.w, c + 3, w.w, t);
+  }
+  if (!vec) {
+    for (int c = tid; c < n_c; c += kThreads) {
+      take(a, __ldg(q + c), c, __ldg(d + c), t);
+    }
+  }
+
+  // the warp's (value, column) minimum: the least value, then the
+  // least column among the lanes holding it, then that lane's dest
+  RowAcc r;
+  r.cnt = __reduce_add_sync(kFull, a.cnt);
+  r.nmin = __reduce_min_sync(kFull, a.nmin);
+  r.vmin = __reduce_min_sync(kFull, a.vmin);
+  r.imin = __reduce_min_sync(kFull, a.vmin == r.vmin ? a.imin : INT_MAX);
+  const unsigned who = __ballot_sync(kFull, a.vmin == r.vmin &&
+                                                a.imin == r.imin);
+  r.dmin = __shfl_sync(kFull, a.dmin, __ffs(who) - 1);
+  a = r;
+  if (tid % kWarp == 0) part[tid / kWarp] = a;
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) merge(a, part[w]);
+    pend[row] = a.cnt;
+    r_min[row] = a.vmin;
+    nxt[row] = a.nmin;
+    amin[row] = a.imin;
+    busy[row] = a.cnt > 0;
+    head_route[row] = a.dmin;
   }
 }
 
@@ -127,16 +230,21 @@ fabric_queue_update_kernel(int* __restrict__ q_time,
 
 extern "C" {
 
+// A row per block of 2 warps up to C = 1024 columns, of 4 above: the
+// faster of 32-256 threads a row at (32, 768) and (224, 3072) on an
+// H100 (PERF.md, Findings).
 int fabric_queue_step_launch(const int* q_time, const int* q_dest,
                              const int* t_q, int n_q, int n_c, int* pend,
                              int* r_min, int* nxt, int* amin, int* busy,
                              int* head_route, void* stream) {
-  const int rows_per_block = kStepThreads / kWarp;
-  const int blocks = (n_q + rows_per_block - 1) / rows_per_block;
-  fabric_queue_step_kernel<<<blocks, kStepThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      q_time, q_dest, t_q, n_q, n_c, pend, r_min, nxt, amin, busy,
-      head_route);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_c <= 1024) {
+    fabric_queue_step_kernel<64><<<n_q, 64, 0, s>>>(
+        q_time, q_dest, t_q, n_c, pend, r_min, nxt, amin, busy, head_route);
+  } else {
+    fabric_queue_step_kernel<128><<<n_q, 128, 0, s>>>(
+        q_time, q_dest, t_q, n_c, pend, r_min, nxt, amin, busy, head_route);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

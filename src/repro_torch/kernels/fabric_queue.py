@@ -12,16 +12,21 @@ CPU tensors to the plain versions in ``ref``.
 ``fabric_queue_step`` — replaces ``fabric_queue_step_pallas``
 (``src/repro/kernels/fabric_queue.py:109``, body ``scan_math`` at
 ``:68``).
-    Design: one warp per queue row, lanes striding over the C columns;
-    each lane keeps its released count, (minimum released time, lowest
-    column) and minimum unreleased time, and a shuffle reduction breaks
-    ties toward the lower column (the argmin rule).  Lane 0 reads
-    ``q_dest[row, amin]`` and writes the six outputs.
+    Design: one block per queue row (2 warps up to C = 1024 columns, 4
+    above), so every row has an SM of its own at the main-path shapes;
+    every load of a row is made before any reduction (the row's
+    16-byte-aligned middle as unrolled ``int4`` loads, the 0-3 columns
+    either side as scalar loads), ``q_dest`` is read in the same pass and
+    each thread carries (value, column, dest) of its minimum, so
+    ``head_route`` needs no dependent gather; warp shuffles and one
+    shared-memory exchange then reduce, lowest column winning a tie (the
+    argmin rule).  One memory round trip a row, from L2: the planes are
+    updated in place every step.
     Bound on an H100: bytes.  It must read ``q_time`` once (Q·C·4 B) and
     move 7·Q·4 B besides (``t_q`` in, six outputs out): at the ring-16
     full-width shape (Q = 32, C = 768) about 0.1 MB, ~0.03 µs at
     3.35 TB/s — far below a launch, so the kernel is launch-bound.
-    (The head-route gather reads one more word per row.)
+    (Reading ``q_dest`` in the same pass doubles what it reads from L2.)
 
 ``fabric_queue_update`` — replaces ``fabric_queue_update_pallas``
 (``src/repro/kernels/fabric_queue.py:195``, body ``update_math`` at

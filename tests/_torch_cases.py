@@ -55,6 +55,43 @@ def scan_case(rng, nq, nc):
     return q.astype(np.int32), qd.astype(np.int32), t.astype(np.int32)
 
 
+#: (Q, C) of the queue scan's card cases: the test shapes, the ring-16
+#: full width (32, 768) and the 14x14 mesh's (224, 3072), C = 1 and 3
+#: (no 16-byte vector), C = 33 and 6 (not a multiple of 4, so rows
+#: start at every 16-byte phase), and (3, 9000), wider than one pass
+#: of the kernel's vector loads
+STEP_SHAPES = ((4, 7), (2, 5), (16, 96), (32, 768), (224, 3072), (4, 1),
+               (4, 3), (5, 33), (6, 6), (3, 9000))
+#: (q_time, q_dest) offsets in int32 words from a 16-byte boundary:
+#: equal phases take the vector path with a scalar head, unequal ones
+#: the scalar path
+STEP_OFFSETS = ((1, 1), (2, 2), (3, 3), (0, 1), (1, 0), (2, 3))
+
+
+def sentinel_scan_case(nq, nc):
+    """All-``BIG_NS`` rows (empty queues) and rows of values next to
+    ``BIG_NS``, under clocks below, at and past the sentinel, up to
+    INT32_MAX."""
+    q = np.full((nq, nc), BIG, np.int64)
+    q[1::2, ::3] = BIG - 1
+    q[1::4, 1::3] = BIG + 1
+    clocks = np.array([BIG - 1, BIG, BIG + 1, 2**31 - 1], np.int64)
+    t = clocks[(np.arange(nq) // 2) % 4]
+    qd = (np.arange(nq * nc).reshape(nq, nc) * 7) % 11
+    return q.astype(np.int32), qd.astype(np.int32), t.astype(np.int32)
+
+
+def offset_tensor(a, device, words):
+    """``a`` as a contiguous int32 tensor whose first element lies
+    ``words`` int32 words past a 16-byte boundary (of a fresh, aligned
+    allocation)."""
+    import torch
+    flat = torch.zeros(a.size + 4, dtype=torch.int32, device=device)
+    out = flat[words:words + a.size].view(a.shape)
+    out.copy_(torch.from_numpy(np.ascontiguousarray(a, np.int32)))
+    return out
+
+
 def update_case(rng, nq, nc, k):
     """Pop lanes (one per link, some skipped) and k append lanes per pop
     lane with unique targets disjoint from every pop slot."""

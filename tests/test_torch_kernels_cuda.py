@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions
-(the per-step pair, the multi-step kernel on packed carries of the
-chip_smoke cells, solo and as B = 3 instances, the LIF update on the
+(the per-step pair, on misaligned planes and sentinel rows too, and the per-step engine replayed from its captured CUDA
+graph against the eager engine="reference"; the multi-step kernel on
+packed carries of the chip_smoke cells, solo and as B = 3 instances,
+the LIF update on the
 shared LIF cases, the AER encoder and decoder on the shared AER
 cases, full width and 8-peer decode included, and the selective scan on
 the shared scan cases, falcon-mamba-7b's prefill shape included), and
@@ -43,8 +45,10 @@ from _torch_cases import (LIF_CARD_SHAPES, LIF_PARAMS, MS_BATCH, MS_STEPS,
                           aer_arrays, aer_mismatches, aer_specs, carry_err,
                           clone, lif_cases, lif_double_roundings,
                           multistep_cases, multistep_operands, planes,
-                          run_schedule, scan_arrays, scan_case, scan_errors,
-                          scan_specs, update_case)
+                          offset_tensor, run_schedule, scan_arrays,
+                          scan_case, scan_errors, scan_specs,
+                          sentinel_scan_case, STEP_OFFSETS,
+                          STEP_SHAPES, update_case)
 
 SHAPES = [(4, 7), (2, 5), (16, 96), (32, 768), (224, 3072)]
 
@@ -68,9 +72,35 @@ def _equal(want, got):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,nc", SHAPES)
+@pytest.mark.parametrize("nq,nc", STEP_SHAPES)
 def test_step_kernel_matches_plain(cuda, nq, nc):
     q, qd, t = scan_case(np.random.default_rng(nq + nc), nq, nc)
+    _equal(ref.fabric_queue_scan(_t(q), _t(qd), _t(t)),
+           fq.fabric_queue_step(_t(q, cuda), _t(qd, cuda), _t(t, cuda)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nc", [(4, 3), (5, 33), (32, 768)])
+@pytest.mark.parametrize("off_q,off_d", STEP_OFFSETS)
+def test_step_kernel_misaligned_rows_match_plain(cuda, nq, nc, off_q,
+                                                 off_d):
+    """Planes that start 1-3 words past a 16-byte boundary: a scalar
+    head before the vectors, or no vectors where the two planes' phases
+    differ."""
+    q, qd, t = scan_case(np.random.default_rng(nq + nc + off_q), nq, nc)
+    qc, dc = offset_tensor(q, cuda, off_q), offset_tensor(qd, cuda, off_d)
+    assert (qc.data_ptr() % 16, dc.data_ptr() % 16) == (4 * off_q,
+                                                        4 * off_d)
+    _equal(ref.fabric_queue_scan(_t(q), _t(qd), _t(t)),
+           fq.fabric_queue_step(qc, dc, _t(t, cuda)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nc", [(8, 1), (8, 33), (8, 768)])
+def test_step_kernel_sentinel_rows_match_plain(cuda, nq, nc):
+    """Empty rows and values next to BIG_NS under clocks at and past
+    BIG_NS (empty slots count as released there)."""
+    q, qd, t = sentinel_scan_case(nq, nc)
     _equal(ref.fabric_queue_scan(_t(q), _t(qd), _t(t)),
            fq.fabric_queue_step(_t(q, cuda), _t(qd, cuda), _t(t, cuda)))
 
@@ -118,6 +148,62 @@ def test_engine_on_card_matches_cpu(cuda):
     cpu = Fabric(ring_topology(6), device="cpu", engine="reference",
                  **kw).run(spec)
     net.assert_results_equal(res, cpu, "card vs cpu")
+
+
+# --- the per-step engine replayed from a captured CUDA graph -----------
+
+G = net.GRAPH_STEPS
+
+
+def _graph_cells():
+    from repro_torch.core.fabric import MulticastPolicy
+    from repro_torch.core.router import MulticastTable, mesh2d_topology
+    from _torch_cases import (anchor_arrays, hot_spot_arrays,
+                              mesh_multicast_case, spec_of)
+    members, arrays = mesh_multicast_case(8 * 6)
+    return {
+        "anchor": (dict(topo=ring_topology(2),
+                        queues=QueuePolicy(max_burst=1)),
+                   spec_of(*anchor_arrays(48))),
+        "ring16_credit": (dict(topo=ring_topology(16),
+                               queues=QueuePolicy(capacity=6,
+                                                  flow="credit")),
+                          spec_of(*hot_spot_arrays(16, 8, 300.0, 0.65,
+                                                   seed=2))),
+        "mesh2x4_multicast": (dict(topo=mesh2d_topology(2, 4),
+                                   addr=AddressSpec(),
+                                   mcast=MulticastPolicy(
+                                       "in_fabric",
+                                       MulticastTable(members))),
+                              spec_of(*arrays)),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["anchor", "ring16_credit",
+                                  "mesh2x4_multicast"])
+@pytest.mark.parametrize("steps", [None, 1, 2, G + 1, G + 2, G + 3,
+                                   2 * G + 1, 2 * G + 2, 3 * G + 5])
+def test_graph_run_matches_eager(cuda, cell, steps):
+    """The captured per-step engine against engine="reference" (the
+    eager loop of the plain step) on the card, field for field, with
+    exactly max_steps launches of each wrapper."""
+    kw, spec = _graph_cells()[cell]
+    cf = Fabric(**kw, device=cuda).compile(spec, max_steps=steps)
+    fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
+    res = cf.run(spec, max_steps=steps)
+    torch.cuda.synchronize()
+    n = cf.bucket[4]
+    head, replays, tail = net._graph_plan(n, G, net.GRAPH_MIN_REPLAYS)
+    graph = cf.graph
+    assert graph["replays"] == replays and graph["tail"] == tail
+    assert (replays > 0) == ("capture_s" in graph)
+    assert (replays > 0) == (graph.get("replay_device_s", 0) > 0)
+    assert fq.fabric_queue_step.launches == n
+    assert fq.fabric_queue_update.launches == n
+    want = Fabric(**kw, device=cuda, engine="reference").run(
+        spec, max_steps=steps)
+    net.assert_results_equal(res, want, f"{cell} at {steps} steps")
 
 
 # --- the multi-step kernel ----------------------------------------------
