@@ -11,7 +11,7 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 
 1. device    — name, capability (must be 9.0), nvidia-smi name and power
                limit (also printed raw on a line of its own);
-2. build     — the five libraries, one nvcc each, started together:
+2. build     — the six libraries, one nvcc each, started together:
                seconds and ptxas's resource report;
 3. kernels   — the per-step pair (B1, B2) against their plain PyTorch
                versions on the card, bit for bit: B1 at every
@@ -91,15 +91,24 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                versions on the card, bit for bit with NaN where NaN, on
                every case of tests/_torch_cases.py::aer_cases (float32
                and bfloat16, budget overflow, zero / NaN / infinite
-               thresholds, -0.0 rows, rows with infinities and NaNs,
-               duplicate and out-of-range decode addresses, blocks of
-               384 and 4999, 65536-entry rows whose decode row leaves
+               thresholds, -0.0 rows, rows with infinities and NaNs, the
+               budget-th entry inside a 16-byte vector, exactly budget
+               selected, non-finite entries past the budget, duplicate,
+               rising and out-of-range decode addresses, one address
+               across a 32-slot chunk's edge, blocks of 384, 1020, 1023,
+               3072 and 4999, 65536-entry rows whose decode row leaves
                shared memory, the full-width (16384, 1024) weight and
-               the 8-peer decode (131072, 128) -> (131072, 1024)); then
-               both timed at (16384, 1024), budget 128, beside their
-               bounds, plain versions and, for B6, scatter_add_, which
-               B6 is also timed against in five rounds of B6, library,
-               library, B6 (median and spread);
+               the 8-peer decode (131072, 128) -> (131072, 1024)) and of
+               AER_ROUTE_CASES (x at odd storage offsets), with the
+               route each call took; it fails if a route of either
+               kernel was never taken.  Then B5 and B6 timed at
+               (16384, 1024), budget 128, and B6 at the 8-peer decode,
+               by profiler device time and by CUDA events, beside their
+               bounds, registers and shared memory, plain versions and,
+               for B6, scatter_add_, which B6 is also timed against in
+               five rounds of B6, library, library, B6 (median and
+               spread).  (``phase_aer_turns``, run by hand, times B5 and
+               B6 in turns with another checkout's, e.g. a parent's);
 14. aer_granite3_2b_layer — the slice's main path: five
                ``reduce_gradients(mode="aer_topk")`` steps over one
                granite-3.0-2b decoder layer's gradients (60.8 M float32
@@ -113,7 +122,8 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                the plain encoder's count and to min(mask total, budget)
                summed over blocks, exactly one B5 and one B6
                launch per leaf per step and no other kernel; ms per step
-               and a profiled step's device-busy share;
+               and a profiled step's device-busy share and device time
+               by group (B5, B6, the tau sort, copies, NCCL);
 15. aer_compress_feedback — ``compress_with_feedback`` at its defaults
                on the ffn.wg.w gradient: exact mass conservation, one B5
                and one B6 launch;
@@ -156,6 +166,7 @@ printing any result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1290,28 +1301,85 @@ def _abs_err(want, got) -> float:
     return float(np.abs(w[both] - g[both]).max(initial=0.0))
 
 
+def _raw_encode(lib, x, tau, budget):
+    """A callable that launches B5 from ``lib`` (a library's ctypes
+    handle) on float32 ``x`` into outputs allocated once, and the
+    outputs: for timing without the wrapper's allocations and checks,
+    whose host time can exceed the kernel's."""
+    import torch
+    nb, blk = x.shape
+    i32 = dict(dtype=torch.int32, device=x.device)
+    outs = (torch.empty((nb, budget), **i32),
+            torch.empty((nb, budget), device=x.device),
+            torch.empty((nb,), **i32), torch.empty((nb,), **i32))
+    ptrs = [t.data_ptr() for t in outs]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run():
+        check(lib.aer_encode_launch(x.data_ptr(), tau.data_ptr(), nb, blk,
+                                    budget, 0, *ptrs, stream) == 0,
+              "aer_encode launch")
+    return run, outs
+
+
+def _raw_decode(lib, idx, val, block):
+    """``_raw_encode``'s counterpart for B6 (float32 val)."""
+    import torch
+    nb, budget = idx.shape
+    out = torch.empty((nb, block), device=idx.device)
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+
+    def run():
+        check(lib.aer_decode_launch(idx.data_ptr(), val.data_ptr(), nb,
+                                    budget, block, 0, out.data_ptr(), None,
+                                    stream) == 0, "aer_decode launch")
+    return run, (out,)
+
+
+def _aer_routes_check(seen: dict) -> None:
+    """Fail unless the cases reached every route of B5 and B6."""
+    from repro_torch.kernels import aer_decode as adk
+    from repro_torch.kernels import aer_encode as aek
+    for kname, routes in (("aer_encode", aek.ROUTES),
+                          ("aer_decode", adk.ROUTES)):
+        missed = [r for r in routes if not seen[kname].get(r)]
+        check(not missed, f"{kname}: no case took route(s) {missed}")
+
+
 def phase_aer_kernels():
     """B5 and B6 against their plain versions on the card, bit for bit
-    (NaN where NaN), on every ``aer_cases`` shape; then both timed at
-    (16384, 1024), budget 128."""
+    (NaN where NaN), on every ``aer_cases`` shape and every
+    ``AER_ROUTE_CASES`` entry, with the route each call took; then both
+    timed at (16384, 1024), budget 128, and B6 at the 8-peer decode,
+    by profiler device time and by CUDA events."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import aer_decode as adk
     from repro_torch.kernels import aer_encode as aek
     from repro_torch.kernels import ops as K
     from repro_torch.kernels import ref
-    from _torch_cases import aer_arrays, aer_mismatches, aer_specs
+    from _torch_cases import (AER_PEERS, AER_ROUTE_CASES, aer_arrays,
+                              aer_mismatches, aer_offset_copy,
+                              aer_peer_case, aer_specs)
     dev = torch.device("cuda", 0)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     cases, bad = [], 0
     worst = {"aer_encode": 0.0, "aer_decode": 0.0}
     seen = {"nan_slots": 0, "overflow_rows": 0, "zero_tau_rows": 0,
             "bf16_cases": 0, "nan_dense": 0}
-    for spec in aer_specs(card=True):
-        name, kind, nb, block, budget, dtype = spec
-        a, b, n = aer_arrays(spec)
+    routes = {"aer_encode": {}, "aer_decode": {}}
+    specs = [(*spec, 0, None) for spec in aer_specs(card=True)]
+    specs += AER_ROUTE_CASES
+    for spec in specs:
+        name, kind, nb, block, budget, dtype, offset, want_route = spec
+        a, b, n = aer_arrays(spec[:6])
         dt = dts[dtype]
+        took = {}
         if kind == "encode":
-            x, tau = (torch.from_numpy(v).to(dev).to(dt) for v in (a, b))
+            x = aer_offset_copy(a, dt, offset, dev)
+            tau = torch.from_numpy(b).to(dev).to(dt)
+            took["aer_encode"] = aek.plan(x)["route"]
+            took["aer_decode"] = adk.plan(block, dt)["route"]
             got = aek.aer_encode(x, tau, n)
             want = ref.aer_encode(x, tau, n)
             dec = (ref.aer_decode(want[0], want[1], block),
@@ -1324,6 +1392,7 @@ def phase_aer_kernels():
         else:
             idx = torch.from_numpy(a).to(dev)
             val = torch.from_numpy(b).to(dev).to(dt)
+            took["aer_decode"] = adk.plan(n, dt)["route"]
             pairs = {"aer_decode": [(ref.aer_decode(idx, val, n),
                                      adk.aer_decode(idx, val, n))]}
         torch.cuda.synchronize()
@@ -1334,58 +1403,90 @@ def phase_aer_kernels():
                       f"{name}: {kname} dtype or shape differs")
                 mism += aer_mismatches(_host(w), _host(g))
                 worst[kname] = max(worst[kname], _abs_err(w, g))
+        for kname, r in took.items():
+            routes[kname][r] = routes[kname].get(r, 0) + 1
+        if want_route is not None:
+            k0 = "aer_encode" if kind == "encode" else "aer_decode"
+            check(took[k0] == want_route,
+                  f"{name}: {k0} took route {took[k0]}, not {want_route}")
         dense = pairs["aer_decode"][-1][0]
         seen["nan_dense"] += int(torch.isnan(dense.float()).sum())
         seen["bf16_cases"] += dtype == "bfloat16"
         bad += mism
         cases.append({"case": name, "nb": nb, "block": block,
-                      "budget": budget, "mismatches": mism})
+                      "budget": budget, "offset": offset, "routes": took,
+                      "mismatches": mism})
     emit("aer_vs_plain", cases=cases, mismatches=bad, edges=seen,
-         max_abs_err=worst, equal=bad == 0)
+         routes=routes, max_abs_err=worst, equal=bad == 0)
     check(bad == 0, f"AER kernels disagree with their plain versions on "
                     f"{bad} element(s)")
     check(all(v > 0 for v in seen.values()),
           f"an AER edge case never occurred: {seen}")
+    _aer_routes_check(routes)
 
-    # times at one full-width weight, the main path's frac and budget
+    # times at one full-width weight, the main path's frac and budget,
+    # and B6 at the 8-peer decode of that weight
     g = torch.Generator(device=dev).manual_seed(14)
     x = torch.randn((AER_NB, AER_BLOCK), generator=g, device=dev)
     tau = K.tau_from_fraction(x, AER_FRAC)
     idx, val, count, _ = aek.aer_encode(x, tau, AER_BUDGET)
     col = torch.where(idx < 0, AER_BLOCK, idx).long()
-    calls = {
-        "aer_encode": (lambda: aek.aer_encode(x, tau, AER_BUDGET),
-                       lambda: ref.aer_encode(x, tau, AER_BUDGET), None),
-        "aer_decode": (lambda: adk.aer_decode(idx, val, AER_BLOCK),
-                       lambda: ref.aer_decode(idx, val, AER_BLOCK),
-                       # the nearest library call: a scatter-add into
-                       # zeroed rows with one spare column for the voids
-                       lambda: torch.zeros((AER_NB, AER_BLOCK + 1),
-                                           device=dev).scatter_add_(
-                                               1, col, val)),
-    }
+    pi, pv = (torch.from_numpy(v).to(dev) for v in aer_peer_case(
+        2014, AER_PEERS, AER_NB, AER_BUDGET, AER_BLOCK))
+    pcol = torch.where(pi < 0, AER_BLOCK, pi).long()
     nb, blk, bud = AER_NB, AER_BLOCK, AER_BUDGET
-    bounds = {"aer_encode": nb * blk * 4 + nb * 4 + nb * bud * 8 + nb * 8,
-              "aer_decode": nb * bud * 8 + nb * blk * 4}
+    npb = AER_PEERS * nb
+
+    def scatter(c, v, rows):
+        # the nearest library call: a scatter-add into zeroed rows with
+        # one spare column for the voids
+        return lambda: torch.zeros((rows, blk + 1), device=dev).scatter_add_(
+            1, c, v)
+    enc_lib, dec_lib = _build.load("aer_encode"), _build.load("aer_decode")
+    calls = {
+        "aer_encode": (lambda: aek.aer_encode(x, tau, bud),
+                       _raw_encode(enc_lib, x, tau, bud)[0],
+                       lambda: ref.aer_encode(x, tau, bud), None,
+                       nb * blk * 4 + nb * 4 + nb * bud * 8 + nb * 8,
+                       aek.plan(x)),
+        "aer_decode": (lambda: adk.aer_decode(idx, val, blk),
+                       _raw_decode(dec_lib, idx, val, blk)[0],
+                       lambda: ref.aer_decode(idx, val, blk),
+                       scatter(col, val, nb), nb * bud * 8 + nb * blk * 4,
+                       adk.plan(blk)),
+        "aer_decode_peers": (lambda: adk.aer_decode(pi, pv, blk),
+                             _raw_decode(dec_lib, pi, pv, blk)[0], None,
+                             scatter(pcol, pv, npb),
+                             npb * bud * 8 + npb * blk * 4, adk.plan(blk)),
+    }
     out = {}
-    for kname, (kern, plain, lib) in calls.items():
-        dms, pdms = device_ms(kern, n=200), device_ms(plain, n=5)
+    for kname, (kern, raw, plain, lib, byts, pl) in calls.items():
+        # device time of the wrapper's launches by the profiler; by CUDA
+        # events over back-to-back launches of the C entry, which the
+        # host issues faster than the card runs them
+        prof = device_ms(kern, n=200)
+        events = time_ms(raw, n=200, warm=20)
+        pdms = device_ms(plain, n=5) if plain is not None else None
         lms = device_ms(lib, n=200) if lib is not None else None
-        seen_dev = dms is not None and pdms is not None
-        byts = bounds[kname]
         out[kname] = {
-            "ms": dms if seen_dev else time_ms(kern, n=200, warm=20),
-            "plain_ms": pdms if seen_dev else time_ms(plain, n=5, warm=1),
-            "library_ms": lms if lib is None or lms is not None
-            else time_ms(lib, n=200, warm=20),
-            "ms_source": ("profiler device time per call" if seen_dev
-                          else "CUDA events, back-to-back calls"),
-            "call_ms": time_ms(kern, n=200, warm=20),
+            "ms": prof if prof is not None else events,
+            "ms_source": ("profiler device time per call" if prof is not
+                          None else "CUDA events, back-to-back calls"),
+            "profiler_ms": prof, "events_ms": events,
+            "plain_ms": (None if plain is None else pdms if pdms is not None
+                         else time_ms(plain, n=5, warm=1)),
+            "library_ms": (None if lib is None else lms if lms is not None
+                           else time_ms(lib, n=200, warm=20)),
             "bound_ms": byts / HBM_BYTES_S * 1e3, "bound_by": "bytes",
-            "bytes": byts, "max_abs_err": worst[kname]}
+            "bytes": byts, "route": pl["route"],
+            "registers": pl["registers"],
+            "smem_static": pl["static_smem"],
+            "smem_dynamic": pl["dynamic_smem"], "threads": pl["threads"],
+            "local_bytes": pl["local_bytes"],
+            "max_abs_err": worst[kname.removesuffix("_peers")]}
     # B6 against its library call in turns: five rounds of B6, library,
     # library, B6, each a CUDA-event mean over back-to-back calls
-    dec, lib = calls["aer_decode"][0], calls["aer_decode"][2]
+    dec, lib = calls["aer_decode"][1], calls["aer_decode"][3]
     rounds = {"aer_decode": [], "library": []}
     for _ in range(5):
         for key, fn in (("aer_decode", dec), ("library", lib),
@@ -1401,13 +1502,93 @@ def phase_aer_kernels():
     out["aer_decode"]["in_turns"] = turns
     emit("aer_kernel_time",
          shape={"nb": nb, "block": blk, "budget": bud, "frac": AER_FRAC,
-                "events": int(count.sum())},
+                "events": int(count.sum()), "peers": AER_PEERS,
+                "peer_rows": npb},
          kernels=out,
          library={"aer_encode": "none: no single PyTorch call compacts "
                                 "a thresholded row into slots",
                   "aer_decode": "torch.zeros + scatter_add_ into "
                                 "(nb, block + 1)"})
-    return out
+    return {k: out[k] for k in ("aer_encode", "aer_decode")}
+
+
+def phase_aer_turns(others, rounds: int = 5):
+    """B5 and B6 of this checkout timed in turns with those built from the
+    ``csrc/`` of other checkouts (``others``: their roots, e.g. a parent
+    commit unpacked with ``git archive``), at (16384, 1024), budget 128,
+    float32: per round each other tree, this tree, this tree, each other
+    tree, reversed, by CUDA events over back-to-back launches through the
+    same plain C entry points on the same operands; then each once by
+    profiler device time.  Run by hand, not by ``main``:
+
+        python -c "import sys; sys.path[:0] = ['src', 'tests'];
+        import chip_smoke as cs; cs.phase_device(); cs.phase_build();
+        cs.phase_aer_turns(['build/parent'])"
+    """
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as K
+    dev = torch.device("cuda", 0)
+    libs = {"this": {n: _build.load(n) for n in ("aer_encode",
+                                                 "aer_decode")}}
+    ptxas = {}
+    for root in others:
+        libs[str(root)] = {}
+        for n in ("aer_encode", "aer_decode"):
+            src = Path(root) / "src/repro_torch/kernels/csrc" / f"{n}.cu"
+            so = _build.BUILD_DIR / f"turns-{abs(hash(str(src)))}-{n}.so"
+            _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                   str(so), str(src)], check=True,
+                                  capture_output=True, text=True)
+            ptxas[f"{root}:{n}"] = [
+                ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                if "registers" in ln or "spill" in ln]
+            lib = ctypes.CDLL(str(so))
+            f = getattr(lib, f"{n}_launch")
+            f.argtypes = _build.SIGNATURES[n][f"{n}_launch"]
+            f.restype = ctypes.c_int
+            libs[str(root)][n] = lib
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((AER_NB, AER_BLOCK), generator=g, device=dev)
+    tau = K.tau_from_fraction(x, AER_FRAC)
+    nb, blk, bud = AER_NB, AER_BLOCK, AER_BUDGET
+    # every tree decodes the same slots (this tree's encoding)
+    slots = _raw_encode(libs["this"]["aer_encode"], x, tau, bud)
+    slots[0]()
+    runs = {key: {"aer_encode": _raw_encode(ls["aer_encode"], x, tau, bud),
+                  "aer_decode": _raw_decode(ls["aer_decode"], slots[1][0],
+                                            slots[1][1], blk)}
+            for key, ls in libs.items()}
+    # every tree's outputs equal this tree's on these operands
+    for key, r in runs.items():
+        for kname, (run, outs) in r.items():
+            run()
+            torch.cuda.synchronize()
+            check(all(map(torch.equal, runs["this"][kname][1], outs)),
+                  f"aer_turns: {key}'s {kname} differs from this tree's")
+    keys = list(libs)
+    order = keys[1:] + ["this", "this"] + keys[1:][::-1]
+    times = {k: {"aer_encode": [], "aer_decode": []} for k in keys}
+    for _ in range(rounds):
+        for key in order:
+            for kname in ("aer_encode", "aer_decode"):
+                times[key][kname].append(
+                    time_ms(runs[key][kname][0], n=200, warm=20))
+    res = {}
+    for key in keys:
+        res[key] = {}
+        for kname in ("aer_encode", "aer_decode"):
+            v = times[key][kname]
+            res[key][kname] = {
+                "median_ms": statistics.median(v), "min_ms": min(v),
+                "max_ms": max(v), "all_ms": v,
+                "profiler_ms": device_ms(runs[key][kname][0], n=200)}
+    emit("aer_turns", order=order, rounds=rounds,
+         shape={"nb": nb, "block": blk, "budget": bud}, trees=res,
+         ptxas=ptxas)
+    return res
 
 
 def _layer_grads(step: int):

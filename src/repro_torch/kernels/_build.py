@@ -59,10 +59,11 @@ SIGNATURES = {
         "lif_step_launch": [_P, _P, _LL, _F, _F, _F, _P, _P, _P],
     },
     "aer_encode": {
+        "aer_encode_plan": [_P, _I, _I, _I, _PI],
         "aer_encode_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "aer_decode": {
-        "aer_decode_fits_shared": [_I, _PI],
+        "aer_decode_plan": [_I, _I, _PI],
         "aer_decode_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
     "selective_scan": {

@@ -9,11 +9,22 @@ slots ``(idx, val)`` with ``count`` and ``wanted`` per row, NaN spread
 over a row that holds a non-finite entry as the reference's one-hot
 contraction spreads it (``ref.aer_encode`` states the rule).
 
-Design: one thread block per row; a block-wide prefix sum of the mask
-(warp shuffles, then a scan of the warp totals) gives each selected
-entry its slot, and it writes the slot itself.  Rows longer than 1,024
-entries loop over tiles.  Bound on an H100: bytes — the row read once,
-``budget`` 8-byte slots written: ~25 us at (16384, 1024), budget 128.
+Design: a warp a row, eight rows a block, no block barrier.  The warp
+takes its row in 1,024-entry tiles and issues every load of a tile
+before any scan (16-byte loads: 8 a lane in float32, 4 in bfloat16);
+each entry's slot comes from ballots of the mask over the lanes, and the
+tile's non-finite count from one warp reduction, so the lane that holds
+a selected entry writes its slot with the NaN rule applied.  Bound on an
+H100: bytes — the row read once, ``budget`` 8-byte slots written: ~25 us
+at (16384, 1024), budget 128.  No shared memory; registers a thread are
+what ``plan`` reports.
+
+Routes (``ROUTES``; ``plan`` says which one a call takes): ``vector``
+(16-byte loads: block a multiple of 4 in float32 or 8 in bfloat16, and
+``x`` 16-byte aligned), ``scalar`` (any other block, or a view whose
+storage offset leaves ``x`` off a 16-byte boundary: one entry a load),
+each with a ``_tiles`` form for rows of more than 1,024 entries, where
+the warp loops over tiles with the count selected so far carried.
 
 The wrapper checks its operands (CUDA, float32 or bfloat16, contiguous,
 ``tau`` one value a row in x's dtype, ``1 <= budget <= block <=
@@ -26,15 +37,38 @@ to ``ref.aer_encode``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 from ..core.events import EVENT_MAX_BLOCK
 
-__all__ = ["aer_encode", "VALUE_DTYPES"]
+__all__ = ["aer_encode", "plan", "ROUTES", "VALUE_DTYPES"]
 
 #: value dtypes the AER kernels take, with the C entry points' dtype flag
 VALUE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the encoder's routes, in the order of the C enum
+ROUTES = ("vector", "vector_tiles", "scalar", "scalar_tiles")
+#: what ``plan`` reports, in the order of the C entry's out array
+PLAN_KEYS = ("route", "registers", "static_smem", "dynamic_smem",
+             "threads", "local_bytes")
+
+
+def plan(x: torch.Tensor) -> dict:
+    """The launch ``aer_encode`` makes for ``x`` (CUDA, (nb, block)): its
+    route, registers a thread, shared memory a block (static and
+    dynamic, bytes), threads a block and local (spilled) bytes a
+    thread, from the C entry that picks the route."""
+    lib = _build.load("aer_encode")
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    nb, block = x.shape
+    _build.check(lib, lib.aer_encode_plan(x.data_ptr(), nb, block,
+                                          VALUE_DTYPES[x.dtype], out),
+                 "aer_encode plan")
+    res = dict(zip(PLAN_KEYS, out))
+    res["route"] = ROUTES[res["route"]]
+    return res
 
 
 def aer_encode(x: torch.Tensor, tau: torch.Tensor, budget: int):

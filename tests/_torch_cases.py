@@ -527,9 +527,14 @@ SNN_FIG6 = dict(grid=(4, 4), neurons=256, ticks=50, seed=0)
 # --- the AER payload path ------------------------------------------------
 
 #: the shapes of tests/test_kernels.py's encoder sweep, (nb, block,
-#: budget), and a block that is no multiple of 32 and spans five tiles
+#: budget), and a block that is no multiple of 32 and spans five tiles;
+#: then blocks that are no multiple of 4 (float32) or 8 (bfloat16), so
+#: that the encoder loads them one entry at a time, and a block of three
+#: 1,024-entry tiles with room for every edge row of ``aer_encode_case``
+#: and ``aer_decode_case`` and a budget that is no multiple of 32
 AER_SHAPES = ((4, 256, 32), (8, 1024, 128), (16, 512, 64), (4, 2048, 256),
-              (2, 128, 128), (12, 384, 48), (3, 4999, 100))
+              (2, 128, 128), (12, 384, 48), (3, 4999, 100), (5, 1023, 128),
+              (6, 1020, 64), (12, 3072, 150))
 #: card-only shapes: one granite-3.0-2b MLP weight (2048 x 8192) in
 #: 1024-blocks at the default budget; a block whose decode row fills the
 #: 48 KB default of shared memory, so that only with the kernel's static
@@ -575,7 +580,11 @@ def aer_encode_case(seed, nb, block, budget, dtype="float32"):
     the encoder's edge rows: row 0 over budget; row 1 an inf and a -inf;
     row 2 a NaN; row 3 half zeros and -0.0 under a zero threshold
     (overflow); row 4 one inf; row 5 a NaN threshold; row 6 all -0.0
-    under a zero threshold; row 7 an infinite threshold."""
+    under a zero threshold; row 7 an infinite threshold; row 8 a run of
+    budget + 3 selected entries whose budget-th falls on the second entry
+    of a 16-byte vector (float32 and bfloat16); row 9 exactly ``budget``
+    selected; row 10 over budget with a NaN as its last entry and row 11
+    with an inf there, each past the budget and in no slot."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((nb, block)).astype(np.float32)
     keep = np.where(np.arange(nb) % 3 == 0,
@@ -598,6 +607,23 @@ def aer_encode_case(seed, nb, block, budget, dtype="float32"):
         rows[6] = 0.0
     if nb > 7:
         rows[7] = np.inf
+    def big(r):   # the row's own draws moved to [1.5, 2.5); the rest
+        b = np.float32(1.5) + np.abs(x[r]) % np.float32(1.0)
+        x[r] %= np.float32(0.5)   # to [0, 0.5), under a threshold of 1
+        rows[r] = 1.0
+        return b
+    if nb > 8 and block >= budget + 11:
+        # selected entries s .. s + budget + 2; the budget-th at s +
+        # budget - 1, which is 1 mod 8: inside a vector of 4 or of 8
+        s0 = (2 - budget) % 8
+        x[8, s0:s0 + budget + 3] = big(8)[s0:s0 + budget + 3]
+    if nb > 9:
+        pick = rng.choice(block, budget, replace=False)
+        x[9, pick] = -big(9)[pick]
+    for r, bad in ((10, np.nan), (11, np.inf)):
+        if nb > r:
+            x[r, -1] = bad
+            keep[r] = min(1.0, 2.0 * budget / block)
     tau = np.empty(nb, np.float32)
     for r in range(nb):
         tau[r] = rows.get(r, _quantile_tau(x[r:r + 1], keep[r])[0])
@@ -612,7 +638,13 @@ def aer_decode_case(seed, nb, budget, block, dtype="float32"):
     past the block; values float32 (bfloat16 values when ``dtype`` says
     so).  Edge rows: row 1 an inf at a repeated address; row 2 a NaN in a
     void slot; row 3 an inf and a -inf at one address; row 4 one inf at
-    an address of its own; row 5 a NaN at an address past the block."""
+    an address of its own; row 5 a NaN at an address past the block; row
+    6 one address in slots 31 and 32, either side of a 32-slot chunk's
+    edge; row 7 distinct addresses (every group of a chunk one slot) and
+    a void slot in every fifth; row 8 addresses that rise slot by slot
+    with repeats (slots 0 to 2 share one), voids after them; row 9
+    strictly rising addresses, voids after them, as the encoder writes
+    its slots."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(-1, min(block, max(4, budget // 2)) + 2,
                        (nb, budget)).astype(np.int32)
@@ -634,6 +666,19 @@ def aer_decode_case(seed, nb, budget, block, dtype="float32"):
     if nb > 5:
         idx[5, 0] = block + 7
         val[5, 0] = np.nan
+    if nb > 6 and budget > 32:
+        idx[6, 31] = idx[6, 32] = block // 2
+    if nb > 7 and budget <= block:
+        idx[7] = rng.permutation(block)[:budget]
+        idx[7, ::5] = -1
+    for r in (8, 9):
+        if nb > r:
+            n = budget - budget // 4
+            rise = np.sort(rng.choice(block, n, replace=r == 8))
+            if r == 8:
+                rise[1] = rise[2] = rise[0]
+            idx[r] = -1
+            idx[r, :n] = rise
     if dtype == "bfloat16":
         val = bf16_round(val)
     return idx, val
@@ -692,6 +737,53 @@ def aer_cases(card=False):
     them in)."""
     return [(spec[0], spec[1], *aer_arrays(spec), spec[5])
             for spec in aer_specs(card)]
+
+
+#: every route of the encoder (B5) and decoder (B6) with a case that
+#: takes it: ``(name, kind, nb, block, budget, dtype, offset, route)``;
+#: ``offset`` puts x that many entries past a 16-byte boundary (a
+#: contiguous view with an odd storage offset), which only the scalar
+#: routes take
+AER_ROUTE_CASES = (
+    ("enc-vector", "encode", 16, 1024, 128, "float32", 0, "vector"),
+    ("enc-vector-bf16", "encode", 16, 1024, 128, "bfloat16", 0, "vector"),
+    ("enc-vector-tiles", "encode", 12, 3072, 150, "float32", 0,
+     "vector_tiles"),
+    ("enc-scalar-block", "encode", 5, 1023, 128, "float32", 0, "scalar"),
+    ("enc-scalar-block-bf16", "encode", 6, 1020, 64, "bfloat16", 0,
+     "scalar"),
+    ("enc-scalar-offset", "encode", 16, 1024, 128, "float32", 1, "scalar"),
+    ("enc-scalar-offset-bf16", "encode", 16, 1024, 128, "bfloat16", 3,
+     "scalar"),
+    ("enc-scalar-tiles", "encode", 3, 4999, 100, "float32", 0,
+     "scalar_tiles"),
+    ("enc-scalar-tiles-offset", "encode", 12, 3072, 150, "bfloat16", 5,
+     "scalar_tiles"),
+    ("dec-warp", "decode", 16, 1024, 128, "float32", 0, "warp"),
+    ("dec-warp-bf16", "decode", 6, 1020, 64, "bfloat16", 0, "warp"),
+    ("dec-warp-optin", "decode", 4, 12288, 128, "float32", 0,
+     "warp_optin"),
+    ("dec-global", "decode", 2, 65536, 64, "float32", 0, "global"),
+    ("dec-global-bf16", "decode", 2, 65536, 64, "bfloat16", 0, "global"),
+)
+
+
+def aer_route_arrays(case):
+    """The seeded arrays of one ``AER_ROUTE_CASES`` entry, as
+    ``aer_arrays`` gives them for the same shape."""
+    name, kind, nb, block, budget, dtype, _, _ = case
+    return aer_arrays((name, kind, nb, block, budget, dtype))
+
+
+def aer_offset_copy(a, dtype, offset, device):
+    """``a`` (numpy float32) as a contiguous tensor of ``dtype`` whose
+    first element lies ``offset`` elements past the start of a fresh
+    (16-byte aligned) allocation."""
+    import torch
+    flat = torch.zeros(a.size + offset, dtype=dtype, device=device)
+    out = flat[offset:].view(a.shape)
+    out.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
+    return out
 
 
 def aer_mismatches(want, got) -> int:

@@ -41,9 +41,10 @@ from repro_torch.launch import serve
 from repro_torch.models import snn
 from repro_torch.models.model import LM, build_model
 
-from _torch_cases import (LIF_CARD_SHAPES, LIF_PARAMS, MS_BATCH, MS_STEPS,
-                          aer_arrays, aer_mismatches, aer_specs, carry_err,
-                          clone, lif_cases, lif_double_roundings,
+from _torch_cases import (AER_ROUTE_CASES, LIF_CARD_SHAPES, LIF_PARAMS,
+                          MS_BATCH, MS_STEPS, aer_arrays, aer_mismatches,
+                          aer_offset_copy, aer_route_arrays, aer_specs,
+                          carry_err, clone, lif_cases, lif_double_roundings,
                           multistep_cases, multistep_operands, planes,
                           offset_tensor, run_schedule, scan_arrays,
                           scan_case, scan_errors, scan_specs,
@@ -462,6 +463,58 @@ def test_aer_kernels_match_plain(cuda, spec):
     for w, g in pairs:
         assert w.dtype == g.dtype and w.shape == g.shape
         assert aer_mismatches(_host(w), _host(g)) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", AER_ROUTE_CASES, ids=lambda c: c[0])
+def test_aer_kernel_routes_match_plain(cuda, case):
+    """Each route of B5 and B6 (``plan`` names the one a call takes) is
+    bit-equal to the plain version, and each call counts one launch; x
+    at an odd storage offset goes the scalar way and gives the same bits
+    as the aligned copy."""
+    name, kind, nb, block, budget, dtype, offset, route = case
+    a, b, n = aer_route_arrays(case)
+    dt = AER_DT[dtype]
+    if kind == "encode":
+        x = aer_offset_copy(a, dt, offset, cuda)
+        tau = torch.from_numpy(b).to(cuda).to(dt)
+        assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0)
+        assert aek.plan(x)["route"] == route
+        before = aek.aer_encode.launches
+        got = aek.aer_encode(x, tau, n)
+        assert aek.aer_encode.launches == before + 1
+        pairs = list(zip(ref.aer_encode(x, tau, n), got))
+        if offset:
+            xa = x.clone()
+            assert xa.data_ptr() % 16 == 0
+            pairs += zip(aek.aer_encode(xa, tau, n), got)
+            assert aek.aer_encode.launches == before + 2
+    else:
+        idx = torch.from_numpy(a).to(cuda)
+        val = torch.from_numpy(b).to(cuda).to(dt)
+        assert adk.plan(n, dt)["route"] == route
+        before = adk.aer_decode.launches
+        got = adk.aer_decode(idx, val, n)
+        assert adk.aer_decode.launches == before + 1
+        pairs = [(ref.aer_decode(idx, val, n), got)]
+    torch.cuda.synchronize()
+    for w, g in pairs:
+        assert w.dtype == g.dtype and w.shape == g.shape
+        assert aer_mismatches(_host(w), _host(g)) == 0
+
+
+@pytest.mark.gpu
+def test_aer_routes_all_reached(cuda):
+    """``AER_ROUTE_CASES`` names every route of each kernel, and the
+    full-width main-path shape takes the fast ones."""
+    assert {c[7] for c in AER_ROUTE_CASES if c[1] == "encode"} \
+        == set(aek.ROUTES)
+    assert {c[7] for c in AER_ROUTE_CASES if c[1] == "decode"} \
+        == set(adk.ROUTES)
+    x = torch.zeros((16384, 1024), device=cuda)
+    assert aek.plan(x)["route"] == "vector"
+    assert adk.plan(1024)["route"] == "warp"
+    assert adk.plan(1024)["dynamic_smem"] == 8 * 4 * (1024 + 32)
 
 
 @pytest.mark.gpu
