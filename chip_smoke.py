@@ -40,8 +40,9 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                runs; then one launch timed at full width with CUDA events
                and the profiler, beside its bound and its plain version;
 5. anchor    — the paper's Fig. 8 cell (ring-2 ping-pong, 1024 events a
-               side, max_burst 1) through the default engine: 28.6 MEv/s
-               within 0.1 %, and equal to ``protocol_sim.simulate``;
+               side, max_burst 1) through the per-step kernel engine:
+               28.6 MEv/s within 0.1 %, and equal to
+               ``protocol_sim.simulate``;
 6. full      — ring-16 hot-spot (48 events a chip, mean gap 300 ns,
                hot_frac 0.65, capacity 64, credit flow): the per-step
                kernel engine, replayed from a CUDA graph captured once
@@ -60,6 +61,26 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                ``EngineSpec("pallas", kernel="multistep")`` at chunk 128:
                equal to its per-step result field for field, exactly
                ceil(max_steps / 128) B3 launches and no B1/B2 launch;
+7a. ring     — each cell through ``engine="ring"`` (and ``"auto"``,
+               which must resolve to it): compile captures the chunk's
+               CUDA graph on a zero-event plan, two runs replay it
+               without capturing again, each equal field for field to
+               the per-step and multi-step results, no port kernel
+               launched; steps until drain against the default bound,
+               chunks, host syncs, capture and instantiate seconds, µs
+               per executed step, ms per run beside the step-graph and
+               multi-step runs, host operator calls a step and (ring-16)
+               kernels a step from a profiled run;
+7b. batch    — eight full_ring16_credit instances (seeds 2..9) through
+               ``run_batch`` on the ring engine, the per-step kernel
+               engine and the multi-step kernel, and four 2x4-mesh
+               multicast instances on the ring engine: each instance
+               equal to its solo run, the counts zeroed before each
+               batch and read after it (B1 and B2 max_steps each, once a
+               step for the whole batch; B3 ceil(max_steps / 128); the
+               ring none), ms per batch beside B times the solo ms;
+               then B1, B2 and B3 on the batch's operands against their
+               plain versions and solo launches, and timed;
 8. profile   — torch.profiler windows of the full-width cell on both
                paths: device-busy share and time by kernel; for the
                per-step path also over its graph replays alone, where
@@ -189,8 +210,14 @@ ANCHOR_MEV_S, ANCHOR_TOL = 28.6, 0.001
 MIN_COSIM_DIVERGENCE = 16
 
 
+#: the script's start on the host clock (each phase line carries its
+#: seconds since, ``at_s``)
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -640,7 +667,8 @@ def phase_anchor():
     from _torch_cases import anchor_arrays, spec_of
     n = 1024
     spec = spec_of(*anchor_arrays(n))
-    fab = Fabric(ring_topology(2), queues=QueuePolicy(max_burst=1))
+    fab = Fabric(ring_topology(2), queues=QueuePolicy(max_burst=1),
+                 engine="pallas")
     cf = fab.compile(spec)
     check(cf.bucket == ("pallas", 1, 2048, 2048, 12480, 1, 2, 1, "step",
                         0), f"anchor bucket {cf.bucket}")
@@ -670,6 +698,7 @@ def phase_anchor():
                                np.sort(dlv[dst == 1]))
             and np.array_equal(np.sort(t_tr[act == ps.A_TX_R]),
                                np.sort(dlv[dst == 0])))
+    RUN_WALL_S["step", "anchor"] = wall
     emit("anchor", thr_mev_s=thr, paper_mev_s=ANCHOR_MEV_S, rel_err=err,
          delivered=d, t_end=int(res.t_end), bucket=list(cf.bucket),
          launches=list(launches), wall_s=wall,
@@ -683,6 +712,13 @@ def phase_anchor():
     check(d == 2 * n, "anchor did not deliver every event")
     return ("anchor", dict(topo=ring_topology(2),
                            queues=QueuePolicy(max_burst=1)), spec, res)
+
+
+#: wall seconds of one run by (path, cell), for the ring and batch
+#: phases' comparisons
+RUN_WALL_S: dict = {}
+#: each cell's kernel="multistep" result (held against the ring engine)
+MS_RESULTS: dict = {}
 
 
 def _per_step(graph):
@@ -725,6 +761,7 @@ def _run_pair(fab_kw, spec, label):
     ref_wall = time.perf_counter() - t0
     net.assert_results_equal(res, ref, label)
     steps = cf.bucket[4]
+    RUN_WALL_S["step", label] = wall
     emit(label, bucket=list(cf.bucket), steps=steps,
          delivered=int(res.delivered), injected=res.injected,
          drops=int(res.drops), launches=launches, wall_s=wall,
@@ -833,6 +870,8 @@ def phase_multistep_path(cells):
             "fabric_queue_step", "fabric_queue_update",
             "fabric_queue_multistep")}
         net.assert_results_equal(res, step_res, f"{label} multistep")
+        MS_RESULTS[label] = res
+        RUN_WALL_S["multistep", label] = wall
         steps, chunk = cf.bucket[4], cf.bucket[9]
         thr = float(net.fabric_throughput_mev_s(res))
         emit(f"{label}_multistep", bucket=list(cf.bucket), steps=steps,
@@ -849,6 +888,358 @@ def phase_multistep_path(cells):
                   f"multistep anchor reads {thr} MEv/s")
         counted[label] = launches
     return counted
+
+
+def _ring_ops_per_step(cf) -> int:
+    """PyTorch operator calls on the host of one ring step (the static
+    step the graph captures: body plus copy-back), counted by the
+    dispatcher on an extra step of the bucket's last runner (a drained
+    carry: a no-op step; every run resets the carry)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        cf._last_runner._step_static()
+    return Count.n
+
+
+def phase_ring_engine(cells):
+    """Each cell through ``engine="ring"`` and ``"auto"``: compile (step
+    0 and the capture of the chunk's CUDA graph on a zero-event plan),
+    then two runs that replay that graph without capturing again, each
+    equal field for field to the cell's per-step result (itself equal to
+    ``engine="reference"``) and its multi-step result; no kernel of the
+    port launches.  Steps until drain against the default bound, chunks,
+    host syncs, capture and instantiate seconds, µs per executed step,
+    ms per run beside the step-graph and multi-step runs, host operator
+    calls a step and, for the ring-16 cell, kernels a step from a
+    profiled run of step 0 and two chunks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import Fabric
+    out = {}
+    t_phase = time.perf_counter()
+    for label, kw, spec, step_res in cells:
+        fab = Fabric(**kw, engine="ring")
+        _counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cf = fab.compile(spec)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        warm = cf.graph
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cf.run(spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            g = cf.graph
+            runs.append(dict(g, wall_s=wall))
+            net.assert_results_equal(res, step_res, f"{label}: ring vs "
+                                     f"step (= reference)")
+            net.assert_results_equal(res, MS_RESULTS[label],
+                                     f"{label}: ring vs multistep")
+        launches = _counts()
+        auto = Fabric(**kw)
+        check(auto.engine.resolved == "ring", "auto is not the ring engine")
+        net.assert_results_equal(auto.run(spec), step_res, f"{label} auto")
+        ops = _ring_ops_per_step(cf)
+        bound = fab._plan(spec, None).max_steps
+        last = runs[-1]
+        steps = last["steps"]
+        RUN_WALL_S["ring", label] = last["wall_s"]
+        prof_out = {}
+        if label == "full_ring16_credit":
+            # step 0 and two chunks: eight replays (a whole run's
+            # ~900,000 kernel records take the profiler a minute)
+            n_prof = 1 + 2 * cf.bucket[9]
+            cf.run(spec, max_steps=n_prof)    # warm the allocator
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                cf.run(spec, max_steps=n_prof)
+                torch.cuda.synchronize()
+            g = cf.graph
+            prof_out = _replay_window(prof,
+                                      g["replays"] * g["graph_steps"])
+            prof_out.pop("calls", None)
+        out[label] = {"steps": steps, "wall_s": last["wall_s"],
+                      "kernels_per_step": prof_out.get("kernels_per_step")}
+        emit(f"{label}_ring", bucket=list(cf.bucket), default_bound=bound,
+             steps=steps, steps_share_of_bound=steps / bound,
+             chunk=last["chunk"], graph_steps=last["graph_steps"],
+             chunks=last["chunks"],
+             replays=last["replays"], host_syncs=last["host_syncs"],
+             warm={k: warm.get(k) for k in ("captured", "capture_s",
+                                            "instantiate_s", "captures")},
+             compile_s=compile_s, runs=runs,
+             us_per_executed_step=last["wall_s"] / steps * 1e6,
+             replay_device_us_per_step=(
+                 last["replay_device_s"] / (last["replays"]
+                                            * last["graph_steps"]) * 1e6
+                 if last["replays"] else None),
+             ms_per_run={"ring": last["wall_s"] * 1e3,
+                         "step_graph": RUN_WALL_S["step", label] * 1e3,
+                         "multistep": RUN_WALL_S["multistep", label] * 1e3},
+             host_ops_per_step=ops, profiled=prof_out,
+             launches=launches, equals_step_and_multistep=True,
+             delivered=int(res.delivered), injected=res.injected)
+        check(warm["captured"] and warm["captures"] == 1,
+              f"{label}: compile did not capture the ring graph ({warm})")
+        check(all(not r["captured"] and r["captures"] == 1
+                  and r["replays"] > 0 for r in runs),
+              f"{label}: a run captured again or replayed nothing ({runs})")
+        check(all(v == 0 for v in launches.values()),
+              f"{label}: the ring engine launched port kernels {launches}")
+        check(steps < bound, f"{label}: the ring ran its whole bound")
+    emit("ring_engine", phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+#: the batch phase's instances: ring-16 hot spots (full_ring16_credit's
+#: traffic), seeds 2..9, and four 2x4-mesh multicast instances
+BATCH_SEEDS = tuple(range(2, 10))
+MESH_BATCH_SEEDS = (8, 9, 10, 11)
+
+
+def phase_batch(ring_out):
+    """B = 8 full_ring16_credit instances (seeds 2..9) through
+    ``run_batch`` on the ring engine, the per-step kernel engine and
+    the multi-step kernel, and B = 4 2x4-mesh in-fabric multicast
+    instances on the ring engine: every instance equal field for field
+    to its solo run (the multi-step path, the ring engine for the mesh),
+    seed 2's also to the cell's per-step result; with the counts zeroed
+    just before each batch and read just after, B1 and B2 launched once
+    a step for the whole batch (max_steps each), B3 once a chunk
+    (ceil(max_steps / 128)), the ring nothing; ms per batch beside B
+    times the solo ms."""
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import (EngineSpec, Fabric, MulticastPolicy,
+                                         QueuePolicy)
+    from repro_torch.core.router import (AddressSpec, MulticastTable,
+                                         mesh2d_topology, ring_topology)
+    from _torch_cases import hot_spot_arrays, mesh_multicast_case, spec_of
+    t_phase = time.perf_counter()
+    kw = dict(topo=ring_topology(16),
+              queues=QueuePolicy(capacity=64, flow="credit"))
+    specs = [spec_of(*hot_spot_arrays(16, 48, 300.0, 0.65, seed=s))
+             for s in BATCH_SEEDS]
+    B = len(specs)
+    ms_engine = EngineSpec("pallas", kernel="multistep")
+    ms_fab = Fabric(**kw, engine=ms_engine)
+    shared = max(ms_fab._plan(s, None).max_steps for s in specs)
+    solo = [ms_fab.run(s, max_steps=shared) for s in specs]
+    torch.cuda.synchronize()
+    rows = {}
+    for name, eng, reps in (("ring", "ring", 2), ("step", "pallas", 1),
+                            ("multistep", ms_engine, 2)):
+        fab = Fabric(**kw, engine=eng)
+        walls = []
+        for _ in range(reps):
+            _counts_zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = fab.run_batch(specs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = _counts()
+        cf = fab._compiled[fab.compiled_buckets[0]]
+        g = cf.graph or {}
+        for i, want in enumerate(solo):
+            net.assert_results_equal(batch.instance(i), want,
+                                     f"batch {name}/{i} vs solo")
+        solo_ms = RUN_WALL_S[name, "full_ring16_credit"] * 1e3
+        ms = walls[-1] * 1e3
+        want_l = {"fabric_queue_step": shared if name == "step" else 0,
+                  "fabric_queue_update": shared if name == "step" else 0,
+                  "fabric_queue_multistep": (-(-shared // 128)
+                                             if name == "multistep" else 0)}
+        got_l = {k: launches[k] for k in want_l}
+        rows[name] = {"instances": B, "max_steps": shared,
+                      "ms_per_batch": ms, "walls_s": walls,
+                      "solo_ms_seed2": solo_ms, "b_times_solo_ms": B * solo_ms,
+                      "ms_per_instance": ms / B,
+                      "launches": got_l, "expected_launches": want_l,
+                      "graph": {k: v for k, v in g.items()
+                                if k != "replay_events"}}
+        check(got_l == want_l, f"batch {name}: launches {got_l}, expected "
+                               f"{want_l}")
+        check(all(v == 0 for k, v in launches.items() if k not in want_l),
+              f"batch {name}: other kernels launched {launches}")
+        if name == "ring":
+            check(g["steps"] < shared and not g["captured"]
+                  and g["captures"] == 1,
+                  f"batch ring: graph {g}, bound {shared}")
+    # B = 4 in-fabric multicast instances on the 2x4 mesh, ring engine
+    mspecs, members = [], None
+    for s in MESH_BATCH_SEEDS:
+        members, arrays = mesh_multicast_case(8 * 24, seed=s)
+        mspecs.append(spec_of(*arrays))
+    mkw = dict(topo=mesh2d_topology(2, 4), addr=AddressSpec(),
+               mcast=MulticastPolicy("in_fabric", MulticastTable(members)))
+    mfab = Fabric(**mkw, engine="ring")
+    solo_fab = Fabric(**mkw, engine="ring")     # one graph, four runs
+    msolo = [solo_fab.run(s) for s in mspecs]
+    walls = []
+    for _ in range(2):
+        _counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mbatch = mfab.run_batch(mspecs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    mlaunch = _counts()
+    for i, want in enumerate(msolo):
+        net.assert_results_equal(mbatch.instance(i), want,
+                                 f"mesh batch/{i} vs solo ring")
+        check(int(want.delivered) == want.injected,
+              f"mesh instance {i} lost events")
+    check(all(v == 0 for v in mlaunch.values()),
+          f"mesh ring batch launched port kernels {mlaunch}")
+    rows["ring_mesh2x4_multicast"] = {
+        "instances": len(mspecs), "ms_per_batch": walls[-1] * 1e3,
+        "walls_s": walls, "solo_ring_ms_mesh_cell": RUN_WALL_S.get(
+            ("ring", "multicast_mesh2x4"), 0) * 1e3,
+        "graph": {k: v for k, v in (mfab._compiled[
+            mfab.compiled_buckets[0]].graph or {}).items()
+            if k != "replay_events"}}
+    emit("batch", engines=rows, equals_solo=True, ring_solo=ring_out,
+         phase_s=time.perf_counter() - t_phase)
+    return rows
+
+
+def phase_batch_kernels():
+    """B1, B2 and B3 timed on a batch of eight ring-16 instances, each
+    against its plain version on the same operands first: B1 on the
+    (8·32, 768) rows, B2 on (8·32, 768) planes with 8·16 pop and 8·16
+    append lanes at instance-offset ids, B3 one 128-step launch of the
+    eight full_ring16_credit carries (seeds 2..9).  Returns ms per
+    launch by kernel: profiler device time for B1 and B2, CUDA events
+    for B3 (and the profiler's reading beside it)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fabric import QueuePolicy
+    from repro_torch.core.router import ring_topology
+    from repro_torch.kernels import fabric_queue as fq
+    from repro_torch.kernels import ref
+    from _torch_cases import (carry_err, clone, hot_spot_arrays,
+                              multistep_operands, planes, scan_case,
+                              update_case)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(19)
+    B, nq, nc = 8, 32, 768
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    cases = [scan_case(rng, nq, nc) for _ in range(B)]
+    q, qd, tq = (t(np.concatenate([c[i] for c in cases])) for i in range(3))
+    got = fq.fabric_queue_step(q, qd, tq)
+    want = ref.fabric_queue_scan(q, qd, tq)
+    torch.cuda.synchronize()
+    err = {"fabric_queue_step": max(int((g.long() - w.long()).abs().max())
+                                    for g, w in zip(got, want))}
+    pls = [planes(rng, nq, nc) for _ in range(B)]
+    lanes = [update_case(rng, nq, nc, 1) for _ in range(B)]
+    glob = []
+    for i in range(len(lanes[0])):
+        parts = [np.where(np.asarray(ln[i]) < nq, np.asarray(ln[i]) + b * nq,
+                          B * nq) if i in (0, 2) else np.asarray(ln[i])
+                 for b, ln in enumerate(lanes)]
+        glob.append(t(np.concatenate(parts)))
+    big = [t(np.concatenate([p[i] for p in pls])) for i in range(3)]
+    got = fq.fabric_queue_update(*[x.clone() for x in big], *glob)
+    want = ref.fabric_queue_update(*[x.clone() for x in big], *glob)
+    torch.cuda.synchronize()
+    err["fabric_queue_update"] = max(int((g.long() - w.long()).abs().max())
+                                     for g, w in zip(got, want))
+    kw = dict(topo=ring_topology(16),
+              queues=QueuePolicy(capacity=64, flow="credit"))
+    ops8 = [multistep_operands(kw, hot_spot_arrays(16, 48, 300.0, 0.65,
+                                                   seed=s), None, dev)
+            for s in BATCH_SEEDS]
+    carry = tuple(torch.stack([o[0][j] for o in ops8]) for j in range(7))
+    consts = tuple(torch.stack([o[1][j] for o in ops8]) for j in range(6))
+    steps = max(o[3].max_steps for o in ops8)
+    base = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def launch(c):
+        return fq.fabric_queue_multistep(c, consts, base, chunk=128,
+                                         max_steps=steps, max_burst=0)
+
+    got = launch(clone(carry))
+    worst = 0
+    for i, (c, k, _, plan) in enumerate(ops8):
+        one = fq.fabric_queue_multistep(tuple(x[None].clone() for x in c),
+                                        tuple(x[None] for x in k), base,
+                                        chunk=128, max_steps=steps,
+                                        max_burst=0)
+        torch.cuda.synchronize()
+        e = carry_err(tuple(x[0] for x in one), tuple(g[i] for g in got),
+                      plan.E)
+        check(e is not None, "B3 batch carry changed shape")
+        worst = max(worst, e)
+    err["fabric_queue_multistep"] = worst
+    check(all(v == 0 for v in err.values()),
+          f"batched kernels disagree with their plain versions or solo "
+          f"launches: {err}")
+    n = 50
+    copies = [clone(carry) for _ in range(n)]
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for c in copies:
+        launch(c)
+    b.record()
+    torch.cuda.synchronize()
+    b3_event = a.elapsed_time(b) / n
+    from torch.profiler import ProfilerActivity, profile
+    copies = [clone(carry) for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in copies:
+            launch(c)
+        torch.cuda.synchronize()
+    dev_us = sum(_device_us(e) for e in prof.key_averages()
+                 if "fabric_queue_multistep" in e.key)
+    upd = [x.clone() for x in big]
+    times = {
+        "fabric_queue_step": {
+            "shape": f"({B}·{nq}, {nc})",
+            "device_ms": device_ms(lambda: fq.fabric_queue_step(q, qd, tq)),
+            "call_ms": time_ms(lambda: fq.fabric_queue_step(q, qd, tq))},
+        "fabric_queue_update": {
+            "shape": f"({B}·{nq}, {nc}), {B}·16 + {B}·16 lanes",
+            "device_ms": device_ms(lambda: fq.fabric_queue_update(*upd,
+                                                                  *glob)),
+            "call_ms": time_ms(lambda: fq.fabric_queue_update(*upd, *glob))},
+        "fabric_queue_multistep": {
+            "shape": f"B = {B}, ring-16 full width, 128 steps",
+            "device_ms": dev_us / n / 1e3 if dev_us > 0 else None,
+            "event_ms": b3_event}}
+    for k, v in times.items():
+        # B3's launch by CUDA events around back-to-back launches: the
+        # profiler has dropped multi-step launches' records (PERF.md §7)
+        v["ms"] = (v["event_ms"] if k == "fabric_queue_multistep"
+                   else v["device_ms"] if v["device_ms"] is not None
+                   else v["call_ms"])
+        v["ms_source"] = ("CUDA events, back-to-back launches"
+                          if k == "fabric_queue_multistep"
+                          or v["device_ms"] is None
+                          else "profiler device time per call")
+        v["max_abs_err"] = err[k]
+    emit("batch_kernel_times", kernels=times)
+    return times
 
 
 def aten_ops_per_step(fab, spec, steps=None) -> float:
@@ -1996,6 +2387,12 @@ def main() -> int:
     torch.cuda.synchronize()
     ms_launches = phase_multistep_path([anchor] + cells)
     torch.cuda.synchronize()
+    ring_out = phase_ring_engine([anchor] + cells)
+    torch.cuda.synchronize()
+    batch_rows = phase_batch(ring_out)
+    torch.cuda.synchronize()
+    batch_times = phase_batch_kernels()
+    torch.cuda.synchronize()
     phase_profile(spec, kw)
     torch.cuda.synchronize()
     from repro_torch.core.fabric import EngineSpec
@@ -2066,6 +2463,16 @@ def main() -> int:
             "equal": k["max_abs_err"] == 0, "us": k["ms"] * 1e3,
             "main_path_bucket": list(path_bucket)})
     by_name = {k["name"]: k for k in kernels}
+    # each per-step kernel's time a launch on a batch of eight ring-16
+    # instances, and its launches in the B = 8 batch of the cell
+    batch_path = {"fabric_queue_step": "step", "fabric_queue_update": "step",
+                  "fabric_queue_multistep": "multistep"}
+    for kname, path in batch_path.items():
+        bt = batch_times[kname]
+        by_name[kname].update(
+            batch8_ms=bt["ms"], batch8_shape=bt["shape"],
+            batch8_max_abs_err=bt["max_abs_err"],
+            batch8_launches=batch_rows[path]["launches"][kname])
     for kname in ("fabric_queue_step", "fabric_queue_update"):
         by_name[kname]["launch_floor_ms"] = ktimes[kname]["launch_floor_ms"]
     by_name["aer_decode"]["aer_layer_ms_per_step"] = aer_ms

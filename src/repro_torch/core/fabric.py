@@ -7,22 +7,25 @@ The PyTorch counterpart of the reference ``core/fabric.py``.  A
 and ``engine`` (:class:`EngineSpec`) — and a device:
 
     fab = Fabric(ring_topology(8), queues=QueuePolicy(max_burst=1))
-    cf = fab.compile(spec)          # bind one shape bucket, build kernels
+    cf = fab.compile(spec)          # bind one shape bucket, warm it
     res = cf.run(spec)
-    results = fab.run_many(specs)
+    results = fab.run_many(specs)   # one batched run where they share a bucket
+    batch = fab.run_batch(specs)    # B instances, one computation
 
 ``device=None`` means the CUDA card and raises without one; the tests
 pass ``device="cpu"``.  PyTorch runs eagerly, so "compile" binds the
-bucket (the reference's slot-engine shape signature, kept identical)
-and builds the CUDA kernels its engine launches; nothing is traced.
-On the card, each run of ``kernel="step"`` captures its step into a CUDA
-graph and replays it (``network._slot_run``; ``CompiledFabric.graph``).
+bucket (the reference's shape signature, kept identical) and warms it:
+the ring engine captures its chunk's CUDA graph, the kernel engine
+builds its CUDA kernels; nothing is traced.  On the card every engine
+but ``engine="reference"`` runs from CUDA graphs (``network._RingRun``,
+``network._slot_run``; ``CompiledFabric.graph``).
 
-Ported so far: the slot engines (``"reference"``, ``"pallas"``) with
-``kernel="step"`` and ``kernel="multistep"``, unicast and both
-multicast modes, every flow mode.  Not yet: ``engine="ring"`` (ROADMAP
-A.6), batching and adaptive routing (A.6, A.7), and the static verifier
-that admits tables with broken route pairs (A.7).
+Ported: the ring engine (the default, ``"auto"``), the slot engines
+(``"reference"``, ``"pallas"`` with ``kernel="step"`` and
+``kernel="multistep"``), unicast and both multicast modes, every flow
+mode, and batches of B instances on every engine (:func:`run_batch`),
+on one device.  Not yet (ROADMAP A.7): adaptive routing, and the static
+verifier that admits tables with broken route pairs.
 """
 
 from __future__ import annotations
@@ -35,11 +38,16 @@ import torch
 
 from ..device import resolve_device
 from .link import PAPER_TIMING, LinkTiming, link_timing_arrays
-from .network import (DEFAULT_CHUNK_SIZE, ENGINES, FabricResult,
+from .network import (DEFAULT_CHUNK_SIZE, ENGINES, FabricBatchResult,
+                      FabricResult, _BIG, _RING_D_FLOOR, _RING_E_FLOOR,
+                      _RING_K_FLOOR, _RING_L_FLOOR, _RING_N_FLOOR,
+                      _RING_R_FLOOR, _RING_STREAM_FLOOR, _RingRun,
                       _check_reachable, _expand, _first_hop_queues,
-                      _overflow_guard, _overflow_guard_routed, _prefill,
-                      _route_link_tx, _routes_with_trees, _slot_run,
-                      _slot_run_multistep, _unicast_routes)
+                      _in_edge_ranks, _overflow_guard,
+                      _overflow_guard_routed, _pad_to,
+                      _pow2ceil, _prefill, _route_link_tx,
+                      _routes_with_trees, _slot_run, _slot_run_multistep,
+                      _stream_quota, _tree_stream_quota, _unicast_routes)
 from .router import (AddressSpec, MulticastTable, MulticastTree,
                      RoutingTable, Topology, find_route_cycles)
 from .telemetry import Telemetry, _np
@@ -47,7 +55,7 @@ from .traffic import TrafficSpec
 
 __all__ = ["Fabric", "CompiledFabric", "QueuePolicy", "FLOW_MODES",
            "EngineSpec", "MulticastPolicy", "RoutingPolicy",
-           "StaticShortestPath", "PrebuiltRouting"]
+           "StaticShortestPath", "PrebuiltRouting", "run_batch"]
 
 #: flow-control modes, in engine encoding order
 FLOW_MODES = ("drop", "credit", "onoff")
@@ -92,15 +100,19 @@ class QueuePolicy:
 class EngineSpec:
     """Which bit-exact event-transport engine runs the simulation.
 
-    ``name`` — ``"pallas"``: the slot engine whose per-step queue scan
-    and pop/append scatter are the hand-written Hopper kernels of
-    ``kernels/fabric_queue.py`` (the name is kept for parity with the
-    reference package, where it is the Pallas TPU engine; on the CPU
-    the same wrappers run their plain versions).  ``"reference"``: the
-    same step over the plain-PyTorch versions on any device.
-    ``"auto"`` means ``"pallas"`` until the ring engine is ported
-    (ROADMAP A.6; every engine is bit-exact, so results do not change).
-    ``"ring"`` raises ``NotImplementedError`` for now.
+    ``name`` — ``"auto"`` (= ``"ring"``, as in the reference),
+    ``"ring"``, ``"reference"`` or ``"pallas"`` (see ``network``'s
+    module docstring).  ``"pallas"`` is the slot engine whose per-step
+    queue scan and pop/append scatter are the hand-written Hopper
+    kernels of ``kernels/fabric_queue.py`` (the name is kept for parity
+    with the reference package, where it is the Pallas TPU engine; on
+    the CPU the same wrappers run their plain versions);
+    ``"reference"`` the same step over the plain-PyTorch versions on
+    any device.
+
+    ``chunk_size`` — ring engine: micro-transactions between early-exit
+    checks (on the card, replays of a ``network.RING_GRAPH_STEPS``-step
+    CUDA graph).  Multi-step kernel: micro-transactions per launch.
 
     ``kernel`` — pallas engine only.  ``"step"`` (default): two kernel
     launches per micro-transaction, replayed on the card from a CUDA
@@ -108,10 +120,8 @@ class EngineSpec:
     too short for ``network.GRAPH_MIN_REPLAYS`` replays stay eager).
     ``"multistep"``: the whole step in one kernel, ``chunk_size`` steps
     per launch, so a run costs ``ceil(max_steps / chunk_size)``
-    launches.  It needs
-    ``name="pallas"`` given explicitly: the reference resolves
-    ``"auto"`` to its ring engine and refuses it there, so ``"auto"``
-    is refused here too.
+    launches — the fastest path on the card.  It needs ``name="pallas"``
+    given explicitly (``"auto"`` resolves to the ring engine).
     """
     name: str = "auto"
     chunk_size: int = DEFAULT_CHUNK_SIZE
@@ -120,28 +130,25 @@ class EngineSpec:
     KERNELS = ("step", "multistep")
 
     def __post_init__(self):
-        if self.name == "ring":
-            raise NotImplementedError(
-                "engine='ring' is not ported yet (ROADMAP A.6); use "
-                "'pallas' (= 'auto') or 'reference'")
         if self.resolved not in ENGINES:
             raise ValueError(f"unknown engine {self.name!r}; expected one "
                              f"of {ENGINES} (or 'auto')")
         if int(self.chunk_size) < 1:
+            # a 0-step chunk would make the early-exit loop spin forever
             raise ValueError(f"chunk_size must be >= 1, got "
                              f"{self.chunk_size}")
         if self.kernel not in self.KERNELS:
             raise ValueError(f"unknown kernel {self.kernel!r}; expected "
                              f"one of {self.KERNELS}")
-        if self.kernel == "multistep" and self.name != "pallas":
+        if self.kernel == "multistep" and self.resolved != "pallas":
             raise ValueError(
                 f"kernel='multistep' is a pallas-engine knob (the fused "
-                f"multi-step fabric kernel); engine {self.name!r} is not "
-                f"'pallas'")
+                f"multi-step fabric kernel); engine {self.name!r} "
+                f"resolves to {self.resolved!r}")
 
     @property
     def resolved(self) -> str:
-        return "pallas" if self.name == "auto" else self.name
+        return "ring" if self.name == "auto" else self.name
 
 
 @dataclass(frozen=True)
@@ -296,10 +303,13 @@ class Fabric:
                     f"{self.queues.flow!r} needs the static verifier, "
                     f"which is not ported yet (ROADMAP A.7) — fix the "
                     f"table or use flow='drop'")
+        self._in_rank, self._D = _in_edge_ranks(topo)
         self._init_tx = np.broadcast_to(
             np.asarray(self.queues.initial_tx, np.int32), (L,))
         self._compiled: dict[tuple, CompiledFabric] = {}
         self._plan_memo: tuple | None = None  # (spec, max_steps, plan)
+        #: execution path the last ``run_many`` chose: "batch" | "loop"
+        self.last_dispatch = None
         self._tree_cache: dict[tuple[int, int], MulticastTree] = {}
         self._unicast_tables_np: tuple | None = None
 
@@ -341,9 +351,28 @@ class Fabric:
 
     def run_many(self, specs, *,
                  max_steps: int | None = None) -> list[FabricResult]:
-        """Run a sequence of specs, one after another (the batched path
-        comes with ROADMAP A.6)."""
+        """Run a sequence of specs.  When there are several and they all
+        land in ONE shape bucket, they run as one batch
+        (:meth:`run_batch`, ``last_dispatch == "batch"``); otherwise one
+        after another (``"loop"``).  With ``max_steps=None`` a batch
+        shares the largest of the specs' default step bounds, which is
+        bit-exact with the solo runs wherever they drain."""
+        specs = list(specs)
+        if len(specs) > 1:
+            plans = [self._plan(s, max_steps) for s in specs]
+            if len(dict.fromkeys(p.bucket for p in plans)) == 1:
+                self.last_dispatch = "batch"
+                return self.run_batch(specs,
+                                      max_steps=max_steps).results()
+        self.last_dispatch = "loop"
         return [self.run(s, max_steps=max_steps) for s in specs]
+
+    def run_batch(self, specs, *, max_steps: int | None = None,
+                  devices: int | str | None = None) -> FabricBatchResult:
+        """Run B traffic specs on this fabric as ONE batched computation
+        (see the module-level :func:`run_batch`, which also batches
+        across fabrics)."""
+        return run_batch(self, specs, max_steps=max_steps, devices=devices)
 
     # --- internals ------------------------------------------------------
 
@@ -483,14 +512,43 @@ class Fabric:
             _overflow_guard(t_max, total_tx, self._worst_cost)
         R, K = route_out.shape[1], route_out.shape[2]
 
-        qt, qd, qi, sizes = _prefill(L, grp, copy_t, copy_route, copy_inj,
-                                     chk, width=C)
-        # the reference's slot-engine bucket, verbatim: chunk keys only
-        # the multi-step kernel (it is 0 under "step")
-        kern = self.engine.kernel
-        chunk = int(self.engine.chunk_size) if kern == "multistep" else 0
-        bucket = (self.engine.resolved, L, E, C, int(max_steps),
-                  int(self.queues.max_burst), R, K, kern, chunk)
+        eng = self.engine.resolved
+        if eng == "ring":
+            quota = _stream_quota(rt, topo.links, self._in_rank, u_src,
+                                  u_dest, L, self._D)
+            if trees:
+                quota = quota + _tree_stream_quota(trees, tree_counts,
+                                                   self._in_rank, L,
+                                                   self._D)
+            qt, qd, qi, sizes = _prefill(L, grp, copy_t, copy_route,
+                                         copy_inj, chk, width="auto")
+            # the reference's bucket, field for field: pow2-padded shapes
+            # (+1 = an always-BIG_NS pad column a stream head never
+            # passes); a fabric without a multicast table keeps K = 1
+            k_floor = (_RING_K_FLOOR if self.mcast_policy.table is not None
+                       else 1)
+            Cf = _pow2ceil(max(int(quota.max(initial=1)),
+                               _RING_STREAM_FLOOR)) + 1
+            bucket = ("ring",
+                      _pow2ceil(max(L, _RING_L_FLOOR)),
+                      _pow2ceil(max(topo.n_chips, _RING_N_FLOOR)),
+                      _pow2ceil(max(E, _RING_E_FLOOR)),
+                      qt.shape[2],
+                      _pow2ceil(max(self._D, _RING_D_FLOOR)),
+                      Cf,
+                      _pow2ceil(max(R, _RING_R_FLOOR)),
+                      _pow2ceil(max(K, k_floor)),
+                      int(self.engine.chunk_size))
+        else:
+            qt, qd, qi, sizes = _prefill(L, grp, copy_t, copy_route,
+                                         copy_inj, chk, width=C)
+            # the reference's slot-engine bucket, verbatim: chunk keys
+            # only the multi-step kernel (it is 0 under "step")
+            kern = self.engine.kernel
+            chunk = int(self.engine.chunk_size) if kern == "multistep" \
+                else 0
+            bucket = (eng, L, E, C, int(max_steps),
+                      int(self.queues.max_burst), R, K, kern, chunk)
         return _Plan(E=E, C=C, max_steps=int(max_steps), q_time=qt,
                      q_dest=qd, q_inj=qi, sizes=sizes,
                      route_out=route_out, route_del=route_del,
@@ -504,23 +562,49 @@ def _dev_i32(a, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.int32), device=device)
 
 
+def _stacked(arrays, device: torch.device) -> torch.Tensor:
+    """B host arrays of one shape as one (B, ...) int32 device tensor
+    (one copy to the device)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.stack([np.asarray(a, np.int32) for a in arrays]))).to(device)
+
+
 class CompiledFabric:
-    """A :class:`Fabric` bound to ONE slot-engine shape bucket
-    ``(engine, L, E, C, max_steps, max_burst, R, K, kernel, chunk)`` —
-    the reference's tuple, field for field."""
+    """A :class:`Fabric` bound to ONE engine shape bucket — the
+    reference's tuple, field for field: ``("ring", Lp, Np, Ep, C0, Dp,
+    Cf, Rp, Kp, chunk)`` (pow2-padded) for the ring engine, ``(engine,
+    L, E, C, max_steps, max_burst, R, K, kernel, chunk)`` for the slot
+    engines."""
 
     def __init__(self, fabric: Fabric, bucket: tuple):
         self.fabric = fabric
         self.bucket = bucket
-        eng, L, E, C, max_steps, mb, _R, _K, kern, chunk = bucket
-        if kern == "multistep":
-            self._fn = _slot_run_multistep(L, E, C, max_steps, mb, chunk)
-        else:
-            self._fn = _slot_run(L, E, C, max_steps, mb, eng == "pallas")
-        dev = fabric.device
+        self.n_runs = 0
+        topo = fabric.topo
         tc, tv, ti = fabric.timing_arrays
-        self._tables = tuple(_dev_i32(a, dev) for a in (
-            fabric._init_tx, fabric.topo.links, tc, tv, ti))
+        if bucket[0] == "ring":
+            Lp = bucket[1]
+            # bucket-padded link tables (dummy links park forever: empty
+            # queues, zero-cost timing); the replication tables carry the
+            # spec's multicast trees and are padded per plan
+            self._tables = (
+                _pad_to(np.asarray(fabric._init_tx, np.int32), (Lp,), 1),
+                _pad_to(np.asarray(topo.links, np.int32), (Lp, 2), 0),
+                _pad_to(np.asarray(fabric._in_rank, np.int32), (Lp, 2), 0),
+                *(_pad_to(np.asarray(a, np.int32), (Lp,), 0)
+                  for a in (tc, tv, ti)))
+            #: ring runners by (B, flow mode, burst bound): each keeps its
+            #: operand and carry tensors and its CUDA graph across runs
+            self._runners: dict[tuple, _RingRun] = {}
+            self._last_runner: _RingRun | None = None
+        else:
+            eng, L, E, C, max_steps, mb, _R, _K, kern, chunk = bucket
+            if kern == "multistep":
+                self._fn = _slot_run_multistep(L, E, C, max_steps, mb, chunk)
+            else:
+                self._fn = _slot_run(L, E, C, max_steps, mb, eng == "pallas")
+            self._tables = tuple(np.asarray(a, np.int32) for a in (
+                fabric._init_tx, topo.links, tc, tv, ti))
         self._warmed = False
 
     @property
@@ -528,26 +612,40 @@ class CompiledFabric:
         return self.bucket[0]
 
     def __repr__(self) -> str:
-        return f"CompiledFabric(bucket={self.bucket})"
+        return f"CompiledFabric(bucket={self.bucket}, runs={self.n_runs})"
 
     @property
     def graph(self) -> dict | None:
-        """How the last run of the per-step kernel engine ran:
-        ``graph_steps``, its eager ``head`` and ``tail`` steps, its
-        ``replays`` and, where it captured a graph on the card,
-        ``capture_s``, ``instantiate_s``, the host seconds spent issuing
-        the replays (``replay_host_s``) and the first of them
-        (``first_replay_host_s``), and the card's seconds from the
-        first replay's start to the last one's end (``replay_device_s``,
-        read from CUDA events; this waits for the replays to finish).
-        None for the other engines and before a run."""
-        stats = getattr(self._fn, "graph", None)
-        if stats is None or "replay_events" not in stats:
-            return stats
-        stats = dict(stats)
-        start, end = stats.pop("replay_events")
-        end.synchronize()
-        stats["replay_device_s"] = start.elapsed_time(end) / 1e3
+        """How the last run ran.  Per-step kernel engine: ``graph_steps``,
+        its eager ``head`` and ``tail`` steps, its ``replays`` and, where
+        it captured a graph on the card, ``capture_s``,
+        ``instantiate_s``, the host seconds spent issuing the replays
+        (``replay_host_s``) and the first of them
+        (``first_replay_host_s``).  Ring engine: ``chunk``, the
+        ``steps`` it ran, its ``chunks`` and graph ``replays``, its
+        ``host_syncs`` (early-exit flag reads), whether this run
+        ``captured`` the graph (with ``capture_s``, ``instantiate_s``),
+        how many graphs its runner has captured (``captures``) and the
+        host seconds from its first replay to its last one's end, flag
+        reads included (``replay_host_s``).  Both: the card's seconds
+        from the first replay's start to the last one's end
+        (``replay_device_s``, read from CUDA events; this waits for the
+        replays to finish).  None for the other engines and before a
+        run."""
+        if self.engine_name == "ring":
+            runner = self._last_runner
+            if runner is None:
+                return None
+            stats = dict(runner.stats, captures=runner.captures)
+        else:
+            stats = getattr(self._fn, "graph", None)
+            if stats is None:
+                return None
+            stats = dict(stats)
+        if "replay_events" in stats:
+            start, end = stats.pop("replay_events")
+            end.synchronize()
+            stats["replay_device_s"] = start.elapsed_time(end) / 1e3
         return stats
 
     def run(self, spec: TrafficSpec, *,
@@ -563,26 +661,50 @@ class CompiledFabric:
         return self._execute(plan)
 
     def warmup(self) -> "CompiledFabric":
-        """Build the CUDA kernels this bucket's engine launches (the
-        counterpart of the reference's pre-compilation).  Idempotent."""
-        if not self._warmed and self.engine_name == "pallas" \
-                and self.fabric.device.type == "cuda":
+        """Make this bucket ready (the counterpart of the reference's
+        pre-compilation): the ring engine runs a zero-event plan through
+        its solo runner — step 0 eagerly and, on the card, the capture of
+        its chunk's CUDA graph, which the fabric's runs then replay; the
+        pallas engine builds the CUDA kernels it launches.
+        Idempotent."""
+        if self._warmed:
+            return self
+        dev = self.fabric.device
+        if self.engine_name == "ring":
+            ops, fc, mb = _ring_operands(
+                [self], [_zero_event_plan(self.fabric, self.bucket)], dev)
+            self._ring_runner(1, fc, mb).warm(ops)
+        elif self.engine_name == "pallas" and dev.type == "cuda":
             from ..kernels import _build
-            kern = self.bucket[8]
-            lib = ("fabric_queue_multistep" if kern == "multistep"
+            lib = ("fabric_queue_multistep" if self.bucket[8] == "multistep"
                    else "fabric_queue")
-            with torch.cuda.device(self.fabric.device):
+            with torch.cuda.device(dev):
                 _build.load(lib)
         self._warmed = True
         return self
 
+    def _ring_runner(self, n_inst: int, fc, mb) -> _RingRun:
+        """The ring runner for ``n_inst`` instances whose flow mode and
+        burst bound are ``fc`` / ``mb`` (a shared int, or a tuple of
+        per-instance values)."""
+        key = (n_inst, fc, mb)
+        runner = self._runners.get(key)
+        if runner is None:
+            _, Lp, _Np, Ep, C0, Dp, Cf, _Rp, _Kp, chunk = self.bucket
+            runner = _RingRun(Lp, Ep, C0, Dp, Cf, chunk,
+                              fc if isinstance(fc, int) else None,
+                              mb if isinstance(mb, int) else None)
+            self._runners[key] = runner
+        self._last_runner = runner
+        return runner
+
     def _operands(self, plan: _Plan) -> tuple:
-        """The engine ``run``'s operands for one plan: fresh device
-        copies of the queue planes (updated in place by the run), the
-        bound tables, and the plain-int flow-control scalars."""
+        """The slot engine's operands for one plan, without an instance
+        axis: fresh device copies of the queue planes, the tables, and
+        the plain-int flow-control scalars."""
         dev = self.fabric.device
         L, C = self.fabric.topo.n_links, plan.C
-        init_tx, links, tc, tv, ti = self._tables
+        init_tx, links, tc, tv, ti = (_dev_i32(a, dev) for a in self._tables)
         return (_dev_i32(plan.q_time.reshape(2 * L, C), dev),
                 _dev_i32(plan.q_dest.reshape(2 * L, C), dev),
                 _dev_i32(plan.q_inj.reshape(2 * L, C), dev),
@@ -592,17 +714,228 @@ class CompiledFabric:
                 plan.cap, plan.fc, plan.xon)
 
     def _execute(self, plan: _Plan) -> FabricResult:
-        E = plan.E
-        out = self._fn(*self._operands(plan))
+        return _execute_batch([self], [plan]).instance(0)
+
+
+# -----------------------------------------------------------------------
+# Batched execution: B fabric instances as ONE computation
+# -----------------------------------------------------------------------
+
+def run_batch(fabrics, specs, *, max_steps: int | None = None,
+              devices: int | str | None = None) -> FabricBatchResult:
+    """Run B (fabric, spec) instances as one batched computation.
+
+    ``fabrics`` is one :class:`Fabric` (replicated across the batch —
+    the Monte-Carlo-over-seeds case) or B fabrics on one device sharing
+    the link count and, with their specs, one shape bucket; they may
+    differ in routing tables, timing, queue policy and reset polarity,
+    all run operands.  Every engine runs the batch as one loop over
+    steps with the batch in every launch (the ring engine until every
+    instance has drained); instance i is bit-exact with
+    ``fabrics[i].run(specs[i])``.  With ``max_steps=None`` the
+    instances share the largest of their default step bounds, which a
+    drained run never reaches.
+
+    ``devices``: ``None`` or 1 (this fabric's device).  Sharding the
+    batch over several cards is not ported: its reference test fails
+    (ROADMAP queue C), so nothing passing holds it.
+    """
+    specs = list(specs)
+    fabs = ([fabrics] * len(specs) if isinstance(fabrics, Fabric)
+            else list(fabrics))
+    if len(fabs) != len(specs):
+        raise ValueError(f"got {len(fabs)} fabrics for {len(specs)} "
+                         f"specs; they must pair 1:1 (or pass a single "
+                         f"Fabric to replicate)")
+    plans = _plan_batch(fabs, specs, max_steps)
+    _resolve_devices(devices, len(plans))
+    bucket = plans[0].bucket
+    return _execute_batch([f._get_compiled(bucket) for f in fabs], plans)
+
+
+def _plan_batch(fabs: list[Fabric], specs, max_steps: int | None):
+    """Per-instance plans under one shared step bound and ONE bucket
+    (the ring bucket ignores the bound; slot plans with another default
+    are planned again under the shared one)."""
+    if not specs:
+        raise ValueError("run_batch needs at least one instance")
+    L, dev = fabs[0].topo.n_links, fabs[0].device
+    for f in fabs[1:]:
+        if f.topo.n_links != L:
+            raise ValueError(f"all fabrics in a batch must share the "
+                             f"link count, got {f.topo.n_links} vs {L}")
+        if f.device != dev:
+            raise ValueError(f"all fabrics in a batch must share one "
+                             f"device, got {f.device} vs {dev}")
+    plans = [f._plan(s, max_steps) for f, s in zip(fabs, specs)]
+    if max_steps is None:
+        shared = max(p.max_steps for p in plans)
+        plans = [p._replace(max_steps=shared) if p.bucket[0] == "ring"
+                 else (p if p.max_steps == shared else f._plan(s, shared))
+                 for f, s, p in zip(fabs, specs, plans)]
+    buckets = dict.fromkeys(p.bucket for p in plans)
+    if len(buckets) != 1:
+        raise ValueError(
+            f"run_batch needs every instance in ONE shape bucket, got "
+            f"{list(buckets)}; Fabric.run_many loops mixed buckets")
+    return plans
+
+
+def _resolve_devices(devices: int | str | None, batch: int) -> int:
+    """Devices for the batch axis: one (``None``, 1, or ``"all"`` where
+    one card is visible).  More are refused (see :func:`run_batch`)."""
+    if devices is None:
+        return 1
+    n = max(torch.cuda.device_count(), 1) if devices == "all" \
+        else int(devices)
+    if n < 1:
+        raise ValueError(f"devices must be >= 1, got {devices!r}")
+    if n > 1:
+        raise NotImplementedError(
+            f"run_batch(devices={devices!r}): sharding a batch of {batch} "
+            f"over {n} cards is not ported; its reference test fails "
+            f"(ROADMAP queue C), so nothing passing holds it")
+    return 1
+
+
+def _zero_event_plan(fab: Fabric, bucket: tuple) -> _Plan:
+    """A plan that offers no traffic (every slot ``BIG_NS``, zero
+    events) in ``bucket`` — what ``warmup`` runs.  Its flow mode is the
+    fabric's, so the ring runner it warms is the one the fabric's runs
+    use."""
+    L, N = fab.topo.n_links, fab.topo.n_chips
+    if bucket[0] == "ring":
+        width = bucket[4]
+        R, K = N, 1            # _ring_operands pads to the bucket's
+    else:
+        width = bucket[3]
+        R, K = bucket[6], bucket[7]
+    qt = np.full((L, 2, width), int(_BIG), np.int32)
+    z = np.zeros((L, 2, width), np.int32)
+    return _Plan(E=0, C=width, max_steps=0, q_time=qt, q_dest=z, q_inj=z,
+                 sizes=np.zeros((L, 2), np.int32),
+                 route_out=np.full((N, R, K), -1, np.int32),
+                 route_del=np.zeros((N, R), np.int32),
+                 route_wt=np.zeros((N, R, K), np.int32),
+                 offered=0, bucket=bucket, cap=width,
+                 fc=FLOW_MODES.index(fab.queues.flow), xon=0)
+
+
+def _shared(vals):
+    """A flow-control or burst scalar of B instances: the int they all
+    share, else the tuple of them."""
+    vals = tuple(int(v) for v in vals)
+    return vals[0] if len(set(vals)) == 1 else vals
+
+
+def _on(v, dev):
+    """``_shared``'s value as an engine operand: the int, or a (B,)
+    int32 tensor on ``dev``."""
+    return v if isinstance(v, int) else torch.tensor(v, dtype=torch.int32,
+                                                     device=dev)
+
+
+def _ring_operands(cfs: list[CompiledFabric], plans: list[_Plan], dev):
+    """The ring runner's (B, ...) operands (``network.RING_OPERANDS``)
+    for B plans of one bucket, padded to it, and the batch's flow mode
+    and burst bound (shared ints or per-instance tuples)."""
+    _, Lp, Np, _Ep, C0, _Dp, _Cf, Rp, Kp, _chunk = plans[0].bucket
+
+    def pad(name, shape, fill):
+        return _stacked([_pad_to(getattr(p, name), shape, fill)
+                         for p in plans], dev)
+
+    def vec(vals):
+        return torch.tensor([int(v) for v in vals], dtype=torch.int32,
+                            device=dev)
+
+    tabs = [cf._tables for cf in cfs]
+    ops = {"q0_time": pad("q_time", (Lp, 2, C0), int(_BIG)),
+           "q0_dest": pad("q_dest", (Lp, 2, C0), 0),
+           "q0_inj": pad("q_inj", (Lp, 2, C0), 0),
+           "sizes": pad("sizes", (Lp, 2), 0),
+           "route_out": pad("route_out", (Np, Rp, Kp), -1),
+           "route_del": pad("route_del", (Np, Rp), 0),
+           "route_wt": pad("route_wt", (Np, Rp, Kp), 0),
+           "cap": vec(p.cap for p in plans), "xon": vec(p.xon for p in plans),
+           "real_e": vec(p.E for p in plans)}
+    for i, name in enumerate(("init_tx", "links", "in_rank", "t_cycle",
+                              "t_rev", "t_idle")):
+        ops[name] = _stacked([t[i] for t in tabs], dev)
+    fc = _shared(p.fc for p in plans)
+    mb = _shared(cf.fabric.queues.max_burst for cf in cfs)
+    if not isinstance(fc, int):
+        ops["fc_mode"] = _on(fc, dev)
+    if not isinstance(mb, int):
+        ops["max_burst"] = _on(mb, dev)
+    return ops, fc, mb
+
+
+def _slot_operands(cfs: list[CompiledFabric], plans: list[_Plan], dev):
+    """The slot engines' (B, ...) operands for B plans of one bucket,
+    with the flow-control scalars as plain ints where the instances
+    share them, else (B,) tensors."""
+    L, C = cfs[0].fabric.topo.n_links, plans[0].C
+    planes = [_stacked([getattr(p, f).reshape(2 * L, C) for p in plans],
+                       dev) for f in ("q_time", "q_dest", "q_inj")]
+    tabs = [cf._tables for cf in cfs]
+    init_tx, links, tc, tv, ti = (_stacked([t[i] for t in tabs], dev)
+                                  for i in range(5))
+    return (*planes, _stacked([p.sizes for p in plans], dev), init_tx,
+            links, *(_stacked([getattr(p, f) for p in plans], dev)
+                     for f in ("route_out", "route_del", "route_wt")),
+            tc, tv, ti,
+            *(_on(_shared(getattr(p, f) for p in plans), dev)
+              for f in ("cap", "fc", "xon")))
+
+
+def _batch_engine_for(cfs: list[CompiledFabric], plans: list[_Plan]):
+    """The engine that runs ``plans`` (one bucket) on their device, and
+    its operands: the bucket's ring runner for this batch size, flow
+    modes and burst bounds (kept by the first instance's
+    ``CompiledFabric``, with its CUDA graph), or the slot engine's run
+    function."""
+    owner = cfs[0]
+    dev = owner.fabric.device
+    if owner.engine_name == "ring":
+        ops, fc, mb = _ring_operands(cfs, plans, dev)
+        runner = owner._ring_runner(len(plans), fc, mb)
+        return lambda: runner.run(ops, max(p.max_steps for p in plans))
+    ops = _slot_operands(cfs, plans, dev)
+    return lambda: owner._fn(*ops)
+
+
+def _execute_batch(cfs: list[CompiledFabric],
+                   plans: list[_Plan]) -> FabricBatchResult:
+    """Run B plans of one bucket as one computation on the first
+    instance's ``CompiledFabric`` (whose ``graph`` then reports the run)
+    and trim the bucket's padding."""
+    owner = cfs[0]
+    L = owner.fabric.topo.n_links
+    out = _batch_engine_for(cfs, plans)()
+    if owner.engine_name == "ring":
+        (log_n, log_inj, log_del, log_dest, sent, n_sw, t_link, drops,
+         busy_ns, busy_steps, q_drops, stall_steps, credit_waits) = out
+        e_max = max(p.E for p in plans)
+        log_inj, log_del, log_dest = (log_inj[:, :e_max],
+                                      log_del[:, :e_max],
+                                      log_dest[:, :e_max])
+        sent, n_sw, t_link = sent[:, :L], n_sw[:, :L], t_link[:, :L]
+        busy_ns, busy_steps, q_drops = (busy_ns[:, :L], busy_steps[:, :L],
+                                        q_drops[:, :L])
+        stall_steps, credit_waits = stall_steps[:, :L], credit_waits[:, :L]
+        t_end = t_link.amax(dim=1)
+    else:
         (log_n, log_inj, log_del, log_dest, sent, n_sw, t_link, t_end,
          drops, busy_ns, busy_steps, q_drops, stall_steps,
          credit_waits) = out
-        self._warmed = True
-        return FabricResult(
-            delivered=log_n, injected=E,
-            log_inj=log_inj, log_del=log_del, log_dest=log_dest,
-            sent=sent, n_switches=n_sw, t_link=t_link, t_end=t_end,
-            drops=drops, offered=plan.offered,
-            telemetry=Telemetry(busy_ns=busy_ns, busy_steps=busy_steps,
-                                q_drops=q_drops, stall_steps=stall_steps,
-                                credit_waits=credit_waits))
+    owner.n_runs += 1
+    owner._warmed = True
+    return FabricBatchResult(
+        delivered=log_n, injected=np.asarray([p.E for p in plans], np.int64),
+        log_inj=log_inj, log_del=log_del, log_dest=log_dest, sent=sent,
+        n_switches=n_sw, t_link=t_link, t_end=t_end, drops=drops,
+        offered=np.asarray([p.offered for p in plans], np.int64),
+        telemetry=Telemetry(busy_ns=busy_ns, busy_steps=busy_steps,
+                            q_drops=q_drops, stall_steps=stall_steps,
+                            credit_waits=credit_waits))

@@ -1,41 +1,54 @@
-"""N-chip AER fabric simulator, slot engine: the paper's link pair scaled out.
+"""N-chip AER fabric simulator: the paper's link pair scaled out.
 
-The PyTorch counterpart of the slot-engine half of the reference
-``core/network.py``; its module docstring states the model (event
-transport through one-shot endpoint queue slots, replication tables for
-unicast and in-fabric multicast, drop / credit / on-off flow control,
-link-local clocks with conservative lookahead).  This module keeps that
-model bit for bit:
+The PyTorch counterpart of the reference ``core/network.py``; its module
+docstring states the model (event transport through endpoint queues,
+replication tables for unicast and in-fabric multicast, drop / credit /
+on-off flow control, link-local clocks with conservative lookahead).
+This module keeps that model bit for bit:
 
 * setup-time planning in numpy (``_expand``, ``_prefill``, the
-  replication tables, the ``BIG_NS`` clock guards), copied;
-* ``_slot_step_body``: one micro-transaction over every link, as int32
-  tensor ops on the engine's device;
-* ``_slot_run``: the step loop — ``lax.scan`` over ``max_steps``,
-  which the reference jits once, becomes, for the kernel engine on
-  CUDA, a CUDA graph of ``GRAPH_STEPS`` steps captured once per run and
-  replayed (a Python loop of the same static-carry step on the CPU, and
-  a plain host loop for ``engine="reference"``); no step reads a value
-  back to the host or copies one to the device;
-* ``_slot_run_multistep``: ``kernel="multistep"`` — the step loop in
-  chunks of ``chunk`` micro-transactions over the packed carry of
-  ``_pack_slot_state``, one ``kernels.ops.fabric_queue_multistep`` call
-  per chunk (one launch of the Hopper kernel that carries the whole
-  step on CUDA, a loop of ``_slot_step_body`` on the CPU).
+  replication tables, the ring engine's stream quotas and shape
+  buckets, the ``BIG_NS`` clock guards), copied;
+* ``_slot_step_body`` and ``_ring_step_body``: one micro-transaction
+  over every link of B fabric instances at once, as int32 tensor ops on
+  the engine's device, every tensor with a leading instance axis (a
+  solo run is B = 1; nothing couples two instances);
+* ``_slot_run``: the slot engine's loop over ``max_steps`` steps — for
+  the kernel engine on CUDA a CUDA graph of ``GRAPH_STEPS`` steps
+  captured once per run and replayed (a Python loop of the same
+  static-carry step on the CPU, a plain host loop for
+  ``engine="reference"``);
+* ``_slot_run_multistep``: ``kernel="multistep"`` — chunks of ``chunk``
+  micro-transactions over the packed carry of ``_pack_slot_state``, one
+  ``kernels.ops.fabric_queue_multistep`` call per chunk for the whole
+  batch (one launch of the Hopper kernel, a block an instance, on CUDA;
+  a loop of ``_slot_step_body`` on the CPU);
+* ``_RingRun``: the ring engine's loop — chunks of ``chunk`` steps
+  until every instance has drained (one device flag read a chunk) or
+  ``max_steps`` binds, which it honours exactly; on CUDA a full chunk
+  is replays of one CUDA graph of ``RING_GRAPH_STEPS`` steps, captured
+  once per runner and reused by every later run of its bucket.
 
 Engines (``simulate_fabric(engine=...)`` / ``fabric.EngineSpec``):
 
+``"ring"`` (what ``"auto"`` means, as in the reference)
+    Per-endpoint release-sorted streams — the prefill plus one FIFO
+    stream per in-edge of the chip — of which a step reads only the
+    heads, so its work does not grow with the queue width; early exit
+    once every event is delivered or dropped.  The reference has no
+    Pallas kernel here, and neither has the port: the step is PyTorch
+    ops, replayed from a CUDA graph on the card.
 ``"reference"``
-    The step's queue scan and pop/append go to the plain-PyTorch
-    versions in ``kernels/ref.py`` on whatever device the run uses —
-    the semantics oracle, and the only way to the plain path on the
-    card.
-``"pallas"`` (what ``"auto"`` means for now)
-    The same step with the queue scan and the pop/append scatter
+    The slot step with its queue scan and pop/append in the
+    plain-PyTorch versions of ``kernels/ref.py`` on whatever device the
+    run uses — the semantics oracle, and the only way to the plain path
+    on the card.
+``"pallas"``
+    The same slot step with the queue scan and the pop/append scatter
     dispatched through ``kernels/ops.py``: on CUDA the hand-written
     Hopper kernels of ``kernels/fabric_queue.py`` (two launches per
-    micro-transaction, replayed from a captured CUDA graph), on the CPU
-    their plain versions.  With
+    micro-transaction for the whole batch, replayed from a captured
+    CUDA graph), on the CPU their plain versions.  With
     ``kernel="multistep"`` the whole step runs inside one kernel launch
     per chunk of steps instead.  The name is kept for parity with the
     reference package, whose ``"pallas"`` engine runs the same step
@@ -43,12 +56,18 @@ Engines (``simulate_fabric(engine=...)`` / ``fabric.EngineSpec``):
 
 JAX semantics that PyTorch does not share are written out at each site:
 int32 sums and cumsums (PyTorch promotes them to int64), scatters with
-``mode="drop"`` (masked lanes go to a scratch slot or add zero), and
-duplicate-target ``.add`` scatters (dense one-hot sums).
+``mode="drop"`` (masked lanes go to a scratch slot or add zero),
+duplicate-target ``.add`` scatters (``index_add_``) and the ring's
+integer ``einsum`` (CUDA has no integer matrix product: an
+``index_add_``).  Scalars that a step selects with ``torch.where`` are
+0-d device tensors made once a run, not Python numbers, which PyTorch
+would turn into a fill kernel each time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import NamedTuple
 
@@ -56,27 +75,29 @@ import numpy as np
 import torch
 
 from .link import LinkTiming, PAPER_TIMING
-from .protocol_sim import BIG_NS, LinkState, link_step_batch, reset_link
+from .protocol_sim import BIG_NS, LinkState, reset_link, transact
 from .router import (AddressSpec, MulticastTable, MulticastTree,
                      RoutingTable, Topology)
 from .telemetry import Telemetry, _np
 from .traffic import TrafficSpec
 from .transceiver import XcvrState
 
-__all__ = ["FabricResult", "simulate_fabric",
+__all__ = ["FabricResult", "FabricBatchResult", "simulate_fabric",
            "fabric_throughput_mev_s", "fabric_energy_pj", "link_energy_pj",
            "per_link_throughput_mev_s", "delivered_latencies",
-           "delivery_multiset", "latency_stats", "ENGINES",
-           "DEFAULT_CHUNK_SIZE", "RESULT_FIELDS", "assert_results_equal",
-           "slot_carry_bytes"]
+           "delivery_multiset", "latency_stats", "batch_latency_stats",
+           "batch_throughput_mev_s", "ENGINES", "DEFAULT_CHUNK_SIZE",
+           "RESULT_FIELDS", "assert_results_equal", "slot_carry_bytes"]
 
 _BIG = BIG_NS
 _I32 = torch.int32
 
-#: Event-transport engines of the port (the ring engine comes later).
-ENGINES = ("reference", "pallas")
+#: Event-transport engines accepted by ``simulate_fabric(engine=...)``.
+ENGINES = ("ring", "reference", "pallas")
 
-#: Micro-transactions per launch of the multi-step kernel.
+#: Micro-transactions per chunk: the ring engine's steps between
+#: early-exit checks (and per CUDA graph), the multi-step kernel's steps
+#: per launch.
 DEFAULT_CHUNK_SIZE = 128
 
 #: Micro-transactions per CUDA graph replay of the per-step kernel engine.
@@ -86,8 +107,28 @@ GRAPH_STEPS = 32
 #: few more, so a run with room for one replay is faster left eager
 #: (the break-even in PERF.md).
 GRAPH_MIN_REPLAYS = 2
-#: profiler range around a run's graph replays
+#: profiler range around a run's graph replays (both engines)
 REPLAY_RANGE = "slot_graph_replays"
+#: micro-transactions per CUDA graph of the ring engine: a chunk that
+#: is a multiple of it replays its graph chunk / RING_GRAPH_STEPS times
+#: (any other chunk is one graph)
+RING_GRAPH_STEPS = 32
+
+# Ring-engine shape buckets (the reference's): every dimension that would
+# vary from cell to cell (links, chips, expected deliveries, prefill and
+# stream widths, chip degree, routes, replication branches) is padded to
+# a floored power of two; the logical counts travel as run operands.
+# Padding is inert: dummy links have empty queues (they park forever and
+# never bound the horizon), dummy slots hold BIG_NS, and results are
+# trimmed back to the real sizes.
+_RING_L_FLOOR = 32        # links
+_RING_N_FLOOR = 64        # chips (routing-table side)
+_RING_D_FLOOR = 4         # chip degree (forward streams per endpoint)
+_RING_E_FLOOR = 2048      # expected deliveries (delivery-log length)
+_RING_PREFILL_FLOOR = 2048  # prefill queue width
+_RING_STREAM_FLOOR = 512  # forward-stream width
+_RING_R_FLOOR = 64        # route ids (chips + multicast trees)
+_RING_K_FLOOR = 4         # replication branch bound (out-copies per pop)
 
 
 class FabricResult(NamedTuple):
@@ -144,9 +185,71 @@ def assert_results_equal(a: FabricResult, b: FabricResult, ctx: str = ""):
                                  f"{x!r} != {y!r}")
 
 
+class FabricBatchResult(NamedTuple):
+    """Results of B fabric instances run as one batched computation.
+
+    Every tensor field is the solo :class:`FabricResult` field with a
+    leading ``(B,)`` instance axis (telemetry included); ``injected`` and
+    ``offered`` are (B,) numpy vectors.  ``instance(i)`` is instance
+    ``i`` as an ordinary :class:`FabricResult`, bit-exact with the same
+    spec run solo on the same engine, so every roll-up applies per
+    instance.  ``delivered[i] + drops[i] == injected[i]`` per instance
+    wherever the run drained.
+    """
+    delivered: torch.Tensor   # (B,) int32
+    injected: np.ndarray      # (B,) expected deliveries per instance
+    log_inj: torch.Tensor     # (B, E) valid up to ``delivered[i]``
+    log_del: torch.Tensor     # (B, E)
+    log_dest: torch.Tensor    # (B, E)
+    sent: torch.Tensor        # (B, L, 2)
+    n_switches: torch.Tensor  # (B, L)
+    t_link: torch.Tensor      # (B, L)
+    t_end: torch.Tensor       # (B,)
+    drops: torch.Tensor       # (B,)
+    offered: np.ndarray       # (B,) events offered pre-fanout
+    telemetry: Telemetry      # (B,)-leading counters
+
+    @property
+    def n_instances(self) -> int:
+        return int(self.injected.shape[0])
+
+    def instance(self, i: int) -> FabricResult:
+        """Instance ``i`` as a solo-shaped :class:`FabricResult` (logs
+        trimmed to the instance's own expected delivery count)."""
+        e = int(self.injected[i])
+        return FabricResult(
+            delivered=self.delivered[i], injected=e,
+            log_inj=self.log_inj[i, :e], log_del=self.log_del[i, :e],
+            log_dest=self.log_dest[i, :e], sent=self.sent[i],
+            n_switches=self.n_switches[i], t_link=self.t_link[i],
+            t_end=self.t_end[i], drops=self.drops[i],
+            offered=int(self.offered[i]),
+            telemetry=Telemetry(*(getattr(self.telemetry, f)[i]
+                                  for f in Telemetry._fields)))
+
+    def results(self) -> list[FabricResult]:
+        """All instances as solo-shaped results, batch order."""
+        return [self.instance(i) for i in range(self.n_instances)]
+
+
+def batch_throughput_mev_s(batch: FabricBatchResult) -> torch.Tensor:
+    """(B,) delivered events per second per instance, MEvents/s."""
+    return torch.where(batch.t_end > 0, 1e3 * batch.delivered / batch.t_end,
+                       0.0)
+
+
+def batch_latency_stats(batch: FabricBatchResult) -> list[dict]:
+    """Per-instance ``latency_stats`` dicts, batch order."""
+    return [latency_stats(r) for r in batch.results()]
+
+
 # -----------------------------------------------------------------------
 # Setup-time helpers (plain numpy, copied from the reference)
 # -----------------------------------------------------------------------
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
 
 def _check_reachable(rt: RoutingTable, src: np.ndarray, dest: np.ndarray):
     first_link = rt.next_link[src, dest]
@@ -157,15 +260,18 @@ def _check_reachable(rt: RoutingTable, src: np.ndarray, dest: np.ndarray):
 
 
 def _prefill(L: int, grp, t, route, inj, capacity: int,
-             width: int | None = None):
+             width: int | str | None = None):
     """Place injected copies into their first-hop queues.
 
     ``grp`` is the flat first-hop queue id (``link * 2 + side``) of each
     copy, ``route`` its route id and ``inj`` its injection time.
     ``capacity`` is the logical per-endpoint budget (raises on
-    overflow); ``width`` the allocated column count (default
-    ``capacity``).  Returns ``(q_time, q_dest, q_inj)`` of shape
-    (L, 2, width) with ``BIG_NS`` in empty slots, and ``sizes`` (L, 2).
+    overflow); ``width`` the allocated column count: ``None`` =
+    ``capacity`` (the slot layout), ``"auto"`` = the largest initial
+    backlog bucketed to a power of two plus one always-empty pad column
+    (the ring engine's prefill).  Returns ``(q_time, q_dest, q_inj)`` of
+    shape (L, 2, width) with ``BIG_NS`` in empty slots, and ``sizes``
+    (L, 2).
     """
     grp = np.asarray(grp, np.int64)
     t = np.asarray(t, np.int32)
@@ -178,7 +284,10 @@ def _prefill(L: int, grp, t, route, inj, capacity: int,
     if sizes.max(initial=0) > capacity:
         raise ValueError(f"queue capacity {capacity} < initial backlog "
                          f"{sizes.max()}; raise queue_capacity")
-    if width is None:
+    if width == "auto":
+        width = _pow2ceil(max(int(sizes.max(initial=1)),
+                              _RING_PREFILL_FLOOR)) + 1
+    elif width is None:
         width = capacity
     starts = np.zeros(2 * L + 1, np.int64)
     np.cumsum(sizes, out=starts[1:2 * L + 1])
@@ -261,6 +370,72 @@ def _expand(spec: TrafficSpec, addr: AddressSpec | None,
             np.concatenate(out_d))
 
 
+def _in_edge_ranks(topo: Topology):
+    """Per-chip enumeration of delivering links: ``rank[l, side]`` is the
+    index of link ``l`` among the links incident to chip
+    ``topo.links[l, side]`` (id order) — the forward stream an event
+    delivered over ``l`` into that chip appends to.  Returns ``(rank
+    (L, 2) int32, D)`` with ``D`` the largest chip degree."""
+    L = topo.n_links
+    rank = np.zeros((L, 2), np.int32)
+    deg = np.zeros(topo.n_chips, np.int32)
+    for l, (a, b) in enumerate(topo.links):
+        rank[l, 0] = deg[a]
+        deg[a] += 1
+        rank[l, 1] = deg[b]
+        deg[b] += 1
+    return rank, max(int(deg.max(initial=1)), 1)
+
+
+def _stream_quota(rt: RoutingTable, links: np.ndarray, in_rank: np.ndarray,
+                  src: np.ndarray, dest: np.ndarray, L: int, D: int):
+    """Static per-(queue, in-edge) forward-count upper bound: every
+    event's path is known at setup, so walking them counts the forwards
+    each stream can ever receive (drops only shorten paths)."""
+    counts = np.zeros((2 * L, D), np.int64)
+    c = src.astype(np.int64).copy()
+    prev_l = np.full(len(src), -1, np.int64)
+    prev_rx_side = np.zeros(len(src), np.int64)
+    active = c != dest
+    while active.any():
+        l = np.where(active, rt.next_link[c, dest], 0)
+        s = np.where(active, rt.out_side[c, dest], 0)
+        m = active & (prev_l >= 0)
+        if m.any():
+            d = in_rank[prev_l[m], prev_rx_side[m]]
+            np.add.at(counts, (l[m] * 2 + s[m], d), 1)
+        prev_l = np.where(active, l, prev_l)
+        prev_rx_side = np.where(active, 1 - s, prev_rx_side)
+        c = np.where(active, links[l, 1 - s], c)
+        active = c != dest
+    return counts
+
+
+def _tree_stream_quota(trees: list[MulticastTree], tree_counts,
+                       in_rank: np.ndarray, L: int, D: int):
+    """Per-(queue, in-edge) forward-count bound of the tree routes: each
+    non-root tree edge is one forward per event riding the tree, onto
+    the parent edge's in-edge stream (root edges are prefill)."""
+    counts = np.zeros((2 * L, D), np.int64)
+    for tree, n in zip(trees, tree_counts):
+        for e in range(tree.n_edges):
+            p = int(tree.parent[e])
+            if p < 0:
+                continue
+            _u, l, s, _v = (int(x) for x in tree.edges[e])
+            lp, sp = int(tree.edges[p][1]), int(tree.edges[p][2])
+            d = int(in_rank[lp, 1 - sp])
+            counts[l * 2 + s, d] += int(n)
+    return counts
+
+
+def _pad_to(a: np.ndarray, shape: tuple, fill) -> np.ndarray:
+    """Embed ``a`` in a ``fill``-initialized array of ``shape``."""
+    out = np.full(shape, fill, a.dtype)
+    out[tuple(slice(n) for n in a.shape)] = a
+    return out
+
+
 def _overflow_guard(t_max: int, total_tx: int, worst_cost: int):
     """Refuse traffic that could push a clock to the ``BIG_NS``
     sentinel, by the global bound ``t_max + total_tx * worst_cost`` (the
@@ -321,72 +496,114 @@ def _overflow_guard_routed(t_max: int, link_tx: np.ndarray,
 
 
 # -----------------------------------------------------------------------
-# Per-step pieces
+# Per-step pieces, shared by the slot and ring engines.  Every tensor
+# has a leading instance axis B; queue ids are global (instance b's
+# queue q is b·Q + q), so one gather, scatter or kernel launch serves
+# the whole batch.
 # -----------------------------------------------------------------------
 
-def _log_deliveries(log_inj, log_del, log_dest, log_n,
-                    deliver, ev_inj, t_del, ev_dest, n_slots: int):
-    """Append this step's deliveries to the packed log (order: link id),
-    in place.  The logs hold ``n_slots + 1`` entries: non-delivering
-    lanes (and any slot past the end — JAX's ``mode="drop"``) write the
-    scratch entry ``n_slots``."""
+class _Consts(NamedTuple):
+    """0-d int32 device tensors a step selects with ``torch.where``."""
+    big: torch.Tensor
+    zero: torch.Tensor
+    one: torch.Tensor
+
+
+def _consts(dev: torch.device) -> _Consts:
+    return _Consts(*(torch.tensor(v, dtype=_I32, device=dev)
+                     for v in (_BIG, 0, 1)))
+
+
+def _lead(x, nd: int):
+    """A per-instance scalar shaped to broadcast against an nd-dim
+    (B, ...) tensor: a plain int as it is, a (B,) tensor as (B, 1, ...)."""
+    return x if isinstance(x, int) else x.view(-1, *(1,) * (nd - 1))
+
+
+def _global_queues(route_out: torch.Tensor, n_queues: int) -> torch.Tensor:
+    """(B, N, R, K) replication out-queues with instance b's ids offset
+    by b·Q (-1, "no copy", kept)."""
+    off = torch.arange(route_out.shape[0], dtype=_I32,
+                       device=route_out.device).view(-1, 1, 1, 1)
+    return torch.where(route_out >= 0, route_out + off * n_queues, -1)
+
+
+def _delivery_rows(log_n, deliver, e_slot, n_slots: int, log_base):
+    """This step's delivery-log rows (order: link id within an
+    instance) as flat rows of a (B, n_slots + 1)-row log: row
+    ``log_base + log_n + rank`` for a delivering link, the scratch row
+    ``log_base + n_slots`` for the others (JAX's ``mode="drop"``).
+    Returns the rows and the new ``log_n``."""
     d32 = deliver.to(_I32)
-    slot = torch.where(deliver, log_n + torch.cumsum(d32, 0, dtype=_I32)
-                       - d32, n_slots).clamp_(max=n_slots).long()
-    log_inj.index_put_((slot,), ev_inj)
-    log_del.index_put_((slot,), t_del)
-    log_dest.index_put_((slot,), ev_dest)
-    return log_n + d32.sum(dtype=_I32)
+    slot = torch.where(deliver, log_n[:, None]
+                       + torch.cumsum(d32, 1, dtype=_I32) - d32, e_slot)
+    return (slot.clamp_(max=n_slots) + log_base,
+            log_n + d32.sum(dim=1, dtype=_I32))
 
 
-def _forward_slots(forward, fq, n_ins_flat, cap: int, n_queues: int,
-                   earlier):
+def _forward_slots(forward, fq, n_ins_flat, cap, sentinel, earlier, k):
     """Insertion slots for this step's forward copies.
 
-    ``forward`` / ``fq`` are flat (M,) candidates in priority order
-    (link-major, replica-minor), so simultaneous appends into one queue
-    are ordered by (link, replica); ``earlier`` is the constant (M, M)
-    mask ``j < i``.  Returns ``(fq_g, key, app, dropped)``: the clamped
-    queue id, the insertion index, the copies that fit under ``cap`` and
-    those that did not.
+    ``forward`` / ``fq`` are (B, M) candidates in priority order
+    (link-major, replica-minor) with global queue ids, so simultaneous
+    appends into one queue are ordered by (link, replica); ``earlier``
+    is the constant (M, M) mask ``j < i``; ``sentinel`` a queue id no
+    copy has.  Returns ``(fq_g, key, app, dropped)``: the clamped queue
+    id, the insertion index, the copies that fit under ``cap`` and those
+    that did not.
     """
-    fq_m = torch.where(forward, fq, n_queues)
-    before = (fq_m[None, :] == fq_m[:, None]) & earlier & forward[None, :]
-    offs = before.sum(dim=1, dtype=_I32)
-    fq_g = torch.where(forward, fq, 0)
+    fq_m = torch.where(forward, fq, sentinel)
+    before = (fq_m[:, None, :] == fq_m[:, :, None]) & earlier \
+        & forward[:, None, :]
+    offs = before.sum(dim=2, dtype=_I32)
+    fq_g = torch.where(forward, fq, k.zero)
     key = n_ins_flat[fq_g] + offs             # next free slot
-    cap_ok = key < cap
+    cap_ok = key < _lead(cap, 2)
     return fq_g, key, forward & cap_ok, forward & ~cap_ok
 
 
-def _replicate(route_out, route_wt, rx_chip, ev_route, did):
-    """This step's forward copies from the replication tables: flat
-    (L·K,) ``(forward mask, queue id, drop weight)``, link-major."""
-    out_qk = route_out[rx_chip, ev_route]                # (L, K)
-    wt_k = route_wt[rx_chip, ev_route]                   # (L, K)
-    fwd = (did[:, None] & (out_qk >= 0)).reshape(-1)
-    return fwd, out_qk.clamp(min=0).reshape(-1), wt_k.reshape(-1)
+def _replicate(route_out_g, route_wt, bidx, rx_chip, ev_route, did):
+    """This step's forward copies from the replication tables: (B, L·K)
+    ``(forward mask, global queue id, drop weight)``, link-major."""
+    out_qk = route_out_g[bidx, rx_chip, ev_route]        # (B, L, K)
+    wt_k = route_wt[bidx, rx_chip, ev_route]
+    n = did.shape[0]
+    fwd = (did[..., None] & (out_qk >= 0)).view(n, -1)
+    return fwd, out_qk.clamp(min=0).view(n, -1), wt_k.view(n, -1)
 
 
-def _flow_gate(fc_mode: int, cap: int, xon: int, occ, xoff, cand_route,
-               rx_chip_cand, route_out):
+def _flow_gate(fc_mode, cap, xon, occ, xoff, cand_route, rx_chip_cand,
+               route_out_g, bidx, never, k):
     """Flow-control admission gate (see the reference): a head whose
     real downstream targets include a full queue (credit) or an xoff'd
     one (on/off) is blocked; delivery-only heads never are.  The xoff
     latch advances first (set at ``occ >= cap``, cleared at
-    ``occ <= xon``).  ``fc_mode`` / ``cap`` / ``xon`` are plain ints.
-    Returns ``(blocked (L, 2) bool, xoff' (L, 2) int32)``."""
-    xoff2 = torch.where(occ >= cap, 1, torch.where(occ <= xon, 0, xoff))
-    if fc_mode == 0:
-        return torch.zeros_like(occ, dtype=torch.bool), xoff2
-    tgt = route_out[rx_chip_cand, cand_route]            # (L, 2, K)
+    ``occ <= xon``).  ``fc_mode`` / ``cap`` / ``xon`` are plain ints
+    or (B,) tensors; ``never`` is an all-False (B, L, 2) tensor, what
+    drop mode returns.  Returns ``(blocked (B, L, 2) bool, xoff')``."""
+    xoff2 = torch.where(occ >= _lead(cap, 3), k.one,
+                        torch.where(occ <= _lead(xon, 3), k.zero, xoff))
+    if isinstance(fc_mode, int) and fc_mode == 0:
+        return never, xoff2
+    tgt = route_out_g[bidx, rx_chip_cand, cand_route]   # (B, L, 2, K)
     real = tgt >= 0
     tgt_g = tgt.clamp(min=0)
-    if fc_mode == 1:
-        hit = occ.reshape(-1)[tgt_g] >= cap
-    else:
-        hit = xoff2.reshape(-1)[tgt_g] > 0
-    return (real & hit).any(dim=2), xoff2
+    full = off = None
+    if not isinstance(fc_mode, int) or fc_mode == 1:
+        full = (real & (occ.view(-1)[tgt_g] >= _lead(cap, 4))).any(dim=3)
+    if not isinstance(fc_mode, int) or fc_mode == 2:
+        off = (real & (xoff2.view(-1)[tgt_g] > 0)).any(dim=3)
+    if isinstance(fc_mode, int):
+        return (full if fc_mode == 1 else off), xoff2
+    fc3 = _lead(fc_mode, 3)
+    return torch.where(fc3 == 1, full, (fc3 == 2) & off), xoff2
+
+
+def _lanes(x: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, L) per-link values as (B, L·K) per-copy lanes (link-major)."""
+    if K == 1:
+        return x
+    return x[..., None].expand(*x.shape, K).reshape(x.shape[0], -1)
 
 
 # -----------------------------------------------------------------------
@@ -394,6 +611,9 @@ def _flow_gate(fc_mode: int, cap: int, xon: int, occ, xoff, cand_route,
 # -----------------------------------------------------------------------
 
 class _SlotState(NamedTuple):
+    """The slot engine's carry; every field has a leading instance axis
+    (B,) — none for a solo carry of the multi-step kernel's plain
+    launch."""
     link: LinkState           # (L,)-leaved LinkSim batch
     q_time: torch.Tensor      # (Q, C) release times; BIG_NS = empty
     q_dest: torch.Tensor      # (Q, C) route id
@@ -419,16 +639,18 @@ class _SlotState(NamedTuple):
 
 def _slot_init(L: int, E: int, q_time, q_dest, q_inj, sizes,
                init_tx) -> _SlotState:
-    """Reset-time carry on the device of ``q_time``."""
+    """Reset-time carry on the device of ``q_time``; a leading instance
+    axis of the planes ((B, Q, C)) carries over to every field."""
     dev = q_time.device
+    lead = tuple(q_time.shape[:-2])
     link0 = reset_link(init_tx.to(dev))
 
     def z(*shape):
-        return torch.zeros(shape, dtype=_I32, device=dev)
+        return torch.zeros(lead + shape, dtype=_I32, device=dev)
 
     return _SlotState(
         link=link0, q_time=q_time, q_dest=q_dest, q_inj=q_inj,
-        n_ins=sizes, sent=z(L, 2), prev_mode_l=link0.xl.mode,
+        n_ins=sizes.clone(), sent=z(L, 2), prev_mode_l=link0.xl.mode,
         n_sw=z(L), log_inj=z(E + 1), log_del=z(E + 1), log_dest=z(E + 1),
         log_n=z(), drops=z(), busy_ns=z(L), busy_steps=z(L, 2),
         q_drops=z(L, 2), n_pop=z(L, 2), xoff=z(L, 2), in_stall=z(L, 2),
@@ -436,119 +658,140 @@ def _slot_init(L: int, E: int, q_time, q_dest, q_inj, sizes,
 
 
 def _slot_results(final: _SlotState, E: int):
-    """The engine's 14-tuple result, read off the final carry."""
-    return (final.log_n, final.log_inj[:E], final.log_del[:E],
-            final.log_dest[:E], final.sent, final.n_sw, final.link.t,
-            final.link.t.max(), final.drops, final.busy_ns,
+    """The engine's 14-tuple result, read off a final (B, ...) carry."""
+    return (final.log_n, final.log_inj[:, :E], final.log_del[:, :E],
+            final.log_dest[:, :E], final.sent, final.n_sw, final.link.t,
+            final.link.t.amax(dim=1), final.drops, final.busy_ns,
             final.busy_steps, final.q_drops, final.stall_steps,
             final.credit_waits)
 
 
 def _slot_step_body(L: int, E: int, C: int, max_burst: int,
                     scan_fn, update_fn, links, route_out, route_del,
-                    route_wt, t_cycle_v, t_rev_v, t_idle_v,
-                    cap: int, fc_mode: int, xon: int):
+                    route_wt, t_cycle_v, t_rev_v, t_idle_v, cap, fc_mode,
+                    xon):
     """Build the per-micro-transaction physics ``body(s, step_i) -> s'``.
 
-    One implementation of the slot-engine step, closed over the run's
-    operands (device tensors) and plain-int scalars; ``scan_fn`` /
+    One implementation of the slot-engine step for B instances, closed
+    over the run's (B, ...) operands and its flow-control scalars (plain
+    ints the instances share, or (B,) tensors); ``scan_fn`` /
     ``update_fn`` are the kernel dispatchers (``engine="pallas"``) or
-    the plain versions (``engine="reference"``).  ``update_fn`` and the
-    delivery log write in place, so the caller must not reuse ``s``.
+    the plain versions (``engine="reference"``).  The queue scan sees
+    the batch's (B·Q, C) rows and the pop/append the batch's global
+    queue ids, with skipped lanes at B·Q, so each is one launch for the
+    whole batch.  ``update_fn``, the delivery log and the ``n_ins`` /
+    ``q_drops`` counters write in place, so the caller must not reuse
+    ``s``.
     """
+    B = links.shape[0]
     Q = 2 * L
     dev = links.device
-    K = route_out.shape[2]
-    lidx = torch.arange(L, device=dev)
-    side = torch.arange(2, device=dev)[None, :]
-    qids = torch.arange(Q, device=dev)[None, :]
+    K = route_out.shape[-1]
+    k = _consts(dev)
+    bidx = torch.arange(B, device=dev)[:, None]               # (B, 1)
+    # global id of each link's side-1 queue (a pop on side 0 is one less)
+    qbase1 = (bidx * Q + 2 * torch.arange(L, device=dev) + 1).to(_I32)
+    # side == 1: with tx_l XOR-ed in, the one-hot of the send side
+    side1 = torch.tensor([False, True], device=dev)
     m = torch.arange(L * K, device=dev)
     earlier = m[None, :] < m[:, None]
+    log_base = (bidx * (E + 1)).to(_I32)
+    e_slot = torch.tensor(E, dtype=_I32, device=dev)
+    nq = torch.tensor(B * Q, dtype=_I32, device=dev)
+    route_out_g = _global_queues(route_out, Q)
     # the chip a pop over (link, side) would deliver into, both sides
-    rx_chip_cand = torch.stack([links[:, 1], links[:, 0]], dim=1)
+    rx_chip_cand = links.flip(-1)
+    never = torch.zeros((B, L, 2), dtype=torch.bool, device=dev)
     # drop mode enforces the logical budget at append time; the stall
     # modes never discard (the physical width C always fits)
-    app_cap = min(cap, C) if fc_mode == 0 else C
+    if isinstance(cap, int) and isinstance(fc_mode, int):
+        app_cap = min(cap, C) if fc_mode == 0 else C
+    else:
+        app_cap = torch.where(torch.as_tensor(fc_mode, device=dev) == 0,
+                              torch.as_tensor(cap, device=dev).clamp(max=C),
+                              C).to(_I32).expand(B)
 
     def body(s: _SlotState, step_i: int) -> _SlotState:
-        t_now = s.link.t                                      # (L,)
+        t_now = s.link.t                                      # (B, L)
+        planes = [p.view(B * Q, C) for p in (s.q_time, s.q_dest,
+                                             s.q_inj)]
 
         # --- pending & next arrival per endpoint queue -----------------
-        # a fresh contiguous (Q,) copy: the kernels take no strided views
-        t_q = t_now[:, None].expand(L, 2).contiguous().view(Q)
+        # a fresh contiguous (B·Q,) copy: the kernels take no strided views
+        t_q = t_now[..., None].expand(B, L, 2).contiguous().view(B * Q)
         pend_q, r_min_q, nxt_q, amin_q, busy_q, route_q = scan_fn(
-            s.q_time, s.q_dest, t_q)
-        pend = pend_q.view(L, 2)
-        busy_steps = s.busy_steps + busy_q.view(L, 2)
-        r_min = r_min_q.view(L, 2)
-        nxt2 = nxt_q.view(L, 2)
+            planes[0], planes[1], t_q)
+        pend = pend_q.view(B, L, 2)
+        busy_steps = s.busy_steps + busy_q.view(B, L, 2)
+        r_min = r_min_q.view(B, L, 2)
+        nxt2 = nxt_q.view(B, L, 2)
 
         # --- flow-control admission gate -------------------------------
         occ = s.n_ins - s.n_pop
-        cand_route = route_q.view(L, 2)
         blocked, xoff = _flow_gate(fc_mode, cap, xon, occ, s.xoff,
-                                   cand_route, rx_chip_cand, route_out)
+                                   route_q.view(B, L, 2), rx_chip_cand,
+                                   route_out_g, bidx[..., None], never, k)
         stalled = (pend > 0) & blocked
-        stall_steps = s.stall_steps + stalled.to(_I32)
+        stalled32 = stalled.to(_I32)
+        stall_steps = s.stall_steps + stalled32
         credit_waits = s.credit_waits + (stalled & (s.in_stall == 0)).to(
             _I32)
 
-        # --- conservative clock synchronization (see the reference) ----
+        # --- conservative clock synchronization (see the reference), --
+        # every minimum over one instance's links
         pend_b = pend > 0
         na_side = torch.where(
-            pend_b, torch.where(blocked, _BIG, t_now[:, None]), nxt2)
-        na = na_side.amin(dim=1)                              # (L,)
-        t_next_g = torch.where(pend_b, _BIG, nxt2).amin(dim=1)
-        t_next_eff = torch.minimum(t_next_g,
-                                   torch.maximum(na.amin(), t_now))
-        safe = r_min <= (na + t_cycle_v).amin()               # (L, 2)
-        pend_safe = torch.where(safe & ~blocked, pend, 0)
+            pend_b, torch.where(blocked, k.big, t_now[..., None]), nxt2)
+        na = na_side.amin(dim=2)                              # (B, L)
+        t_next_g = torch.where(pend_b, k.big, nxt2).amin(dim=2)
+        t_next_eff = torch.minimum(
+            t_next_g, torch.maximum(na.amin(dim=1, keepdim=True), t_now))
+        safe = r_min <= (na + t_cycle_v).amin(dim=1)[:, None, None]
+        pend_safe = torch.where(safe & ~blocked, pend, k.zero)
 
         # --- one micro-transaction on every link -----------------------
-        link, out = link_step_batch(
-            s.link, pend_safe[:, 0], pend_safe[:, 1], t_next_eff,
-            max_burst=max_burst, timing_arrays=(t_cycle_v, t_rev_v,
-                                                t_idle_v))
+        link, tx_l, tx_r, _ = transact(
+            s.link, pend_safe[..., 0], pend_safe[..., 1], t_next_eff,
+            t_cycle_v, t_rev_v, t_idle_v, max_burst)
 
-        did = (out.tx_l + out.tx_r) > 0                       # (L,)
+        did = tx_l | tx_r                                     # (B, L)
         did32 = did.to(_I32)
-        busy_ns = s.busy_ns + torch.where(did, link.t - t_now, 0)
-        tx_l = out.tx_l == 1
-        send_side = (~tx_l).long()                            # (L,)
-        qid = lidx * 2 + send_side
+        busy_ns = s.busy_ns + torch.where(did, link.t - t_now, k.zero)
+        qid = qbase1 - link.prev_tx_l        # the send side's, global
         pop_slot = amin_q[qid]
-        ev_route = cand_route[lidx, send_side]   # == q_dest[qid, slot]
+        ev_route = route_q[qid]                  # == q_dest[qid, slot]
         # read before update_fn consumes the slot in place
-        ev_inj = s.q_inj[qid, pop_slot]
-        pop_q = torch.where(did, qid, Q).to(_I32)
-        popped = torch.where(side == send_side[:, None], did32[:, None], 0)
+        ev_inj = planes[2][qid, pop_slot]
+        pop_q = torch.where(did, qid, nq)
+        popped = torch.where(tx_l[..., None] ^ side1, did32[..., None],
+                             k.zero)
         sent = s.sent + popped
         n_pop = s.n_pop + popped
 
         # --- deliver and/or replicate ----------------------------------
-        rx_chip = torch.where(tx_l, links[:, 1], links[:, 0])
-        deliver = did & (route_del[rx_chip, ev_route] > 0)
-        log_n = _log_deliveries(s.log_inj, s.log_del, s.log_dest, s.log_n,
-                                deliver, ev_inj, link.t, rx_chip, E)
+        rx_chip = torch.where(tx_l, links[..., 1], links[..., 0])
+        deliver = did & (route_del[bidx, rx_chip, ev_route] > 0)
+        rows, log_n = _delivery_rows(s.log_n, deliver, e_slot, E, log_base)
+        for log, v in ((s.log_inj, ev_inj), (s.log_del, link.t),
+                       (s.log_dest, rx_chip)):
+            log.view(-1).index_put_((rows,), v)
 
-        fwd_f, fqk_f, wt_f = _replicate(route_out, route_wt, rx_chip,
-                                        ev_route, did)
-        n_ins_f = s.n_ins.reshape(-1)
+        fwd_f, fqk_f, wt_f = _replicate(route_out_g, route_wt, bidx,
+                                        rx_chip, ev_route, did)
+        n_ins_f = s.n_ins.view(-1)
         fq_g, slot, app, dropped = _forward_slots(
-            fwd_f, fqk_f, n_ins_f, app_cap, Q, earlier)
-        fq_s = torch.where(app, fq_g, Q)         # drop non-appends
-        q_time, q_dest, q_inj = update_fn(
-            s.q_time, s.q_dest, s.q_inj, pop_q, pop_slot,
-            fq_s, slot, link.t.repeat_interleave(K),
-            ev_route.repeat_interleave(K), ev_inj.repeat_interleave(K))
-        # duplicate targets accumulate: dense one-hot sums over (Q,)
-        eq_q = fq_g[:, None] == qids                          # (L·K, Q)
-        n_ins = (n_ins_f + (eq_q & app[:, None]).sum(dim=0, dtype=_I32)
-                 ).view(L, 2)
-        drop_wt = torch.where(dropped, wt_f, 0)
-        drops = s.drops + drop_wt.sum(dtype=_I32)
-        q_drops = s.q_drops + torch.where(eq_q, drop_wt[:, None], 0).sum(
-            dim=0, dtype=_I32).view(L, 2)
+            fwd_f, fqk_f, n_ins_f, app_cap, nq, earlier, k)
+        fq_s = torch.where(app, fq_g, nq)        # drop non-appends
+        update_fn(planes[0], planes[1], planes[2], pop_q.view(-1),
+                  pop_slot.view(-1), fq_s.view(-1), slot.view(-1),
+                  _lanes(link.t, K).reshape(-1),
+                  _lanes(ev_route, K).reshape(-1),
+                  _lanes(ev_inj, K).reshape(-1))
+        # duplicate targets accumulate (JAX's .at[].add)
+        n_ins_f.index_add_(0, fq_g.view(-1), app.view(-1).to(_I32))
+        drop_wt = torch.where(dropped, wt_f, k.zero)
+        drops = s.drops + drop_wt.sum(dim=1, dtype=_I32)
+        s.q_drops.view(-1).index_add_(0, fq_g.view(-1), drop_wt.view(-1))
 
         # --- switch counting (reset step excluded) ---------------------
         n_sw = s.n_sw
@@ -556,12 +799,12 @@ def _slot_step_body(L: int, E: int, C: int, max_burst: int,
             n_sw = n_sw + (link.xl.mode != s.prev_mode_l).to(_I32)
 
         return _SlotState(
-            link=link, q_time=q_time, q_dest=q_dest, q_inj=q_inj,
-            n_ins=n_ins, sent=sent, prev_mode_l=link.xl.mode, n_sw=n_sw,
+            link=link, q_time=s.q_time, q_dest=s.q_dest, q_inj=s.q_inj,
+            n_ins=s.n_ins, sent=sent, prev_mode_l=link.xl.mode, n_sw=n_sw,
             log_inj=s.log_inj, log_del=s.log_del, log_dest=s.log_dest,
             log_n=log_n, drops=drops, busy_ns=busy_ns,
-            busy_steps=busy_steps, q_drops=q_drops, n_pop=n_pop, xoff=xoff,
-            in_stall=stalled.to(_I32), stall_steps=stall_steps,
+            busy_steps=busy_steps, q_drops=s.q_drops, n_pop=n_pop,
+            xoff=xoff, in_stall=stalled32, stall_steps=stall_steps,
             credit_waits=credit_waits)
 
     return body
@@ -597,7 +840,7 @@ def _leaves(tree) -> list:
     return out
 
 
-def _static_carry(s: _SlotState) -> _SlotState:
+def _static_carry(s):
     """``s`` with a tensor of its own for every field (a field that
     shares its tensor with an earlier one, as ``prev_mode_l`` shares
     ``link.xl.mode``, is cloned): the carry that ``step_static``
@@ -613,7 +856,7 @@ def _static_carry(s: _SlotState) -> _SlotState:
     return _tree_map(own, s)
 
 
-def _copy_carry(dst: _SlotState, src: _SlotState) -> None:
+def _copy_carry(dst, src) -> None:
     """Overwrite the static carry ``dst`` with the step's result ``src``,
     field for field.  A field that the step returned unchanged (the
     planes and logs, written in place) is skipped; one that holds
@@ -625,6 +868,24 @@ def _copy_carry(dst: _SlotState, src: _SlotState) -> None:
     if pairs:
         # one multi-tensor copy, not a launch a field (all int32)
         torch._foreach_copy_([d for d, _ in pairs], [v for _, v in pairs])
+
+
+@contextlib.contextmanager
+def _capturing(graph):
+    """``torch.cuda.graph(graph)`` with Python's garbage collector run
+    first and held off until the capture ends.  A fabric and its
+    compiled buckets reference each other, so a dropped fabric's CUDA
+    graphs are freed by the collector — and a graph freed while another
+    stream captures (global capture mode) invalidates that capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _capture_steps(step, n_steps: int, wrappers, stats: dict):
@@ -643,7 +904,7 @@ def _capture_steps(step, n_steps: int, wrappers, stats: dict):
     before = [w.launches for w in wrappers]
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
+    with _capturing(graph):
         for _ in range(n_steps):
             step()
     t1 = time.perf_counter()
@@ -678,9 +939,10 @@ def _slot_run(L: int, E: int, C: int, max_steps: int, max_burst: int,
 
     ``run(q_time, q_dest, q_inj, sizes, init_tx, links, route_out,
     route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap, fc_mode,
-    xon)`` takes device tensors (the (Q, C) planes are updated in place)
-    and plain-int flow-control scalars, steps ``max_steps`` times and
-    returns the 14-tuple of ``_slot_results``.
+    xon)`` takes B instances' device tensors, each with a leading (B,)
+    axis (the (B, Q, C) planes are updated in place), and flow-control
+    scalars (plain ints the instances share, or (B,) tensors), steps
+    ``max_steps`` times and returns the 14-tuple of ``_slot_results``.
 
     ``engine="reference"`` (``use_kernels=False``) loops ``body`` on the
     host.  The kernel engine runs step 0 (the one whose switches are not
@@ -771,44 +1033,49 @@ def _pack_slot_state(s: _SlotState):
     slot planes (the same tensors, not copies), a (16, L) lane plane
     (``_MS_LANES``), a (9, L, 2) side plane (``_MS_SIDES``), a
     (3, E + 1) delivery-log plane and a (2,) counter vector
-    ``[log_n, drops]``.  The log plane is one column wider than the
-    reference's (3, E): the port's logs keep a scratch slot at index E
-    (see ``_slot_init``), so only the first E columns are compared with
-    JAX or between the kernel and its plain version.
+    ``[log_n, drops]`` — each with the state's leading instance axis, if
+    it has one.  The log plane is one column wider than the reference's
+    (3, E): the port's logs keep a scratch slot at index E (see
+    ``_slot_init``), so only the first E columns are compared with JAX
+    or between the kernel and its plain version.
     """
     lk = s.link
+    d = s.log_n.dim()                 # 0 solo, 1 with an instance axis
     lanes = torch.stack([
         lk.t, lk.last_dir, lk.bus_busy, lk.prev_tx_l, lk.prev_tx_r,
         lk.xl.mode, lk.xl.sw_ack, lk.xl.rx_p, lk.xl.burst,
         lk.xr.mode, lk.xr.sw_ack, lk.xr.rx_p, lk.xr.burst,
-        s.prev_mode_l, s.n_sw, s.busy_ns])
+        s.prev_mode_l, s.n_sw, s.busy_ns], dim=d)
     sides = torch.stack([s.n_ins, s.sent, s.n_pop, s.xoff, s.in_stall,
                          s.stall_steps, s.credit_waits, s.busy_steps,
-                         s.q_drops])
-    logs = torch.stack([s.log_inj, s.log_del, s.log_dest])
-    counters = torch.stack([s.log_n, s.drops])
+                         s.q_drops], dim=d)
+    logs = torch.stack([s.log_inj, s.log_del, s.log_dest], dim=d)
+    counters = torch.stack([s.log_n, s.drops], dim=d)
     return (s.q_time, s.q_dest, s.q_inj, lanes, sides, logs, counters)
 
 
 def _unpack_slot_state(carry) -> _SlotState:
     """The packed carry -> ``_SlotState`` of views into it."""
     q_time, q_dest, q_inj, lanes, sides, logs, counters = carry
+    d = counters.dim() - 1            # the channel axis
+    lane, sd, lg, ct = (lanes.unbind(d), sides.unbind(d), logs.unbind(d),
+                        counters.unbind(d))
     link = LinkState(
-        t=lanes[0], last_dir=lanes[1], bus_busy=lanes[2],
-        prev_tx_l=lanes[3], prev_tx_r=lanes[4],
-        xl=XcvrState(mode=lanes[5], sw_ack=lanes[6], rx_p=lanes[7],
-                     burst=lanes[8]),
-        xr=XcvrState(mode=lanes[9], sw_ack=lanes[10], rx_p=lanes[11],
-                     burst=lanes[12]))
+        t=lane[0], last_dir=lane[1], bus_busy=lane[2],
+        prev_tx_l=lane[3], prev_tx_r=lane[4],
+        xl=XcvrState(mode=lane[5], sw_ack=lane[6], rx_p=lane[7],
+                     burst=lane[8]),
+        xr=XcvrState(mode=lane[9], sw_ack=lane[10], rx_p=lane[11],
+                     burst=lane[12]))
     return _SlotState(
         link=link, q_time=q_time, q_dest=q_dest, q_inj=q_inj,
-        n_ins=sides[0], sent=sides[1],
-        prev_mode_l=lanes[13], n_sw=lanes[14],
-        log_inj=logs[0], log_del=logs[1], log_dest=logs[2],
-        log_n=counters[0], drops=counters[1],
-        busy_ns=lanes[15], busy_steps=sides[7], q_drops=sides[8],
-        n_pop=sides[2], xoff=sides[3], in_stall=sides[4],
-        stall_steps=sides[5], credit_waits=sides[6])
+        n_ins=sd[0], sent=sd[1],
+        prev_mode_l=lane[13], n_sw=lane[14],
+        log_inj=lg[0], log_del=lg[1], log_dest=lg[2],
+        log_n=ct[0], drops=ct[1],
+        busy_ns=lane[15], busy_steps=sd[7], q_drops=sd[8],
+        n_pop=sd[2], xoff=sd[3], in_stall=sd[4],
+        stall_steps=sd[5], credit_waits=sd[6])
 
 
 def slot_carry_bytes(L: int, E: int, C: int) -> int:
@@ -821,33 +1088,48 @@ def slot_carry_bytes(L: int, E: int, C: int) -> int:
 
 
 def _multistep_consts(links, route_out, route_del, route_wt, t_cycle_v,
-                      t_rev_v, t_idle_v, cap: int, fc_mode: int, xon: int):
+                      t_rev_v, t_idle_v, cap, fc_mode, xon):
     """The multi-step launch's read-only operands, in the reference's
     order: ``(links (L, 2), route_out (N, R, K), route_del (N, R),
     route_wt (N, R, K), timing (3, L), params (3,) = [cap, fc_mode,
-    xon])``, contiguous int32 on the device of ``links``."""
-    params = torch.tensor([cap, fc_mode, xon], dtype=_I32,
-                          device=links.device)
+    xon])``, contiguous int32 on the device of ``links``, each with the
+    leading instance axis of ``links`` if it has one (the scalars then
+    plain ints or (B,) tensors)."""
+    dev = links.device
+    lead = tuple(links.shape[:-2])
+    params = torch.stack([torch.as_tensor(v, dtype=_I32, device=dev)
+                          .expand(lead) for v in (cap, fc_mode, xon)],
+                         dim=-1)
     return (links, route_out, route_del, route_wt,
-            torch.stack([t_cycle_v, t_rev_v, t_idle_v]), params)
+            torch.stack([t_cycle_v, t_rev_v, t_idle_v], dim=-2), params)
 
 
-def _multistep_step_fn(L: int, E: int, C: int, max_burst: int, cap: int,
-                       fc_mode: int, xon: int, scan_fn, update_fn):
+def _multistep_step_fn(L: int, E: int, C: int, max_burst: int, cap,
+                       fc_mode, xon, scan_fn, update_fn):
     """``step_fn(carry, consts, step_i) -> carry``: one micro-transaction
     of ``_slot_step_body`` on the packed carry — the step the plain
     ``ref.fabric_queue_multistep`` loops over (the CUDA kernel carries
-    the same step itself).  The flow-control scalars are the plain ints
-    the body branches on; they equal ``consts[5]``, which the kernel
-    reads."""
+    the same step itself).  The carry and constants may have a leading
+    instance axis or not (a solo launch); the flow-control scalars are
+    what the body takes (equal to ``consts[5]``, which the kernel
+    reads)."""
 
     def step_fn(carry, consts, step_i: int):
+        solo = carry[0].dim() == 2
+        if solo:
+            carry = tuple(t.unsqueeze(0) for t in carry)
+            consts = tuple(t.unsqueeze(0) for t in consts)
         links, route_out, route_del, route_wt, timing, _params = consts
         body = _slot_step_body(L, E, C, max_burst, scan_fn, update_fn,
                                links, route_out, route_del, route_wt,
-                               timing[0], timing[1], timing[2], cap,
-                               fc_mode, xon)
-        return _pack_slot_state(body(_unpack_slot_state(carry), step_i))
+                               timing[:, 0], timing[:, 1], timing[:, 2],
+                               cap, fc_mode, xon)
+        # the body writes the logs and two counters in place through
+        # flat views: give it contiguous fields (views of the carry
+        # where they already are, copies where the carry is strided)
+        s = _tree_map(torch.Tensor.contiguous, _unpack_slot_state(carry))
+        out = _pack_slot_state(body(s, step_i))
+        return tuple(t.squeeze(0) for t in out) if solo else out
 
     return step_fn
 
@@ -856,15 +1138,16 @@ def _slot_run_multistep(L: int, E: int, C: int, max_steps: int,
                         max_burst: int, chunk: int):
     """Multi-step variant of :func:`_slot_run`: the same operand contract
     and 14-tuple result, with the step loop run ``chunk`` steps per
-    ``kernels.ops.fabric_queue_multistep`` call over the packed carry.
+    ``kernels.ops.fabric_queue_multistep`` call over the packed carry of
+    every instance.
 
     A host loop makes ``ceil(max_steps / chunk)`` calls with ``base = 0,
     chunk, 2·chunk, ...`` (a device tensor each); the last runs
     ``min(chunk, max_steps - base)`` steps, so a binding ``max_steps``
     is honoured exactly.  Nothing is read back to the host.  On CUDA
-    each call is one launch of the Hopper kernel, which updates the
-    carry in place; on the CPU it loops ``_slot_step_body`` over the
-    plain queue step.
+    each call is one launch of the Hopper kernel for the whole batch (a
+    block an instance), which updates the carry in place; on the CPU it
+    loops ``_slot_step_body`` over the plain queue step.
     """
     from ..kernels import ops as kops
     from ..kernels import ref as kref
@@ -892,6 +1175,424 @@ def _slot_run_multistep(L: int, E: int, C: int, max_steps: int,
 
 
 # -----------------------------------------------------------------------
+# Ring engine: release-time-sorted per-endpoint streams, O(1 + D) a step
+# -----------------------------------------------------------------------
+
+class _RingState(NamedTuple):
+    """The ring engine's carry for B instances (leading axis B)."""
+    link: LinkState           # (B, L)-leaved LinkSim batch
+    hd: torch.Tensor          # (B, L, 2, 1 + D) stream heads: the
+    #                           prefill's (its pop tie key too), then the
+    #                           D forward streams'
+    tl: torch.Tensor          # (B, L, 2, D) forward-stream tails
+    fqs: torch.Tensor         # (rows, 4) every stream of every instance
+    #                           (``_ring_rows``), packed channels: release
+    #                           time, route id, injection time, tie key
+    #                           (the reference slot id), so a step reads
+    #                           every head with ONE gather and appends
+    #                           with ONE scatter
+    n_ins: torch.Tensor       # (B, L, 2) entries ever inserted
+    sent: torch.Tensor        # (B, L, 2)
+    prev_mode_l: torch.Tensor  # (B, L)
+    n_sw: torch.Tensor        # (B, L)
+    log_pk: torch.Tensor      # (B, E + 1, 3) delivery log, packed (inj,
+    #                           t_del, dest); row E is scratch
+    log_n: torch.Tensor       # (B,)
+    drops: torch.Tensor       # (B,)
+    busy_ns: torch.Tensor     # (B, L) telemetry
+    busy_steps: torch.Tensor  # (B, L, 2) telemetry
+    q_drops: torch.Tensor     # (B, L, 2) telemetry
+    n_pop: torch.Tensor       # (B, L, 2) entries ever popped
+    xoff: torch.Tensor        # (B, L, 2) latched on/off bit
+    in_stall: torch.Tensor    # (B, L, 2) stalled last step
+    stall_steps: torch.Tensor  # (B, L, 2) telemetry
+    credit_waits: torch.Tensor  # (B, L, 2) telemetry
+
+
+def _ring_rows(B: int, L: int, C0: int, D: int, Cf: int):
+    """Row layout of ``_RingState.fqs``: forward stream ``g = (b·Q +
+    q)·D + d`` (instance b, queue q, in-edge d) holds rows ``[g·Cf,
+    (g + 1)·Cf)``; the prefill of queue ``b·Q + q`` rows ``P + (b·Q +
+    q)·C0 + j``; one scratch row last.  Returns ``(P, scratch, rows)``.
+    """
+    Q = 2 * L
+    P = B * Q * D * Cf
+    scratch = P + B * Q * C0
+    return P, scratch, scratch + 1
+
+
+def _ring_init(L: int, E: int, C0: int, D: int, Cf: int, q0_time, q0_dest,
+               q0_inj, sizes, init_tx) -> _RingState:
+    """Reset-time ring carry of B instances from their (B, L, 2, C0)
+    prefill planes, (B, L, 2) backlogs and (B, L) reset polarities, on
+    their device; every field a tensor of its own."""
+    B = q0_time.shape[0]
+    dev = q0_time.device
+    P, scratch, rows = _ring_rows(B, L, C0, D, Cf)
+    fqs = torch.zeros((rows, 4), dtype=_I32, device=dev)
+    fqs[:P, 0] = _BIG                   # empty forward slots
+    fqs[scratch, 0] = _BIG
+    pre = fqs[P:scratch].view(-1, C0, 4)
+    for c, plane in enumerate((q0_time, q0_dest, q0_inj)):
+        pre[..., c] = plane.reshape(-1, C0)
+    pre[..., 3] = torch.arange(C0, dtype=_I32, device=dev)
+    link0 = reset_link(init_tx.clone())
+
+    def z(*shape):
+        return torch.zeros((B,) + shape, dtype=_I32, device=dev)
+
+    return _RingState(
+        link=link0, hd=z(L, 2, 1 + D), tl=z(L, 2, D), fqs=fqs,
+        n_ins=sizes.clone(), sent=z(L, 2),
+        prev_mode_l=link0.xl.mode.clone(), n_sw=z(L),
+        log_pk=z(E + 1, 3), log_n=z(), drops=z(), busy_ns=z(L),
+        busy_steps=z(L, 2), q_drops=z(L, 2), n_pop=z(L, 2), xoff=z(L, 2),
+        in_stall=z(L, 2), stall_steps=z(L, 2), credit_waits=z(L, 2))
+
+
+def _ring_derived(ops: dict, L: int) -> dict:
+    """The run operands the ring step reads besides ``RING_OPERANDS``,
+    made from them on their device: the replication out-queues with
+    global queue ids (``route_out_g``), each (link, side)'s delivery
+    chip (``rx_chip_cand``) and the append budget (``app_cap``: the
+    capacity in drop mode — the stall modes are lossless and the stream
+    quotas bound their storage, so BIG_NS there)."""
+    fc, cap = ops.get("fc_mode", ops["fc"]), ops["cap"]
+    if isinstance(fc, int):
+        app_cap = cap.clone() if fc == 0 else torch.full_like(cap, _BIG)
+    else:
+        app_cap = torch.where(fc == 0, cap, _BIG)
+    return {"route_out_g": _global_queues(ops["route_out"], 2 * L),
+            "rx_chip_cand": ops["links"].flip(-1), "app_cap": app_cap}
+
+
+def _ring_step_body(L: int, E: int, C0: int, D: int, Cf: int, ops: dict,
+                    fc_mode, max_burst):
+    """Build the ring engine's micro-transaction ``body(s, step_i)``.
+
+    One implementation for B instances, closed over their (B, ...)
+    operands ``ops`` (``RING_OPERANDS`` and ``_ring_derived``, all
+    dimensions the bucketed ones; ``cap`` / ``xon`` (B,) tensors) and
+    the flow mode and burst bound (plain ints the instances share, or
+    (B,) tensors).  The reference's step (``_ring_run.body``) in
+    PyTorch ops: per endpoint the 1 + D stream heads give "any released
+    entry", the earliest released release, the earliest future arrival
+    and the (release, key) winner — no O(C) scan; the pop advances one
+    head, the forwards append at their streams' tails.  The body reads
+    ``ops`` only when it runs, so new values copied into them reach a
+    captured graph.  ``fqs``, ``log_pk``, ``tl``, ``n_ins`` and
+    ``q_drops`` are written in place, so the caller must not reuse
+    ``s``.
+    """
+    links, route_del, route_wt, in_rank = (
+        ops[n] for n in ("links", "route_del", "route_wt", "in_rank"))
+    t_cycle_v, t_rev_v, t_idle_v = (ops[n] for n in ("t_cycle", "t_rev",
+                                                     "t_idle"))
+    cap, xon, app_cap = ops["cap"], ops["xon"], ops["app_cap"]
+    route_out_g, rx_chip_cand = ops["route_out_g"], ops["rx_chip_cand"]
+    B = links.shape[0]
+    Q = 2 * L
+    K = route_out_g.shape[-1]
+    M = L * K
+    dev = links.device
+    k = _consts(dev)
+    P, scratch, rows = _ring_rows(B, L, C0, D, Cf)
+    if rows >= 2**31 or B * (E + 1) >= 2**31:
+        raise ValueError(f"ring engine: {rows} stream rows for {B} "
+                         f"instances; int32 row ids cannot address them")
+    bidx = torch.arange(B, device=dev)[:, None]               # (B, 1)
+    qg = (bidx * Q + torch.arange(Q, device=dev)).view(B, L, 2)
+    # first row of each of an endpoint's 1 + D streams
+    sbase = torch.cat([(P + qg * C0)[..., None],
+                       (qg[..., None] * D + torch.arange(D, device=dev))
+                       * Cf], dim=-1).to(_I32)
+    jidx = torch.arange(1 + D, device=dev)
+    side1 = torch.tensor([False, True], device=dev)
+    m = torch.arange(M, device=dev)
+    earlier = m[None, :] < m[:, None]
+    log_base = (bidx * (E + 1)).to(_I32)
+    e_slot = torch.tensor(E, dtype=_I32, device=dev)
+    no_key = torch.tensor(2**31 - 1, dtype=_I32, device=dev)
+    nq = torch.tensor(B * Q, dtype=_I32, device=dev)
+    scratch_row = torch.tensor(scratch, dtype=_I32, device=dev)
+    never = torch.zeros((B, L, 2), dtype=torch.bool, device=dev)
+
+    def body(s: _RingState, step_i: int) -> _RingState:
+        t_now = s.link.t                                      # (B, L)
+
+        # --- O(1 + D) queue reads: stream heads only --------------------
+        heads = s.fqs[sbase + s.hd]                           # (B,L,2,1+D,4)
+        cand_t = heads[..., 0]
+        rel = cand_t <= t_now[..., None, None]
+        pend_side = rel.any(dim=3)                            # (B, L, 2)
+        r_min = torch.where(rel, cand_t, k.big).amin(dim=3)
+        nxt = torch.where(rel, k.big, cand_t).amin(dim=3)
+        # the (release, key) lexicographic minimum over released heads,
+        # both sides (keys are unique slot ids per queue; argmin takes
+        # the first of equal values, the reference's lowest-slot rule)
+        tie = rel & (cand_t == r_min[..., None])
+        best = torch.where(tie, heads[..., 3], no_key).argmin(dim=3)
+        best_head = heads.gather(
+            3, best[..., None, None].expand(B, L, 2, 1, 4))[:, :, :, 0]
+
+        # --- flow-control admission gate -------------------------------
+        occ = s.n_ins - s.n_pop
+        blocked, xoff = _flow_gate(fc_mode, cap, xon, occ, s.xoff,
+                                   best_head[..., 1], rx_chip_cand,
+                                   route_out_g, bidx[..., None], never, k)
+        stalled = pend_side & blocked
+        stalled32 = stalled.to(_I32)
+        stall_steps = s.stall_steps + stalled32
+        credit_waits = s.credit_waits + (stalled & (s.in_stall == 0)).to(
+            _I32)
+
+        # --- conservative clock synchronization (see the slot body) ----
+        na_side = torch.where(
+            pend_side, torch.where(blocked, k.big, t_now[..., None]), nxt)
+        na = na_side.amin(dim=2)                              # (B, L)
+        t_next_g = torch.where(pend_side, k.big, nxt).amin(dim=2)
+        t_next_eff = torch.minimum(
+            t_next_g, torch.maximum(na.amin(dim=1, keepdim=True), t_now))
+        safe = r_min <= (na + t_cycle_v).amin(dim=1)[:, None, None]
+        pend_safe = (pend_side & safe & ~blocked).to(_I32)
+
+        # --- one micro-transaction on every link -----------------------
+        link, tx_l, tx_r, _ = transact(
+            s.link, pend_safe[..., 0], pend_safe[..., 1], t_next_eff,
+            t_cycle_v, t_rev_v, t_idle_v, max_burst)
+        did = tx_l | tx_r                                     # (B, L)
+        did32 = did.to(_I32)
+        busy_steps = s.busy_steps + pend_side.to(_I32)
+        busy_ns = s.busy_ns + torch.where(did, link.t - t_now, k.zero)
+
+        # --- pop the send side's head, return its credit ---------------
+        # (tx_l: the link sends on side 0, into its side-1 chip)
+        ev = torch.where(tx_l[..., None], best_head[:, :, 0],
+                         best_head[:, :, 1])                  # (B, L, 4)
+        ev_route, ev_inj = ev[..., 1], ev[..., 2]
+        best_s = torch.where(tx_l, best[:, :, 0], best[:, :, 1])
+        oh_side = tx_l[..., None] ^ side1                     # (B, L, 2)
+        hd = s.hd + (oh_side[..., None] & (jidx == best_s[..., None, None])
+                     & did[..., None, None]).to(_I32)
+        popped = torch.where(oh_side, did32[..., None], k.zero)
+        sent = s.sent + popped
+        n_pop = s.n_pop + popped
+
+        # --- deliver and/or replicate ----------------------------------
+        rx_chip = torch.where(tx_l, links[..., 1], links[..., 0])
+        deliver = did & (route_del[bidx, rx_chip, ev_route] > 0)
+        # consecutive log rows from log_n (the slot engines' rule); the
+        # rows past log_n stay zero, as the reference's overhang rows do
+        log_rows, log_n = _delivery_rows(s.log_n, deliver, e_slot, E,
+                                         log_base)
+        s.log_pk.view(-1, 3).index_put_(
+            (log_rows,), torch.stack([ev_inj, link.t, rx_chip], dim=-1))
+
+        # --- forward append: tails of the delivering link's streams ----
+        # all K copies of one pop land at one chip on K distinct
+        # out-queues, so the active (queue, in-edge) streams are unique
+        fwd_f, fqk_f, wt_f = _replicate(route_out_g, route_wt, bidx,
+                                        rx_chip, ev_route, did)
+        fq_g, key, app, dropped = _forward_slots(
+            fwd_f, fqk_f, s.n_ins.view(-1), app_cap, nq, earlier, k)
+        d_ins = torch.where(tx_l, in_rank[..., 1], in_rank[..., 0])
+        stream = fq_g * D + _lanes(d_ins, K)                  # global
+        tail = s.tl.view(-1)[stream]
+        s.fqs.index_put_(
+            (torch.where(app, stream * Cf + tail, scratch_row),),
+            torch.stack([_lanes(link.t, K), _lanes(ev_route, K),
+                         _lanes(ev_inj, K), key], dim=-1))
+        # counter bumps: duplicate targets accumulate (an index_add_, for
+        # the reference's one-hot sums and integer einsum)
+        app32 = app.to(_I32).view(-1)
+        s.n_ins.view(-1).index_add_(0, fq_g.view(-1), app32)
+        s.tl.view(-1).index_add_(0, stream.view(-1), app32)
+        drop_wt = torch.where(dropped, wt_f, k.zero)
+        drops = s.drops + drop_wt.sum(dim=1, dtype=_I32)
+        s.q_drops.view(-1).index_add_(0, fq_g.view(-1), drop_wt.view(-1))
+
+        # --- switch counting (reset step excluded) ---------------------
+        n_sw = s.n_sw
+        if step_i > 0:
+            n_sw = n_sw + (link.xl.mode != s.prev_mode_l).to(_I32)
+
+        return _RingState(
+            link=link, hd=hd, tl=s.tl, fqs=s.fqs, n_ins=s.n_ins, sent=sent,
+            prev_mode_l=link.xl.mode, n_sw=n_sw, log_pk=s.log_pk,
+            log_n=log_n, drops=drops, busy_ns=busy_ns,
+            busy_steps=busy_steps, q_drops=s.q_drops, n_pop=n_pop,
+            xoff=xoff, in_stall=stalled32, stall_steps=stall_steps,
+            credit_waits=credit_waits)
+
+    return body
+
+
+#: the ring runner's operands, in ``_RingRun.run`` order
+RING_OPERANDS = ("q0_time", "q0_dest", "q0_inj", "sizes", "init_tx",
+                 "links", "route_out", "route_del", "route_wt", "in_rank",
+                 "t_cycle", "t_rev", "t_idle", "cap", "xon", "real_e",
+                 "fc_mode", "max_burst")
+
+
+class _RingRun:
+    """The ring engine's loop for B instances of one shape bucket.
+
+    ``run(ops, max_steps)`` takes the bucket-padded operands (a dict of
+    ``RING_OPERANDS``, device tensors with a leading (B,) axis; the
+    flow-control mode and burst bound are tensors only when the runner
+    was made for per-instance values, ``fc_mode`` / ``max_burst`` given
+    to the constructor as ``None``) and returns the reference's 13-tuple
+    (logs cut to the bucket's E).
+
+    Step 0 (whose switches are not counted) runs eagerly; then chunks of
+    ``chunk`` steps, each followed by one host read of the device flag
+    "some instance has ``delivered + drops < injected``" until it clears
+    or ``max_steps`` is reached.  A chunk that ``max_steps`` cuts short
+    runs exactly the steps left, eagerly, so a binding bound stays
+    bit-exact; post-completion steps are exact no-ops, so where the flag
+    is read never changes a result.  Every step after step 0 is
+    ``step_static()``: the body on one static carry, its result copied
+    back.  On CUDA each full chunk is replays of one CUDA graph of
+    ``RING_GRAPH_STEPS`` static steps (of ``chunk`` steps where the chunk
+    is not a multiple of it), captured the first time a run needs it (or
+    by ``warm()``) and kept with the runner's operand and carry tensors,
+    into which every later run copies its own; on the CPU the same
+    static steps run in a loop.  A failed capture raises.  ``stats``
+    describes the last run.
+    """
+
+    def __init__(self, L: int, E: int, C0: int, D: int, Cf: int,
+                 chunk: int, fc_mode, max_burst):
+        self.dims = (L, E, C0, D, Cf)
+        self.chunk = int(chunk)
+        self.fc_mode, self.max_burst = fc_mode, max_burst
+        self.ops = None
+        self.body = None
+        self.carry = None
+        self.graph = None
+        self.captures = 0
+        self.stats: dict = {}
+
+    def _bind(self, ops: dict) -> None:
+        """The first run keeps its operand tensors (the body closes over
+        them); later runs copy theirs into them."""
+        if self.ops is None:
+            # the two scalars travel as operands only when per-instance
+            want = RING_OPERANDS[:-2] + tuple(
+                n for n, v in (("fc_mode", self.fc_mode),
+                               ("max_burst", self.max_burst)) if v is None)
+            missing = [n for n in want if n not in ops]
+            if missing:
+                raise ValueError(f"ring runner: missing operands {missing}")
+            self.ops = dict(ops)
+            o = self.ops
+            L, E, C0, D, Cf = self.dims
+            o.update(_ring_derived(dict(o, fc=self.fc_mode), L))
+            fc = o["fc_mode"] if self.fc_mode is None else self.fc_mode
+            mb = (o["max_burst"][:, None] if self.max_burst is None
+                  else self.max_burst)
+            self.body = _ring_step_body(L, E, C0, D, Cf, o, fc, mb)
+            return
+        ops = dict(ops)
+        ops.update(_ring_derived(dict(ops, fc=self.fc_mode), self.dims[0]))
+        names = [n for n in self.ops if n in ops]
+        torch._foreach_copy_([self.ops[n] for n in names],
+                             [ops[n] for n in names])
+
+    def _reset(self) -> _RingState:
+        L, E, C0, D, Cf = self.dims
+        o = self.ops
+        init = _ring_init(L, E, C0, D, Cf, o["q0_time"], o["q0_dest"],
+                          o["q0_inj"], o["sizes"], o["init_tx"])
+        if self.carry is None:
+            self.carry = _static_carry(init)
+        else:
+            _copy_carry(self.carry, init)
+        return self.carry
+
+    def _step_static(self) -> None:
+        _copy_carry(self.carry, self.body(self.carry, 1))
+
+    def _graph_steps(self) -> int:
+        g = RING_GRAPH_STEPS
+        return g if self.chunk % g == 0 else self.chunk
+
+    def _capture(self, stats: dict) -> None:
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with _capturing(self.graph):
+            for _ in range(self._graph_steps()):
+                self._step_static()
+        t1 = time.perf_counter()
+        self.graph.instantiate()
+        self.captures += 1
+        stats.update(captured=True, capture_s=t1 - t0,
+                     instantiate_s=time.perf_counter() - t1)
+
+    def warm(self, ops: dict) -> None:
+        """Bind ``ops`` (a zero-event plan) and, on CUDA, run step 0
+        eagerly (it loads every kernel module) and capture the chunk."""
+        self._bind(ops)
+        self._reset()
+        _copy_carry(self.carry, self.body(self.carry, 0))
+        if self.graph is None and self.carry.fqs.device.type == "cuda":
+            self._capture(self.stats)
+
+    def run(self, ops: dict, max_steps: int):
+        self._bind(ops)
+        st = self._reset()
+        cuda = st.fqs.device.type == "cuda"
+        real_e = self.ops["real_e"]
+        stats = {"chunk": self.chunk, "graph_steps": self._graph_steps(),
+                 "steps": 0, "chunks": 0, "replays": 0, "host_syncs": 0,
+                 "captured": False}
+        self.stats = stats
+
+        def pending() -> bool:
+            stats["host_syncs"] += 1
+            return bool(((st.log_n + st.drops) < real_e).any())
+
+        base = 0
+        if max_steps > 0 and pending():
+            _copy_carry(st, self.body(st, 0))
+            base = 1
+            events = None
+            while base < max_steps:
+                n = min(self.chunk, max_steps - base)
+                if cuda and n == self.chunk:
+                    if self.graph is None:
+                        self._capture(stats)
+                    if events is None:
+                        events = [torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2)]
+                        events[0].record()
+                        t0 = time.perf_counter()
+                    with torch.profiler.record_function(REPLAY_RANGE):
+                        for _ in range(self.chunk // stats["graph_steps"]):
+                            self.graph.replay()
+                            stats["replays"] += 1
+                    events[1].record()
+                else:
+                    for _ in range(n):
+                        self._step_static()
+                base += n
+                stats["chunks"] += 1
+                if base < max_steps and not pending():
+                    break
+            if events is not None:
+                stats.update(replay_events=tuple(events),
+                             replay_host_s=time.perf_counter() - t0)
+        stats["steps"] = base
+        E = self.dims[1]
+        # copies: the next run of this runner overwrites the carry
+        return tuple(t.clone() for t in (
+            st.log_n, st.log_pk[:, :E, 0], st.log_pk[:, :E, 1],
+            st.log_pk[:, :E, 2], st.sent, st.n_sw, st.link.t, st.drops,
+            st.busy_ns, st.busy_steps, st.q_drops, st.stall_steps,
+            st.credit_waits))
+
+
+# -----------------------------------------------------------------------
 # Public entry point
 # -----------------------------------------------------------------------
 
@@ -910,28 +1611,22 @@ def simulate_fabric(topo: Topology, spec: TrafficSpec, *,
 
     The convenience wrapper around :class:`repro_torch.core.fabric.Fabric`
     (same keywords as the reference's ``simulate_fabric``; see there).
-    ``engine`` is ``"auto"`` (= ``"pallas"``), ``"pallas"`` (queue step
-    through the Hopper kernels on CUDA) or ``"reference"`` (plain
-    PyTorch).  ``chunk_size`` is the ring engine's steps per chunk in the
-    reference; the port has no ring engine yet (ROADMAP A.6), so any
-    other value than the default raises ``NotImplementedError`` rather
-    than being ignored.  The multi-step kernel's chunk is set on a
-    ``Fabric`` with ``EngineSpec("pallas", kernel="multistep",
-    chunk_size=...)``.  ``device=None`` means CUDA and raises without it.
+    ``engine`` is ``"auto"`` (= ``"ring"``), ``"ring"`` (stream heads,
+    early exit), ``"pallas"`` (slot engine, queue step through the
+    Hopper kernels on CUDA) or ``"reference"`` (slot engine, plain
+    PyTorch); all are bit-exact.  ``chunk_size`` is the ring engine's
+    steps between early-exit checks (and per CUDA graph); the
+    multi-step kernel's chunk is set on a ``Fabric`` with
+    ``EngineSpec("pallas", kernel="multistep", chunk_size=...)``.
+    ``device=None`` means CUDA and raises without it.
     """
-    if chunk_size != DEFAULT_CHUNK_SIZE:
-        raise NotImplementedError(
-            f"simulate_fabric(chunk_size={chunk_size}) sets the ring "
-            f"engine's chunk, and engine='ring' is not ported yet (ROADMAP "
-            f"A.6); for kernel='multistep' pass Fabric(engine=EngineSpec("
-            f"'pallas', kernel='multistep', chunk_size=...))")
     from .fabric import EngineSpec, Fabric, QueuePolicy
     fab = Fabric(topo, routing=routing, timing=timing,
                  queues=QueuePolicy(capacity=queue_capacity,
                                     max_burst=max_burst,
                                     initial_tx=initial_tx,
                                     flow=flow_control, xon=xon),
-                 engine=EngineSpec(name=engine),
+                 engine=EngineSpec(name=engine, chunk_size=chunk_size),
                  addr=addr, mcast=mcast,
                  device=device)
     return fab.run(spec, max_steps=max_steps)

@@ -21,7 +21,8 @@ import torch
 
 from ..device import resolve_device
 from .link import LinkTiming, PAPER_TIMING
-from .transceiver import RX, TX, XcvrState, reset_state, step as fsm_step
+from .transceiver import RX, TX, XcvrState, reset_state
+from .transceiver import settle as fsm_settle
 
 # Trace action codes
 A_IDLE, A_HANDSHAKE, A_TX_L, A_TX_R = 0, 1, 2, 3
@@ -63,6 +64,52 @@ def _cost(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_I32, device=like.device)
 
 
+def transact(s: LinkState, pend_l, pend_r, t_next_arr, t_cycle, t_rev,
+             t_idle_sw, max_burst=0):
+    """One micro-transaction, what :func:`link_step` computes before its
+    trace code: ``(new_state, tx_l, tx_r, settling)``, the last three
+    bool tensors.  The costs are int32 tensors (or 0-d) broadcasting
+    against ``s.t``; the fabric engines call this directly."""
+    # FSM evaluation with wire settling: two iterations reach the fixed
+    # point (one edge triggers at most one response edge); receive
+    # strobes are edges and feed only the first iteration
+    xl = fsm_settle(s.xl, s.xr.sw_ack, pend_l, s.prev_tx_r, max_burst)
+    xr = fsm_settle(s.xr, s.xl.sw_ack, pend_r, s.prev_tx_l, max_burst)
+    xl, xr = (fsm_settle(xl, xr.sw_ack, pend_l, 0, max_burst),
+              fsm_settle(xr, xl.sw_ack, pend_r, 0, max_burst))
+
+    l_tx = xl.mode == TX
+    r_tx = xr.mode == TX
+    tx_l = l_tx & ~r_tx & (pend_l > 0)      # xr.mode == RX
+    tx_r = r_tx & ~l_tx & (pend_r > 0)
+    do_tx = tx_l | tx_r
+    tx_l32 = tx_l.to(_I32)                   # also the direction now
+    tx_r32 = tx_r.to(_I32)
+
+    reversal = tx_l32 != s.last_dir
+    # a reversal pays the penalty on a live stream, the idle switch else
+    cost = torch.where(reversal, t_cycle + torch.where(
+        s.bus_busy == 1, t_rev, t_idle_sw), t_cycle)
+
+    settling = (xl.sw_ack != s.xl.sw_ack) | (xr.sw_ack != s.xr.sw_ack) \
+        | (xl.mode != s.xl.mode) | (xr.mode != s.xr.mode)
+
+    # idle: nothing pending, nothing to settle -> jump to the next
+    # arrival; with none scheduled the clock parks
+    active = do_tx | settling
+    new_t = torch.where(do_tx, s.t + cost,
+                        torch.where(~active & (t_next_arr < BIG_NS),
+                                    t_next_arr, s.t))
+    ns = LinkState(
+        t=new_t, xl=xl._replace(burst=xl.burst + tx_l32),
+        xr=xr._replace(burst=xr.burst + tx_r32),
+        last_dir=torch.where(do_tx, tx_l32, s.last_dir),
+        # a transmission keeps the bus busy, an idle step frees it
+        bus_busy=(s.bus_busy & active) | do_tx,
+        prev_tx_l=tx_l32, prev_tx_r=tx_r32)
+    return ns, tx_l, tx_r, settling
+
+
 def link_step(s: LinkState, pend_l, pend_r, t_next_arr, *,
               timing: LinkTiming = PAPER_TIMING, max_burst: int = 0,
               t_cycle_ns=None, t_rev_ns=None, t_idle_sw_ns=None):
@@ -79,53 +126,13 @@ def link_step(s: LinkState, pend_l, pend_r, t_next_arr, *,
                   else t_rev_ns, s.t)
     t_idle_sw = _cost(timing.t_idle_switch_ns if t_idle_sw_ns is None
                       else t_idle_sw_ns, s.t)
-
-    # FSM evaluation with wire settling: two iterations reach the fixed
-    # point (one edge triggers at most one response edge); receive
-    # strobes are edges and feed only the first iteration
-    xl, _ = fsm_step(s.xl, s.xr.sw_ack, pend_l, s.prev_tx_r, max_burst)
-    xr, _ = fsm_step(s.xr, s.xl.sw_ack, pend_r, s.prev_tx_l, max_burst)
-    xl2, _ = fsm_step(xl, xr.sw_ack, pend_l, 0, max_burst)
-    xr2, _ = fsm_step(xr, xl.sw_ack, pend_r, 0, max_burst)
-    xl, xr = xl2, xr2
-
-    l_tx = xl.mode == TX
-    r_tx = xr.mode == TX
-    tx_l = l_tx & ~r_tx & (pend_l > 0)      # xr.mode == RX
-    tx_r = r_tx & ~l_tx & (pend_r > 0)
-    do_tx = tx_l | tx_r
-    dir_now = tx_l.to(_I32)
-
-    reversal = dir_now != s.last_dir
-    busy = s.bus_busy == 1
-    cost = t_cycle + torch.where(reversal & busy, t_rev, 0) \
-        + torch.where(reversal & ~busy, t_idle_sw, 0)
-
-    settling = (xl.sw_ack != s.xl.sw_ack) | (xr.sw_ack != s.xr.sw_ack) \
-        | (xl.mode != s.xl.mode) | (xr.mode != s.xr.mode)
-
-    # idle: nothing pending, nothing to settle -> jump to the next
-    # arrival; with none scheduled the clock parks
-    idle = ~do_tx & ~settling
-    new_t = torch.where(do_tx, s.t + cost,
-                        torch.where(idle & (t_next_arr < BIG_NS),
-                                    t_next_arr, s.t))
-
-    xl = xl._replace(burst=xl.burst + tx_l.to(_I32))
-    xr = xr._replace(burst=xr.burst + tx_r.to(_I32))
-
+    ns, tx_l, tx_r, settling = transact(s, pend_l, pend_r, t_next_arr,
+                                        t_cycle, t_rev, t_idle_sw,
+                                        max_burst)
     action = torch.where(tx_l, A_TX_L, torch.where(
         tx_r, A_TX_R, torch.where(settling, A_HANDSHAKE, A_IDLE)))
-
-    tx_l32 = tx_l.to(_I32)
-    tx_r32 = tx_r.to(_I32)
-    ns = LinkState(
-        t=new_t, xl=xl, xr=xr,
-        last_dir=torch.where(do_tx, dir_now, s.last_dir),
-        bus_busy=torch.where(do_tx, 1, torch.where(idle, 0, s.bus_busy)),
-        prev_tx_l=tx_l32, prev_tx_r=tx_r32)
-    return ns, LinkStepOut(action=action.to(_I32), tx_l=tx_l32,
-                           tx_r=tx_r32)
+    return ns, LinkStepOut(action=action.to(_I32), tx_l=ns.prev_tx_l,
+                           tx_r=ns.prev_tx_r)
 
 
 def link_step_batch(state: LinkState, pend_l, pend_r, t_next_arr, *,
@@ -241,7 +248,8 @@ def alternating_bidir(n_events_per_side: int = 2048, **kw) -> SimResult:
 
 
 __all__ = ["BIG_NS", "LinkState", "LinkStepOut", "reset_link", "link_step",
-           "link_step_batch", "SimTrace", "SimResult", "simulate",
+           "link_step_batch", "transact", "SimTrace", "SimResult",
+           "simulate",
            "throughput_mev_s", "energy_pj", "saturated_onedir",
            "alternating_bidir", "A_IDLE", "A_HANDSHAKE", "A_TX_L",
            "A_TX_R", "RX", "TX"]

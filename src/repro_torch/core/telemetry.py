@@ -19,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Telemetry", "LinkLoad", "link_load", "merge_telemetry"]
+__all__ = ["Telemetry", "LinkLoad", "link_load", "link_load_batch",
+           "merge_telemetry"]
 
 
 def _np(x) -> np.ndarray:
@@ -86,3 +87,11 @@ def link_load(result) -> LinkLoad:
         backlog_steps=_np(tel.busy_steps).astype(np.int64).sum(axis=1),
         drops=_np(tel.q_drops).astype(np.int64).sum(axis=1),
         stalls=_np(tel.stall_steps).astype(np.int64).sum(axis=1))
+
+
+def link_load_batch(batch) -> list[LinkLoad]:
+    """Per-instance :class:`LinkLoad` roll-ups of one batched run (a
+    ``network.FabricBatchResult``), batch order: each instance's
+    counters equal its solo run's, so this is :func:`link_load` over the
+    instance views."""
+    return [link_load(batch.instance(i)) for i in range(batch.n_instances)]

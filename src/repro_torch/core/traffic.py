@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["TrafficSpec", "poisson", "bursty", "ping_pong", "hot_spot",
-           "PATTERNS"]
+           "monte_carlo", "PATTERNS"]
 
 _I32 = torch.int32
 
@@ -125,3 +125,32 @@ PATTERNS = {
     "ping_pong": lambda g, n, e: ping_pong(n, e),
     "hot_spot": lambda g, n, e: hot_spot(g, n, e),
 }
+
+#: child seeds are drawn in [0, MC_SEED_BOUND)
+MC_SEED_BOUND = 2**62
+
+
+def monte_carlo(pattern: str, gen: torch.Generator, batch: int,
+                n_chips: int, events_per_chip: int) -> list[TrafficSpec]:
+    """B independently seeded instances of one traffic scenario.
+
+    The reference splits a JAX key into B subkeys; a ``torch.Generator``
+    cannot be split, so the port's contract is: ``batch`` seeds are drawn
+    from ``gen`` (``torch.randint(0, MC_SEED_BOUND, (batch,))``, one
+    draw), and instance ``i`` is ``PATTERNS[pattern]`` sampled solo from
+    a fresh CPU ``torch.Generator`` seeded with the i-th of them.  So an
+    instance never depends on the batch size past its own index, and a
+    caller can regenerate any one of them alone.  All instances share
+    the shape ``(n_chips, events_per_chip)``, so they land in one engine
+    shape bucket (``Fabric.run_batch``).  Returns the B specs in seed
+    order.
+    """
+    if pattern not in PATTERNS:
+        raise ValueError(f"unknown pattern {pattern!r}; expected one of "
+                         f"{sorted(PATTERNS)}")
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    seeds = torch.randint(0, MC_SEED_BOUND, (batch,), generator=gen,
+                          dtype=torch.int64).tolist()
+    return [PATTERNS[pattern](torch.Generator().manual_seed(s), n_chips,
+                              events_per_chip) for s in seeds]

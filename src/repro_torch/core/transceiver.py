@@ -47,11 +47,27 @@ def step(state: XcvrState, sw_req, tx_pending, rx_strobe,
 
     ``sw_req`` / ``tx_pending`` are int32 tensors shaped like the state;
     ``rx_strobe`` is such a tensor or a plain int; ``max_burst`` is a
-    plain int (0 = paper-faithful grant rule).  Returns
+    plain int (0 = paper-faithful grant rule) or an int tensor that
+    broadcasts against the state (one bound per block, as a batch of
+    fabrics with different queue policies has).  Returns
     ``(new_state, XcvrOut)``.
     """
-    mode = state.mode
-    is_rx = mode == RX
+    new = settle(state, sw_req, tx_pending, rx_strobe, max_burst)
+    out = XcvrOut(tx_en=(new.mode == TX).to(_I32),
+                  rx_en=(new.mode == RX).to(_I32),
+                  switched=(new.mode != state.mode).to(_I32))
+    return new, out
+
+
+def settle(state: XcvrState, sw_req, tx_pending, rx_strobe,
+           max_burst: int = 0) -> XcvrState:
+    """The new state of :func:`step`, without its outputs (what the link
+    micro-transaction reads).  ``mode``, ``sw_ack``, ``rx_p``,
+    ``sw_req`` and ``rx_strobe`` are 0/1, as the FSM and the link
+    produce them, so the guards are boolean algebra over them: each
+    ``torch.where`` on a Python number would cost a fill kernel on the
+    card, where a fabric step is a chain of small launches."""
+    is_rx = state.mode == RX
     is_tx = ~is_rx
     tx_p = tx_pending > 0
 
@@ -59,29 +75,23 @@ def step(state: XcvrState, sw_req, tx_pending, rx_strobe,
     # strobe, the settle iteration's, cannot latch: skip the ops)
     rx_p = state.rx_p
     if torch.is_tensor(rx_strobe) or rx_strobe:
-        rx_p = torch.where(is_rx & (rx_strobe == 1), 1, rx_p)
+        rx_p = rx_p | (is_rx & (rx_strobe == 1))
 
     want_request = is_rx & tx_p & (rx_p == 1)
     drained = ~tx_p
-    if max_burst > 0:
+    if torch.is_tensor(max_burst):
+        drained = drained | ((max_burst > 0) & (state.burst >= max_burst))
+    elif max_burst > 0:
         drained = drained | (state.burst >= max_burst)
-    want_grant = is_tx & (sw_req == 1) & drained
+    req = sw_req == 1
+    want_grant = is_tx & req & drained
+    ack = torch.where(is_tx, ~want_grant, want_request)
 
-    sw_ack = torch.where(is_tx, ~want_grant, want_request).to(_I32)
-
-    # Table I mode resolution
-    new_mode = torch.where((sw_ack == 1) & (sw_req == 0), TX,
-                           torch.where((sw_ack == 0) & (sw_req == 1), RX,
-                                       mode))
-    switched = new_mode != mode
+    # Table I mode resolution: ack & ~req -> TX, ~ack & req -> RX, else
+    # hold
+    tx_now = (ack & ~req) | (is_tx & (ack | ~req))
 
     # entering RX afresh clears the probe; burst clears on any switch
-    rx_p = torch.where(switched & (new_mode == RX), 0, rx_p)
-    burst = torch.where(switched, 0, state.burst)
-
-    new_state = XcvrState(mode=new_mode, sw_ack=sw_ack, rx_p=rx_p,
-                          burst=burst)
-    out = XcvrOut(tx_en=(new_mode == TX).to(_I32),
-                  rx_en=(new_mode == RX).to(_I32),
-                  switched=switched.to(_I32))
-    return new_state, out
+    return XcvrState(mode=tx_now.to(_I32), sw_ack=ack.to(_I32),
+                     rx_p=rx_p & (is_rx | tx_now),
+                     burst=state.burst * (tx_now == is_tx))

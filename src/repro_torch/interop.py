@@ -7,9 +7,12 @@ arrays and hand them to :func:`from_reference` (fabric objects),
 :func:`snn_params_from_reference` (``models.snn`` weights) or
 :func:`cosim_weights_from_reference` (``CosimEngine(weights=)``); the
 per-tick drive goes to the engines as a bool array (``drive=``).
-Results come back through :func:`result_to_numpy`, so the two packages'
-outputs can be compared field for field (the reference's
-``network.assert_results_equal`` accepts the numpy result as is).  The
+Results come back through :func:`result_to_numpy` (a batch's through
+:func:`batch_result_to_numpy`), so the two packages' outputs can be
+compared field for field (the reference's ``network.assert_results_equal``
+accepts the numpy result, or a numpy batch's ``instance(i)``, as is);
+:func:`batch_result_from_reference` carries a reference
+``FabricBatchResult`` the other way, into the port's type.  The
 AER payload path takes the reference's error-feedback residuals
 (:func:`aer_states_from_reference`) and its event slots
 (:func:`event_blocks_from_reference`), bfloat16 values included.  The
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .core.link import LinkTiming
-from .core.network import FabricResult
+from .core.network import FabricBatchResult, FabricResult
 from .core.router import RoutingTable
 from .core.sparse_collectives import AerState, tree_map
 from .core.telemetry import Telemetry, _np
@@ -38,6 +41,7 @@ from .models.model import LM
 from .models.transformer import n_periods, pattern_for
 
 __all__ = ["Converted", "from_reference", "result_to_numpy",
+           "batch_result_to_numpy", "batch_result_from_reference",
            "snn_params_from_reference", "cosim_weights_from_reference",
            "aer_states_from_reference", "event_blocks_from_reference",
            "lm_params_from_reference", "mamba_cache_from_reference"]
@@ -93,6 +97,33 @@ def result_to_numpy(res: FabricResult) -> FabricResult:
         **{f: _np(getattr(res, f)) for f in res._fields
            if torch.is_tensor(getattr(res, f))},
         telemetry=None if tel is None else Telemetry(*map(_np, tel)))
+
+
+def batch_result_to_numpy(batch: FabricBatchResult) -> FabricBatchResult:
+    """The same batch result with every tensor (telemetry included) as a
+    host numpy array, dtypes kept; ``instance(i)`` of it is a numpy
+    ``FabricResult`` the reference's ``assert_results_equal`` takes."""
+    return batch._replace(
+        **{f: _np(getattr(batch, f)) for f in batch._fields
+           if torch.is_tensor(getattr(batch, f))},
+        telemetry=Telemetry(*map(_np, batch.telemetry)))
+
+
+def batch_result_from_reference(batch) -> FabricBatchResult:
+    """A reference ``FabricBatchResult`` (JAX or numpy arrays) as the
+    port's, with CPU tensors (int32 kept) and numpy ``injected`` /
+    ``offered``; compare it with the port's own results by
+    ``network.assert_results_equal`` on ``instance(i)``."""
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    return FabricBatchResult(
+        **{f: t(getattr(batch, f)) for f in FabricBatchResult._fields
+           if f not in ("injected", "offered", "telemetry")},
+        injected=np.asarray(batch.injected, np.int64),
+        offered=np.asarray(batch.offered, np.int64),
+        telemetry=Telemetry(*(t(getattr(batch.telemetry, f))
+                              for f in Telemetry._fields)))
 
 
 def _f32(a, ndim: int, what: str) -> torch.Tensor:

@@ -201,7 +201,8 @@ def test_multicast(mode, cap):
     tf = tfab.Fabric(trt.mesh2d_topology(2, 4), addr=trt.AddressSpec(),
                      queues=tfab.QueuePolicy(capacity=cap),
                      mcast=tfab.MulticastPolicy(
-                         mode, trt.MulticastTable(members)), device=CPU)
+                         mode, trt.MulticastTable(members)),
+                     engine="pallas", device=CPU)
     tres = tf.run(tspec)
     assert_same(jres, tres, mode)
     if mode == "in_fabric":
@@ -267,28 +268,32 @@ def test_buckets_equal(engine):
 
 def test_lifecycle_and_engine_names():
     fab = tfab.Fabric(trt.ring_topology(4), device=CPU)
-    assert fab.engine.resolved == "pallas"
+    assert fab.engine.resolved == "ring"
     a = both(*np_traffic("poisson", 4, 8, 1))[1]
     b = both(*np_traffic("poisson", 4, 16, 1))[1]
-    cf = fab.compile(a)
-    res = cf.run(a)
+    res = fab.compile(a).run(a)
+    step = tfab.Fabric(trt.ring_topology(4), engine="pallas", device=CPU)
+    cf = step.compile(a)
+    tnet.assert_results_equal(res, cf.run(a), "ring vs pallas engine")
     with pytest.raises(ValueError, match="bucket"):
         cf.run(b)
-    many = fab.run_many([a, b])
+    many = step.run_many([a, b])
+    assert step.last_dispatch == "loop"      # two slot-engine buckets
     tnet.assert_results_equal(res, many[0])
-    assert len(fab.compiled_buckets) == 2
+    assert len(step.compiled_buckets) == 2
     ref = tfab.Fabric(trt.ring_topology(4), engine="reference",
                       device=CPU).run(a)
-    tnet.assert_results_equal(res, ref, "pallas vs reference engine")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tfab.EngineSpec(name="ring")
+    tnet.assert_results_equal(res, ref, "ring vs reference engine")
+    assert tfab.EngineSpec(name="ring").resolved == "ring"
     ms = tfab.EngineSpec(name="pallas", kernel="multistep")
     assert (ms.kernel, ms.chunk_size) == ("multistep", 128)
-    for name in ("reference", "auto"):    # as the reference refuses them
+    for name in ("reference", "auto", "ring"):   # as the reference refuses
         with pytest.raises(ValueError, match="multistep"):
             tfab.EngineSpec(name=name, kernel="multistep")
     with pytest.raises(ValueError, match="chunk_size"):
         tfab.EngineSpec(name="pallas", kernel="multistep", chunk_size=0)
+    with pytest.raises(ValueError, match="chunk_size"):
+        tfab.EngineSpec(name="ring", chunk_size=0)
     with pytest.raises(ValueError):
         tfab.EngineSpec(name="pallas", kernel="nope")
     with pytest.raises(ValueError):
@@ -316,20 +321,6 @@ def test_results_stay_on_the_run_device():
     assert tres.log_del.dtype == torch.int32
 
 
-def test_simulate_fabric_refuses_a_chunk_size_it_cannot_honour():
-    """``chunk_size`` is the reference's ring-engine knob: the port has no
-    ring engine, so a value other than the default raises instead of
-    being ignored; the default runs."""
-    tspec = both(*np_traffic("poisson", 4, 8, 1))[1]
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tnet.simulate_fabric(trt.ring_topology(4), tspec, chunk_size=16,
-                             device=CPU)
-    tres = tnet.simulate_fabric(trt.ring_topology(4), tspec,
-                                chunk_size=tnet.DEFAULT_CHUNK_SIZE,
-                                device=CPU)
-    assert int(tres.delivered) == tres.injected
-
-
 def test_kernel_operands_are_what_the_cuda_wrappers_take(monkeypatch):
     """Rehearse, on the CPU, the operand contract the CUDA wrappers
     check: every tensor the engine hands the queue step, and the packed
@@ -352,15 +343,16 @@ def test_kernel_operands_are_what_the_cuda_wrappers_take(monkeypatch):
             assert a.dtype == torch.int32 and a.is_contiguous()
         q_time, _, _, lanes, sides, logs, counters = carry
         links, route_out, route_del, route_wt, timing, params = consts
-        nq, nc = q_time.shape
-        n_chips, n_routes, k = route_out.shape
+        # one leading instance axis on every operand (B = 1 for a solo run)
+        b, nq, nc = q_time.shape
+        n_chips, n_routes, k = route_out.shape[1:]
         L = nq // 2
-        assert [tuple(t.shape) for t in carry] == [
-            (nq, nc)] * 3 + [(16, L), (9, L, 2), logs.shape, (2,)]
-        assert logs.shape[0] == 3 and counters.shape == (2,)
+        assert [tuple(t.shape) for t in carry] == [(b, nq, nc)] * 3 + [
+            (b, 16, L), (b, 9, L, 2), logs.shape, (b, 2)]
+        assert logs.shape[:2] == (b, 3) and b == 1
         assert [tuple(t.shape) for t in consts] == [
-            (L, 2), (n_chips, n_routes, k), (n_chips, n_routes),
-            (n_chips, n_routes, k), (3, L), (3,)]
+            (b, L, 2), (b, n_chips, n_routes, k), (b, n_chips, n_routes),
+            (b, n_chips, n_routes, k), (b, 3, L), (b, 3)]
         assert base.shape == (1,) and kw["chunk"] >= 1
         seen.append("fabric_queue_multistep")
         return ms_fn(carry, consts, base, **kw)

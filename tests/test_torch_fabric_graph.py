@@ -71,7 +71,8 @@ def _static_and_eager(kw, spec, steps):
     """The kernel engine's run (the static-carry plan) and the eager
     ``body`` loop, on the CPU, at ``steps`` (None: the plan's own bound);
     returns both results and the compiled fabric."""
-    cf = tfab.Fabric(**kw, device=CPU).compile(spec, max_steps=steps)
+    cf = tfab.Fabric(**kw, device=CPU, engine="pallas").compile(
+        spec, max_steps=steps)
     got = cf.run(spec, max_steps=steps)
     eager = tfab.Fabric(**kw, device=CPU, engine="reference").run(
         spec, max_steps=steps)
@@ -150,7 +151,8 @@ def test_kernel_engine_runs_the_static_step(monkeypatch):
     _, kw, arrays = _cell("ring16_credit")
     spec = spec_of(*arrays)
     steps = M * G + 7
-    cf = tfab.Fabric(**kw, device=CPU).compile(spec, max_steps=steps)
+    cf = tfab.Fabric(**kw, device=CPU, engine="pallas").compile(
+        spec, max_steps=steps)
     cf.run(spec, max_steps=steps)
     assert cf.graph == {"graph_steps": G, "head": 2, "replays": M,
                         "tail": 5}

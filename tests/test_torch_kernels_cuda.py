@@ -1,7 +1,12 @@
 """The CUDA kernels on the card, against their plain PyTorch versions
-(the per-step pair, on misaligned planes and sentinel rows too, and the per-step engine replayed from its captured CUDA
-graph against the eager engine="reference"; the multi-step kernel on
-packed carries of the chip_smoke cells, solo and as B = 3 instances,
+(the per-step pair, on misaligned planes and sentinel rows too, and on
+a batch's (B·Q, C) rows with instance-offset queue ids; the per-step
+engine replayed from its captured CUDA graph against the eager
+engine="reference"; the ring engine replaying its chunk's graph, run
+after run, against its CPU run; batches of every engine against their
+solo runs; the multi-step kernel on packed carries of the chip_smoke
+cells, solo, as B = 3 instances and as B = 8 against eight B = 1
+launches,
 the LIF update on the
 shared LIF cases, the AER encoder and decoder on the shared AER
 cases, full width and 8-peer decode included, and the selective scan on
@@ -139,7 +144,8 @@ def test_engine_on_card_matches_cpu(cuda):
     the plain engine on the CPU, and 2·max_steps launches."""
     spec = hot_spot(torch.Generator().manual_seed(0), 6, 12)
     kw = dict(queues=QueuePolicy(capacity=5, flow="credit"))
-    cf = Fabric(ring_topology(6), device=cuda, **kw).compile(spec)
+    cf = Fabric(ring_topology(6), device=cuda, engine="pallas",
+                **kw).compile(spec)
     fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
     res = cf.run(spec)
     torch.cuda.synchronize()
@@ -190,7 +196,8 @@ def test_graph_run_matches_eager(cuda, cell, steps):
     eager loop of the plain step) on the card, field for field, with
     exactly max_steps launches of each wrapper."""
     kw, spec = _graph_cells()[cell]
-    cf = Fabric(**kw, device=cuda).compile(spec, max_steps=steps)
+    cf = Fabric(**kw, device=cuda, engine="pallas").compile(
+        spec, max_steps=steps)
     fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
     res = cf.run(spec, max_steps=steps)
     torch.cuda.synchronize()
@@ -205,6 +212,164 @@ def test_graph_run_matches_eager(cuda, cell, steps):
     want = Fabric(**kw, device=cuda, engine="reference").run(
         spec, max_steps=steps)
     net.assert_results_equal(res, want, f"{cell} at {steps} steps")
+
+
+# --- batches: the per-step pair on the batch's rows, the ring engine ----
+
+#: the batch phase's instances: ring-16 hot spots, seeds 2..9
+BATCH_SEEDS = tuple(range(2, 10))
+
+
+@pytest.mark.gpu
+def test_step_kernel_on_batched_rows_matches_plain(cuda):
+    """B1 on the (B·Q, C) rows of B = 8 instances' planes (the batched
+    per-step engine's one launch) against the plain scan of each
+    instance's own (Q, C) rows."""
+    rng = np.random.default_rng(8)
+    cases = [scan_case(rng, 32, 768) for _ in range(8)]
+    q, qd, t = (np.concatenate([c[i] for c in cases]) for i in range(3))
+    got = fq.fabric_queue_step(_t(q, cuda), _t(qd, cuda), _t(t, cuda))
+    torch.cuda.synchronize()
+    for b, (qb, qdb, tb) in enumerate(cases):
+        want = ref.fabric_queue_scan(_t(qb), _t(qdb), _t(tb))
+        for w, g in zip(want, got):
+            assert torch.equal(w, g[32 * b:32 * (b + 1)].cpu()), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_update_kernel_instance_offsets_match_solo(cuda, k):
+    """B2 on the flattened (B·Q, C) planes with queue ids offset by b·Q
+    and skipped lanes at B·Q (the kernel's own skip rule, id >= rows)
+    against B solo calls of the plain update."""
+    rng = np.random.default_rng(k)
+    B, nq, nc = 4, 32, 768
+    pls = [planes(rng, nq, nc) for _ in range(B)]
+    lanes = [update_case(rng, nq, nc, k) for _ in range(B)]
+    got = [_t(np.concatenate([p[i] for p in pls]), cuda) for i in range(3)]
+    glob = []
+    for i in range(len(lanes[0])):
+        parts = []
+        for b, ln in enumerate(lanes):
+            a = np.asarray(ln[i], np.int64)
+            if i in (0, 2):                       # pop_q, app_q
+                a = np.where(a < nq, a + b * nq, B * nq)
+            parts.append(a)
+        glob.append(_t(np.concatenate(parts), cuda))
+    fq.fabric_queue_update(*got, *glob)
+    torch.cuda.synchronize()
+    for b in range(B):
+        want = ref.fabric_queue_update(*map(_t, pls[b]), *map(_t, lanes[b]))
+        for w, g in zip(want, got):
+            assert torch.equal(w, g[nq * b:nq * (b + 1)].cpu()), b
+
+
+@pytest.mark.gpu
+def test_multistep_b8_matches_eight_solo_launches(cuda):
+    """B3 at B = 8 (one block an instance) against eight B = 1 launches
+    of the same carries, chunk 128 over MS_STEPS steps."""
+    from _torch_cases import hot_spot_arrays
+    kw = dict(topo=ring_topology(16),
+              queues=QueuePolicy(capacity=64, flow="credit"))
+    ops8 = [multistep_operands(kw, hot_spot_arrays(16, 48, 300.0, 0.65,
+                                                   seed=s), MS_STEPS, cuda)
+            for s in BATCH_SEEDS]
+    carry = tuple(torch.stack([o[0][j] for o in ops8]) for j in range(7))
+    consts = tuple(torch.stack([o[1][j] for o in ops8]) for j in range(6))
+    got = _ms_kernel(carry, consts, 128, 0)
+    for i, (c, k, _, plan) in enumerate(ops8):
+        one = _ms_kernel(tuple(t[None] for t in c),
+                         tuple(t[None] for t in k), 128, 0)
+        torch.cuda.synchronize()
+        assert carry_err(tuple(t[0] for t in one),
+                         tuple(g[i] for g in got), plan.E) == 0, i
+
+
+def _ring16(seed=2, cap=64):
+    from _torch_cases import hot_spot_arrays, spec_of
+    return (dict(topo=ring_topology(16),
+                 queues=QueuePolicy(capacity=cap, flow="credit")),
+            spec_of(*hot_spot_arrays(16, 48, 300.0, 0.65, seed=seed)))
+
+
+@pytest.mark.gpu
+def test_ring_engine_on_card_matches_cpu_and_reuses_its_graph(cuda):
+    """Ring-16 under credit flow: the ring engine on the card (its chunk
+    replayed from the CUDA graph that compile() captured) against its
+    CPU run; a second run of the bucket, on other traffic, replays the
+    same graph without capturing again; no kernel of the port runs."""
+    kw, spec = _ring16()
+    cf = Fabric(**kw, device=cuda).compile(spec)
+    assert cf.bucket[0] == "ring" and cf.graph["captures"] == 1
+    for w in (fq.fabric_queue_step, fq.fabric_queue_update,
+              fq.fabric_queue_multistep):
+        w.launches = 0
+    for seed in (2, 3):
+        kw_s, spec_s = _ring16(seed)
+        res = cf.fabric.run(spec_s)
+        torch.cuda.synchronize()
+        g = cf.graph
+        assert not g["captured"] and g["captures"] == 1
+        assert g["replays"] > 0 and g["replay_device_s"] > 0
+        cpu = Fabric(**kw_s, device="cpu").run(spec_s)
+        net.assert_results_equal(res, cpu, f"ring card vs cpu, seed {seed}")
+        assert int(res.delivered) == res.injected
+    assert fq.fabric_queue_step.launches == fq.fabric_queue_update.launches \
+        == fq.fabric_queue_multistep.launches == 0
+
+
+@pytest.mark.gpu
+def test_capture_survives_dropped_fabrics(cuda):
+    """A fabric and its compiled buckets reference each other, so the
+    CUDA graphs of a dropped fabric are freed by Python's collector; a
+    graph freed while another graph is being captured would invalidate
+    that capture.  Dropped fabrics pile up with the collector off, then
+    it runs at nearly every allocation while fresh fabrics capture."""
+    import gc
+    kw, spec = _ring16()
+    want = Fabric(**kw, device="cpu").run(spec, max_steps=400)
+    threshold = gc.get_threshold()
+    gc.disable()
+    try:
+        for eng in ("ring", "pallas"):
+            Fabric(**kw, device=cuda, engine=eng).run(spec, max_steps=400)
+        gc.set_threshold(1)
+        gc.enable()
+        for eng in ("ring", "pallas"):
+            got = Fabric(**kw, device=cuda, engine=eng).run(spec,
+                                                            max_steps=400)
+            torch.cuda.synchronize()
+            net.assert_results_equal(got, want, eng)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.enable()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ring", "pallas",
+                                    EngineSpec("pallas", kernel="multistep")])
+def test_batch_on_card_matches_solo(cuda, engine):
+    """Four ring-16 instances through run_batch on the card against their
+    solo CPU runs; the per-step engine launches B1 and B2 once a step
+    for the whole batch, the multi-step engine B3 once a chunk."""
+    kw, _ = _ring16()
+    specs = [_ring16(s)[1] for s in BATCH_SEEDS[:4]]
+    fab = Fabric(**kw, device=cuda, engine=engine)
+    for w in (fq.fabric_queue_step, fq.fabric_queue_update,
+              fq.fabric_queue_multistep):
+        w.launches = 0
+    batch = fab.run_batch(specs, max_steps=700)
+    torch.cuda.synchronize()
+    cpu = Fabric(**kw, device="cpu", engine=engine)
+    for i, s in enumerate(specs):
+        net.assert_results_equal(batch.instance(i),
+                                 cpu.run(s, max_steps=700), f"batch/{i}")
+    kern = fab.engine.kernel if fab.engine.resolved == "pallas" else None
+    assert fq.fabric_queue_step.launches == (700 if kern == "step" else 0)
+    assert fq.fabric_queue_update.launches == (700 if kern == "step"
+                                               else 0)
+    assert fq.fabric_queue_multistep.launches == (
+        -(-700 // 128) if kern == "multistep" else 0)
 
 
 # --- the multi-step kernel ----------------------------------------------
