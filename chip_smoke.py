@@ -45,8 +45,9 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                ``protocol_sim.simulate``;
 6. full      — ring-16 hot-spot (48 events a chip, mean gap 300 ns,
                hot_frac 0.65, capacity 64, credit flow): the per-step
-               kernel engine, replayed from a CUDA graph captured once
-               per run, against ``engine="reference"`` (the eager loop
+               kernel engine, replayed from the CUDA graph that compile
+               captured for its bucket (runners are shared by bucket),
+               against ``engine="reference"`` (the eager loop
                of the plain step) on the card, field for field, every
                event delivered, no drops, and exactly max_steps
                launches of each kernel; then an 8-chip in-fabric
@@ -81,6 +82,33 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                ring none), ms per batch beside B times the solo ms;
                then B1, B2 and B3 on the batch's operands against their
                plain versions and solo launches, and timed;
+7c. verify_quarantine — the static verifier on the card: ring-4 with
+               routes (0,1) and (3,1) looping, credit flow at capacity
+               8, admitted ("acyclic-cdg") with those pairs quarantined;
+               clean traffic on the ring, per-step and multi-step
+               engines equal to ``engine="reference"``; traffic 0 -> 1
+               refused at plan time and by ``verify(spec)``; the
+               all-clockwise ring-4 at capacity 2, whose saturable cycle
+               ``verify`` names, stalled for good (the same deliveries
+               at 400 and 800 steps, no drops) on the ring and per-step
+               engines; ``verify`` host ms on the two full cells;
+7d. adaptive_ring16 — the reference benchmark's ADAPTIVE_RING (ring-16
+               hot spot, 768 events, capacity 48, min_backlog over 4
+               epochs, alpha 4, ema 0.5; traffic from the port's
+               generator): static ``run_epochs`` and adaptive ``run``
+               on the ring engine and the multi-step kernel; events
+               conserved, tables rebuilt, no new runner after epoch 0,
+               one ring graph for every epoch and run, B3 launched
+               4 x ceil(bound / 128) times a run, the two engines'
+               merged results equal; ms a run, drops and p99 both ways;
+7e. adaptive_ring8_step — adaptive ring-8 (192 events, capacity 24)
+               on the per-step kernel engine: equal to the ring's merged
+               result, one step graph captured for all four epochs and
+               none in a second run, B1 and B2 once a step;
+7f. sweep    — ``Fabric.sweep`` on the ring (full_ring16_credit,
+               seeds 2-4) and ``sweep_batch`` of eight seeds on the
+               multi-step kernel: nothing captured or built while cells
+               are timed, each result equal to its solo run;
 8. profile   — torch.profiler windows of the full-width cell on both
                paths: device-busy share and time by kernel; for the
                per-step path also over its graph replays alone, where
@@ -816,10 +844,11 @@ SHORT_RUN_STEPS = (34, 66, 100, 130)
 
 
 def phase_short_runs(spec, kw):
-    """The ring-16 cell cut to SHORT_RUN_STEPS through the default
-    engine, in turns (up, then down): wall seconds of ``run`` and its
-    plan, each result equal to ``engine="reference"`` field for field.
-    Where a short run stops paying for its graph."""
+    """The ring-16 cell cut to SHORT_RUN_STEPS through the per-step
+    kernel engine, in turns (up, then down): seconds of ``compile``
+    (which captures each bucket's graph, once: the up pass) and of
+    ``run``, and its plan, each result equal to ``engine="reference"``
+    field for field.  Where a short run stops paying for its graph."""
     import torch
     from repro_torch.core import network as net
     from repro_torch.core.fabric import Fabric
@@ -827,17 +856,20 @@ def phase_short_runs(spec, kw):
     fab.run(spec, max_steps=SHORT_RUN_STEPS[-1])     # warm up
     runs, last = [], {}
     for n in SHORT_RUN_STEPS + SHORT_RUN_STEPS[::-1]:
-        cf = fab.compile(spec, max_steps=n)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cf = fab.compile(spec, max_steps=n)     # captures a bucket's graph
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         last[n] = cf.run(spec, max_steps=n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         g = getattr(cf, "graph", None) or {}
-        runs.append({"steps": n, "wall_s": wall,
+        runs.append({"steps": n, "wall_s": wall, "compile_s": compile_s,
                      "replays": g.get("replays"),
-                     "capture_s": g.get("capture_s"),
-                     "instantiate_s": g.get("instantiate_s")})
+                     "captured_in_run": g.get("captured"),
+                     "runner_captures": g.get("captures")})
     ref = Fabric(**kw, engine="reference")
     for n, res in last.items():
         net.assert_results_equal(res, ref.run(spec, max_steps=n),
@@ -1242,13 +1274,417 @@ def phase_batch_kernels():
     return times
 
 
+# --- the rest of the fabric API: verifier, adaptive routing, sweeps ------
+
+def _all_captures() -> int:
+    """CUDA graphs captured so far by every runner of the process."""
+    from repro_torch.core import network as net
+    return sum(getattr(r, "captures", 0) for r in net._RUNNERS.values())
+
+
+def _loads() -> int:
+    """Kernel libraries built or loaded so far."""
+    from repro_torch.kernels import _build
+    return _build.load.cache_info().misses
+
+
+def _bent(topo, rt):
+    """Ring(4) dest-1 bend: routes (0,1) and (3,1) loop 0 <-> 3 forever;
+    the terminating routes' channel-dependency graph is acyclic."""
+    from repro_torch.core.router import RoutingTable
+    nl, os_ = rt.next_link.copy(), rt.out_side.copy()
+    nl[0, 1], os_[0, 1] = 3, 1
+    nl[3, 1], os_[3, 1] = 3, 0
+    return RoutingTable(next_link=nl, out_side=os_, hops=rt.hops)
+
+
+def _clockwise(topo, rt):
+    """All-clockwise ring table: its channel-dependency graph is one
+    cycle."""
+    from repro_torch.core.router import RoutingTable
+    n = rt.next_link.shape[0]
+    nl, os_, hops = rt.next_link.copy(), rt.out_side.copy(), rt.hops.copy()
+    for c in range(n):
+        for d in range(n):
+            if c != d:
+                nl[c, d], os_[c, d], hops[c, d] = c, 0, (d - c) % n
+    return RoutingTable(next_link=nl, out_side=os_, hops=hops)
+
+
+def phase_verify_quarantine(cells):
+    """The static verifier and the quarantine on the card.  Ring-4 with
+    the bent table under credit flow at capacity 8 (the reference test's
+    ``_bent_override``): admitted with certificate "acyclic-cdg" and
+    route cycles {(0, 1), (3, 1)}; the clean six-event spec lossless on
+    the ring, the per-step kernel engine and the multi-step kernel, each
+    equal field for field to ``engine="reference"``; traffic 0 -> 1
+    refused at plan time and by ``verify(spec)``.  The deadlock
+    prediction: the all-clockwise ring-4 at capacity 2, whose saturable
+    cycle ``verify(spec)`` names, delivers the same at 400 and 800 steps
+    with no drops on the ring and the per-step engine.  Then
+    ``verify(spec)``'s certificate and host ms on the two full cells."""
+    import numpy as np
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import (EngineSpec, Fabric, QueuePolicy,
+                                         StaticShortestPath)
+    from repro_torch.core.router import ring_topology
+    from _torch_cases import spec_of
+    t_phase = time.perf_counter()
+    kw = dict(topo=ring_topology(4),
+              routing=StaticShortestPath(table_override=_bent),
+              queues=QueuePolicy(capacity=8, flow="credit"))
+    rep = Fabric(**kw).verify()
+    cycles = sorted(map(tuple, rep.route_cycles.tolist()))
+    check(rep.ok and rep.deadlock_free and rep.certificate == "acyclic-cdg"
+          and cycles == [(0, 1), (3, 1)],
+          f"bent ring-4: {rep.summary()} {cycles}")
+    clean = spec_of([0, 1, 2, 3, 0, 2], [0, 0, 0, 0, 40, 40],
+                    [2, 3, 0, 2, 3, 1])
+    want = Fabric(**kw, engine="reference").run(clean)
+    check(int(want.delivered) == want.injected and int(want.drops) == 0,
+          "bent ring-4 lost events on engine='reference'")
+    engines = {}
+    for name, eng in (("ring", "ring"), ("step", "pallas"),
+                      ("multistep", EngineSpec("pallas",
+                                               kernel="multistep"))):
+        _counts_zero()
+        got = Fabric(**kw, engine=eng).run(clean)
+        torch.cuda.synchronize()
+        net.assert_results_equal(got, want, f"bent ring-4 on {name}")
+        engines[name] = _counts()
+    refused = {}
+    bad = spec_of([0], [0], [1])
+    try:
+        Fabric(**kw).run(bad)
+    except ValueError as err:
+        refused["plan"] = str(err)
+    check("quarantined" in refused.get("plan", ""),
+          f"traffic 0 -> 1 was not refused at plan time ({refused})")
+    bad_rep = Fabric(**kw).verify(bad)
+    check(not bad_rep.ok and any(f.check == "route-termination"
+                                 and f.severity == "error"
+                                 for f in bad_rep.findings),
+          f"verify(0 -> 1): {bad_rep.summary()}")
+    # the deadlock prediction
+    dkw = dict(topo=ring_topology(4),
+               routing=StaticShortestPath(table_override=_clockwise),
+               queues=QueuePolicy(capacity=2, flow="credit"))
+    src = np.repeat(np.arange(4), 8)
+    dspec = spec_of(src, np.arange(32) * 5, (src + 3) % 4)
+    drep = Fabric(**dkw).verify(dspec)
+    err = [f for f in drep.findings
+           if f.severity == "error" and f.check == "cdg-cycle"]
+    check(not drep.ok and err and all(
+        ch in err[0].message
+        for ch in ("L0:0->1", "L1:1->2", "L2:2->3", "L3:3->0")),
+        f"clockwise ring-4: {drep.summary()}")
+    stalls = {}
+    for name, eng in (("ring", "ring"), ("step", "pallas")):
+        a, b = (Fabric(**dkw, engine=eng).run(dspec, max_steps=m)
+                for m in (400, 800))
+        stalls[name] = [int(a.delivered), int(b.delivered), a.injected]
+        check(int(a.delivered) == int(b.delivered) < a.injected
+              and int(a.drops) == int(b.drops) == 0,
+              f"clockwise ring-4 on {name}: {stalls[name]}, drops "
+              f"{int(a.drops)}, {int(b.drops)}")
+    host = {}
+    for label, ckw, spec, _res in cells:
+        fab = Fabric(**ckw)
+        t0 = time.perf_counter()
+        crep = fab.verify(spec)
+        host[label] = {"certificate": crep.certificate, "ok": crep.ok,
+                       "host_ms": (time.perf_counter() - t0) * 1e3,
+                       "cdg_edges": crep.cdg_edges,
+                       "clock_headroom_ns": crep.clock_headroom_ns}
+        check(crep.ok, f"{label}: {crep.summary()}")
+    emit("verify_quarantine", certificate=rep.certificate,
+         route_cycles=cycles, clean_launches=engines,
+         equals_reference=True, refused_at_plan=refused["plan"],
+         deadlock={"error": err[0].message, "delivered_400_800_of": stalls},
+         verify_cells=host, phase_s=time.perf_counter() - t_phase)
+
+
+#: the reference benchmark's ADAPTIVE_RING (benchmarks/fabric_sweep.py):
+#: ring-16 hot spot, 48 events a chip, capacity 48 (drop flow),
+#: min_backlog over 4 epochs, alpha 4.0, ema 0.5; traffic from the
+#: port's generator with this seed
+ADAPTIVE_RING = dict(n_chips=16, seed=3, epc=48, capacity=48,
+                     policy="min_backlog", epochs=4, alpha=4.0, ema=0.5)
+
+
+def _adaptive_runs(fab_kw, engine, policy, spec, epochs, reps):
+    """Static ``run_epochs`` then ``reps`` adaptive runs of ``spec`` on
+    ``engine``; each timed to its end on the card, with the launch counts
+    and the graph captures of the adaptive runs."""
+    import torch
+    from repro_torch.core.adaptive import AdaptiveRouting
+    from repro_torch.core.fabric import Fabric
+    out = {}
+    fab = Fabric(**fab_kw, engine=engine)
+    torch.cuda.synchronize()
+    c0 = _all_captures()
+    t0 = time.perf_counter()
+    out["static"] = fab.run_epochs(spec, epochs=epochs)
+    torch.cuda.synchronize()
+    out["static_s"] = time.perf_counter() - t0
+    out["static_captures"] = _all_captures() - c0
+    out["capture"] = getattr(fab._get_compiled(
+        fab.last_report.buckets[0])._last_runner, "capture_stats", {})
+    afab = Fabric(**fab_kw, engine=engine, routing=AdaptiveRouting(**policy))
+    out["adaptive_s"], out["adaptive_launches"] = [], []
+    out["adaptive_captures"] = []
+    for _ in range(reps):
+        _counts_zero()
+        c0 = _all_captures()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = afab.run(spec)
+        torch.cuda.synchronize()
+        out["adaptive_s"].append(time.perf_counter() - t0)
+        out["adaptive_launches"].append(_counts())
+        out["adaptive_captures"].append(_all_captures() - c0)
+    out["adaptive"], out["report"], out["fabric"] = res, afab.last_report, afab
+    out["epoch_steps"] = _epoch_steps(afab, spec)
+    return out
+
+
+def _epoch_steps(fab, spec) -> list:
+    """Steps each epoch of an (untimed) epoched run of ``spec`` ran, as
+    its engine reports them (None where it reports none)."""
+    from repro_torch.core.fabric import Fabric
+    steps, real = [], Fabric._run_single
+
+    def counted(self, part, *, max_steps=None):
+        res = real(self, part, max_steps=max_steps)
+        g = self._get_compiled(self._plan(part, max_steps).bucket).graph
+        steps.append((g or {}).get("steps"))
+        return res
+
+    Fabric._run_single = counted
+    try:
+        fab.run(spec)
+    finally:
+        Fabric._run_single = real
+    return steps
+
+
+def phase_adaptive_ring16():
+    """ADAPTIVE_RING on the ring engine and ``kernel="multistep"``:
+    static ``run_epochs`` and the adaptive ``run`` (twice).  Per engine:
+    delivered + drops == injected, the tables changed after epoch 0, no
+    new runner after epoch 0 (``recompiled`` False), on the ring one
+    graph capture at most in all (none in the adaptive runs after the
+    static one bound the runner) and the runner's ``captures`` 1, B3
+    launched sum(ceil(bound / 128)) times an adaptive run; the merged
+    adaptive results of the two engines equal field for field.  Not a
+    gate: adaptive beating static (the reference's strict-win test
+    fails)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.adaptive import partition_epochs, shared_max_steps
+    from repro_torch.core.fabric import EngineSpec, Fabric, QueuePolicy
+    from repro_torch.core.router import ring_topology
+    from repro_torch.core.traffic import hot_spot
+    t_phase = time.perf_counter()
+    cfg = ADAPTIVE_RING
+    gen = torch.Generator().manual_seed(cfg["seed"])
+    spec = hot_spot(gen, cfg["n_chips"], cfg["epc"])
+    fab_kw = dict(topo=ring_topology(cfg["n_chips"]),
+                  queues=QueuePolicy(capacity=cfg["capacity"]))
+    policy = {k: cfg[k] for k in ("policy", "epochs", "alpha", "ema")}
+    parts = partition_epochs(spec, cfg["epochs"])
+    bound = shared_max_steps(Fabric(**fab_kw), parts,
+                             detour_factor=1.0 + cfg["alpha"])
+    rows, merged = {}, {}
+    for name, eng in (("ring", "ring"),
+                      ("multistep", EngineSpec("pallas",
+                                               kernel="multistep"))):
+        out = _adaptive_runs(fab_kw, eng, policy, spec, cfg["epochs"], 2)
+        res, rep = out["adaptive"], out["report"]
+        static = out["static"]
+        cf = out["fabric"]._get_compiled(rep.buckets[0])
+        for label, r in (("adaptive", res), ("static", static)):
+            check(int(r.delivered) + int(r.drops) == r.injected,
+                  f"{name} {label}: {int(r.delivered)} + {int(r.drops)} "
+                  f"!= {r.injected}")
+        check(not rep.recompiled and len(rep.buckets) == 1,
+              f"{name}: recompiled {[r.cache_size for r in rep.records]}")
+        check(any(not np.array_equal(rep.records[0].table.next_link,
+                                     r.table.next_link)
+                  for r in rep.records[1:]),
+              f"{name}: the tables never changed")
+        stats = cf.graph or {}
+        lat = {k: net.latency_stats(r)["p99_ns"]
+               for k, r in (("static", static), ("adaptive", res))}
+        want_b3 = cfg["epochs"] * -(-bound // 128)
+        rows[name] = {
+            "bucket": list(rep.buckets[0]), "epoch_bound": bound,
+            "static_ms": out["static_s"] * 1e3,
+            "adaptive_ms": [s * 1e3 for s in out["adaptive_s"]],
+            "drops": {"static": int(static.drops),
+                      "adaptive": int(res.drops)},
+            "p99_ns": lat, "delivered": int(res.delivered),
+            "injected": res.injected,
+            "cache_sizes": [r.cache_size for r in rep.records],
+            "static_captures": out["static_captures"],
+            "adaptive_captures": out["adaptive_captures"],
+            "runner_captures": stats.get("captures"),
+            "runner_capture": out["capture"],
+            "epoch_steps": out["epoch_steps"],
+            "launches": out["adaptive_launches"][-1],
+            "expected_b3_launches": want_b3 if name == "multistep" else 0}
+        if name == "ring":
+            check(out["static_captures"] <= 1
+                  and out["adaptive_captures"] == [0, 0]
+                  and stats.get("captures") == 1,
+                  f"ring: captures static {out['static_captures']}, "
+                  f"adaptive {out['adaptive_captures']}, runner "
+                  f"{stats.get('captures')}")
+            check(all(v == 0 for v in out["adaptive_launches"][-1].values()),
+                  f"ring launched port kernels "
+                  f"{out['adaptive_launches'][-1]}")
+        else:
+            got = out["adaptive_launches"][-1]
+            check(got["fabric_queue_multistep"] == want_b3
+                  and got["fabric_queue_step"] == 0
+                  and got["fabric_queue_update"] == 0,
+                  f"multistep launches {got}, expected {want_b3} of B3")
+        merged[name] = res
+    net.assert_results_equal(merged["ring"], merged["multistep"],
+                             "adaptive ring vs multistep")
+    emit("adaptive_ring16", config=cfg, events=spec.n_events,
+         slices=[p.n_events for p in parts], engines=rows,
+         ring_equals_multistep=True, phase_s=time.perf_counter() - t_phase)
+    return rows
+
+
+def phase_adaptive_ring8_step():
+    """The per-step kernel engine under adaptive routing: ring-8, 24
+    hot-spot events a chip, capacity 24, 4 epochs, alpha 4.0, equal
+    field for field to the ring engine's merged result; one step-graph
+    capture for all four epochs (the clones share the bucket's runner);
+    a second adaptive run captures nothing; B1 and B2 launched once a
+    step (4 x the shared bound each)."""
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.adaptive import (AdaptiveRouting, partition_epochs,
+                                           shared_max_steps)
+    from repro_torch.core.fabric import Fabric, QueuePolicy
+    from repro_torch.core.router import ring_topology
+    from repro_torch.core.traffic import hot_spot
+    t_phase = time.perf_counter()
+    spec = hot_spot(torch.Generator().manual_seed(4), 8, 24)
+    kw = dict(topo=ring_topology(8), queues=QueuePolicy(capacity=24),
+              routing=AdaptiveRouting(policy="min_backlog", epochs=4,
+                                      alpha=4.0))
+    ring = Fabric(**kw, engine="ring").run(spec)
+    bound = shared_max_steps(Fabric(**kw), partition_epochs(spec, 4),
+                             detour_factor=5.0)
+    fab = Fabric(**kw, engine="pallas")
+    runs = []
+    for i in range(2):
+        _counts_zero()
+        c0 = _all_captures()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fab.run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        net.assert_results_equal(res, ring, f"adaptive step run {i} vs ring")
+        rep = fab.last_report
+        g = fab._get_compiled(rep.buckets[0]).graph or {}
+        runner = fab._get_compiled(rep.buckets[0])._last_runner
+        runs.append({"ms": wall * 1e3, "captures": _all_captures() - c0,
+                     "runner_captures": g.get("captures"),
+                     "runner_capture": dict(runner.capture_stats),
+                     "replays_last_epoch": g.get("replays"),
+                     "launches": _counts(),
+                     "cache_sizes": [r.cache_size for r in rep.records]})
+        check(not rep.recompiled, f"step run {i}: recompiled")
+    want = 4 * bound
+    check(runs[0]["captures"] == 1 and runs[1]["captures"] == 0
+          and runs[1]["runner_captures"] == 1,
+          f"step graph captures {[r['captures'] for r in runs]}, runner "
+          f"{runs[1]['runner_captures']}")
+    for r in runs:
+        check(r["launches"]["fabric_queue_step"] == want
+              and r["launches"]["fabric_queue_update"] == want
+              and r["launches"]["fabric_queue_multistep"] == 0,
+              f"step launches {r['launches']}, expected {want} of B1, B2")
+    emit("adaptive_ring8_step", epoch_bound=bound, runs=runs,
+         equals_ring=True, delivered=int(res.delivered),
+         drops=int(res.drops), injected=res.injected,
+         phase_s=time.perf_counter() - t_phase)
+    return runs
+
+
+def phase_sweep(batch_rows):
+    """``Fabric.sweep`` on the ring engine over full_ring16_credit's
+    traffic at seeds 2-4, each cell equal to its solo run and no graph
+    captured or kernel built while cells are timed; then ``sweep_batch``
+    of those eight seeds (2-9) on ``kernel="multistep"``, warm, then
+    timed again with nothing captured or built, each instance equal to
+    its solo multi-step run.  ``us_per_call`` and ``us_per_instance``
+    beside the solo ring run of phase ring_engine and the batch phase's
+    ms per instance."""
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import EngineSpec, Fabric, QueuePolicy
+    from repro_torch.core.router import ring_topology
+    from _torch_cases import hot_spot_arrays, spec_of
+    t_phase = time.perf_counter()
+    kw = dict(topo=ring_topology(16),
+              queues=QueuePolicy(capacity=64, flow="credit"))
+    specs = [spec_of(*hot_spot_arrays(16, 48, 300.0, 0.65, seed=s))
+             for s in BATCH_SEEDS]
+    fab = Fabric(**kw, engine="ring")
+    for s in specs[:3]:
+        fab.compile(s)
+    c0, l0 = _all_captures(), _loads()
+    cells = fab.sweep(specs[:3])
+    c1, l1 = _all_captures(), _loads()
+    check(c1 == c0 and l1 == l0, f"sweep: captures {c0} -> {c1}, loads "
+                                 f"{l0} -> {l1} while cells were timed")
+    for s, c in zip(specs[:3], cells):
+        net.assert_results_equal(c.result, Fabric(**kw, engine="ring")
+                                 .run(s), "sweep cell vs solo")
+    ms_engine = EngineSpec("pallas", kernel="multistep")
+    mfab = Fabric(**kw, engine=ms_engine)
+    first = mfab.sweep_batch(specs)
+    torch.cuda.synchronize()
+    c0, l0 = _all_captures(), _loads()
+    cell = mfab.sweep_batch(specs)
+    c1, l1 = _all_captures(), _loads()
+    check(c1 == c0 and l1 == l0, f"sweep_batch: captures {c0} -> {c1}, "
+                                 f"loads {l0} -> {l1}")
+    shared = cell.bucket[4]
+    for i, s in enumerate(specs):
+        net.assert_results_equal(cell.result.instance(i),
+                                 mfab.run(s, max_steps=shared),
+                                 f"sweep_batch instance {i} vs solo")
+    emit("sweep", ring_us_per_call=[c.us_per_call for c in cells],
+         ring_solo_ms=RUN_WALL_S["ring", "full_ring16_credit"] * 1e3,
+         multistep_batch={"instances": len(specs),
+                          "first_us_per_call": first.us_per_call,
+                          "us_per_call": cell.us_per_call,
+                          "us_per_instance": cell.us_per_instance,
+                          "batch_phase_ms_per_instance":
+                              batch_rows["multistep"]["ms_per_instance"]},
+         captures_while_timed=0, builds_while_timed=0, equals_solo=True,
+         phase_s=time.perf_counter() - t_phase)
+
+
 def aten_ops_per_step(fab, spec, steps=None) -> float:
     """PyTorch operator calls on the host per micro-transaction
     (dispatcher count over a ``steps``-step run of the fabric's engine;
     None: the whole run).  For the captured per-step engine this counts
     the whole run, capture included (replays call no operator), divided
-    by its steps."""
+    by its steps: the run goes to a fresh runner (an empty runner cache
+    for its duration), which captures its graph inside the count."""
     from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import network as net
 
     class Count(TorchDispatchMode):
         n = 0
@@ -1257,9 +1693,13 @@ def aten_ops_per_step(fab, spec, steps=None) -> float:
             Count.n += 1
             return func(*args, **(kwargs or {}))
 
-    n_steps = fab.compile(spec, max_steps=steps).bucket[4]
-    with Count():
-        fab.run(spec, max_steps=steps)
+    n_steps = fab.compile(spec, max_steps=steps, warm=False).bucket[4]
+    saved, net._RUNNERS = net._RUNNERS, {}
+    try:
+        with Count():
+            fab.run(spec, max_steps=steps)
+    finally:
+        net._RUNNERS = saved
     return Count.n / n_steps
 
 
@@ -2393,6 +2833,14 @@ def main() -> int:
     torch.cuda.synchronize()
     batch_times = phase_batch_kernels()
     torch.cuda.synchronize()
+    phase_verify_quarantine(cells)
+    torch.cuda.synchronize()
+    adaptive_rows = phase_adaptive_ring16()
+    torch.cuda.synchronize()
+    step_runs = phase_adaptive_ring8_step()
+    torch.cuda.synchronize()
+    phase_sweep(batch_rows)
+    torch.cuda.synchronize()
     phase_profile(spec, kw)
     torch.cuda.synchronize()
     from repro_torch.core.fabric import EngineSpec
@@ -2475,6 +2923,11 @@ def main() -> int:
             batch8_launches=batch_rows[path]["launches"][kname])
     for kname in ("fabric_queue_step", "fabric_queue_update"):
         by_name[kname]["launch_floor_ms"] = ktimes[kname]["launch_floor_ms"]
+        # launches of one adaptive ring-8 run on the per-step engine
+        by_name[kname]["adaptive_ring8_launches"] = \
+            step_runs[-1]["launches"][kname]
+    by_name["fabric_queue_multistep"]["adaptive_ring16_launches"] = \
+        adaptive_rows["multistep"]["launches"]["fabric_queue_multistep"]
     by_name["aer_decode"]["aer_layer_ms_per_step"] = aer_ms
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],

@@ -2,34 +2,46 @@
 
 The PyTorch counterpart of the reference ``core/fabric.py``.  A
 :class:`Fabric` is topology plus four policies — ``routing``
-(:class:`StaticShortestPath` or a prebuilt ``RoutingTable``), ``timing``
-(scalar or per-link ``LinkTiming``), ``queues`` (:class:`QueuePolicy`)
-and ``engine`` (:class:`EngineSpec`) — and a device:
+(:class:`StaticShortestPath`, a prebuilt ``RoutingTable``, or
+:class:`repro_torch.core.adaptive.AdaptiveRouting`, which splits each
+``run`` into epochs and re-weights the tables from per-link telemetry
+between them), ``timing`` (scalar or per-link ``LinkTiming``),
+``queues`` (:class:`QueuePolicy`) and ``engine`` (:class:`EngineSpec`)
+— and a device:
 
     fab = Fabric(ring_topology(8), queues=QueuePolicy(max_burst=1))
+    report = fab.verify(spec)       # static pre-flight, runs nothing
     cf = fab.compile(spec)          # bind one shape bucket, warm it
     res = cf.run(spec)
     results = fab.run_many(specs)   # one batched run where they share a bucket
     batch = fab.run_batch(specs)    # B instances, one computation
+    cells = fab.sweep(specs)        # timed runs, warm-up kept out
 
 ``device=None`` means the CUDA card and raises without one; the tests
 pass ``device="cpu"``.  PyTorch runs eagerly, so "compile" binds the
-bucket (the reference's shape signature, kept identical) and warms it:
-the ring engine captures its chunk's CUDA graph, the kernel engine
-builds its CUDA kernels; nothing is traced.  On the card every engine
-but ``engine="reference"`` runs from CUDA graphs (``network._RingRun``,
-``network._slot_run``; ``CompiledFabric.graph``).
+bucket (the reference's shape signature, kept identical) and warms its
+runner: the ring engine and the per-step kernel engine capture their
+CUDA graph, the kernel engines build their CUDA kernels; nothing is
+traced.  Runners are shared by bucket across fabrics
+(``network.engine_runner``): ``CompiledFabric.cache_size`` counts them,
+and a fabric that differs only in its tables (an adaptive run's
+per-epoch clone) reuses the graph.  On the card every engine but
+``engine="reference"`` runs from CUDA graphs or the multi-step kernel
+(``CompiledFabric.graph``).
 
-Ported: the ring engine (the default, ``"auto"``), the slot engines
-(``"reference"``, ``"pallas"`` with ``kernel="step"`` and
-``kernel="multistep"``), unicast and both multicast modes, every flow
-mode, and batches of B instances on every engine (:func:`run_batch`),
-on one device.  Not yet (ROADMAP A.7): adaptive routing, and the static
-verifier that admits tables with broken route pairs.
+Ported: everything the reference's module does — the ring engine (the
+default, ``"auto"``), the slot engines (``"reference"``, ``"pallas"``
+with ``kernel="step"`` and ``kernel="multistep"``), unicast and both
+multicast modes, every flow mode with the static verifier's quarantine
+of broken route pairs, adaptive routing and epoched runs, timed sweeps,
+and batches of B instances on every engine (:func:`run_batch`) — on one
+device; sharding a batch over several cards is not
+(:func:`run_batch`).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Protocol, runtime_checkable
 
@@ -41,13 +53,13 @@ from .link import PAPER_TIMING, LinkTiming, link_timing_arrays
 from .network import (DEFAULT_CHUNK_SIZE, ENGINES, FabricBatchResult,
                       FabricResult, _BIG, _RING_D_FLOOR, _RING_E_FLOOR,
                       _RING_K_FLOOR, _RING_L_FLOOR, _RING_N_FLOOR,
-                      _RING_R_FLOOR, _RING_STREAM_FLOOR, _RingRun,
-                      _check_reachable, _expand, _first_hop_queues,
-                      _in_edge_ranks, _overflow_guard,
-                      _overflow_guard_routed, _pad_to,
+                      _RING_R_FLOOR, _RING_STREAM_FLOOR, _check_reachable,
+                      _expand, _first_hop_queues, _in_edge_ranks,
+                      _overflow_guard, _overflow_guard_routed, _pad_to,
                       _pow2ceil, _prefill, _route_link_tx,
-                      _routes_with_trees, _slot_run, _slot_run_multistep,
-                      _stream_quota, _tree_stream_quota, _unicast_routes)
+                      _routes_with_trees, _stream_quota,
+                      _tree_stream_quota, _unicast_routes, engine_runner,
+                      runner_count)
 from .router import (AddressSpec, MulticastTable, MulticastTree,
                      RoutingTable, Topology, find_route_cycles)
 from .telemetry import Telemetry, _np
@@ -55,7 +67,8 @@ from .traffic import TrafficSpec
 
 __all__ = ["Fabric", "CompiledFabric", "QueuePolicy", "FLOW_MODES",
            "EngineSpec", "MulticastPolicy", "RoutingPolicy",
-           "StaticShortestPath", "PrebuiltRouting", "run_batch"]
+           "StaticShortestPath", "PrebuiltRouting", "SweepCell",
+           "BatchSweepCell", "run_batch", "batch_cache_size"]
 
 #: flow-control modes, in engine encoding order
 FLOW_MODES = ("drop", "credit", "onoff")
@@ -116,8 +129,9 @@ class EngineSpec:
 
     ``kernel`` — pallas engine only.  ``"step"`` (default): two kernel
     launches per micro-transaction, replayed on the card from a CUDA
-    graph of ``network.GRAPH_STEPS`` steps captured once per run (runs
-    too short for ``network.GRAPH_MIN_REPLAYS`` replays stay eager).
+    graph of ``network.GRAPH_STEPS`` steps captured once per bucket and
+    kept across runs (runs too short for ``network.GRAPH_MIN_REPLAYS``
+    replays stay eager).
     ``"multistep"``: the whole step in one kernel, ``chunk_size`` steps
     per launch, so a run costs ``ceil(max_steps / chunk_size)``
     launches — the fastest path on the card.  It needs ``name="pallas"``
@@ -237,6 +251,28 @@ class _Plan(NamedTuple):
     xon: int = 0
 
 
+class SweepCell(NamedTuple):
+    result: FabricResult
+    us_per_call: float
+    bucket: tuple
+
+
+class BatchSweepCell(NamedTuple):
+    """Timing of one batched run: ``us_per_call`` the whole batch's
+    wall-clock, ``us_per_instance`` its share per fabric (the number to
+    set beside a sequential ``sweep``'s ``us_per_call``)."""
+    result: FabricBatchResult
+    us_per_call: float
+    us_per_instance: float
+    bucket: tuple
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for ``device`` (the card; the CPU has nothing to wait for)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class Fabric:
     """A declarative N-chip AER fabric: topology + policies + device."""
 
@@ -287,27 +323,44 @@ class Fabric:
         self._link_cost = tc.astype(np.int64) + np.maximum(tv, ti)
         self._worst_cost = int(self._link_cost.max(initial=1))
         self.routing_table = policy.build(topo)
-        # Lossless flow control needs every route to make progress.  The
-        # reference admits a table with broken (chip, dest) pairs when
-        # its static verifier proves the remaining channel-dependency
-        # graph acyclic, and quarantines those pairs; that verifier is
-        # not ported yet, so such tables are refused here.
+        # Lossless flow control needs every route to make progress.  A
+        # table with broken (chip, dest) pairs (only an override or a
+        # prebuilt table can have them) is admitted when the channel-
+        # dependency graph of the routes that do terminate is acyclic
+        # (the Dally–Seitz criterion, ``analysis.verify``): the broken
+        # pairs are QUARANTINED — planning refuses traffic that
+        # addresses them (``_plan_impl``) — and everything else provably
+        # drains.  A cycle in that graph refuses the table, naming the
+        # cycle.  Drop mode admits any table (pops are never gated).
+        self._nonterm_mask: np.ndarray | None = None
         if self.queues.flow != "drop":
             bad = find_route_cycles(topo, self.routing_table)
             if len(bad):
+                from ..analysis.verify import channel_graph
+                g = channel_graph(topo, self.routing_table,
+                                  exclude_pairs=bad)
+                cycle = g.find_cycle()
                 shown = ", ".join(f"{c}->{d}" for c, d in bad[:4].tolist())
-                raise NotImplementedError(
-                    f"routing table has {len(bad)} (chip, dest) pair(s) "
-                    f"whose route never reaches the destination, e.g. "
-                    f"{shown}; admitting them under flow="
-                    f"{self.queues.flow!r} needs the static verifier, "
-                    f"which is not ported yet (ROADMAP A.7) — fix the "
-                    f"table or use flow='drop'")
+                if cycle is not None:
+                    raise ValueError(
+                        f"routing table has {len(bad)} (chip, dest) "
+                        f"pair(s) whose route never reaches the "
+                        f"destination (next-hop cycle or dead-end), "
+                        f"e.g. {shown}, and the terminating routes' "
+                        f"channel-dependency graph also carries a "
+                        f"cycle ({g.describe_cycle(cycle)}); "
+                        f"flow={self.queues.flow!r} would deadlock — "
+                        f"fix the table or use flow='drop'")
+                mask = np.zeros((topo.n_chips, topo.n_chips), bool)
+                mask[bad[:, 0], bad[:, 1]] = True
+                self._nonterm_mask = mask
         self._in_rank, self._D = _in_edge_ranks(topo)
         self._init_tx = np.broadcast_to(
             np.asarray(self.queues.initial_tx, np.int32), (L,))
         self._compiled: dict[tuple, CompiledFabric] = {}
         self._plan_memo: tuple | None = None  # (spec, max_steps, plan)
+        #: per-epoch breakdown of the last epoched run (AdaptiveReport)
+        self.last_report = None
         #: execution path the last ``run_many`` chose: "batch" | "loop"
         self.last_dispatch = None
         self._tree_cache: dict[tuple[int, int], MulticastTree] = {}
@@ -333,10 +386,24 @@ class Fabric:
 
     # --- lifecycle ------------------------------------------------------
 
+    def verify(self, spec: TrafficSpec | None = None, *,
+               max_steps: int | None = None):
+        """Static pre-flight verification — prove properties, run
+        nothing: the channel-dependency graph of this fabric's routes
+        (unicast and in-fabric multicast branchings) checked for cycles
+        (Dally–Seitz), route termination, reachability and replication
+        tables checked, and the worst-case int32 clock bounded against
+        ``BIG_NS``; with ``spec`` a cycle is graded by whether every
+        channel on it can fill to capacity under that traffic.  Returns
+        a :class:`repro_torch.analysis.verify.VerifyReport`
+        (``raise_if_failed()`` turns its errors into ``ValueError``)."""
+        from ..analysis.verify import verify_fabric
+        return verify_fabric(self, spec, max_steps=max_steps)
+
     def compile(self, spec: TrafficSpec, *, max_steps: int | None = None,
                 warm: bool = True) -> "CompiledFabric":
-        """Bind the shape bucket ``spec`` needs; with ``warm`` also build
-        the kernels its engine launches."""
+        """Bind the shape bucket ``spec`` needs; with ``warm`` also warm
+        its runner (kernels built, CUDA graph captured)."""
         plan = self._plan(spec, max_steps)
         cf = self._get_compiled(plan.bucket)
         if warm:
@@ -345,20 +412,64 @@ class Fabric:
 
     def run(self, spec: TrafficSpec, *,
             max_steps: int | None = None) -> FabricResult:
-        """Simulate one traffic spec."""
+        """Simulate one traffic spec.  Under an
+        :class:`~repro_torch.core.adaptive.AdaptiveRouting` policy the
+        run is split into the policy's epochs, telemetry re-weights the
+        tables between them, and the merged result comes back (the
+        per-epoch breakdown on ``self.last_report``)."""
+        from .adaptive import AdaptiveRouting, run_epoched
+        if isinstance(self.routing_policy, AdaptiveRouting):
+            return run_epoched(self, spec,
+                               epochs=self.routing_policy.epochs,
+                               max_steps=max_steps,
+                               policy=self.routing_policy)
+        return self._run_single(spec, max_steps=max_steps)
+
+    def run_epochs(self, spec: TrafficSpec, *, epochs: int,
+                   max_steps: int | None = None) -> FabricResult:
+        """Epoch-partitioned run under this fabric's own policy: with a
+        static policy every epoch reuses the same tables (the A/B
+        baseline for adaptive runs: the same partition, drain and
+        merge); with an adaptive one ``epochs`` overrides the policy's.
+        The per-epoch breakdown lands on ``self.last_report``."""
+        from .adaptive import AdaptiveRouting, run_epoched
+        pol = (self.routing_policy
+               if isinstance(self.routing_policy, AdaptiveRouting)
+               else None)
+        return run_epoched(self, spec, epochs=epochs,
+                           max_steps=max_steps, policy=pol)
+
+    def _run_single(self, spec: TrafficSpec, *,
+                    max_steps: int | None = None) -> FabricResult:
+        """One run without epochs (the epoch loop's inner call)."""
         plan = self._plan(spec, max_steps)
         return self._get_compiled(plan.bucket)._execute(plan)
 
+    def _with_routing(self, table: RoutingTable) -> "Fabric":
+        """A clone with prebuilt routing tables on the same device — the
+        adaptive loop's per-epoch rebuild.  In-fabric multicast trees
+        regrow on ``table`` (the clone's tree cache starts empty); the
+        clone's plans land in this fabric's buckets and run on their
+        shared runners (``network.engine_runner``), so it builds and
+        captures nothing this fabric already has."""
+        return Fabric(self.topo, routing=PrebuiltRouting(table),
+                      timing=self.timing, queues=self.queues,
+                      engine=self.engine, addr=self.addr,
+                      mcast=self.mcast_policy, device=self.device)
+
     def run_many(self, specs, *,
                  max_steps: int | None = None) -> list[FabricResult]:
-        """Run a sequence of specs.  When there are several and they all
-        land in ONE shape bucket, they run as one batch
-        (:meth:`run_batch`, ``last_dispatch == "batch"``); otherwise one
-        after another (``"loop"``).  With ``max_steps=None`` a batch
+        """Run a sequence of specs.  When there are several, the routing
+        policy is static and they all land in ONE shape bucket, they run
+        as one batch (:meth:`run_batch`, ``last_dispatch == "batch"``);
+        otherwise — an adaptive policy is a sequential feedback loop —
+        one after another (``"loop"``).  With ``max_steps=None`` a batch
         shares the largest of the specs' default step bounds, which is
         bit-exact with the solo runs wherever they drain."""
+        from .adaptive import AdaptiveRouting
         specs = list(specs)
-        if len(specs) > 1:
+        if (len(specs) > 1
+                and not isinstance(self.routing_policy, AdaptiveRouting)):
             plans = [self._plan(s, max_steps) for s in specs]
             if len(dict.fromkeys(p.bucket for p in plans)) == 1:
                 self.last_dispatch = "batch"
@@ -371,8 +482,86 @@ class Fabric:
                   devices: int | str | None = None) -> FabricBatchResult:
         """Run B traffic specs on this fabric as ONE batched computation
         (see the module-level :func:`run_batch`, which also batches
-        across fabrics)."""
+        across fabrics).  Adaptive policies are refused."""
         return run_batch(self, specs, max_steps=max_steps, devices=devices)
+
+    def sweep_batch(self, specs, *, max_steps: int | None = None,
+                    warm: bool = True,
+                    devices: int | str | None = None) -> BatchSweepCell:
+        """:meth:`run_batch` with wall-clock: with ``warm`` the batch's
+        runner is first warmed on zero-event instances of the same count
+        (kernels built, CUDA graph captured), then the one batched run is
+        timed to its end on the device.  ``us_per_instance`` is the
+        share per fabric."""
+        specs = list(specs)
+        fabs = [self] * len(specs)
+        plans = _plan_batch(fabs, specs, max_steps)
+        _resolve_devices(devices, len(plans))
+        cfs = [self._get_compiled(plans[0].bucket)] * len(plans)
+        if warm:
+            zero = _zero_event_plan(self, plans[0].bucket)
+            runner, ops = _runner_and_operands(cfs, [zero] * len(plans))
+            runner.warm(ops)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        res = _execute_batch(cfs, plans)
+        _sync(self.device)
+        us = (time.perf_counter() - t0) * 1e6
+        return BatchSweepCell(result=res, us_per_call=us,
+                              us_per_instance=us / max(len(plans), 1),
+                              bucket=plans[0].bucket)
+
+    def sweep(self, specs, *, max_steps: int | None = None,
+              warm: bool = True) -> list[SweepCell]:
+        """Runs with per-cell wall-clock: warms every distinct bucket
+        first (unless ``warm=False``), then times each run to its end on
+        the device — the benchmark-sweep pattern, where no kernel build
+        or graph capture may fall in a timed cell.  Under an adaptive
+        policy each cell is a whole epoched run, and each spec's first
+        epoch slice is warmed under the step bound the epoched run will
+        use (the slot engines key their bucket on it)."""
+        from .adaptive import (AdaptiveRouting, partition_epochs,
+                               shared_max_steps)
+        if isinstance(self.routing_policy, AdaptiveRouting):
+            bounds = {}
+            if warm:
+                for i, s in enumerate(specs):
+                    parts = partition_epochs(
+                        s, self.routing_policy.epochs)
+                    if parts:
+                        bounds[i] = (max_steps if max_steps is not None
+                                     else shared_max_steps(
+                                         self, parts,
+                                         detour_factor=1.0 + float(
+                                             self.routing_policy.alpha)))
+                        self.compile(parts[0], max_steps=bounds[i])
+            cells = []
+            for i, s in enumerate(specs):
+                _sync(self.device)
+                t0 = time.perf_counter()
+                # the warm pass's bound, so the run provably hits the
+                # warmed bucket (the merge reads the results on the host)
+                res = self.run(s, max_steps=bounds.get(i, max_steps))
+                _sync(self.device)
+                us = (time.perf_counter() - t0) * 1e6
+                cells.append(SweepCell(
+                    result=res, us_per_call=us,
+                    bucket=self.last_report.buckets[0]))
+            return cells
+        plans = [self._plan(s, max_steps) for s in specs]
+        if warm:
+            for b in dict.fromkeys(p.bucket for p in plans):
+                self._get_compiled(b).warmup()
+        cells = []
+        for p in plans:
+            _sync(self.device)
+            t0 = time.perf_counter()
+            res = self._get_compiled(p.bucket)._execute(p)
+            _sync(self.device)
+            us = (time.perf_counter() - t0) * 1e6
+            cells.append(SweepCell(result=res, us_per_call=us,
+                                   bucket=p.bucket))
+        return cells
 
     # --- internals ------------------------------------------------------
 
@@ -486,6 +675,23 @@ class Fabric:
             total_tx = int(rt.hops[src, dest].sum())
         if L == 0 or E == 0:
             raise ValueError("need at least one link and one event")
+        # quarantined route pairs (admitted at construction because the
+        # remaining channel-dependency graph is acyclic): lossless flow
+        # refuses traffic that would ride them — it can never be
+        # delivered, and its stall chain would wedge the run
+        if self._nonterm_mask is not None:
+            hit = self._nonterm_mask[u_src, u_dest]
+            if np.any(hit):
+                pairs = np.unique(np.stack([u_src[hit], u_dest[hit]], 1),
+                                  axis=0)
+                shown = ", ".join(f"{c}->{d}"
+                                  for c, d in pairs[:4].tolist())
+                raise ValueError(
+                    f"traffic addresses quarantined route pair(s) "
+                    f"{shown} whose walk never reaches the destination "
+                    f"(next-hop cycle or dead-end); "
+                    f"flow={self.queues.flow!r} would deadlock on them "
+                    f"— re-route those events or use flow='drop'")
 
         cap_opt = self.queues.capacity
         cap = int(cap_opt) if cap_opt is not None else max(E, 1)
@@ -574,7 +780,9 @@ class CompiledFabric:
     reference's tuple, field for field: ``("ring", Lp, Np, Ep, C0, Dp,
     Cf, Rp, Kp, chunk)`` (pow2-padded) for the ring engine, ``(engine,
     L, E, C, max_steps, max_burst, R, K, kernel, chunk)`` for the slot
-    engines."""
+    engines.  Its runs go to the bucket's runners, which every fabric on
+    the device shares (``network.engine_runner``); ``cache_size()``
+    counts them, and a hot path can assert it stays flat."""
 
     def __init__(self, fabric: Fabric, bucket: tuple):
         self.fabric = fabric
@@ -593,18 +801,11 @@ class CompiledFabric:
                 _pad_to(np.asarray(fabric._in_rank, np.int32), (Lp, 2), 0),
                 *(_pad_to(np.asarray(a, np.int32), (Lp,), 0)
                   for a in (tc, tv, ti)))
-            #: ring runners by (B, flow mode, burst bound): each keeps its
-            #: operand and carry tensors and its CUDA graph across runs
-            self._runners: dict[tuple, _RingRun] = {}
-            self._last_runner: _RingRun | None = None
         else:
-            eng, L, E, C, max_steps, mb, _R, _K, kern, chunk = bucket
-            if kern == "multistep":
-                self._fn = _slot_run_multistep(L, E, C, max_steps, mb, chunk)
-            else:
-                self._fn = _slot_run(L, E, C, max_steps, mb, eng == "pallas")
             self._tables = tuple(np.asarray(a, np.int32) for a in (
                 fabric._init_tx, topo.links, tc, tv, ti))
+        #: the shared runner this bucket's last run went to
+        self._last_runner = None
         self._warmed = False
 
     @property
@@ -614,34 +815,38 @@ class CompiledFabric:
     def __repr__(self) -> str:
         return f"CompiledFabric(bucket={self.bucket}, runs={self.n_runs})"
 
+    def cache_size(self) -> int:
+        """Runners (bound step programs) the process holds for this
+        bucket on this fabric's device, one for each flow mode and burst
+        bound it has run with: the counterpart of the reference's jit
+        entries.  Runs of one shape — other traffic, other tables, any
+        number of fabrics — leave it at 1."""
+        return runner_count(self.bucket, self.fabric.device, batched=False)
+
     @property
     def graph(self) -> dict | None:
-        """How the last run ran.  Per-step kernel engine: ``graph_steps``,
-        its eager ``head`` and ``tail`` steps, its ``replays`` and, where
-        it captured a graph on the card, ``capture_s``,
-        ``instantiate_s``, the host seconds spent issuing the replays
-        (``replay_host_s``) and the first of them
+        """How the last run (or ``warmup``) of this bucket's runner went;
+        the runner is shared by every fabric of the bucket, so this is
+        its last run whichever fabric made it.  Per-step kernel engine:
+        ``graph_steps``, its eager ``head`` and ``tail`` steps, its
+        ``replays``, whether that run ``captured`` the graph (then
+        ``capture_s``, ``instantiate_s``), the host seconds spent
+        issuing the replays (``replay_host_s``) and the first of them
         (``first_replay_host_s``).  Ring engine: ``chunk``, the
         ``steps`` it ran, its ``chunks`` and graph ``replays``, its
-        ``host_syncs`` (early-exit flag reads), whether this run
-        ``captured`` the graph (with ``capture_s``, ``instantiate_s``),
-        how many graphs its runner has captured (``captures``) and the
-        host seconds from its first replay to its last one's end, flag
-        reads included (``replay_host_s``).  Both: the card's seconds
-        from the first replay's start to the last one's end
-        (``replay_device_s``, read from CUDA events; this waits for the
-        replays to finish).  None for the other engines and before a
-        run."""
-        if self.engine_name == "ring":
-            runner = self._last_runner
-            if runner is None:
-                return None
-            stats = dict(runner.stats, captures=runner.captures)
-        else:
-            stats = getattr(self._fn, "graph", None)
-            if stats is None:
-                return None
-            stats = dict(stats)
+        ``host_syncs`` (early-exit flag reads), whether it ``captured``
+        (with ``capture_s``, ``instantiate_s``) and the host seconds
+        from its first replay to its last one's end, flag reads included
+        (``replay_host_s``).  Both: how many graphs the runner has
+        captured (``captures``; one for any number of runs and fabrics)
+        and the card's seconds from the first replay's start to the last
+        one's end (``replay_device_s``, read from CUDA events; this
+        waits for the replays to finish).  None for the other engines
+        and before a run."""
+        runner = self._last_runner
+        if runner is None or runner.stats is None:
+            return None
+        stats = dict(runner.stats, captures=runner.captures)
         if "replay_events" in stats:
             start, end = stats.pop("replay_events")
             end.synchronize()
@@ -662,41 +867,21 @@ class CompiledFabric:
 
     def warmup(self) -> "CompiledFabric":
         """Make this bucket ready (the counterpart of the reference's
-        pre-compilation): the ring engine runs a zero-event plan through
-        its solo runner — step 0 eagerly and, on the card, the capture of
-        its chunk's CUDA graph, which the fabric's runs then replay; the
-        pallas engine builds the CUDA kernels it launches.
-        Idempotent."""
+        pre-compilation): its solo runner warms on a zero-event plan —
+        the ring engine runs step 0 and, on the card, captures its
+        chunk's CUDA graph; the per-step kernel engine builds its kernels,
+        runs steps 0 and 1 and captures its graph where the bucket's
+        plan replays one; the multi-step engine builds its kernel.  A
+        runner that another fabric already warmed captures nothing
+        again.  Idempotent."""
         if self._warmed:
             return self
-        dev = self.fabric.device
-        if self.engine_name == "ring":
-            ops, fc, mb = _ring_operands(
-                [self], [_zero_event_plan(self.fabric, self.bucket)], dev)
-            self._ring_runner(1, fc, mb).warm(ops)
-        elif self.engine_name == "pallas" and dev.type == "cuda":
-            from ..kernels import _build
-            lib = ("fabric_queue_multistep" if self.bucket[8] == "multistep"
-                   else "fabric_queue")
-            with torch.cuda.device(dev):
-                _build.load(lib)
+        runner, ops = _runner_and_operands(
+            [self], [_zero_event_plan(self.fabric, self.bucket)])
+        runner.warm(ops)
+        self._last_runner = runner
         self._warmed = True
         return self
-
-    def _ring_runner(self, n_inst: int, fc, mb) -> _RingRun:
-        """The ring runner for ``n_inst`` instances whose flow mode and
-        burst bound are ``fc`` / ``mb`` (a shared int, or a tuple of
-        per-instance values)."""
-        key = (n_inst, fc, mb)
-        runner = self._runners.get(key)
-        if runner is None:
-            _, Lp, _Np, Ep, C0, Dp, Cf, _Rp, _Kp, chunk = self.bucket
-            runner = _RingRun(Lp, Ep, C0, Dp, Cf, chunk,
-                              fc if isinstance(fc, int) else None,
-                              mb if isinstance(mb, int) else None)
-            self._runners[key] = runner
-        self._last_runner = runner
-        return runner
 
     def _operands(self, plan: _Plan) -> tuple:
         """The slot engine's operands for one plan, without an instance
@@ -738,7 +923,8 @@ def run_batch(fabrics, specs, *, max_steps: int | None = None,
 
     ``devices``: ``None`` or 1 (this fabric's device).  Sharding the
     batch over several cards is not ported: its reference test fails
-    (ROADMAP queue C), so nothing passing holds it.
+    (ROADMAP queue C), so nothing passing holds it.  Adaptive routing
+    policies are refused: their epoch loop is sequential feedback.
     """
     specs = list(specs)
     fabs = ([fabrics] * len(specs) if isinstance(fabrics, Fabric)
@@ -759,6 +945,15 @@ def _plan_batch(fabs: list[Fabric], specs, max_steps: int | None):
     are planned again under the shared one)."""
     if not specs:
         raise ValueError("run_batch needs at least one instance")
+    from .adaptive import AdaptiveRouting
+    for f in fabs:
+        if isinstance(f.routing_policy, AdaptiveRouting):
+            raise NotImplementedError(
+                "run_batch under AdaptiveRouting is refused: the epoch "
+                "loop is sequential feedback (epoch k's telemetry "
+                "re-weights epoch k+1's tables), so instances cannot "
+                "fuse into one computation. Run adaptive specs through "
+                "Fabric.run / run_epochs; batch the static baseline.")
     L, dev = fabs[0].topo.n_links, fabs[0].device
     for f in fabs[1:]:
         if f.topo.n_links != L:
@@ -889,30 +1084,46 @@ def _slot_operands(cfs: list[CompiledFabric], plans: list[_Plan], dev):
               for f in ("cap", "fc", "xon")))
 
 
-def _batch_engine_for(cfs: list[CompiledFabric], plans: list[_Plan]):
-    """The engine that runs ``plans`` (one bucket) on their device, and
-    its operands: the bucket's ring runner for this batch size, flow
-    modes and burst bounds (kept by the first instance's
-    ``CompiledFabric``, with its CUDA graph), or the slot engine's run
-    function."""
+def _runner_and_operands(cfs: list[CompiledFabric], plans: list[_Plan]):
+    """The shared runner that runs ``plans`` (B instances of one bucket)
+    on their device, and its operands: the ring runner for this batch
+    size, flow modes and burst bounds, or the slot engine's."""
     owner = cfs[0]
-    dev = owner.fabric.device
+    fab, dev = owner.fabric, owner.fabric.device
     if owner.engine_name == "ring":
         ops, fc, mb = _ring_operands(cfs, plans, dev)
-        runner = owner._ring_runner(len(plans), fc, mb)
-        return lambda: runner.run(ops, max(p.max_steps for p in plans))
-    ops = _slot_operands(cfs, plans, dev)
-    return lambda: owner._fn(*ops)
+    else:
+        ops = _slot_operands(cfs, plans, dev)
+        fc = _shared(p.fc for p in plans)
+        mb = int(owner.bucket[5])
+    runner = engine_runner(owner.bucket, dev, len(plans), fc, mb,
+                           fab.topo.n_chips)
+    return runner, ops
+
+
+def batch_cache_size(bucket: tuple, n_devices: int = 1, *,
+                     device=None) -> int:
+    """Runners the process holds for batches of ``bucket`` on ``device``
+    (``None``: the CUDA card), across every batch size, flow mode and
+    burst bound — the batch path's no-rebuild audit: a repeated batch of
+    one size leaves it unchanged.  Batches of one device only."""
+    _resolve_devices(n_devices, 1)
+    return runner_count(bucket, resolve_device(device), batched=True)
 
 
 def _execute_batch(cfs: list[CompiledFabric],
                    plans: list[_Plan]) -> FabricBatchResult:
-    """Run B plans of one bucket as one computation on the first
-    instance's ``CompiledFabric`` (whose ``graph`` then reports the run)
-    and trim the bucket's padding."""
+    """Run B plans of one bucket as one computation on the bucket's
+    shared runner (the first instance's ``CompiledFabric.graph`` then
+    reports the run) and trim the bucket's padding."""
     owner = cfs[0]
     L = owner.fabric.topo.n_links
-    out = _batch_engine_for(cfs, plans)()
+    runner, ops = _runner_and_operands(cfs, plans)
+    if owner.engine_name == "ring":
+        out = runner.run(ops, max(p.max_steps for p in plans))
+    else:
+        out = runner(*ops)
+    owner._last_runner = runner
     if owner.engine_name == "ring":
         (log_n, log_inj, log_del, log_dest, sent, n_sw, t_link, drops,
          busy_ns, busy_steps, q_drops, stall_steps, credit_waits) = out

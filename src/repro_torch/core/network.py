@@ -13,12 +13,12 @@ This module keeps that model bit for bit:
   over every link of B fabric instances at once, as int32 tensor ops on
   the engine's device, every tensor with a leading instance axis (a
   solo run is B = 1; nothing couples two instances);
-* ``_slot_run``: the slot engine's loop over ``max_steps`` steps — for
+* ``_SlotRun``: the slot engine's loop over ``max_steps`` steps — for
   the kernel engine on CUDA a CUDA graph of ``GRAPH_STEPS`` steps
-  captured once per run and replayed (a Python loop of the same
-  static-carry step on the CPU, a plain host loop for
-  ``engine="reference"``);
-* ``_slot_run_multistep``: ``kernel="multistep"`` — chunks of ``chunk``
+  captured once per runner and replayed by every run of its bucket (a
+  Python loop of the same static-carry step on the CPU, a plain host
+  loop for ``engine="reference"``);
+* ``_MultistepRun``: ``kernel="multistep"`` — chunks of ``chunk``
   micro-transactions over the packed carry of ``_pack_slot_state``, one
   ``kernels.ops.fabric_queue_multistep`` call per chunk for the whole
   batch (one launch of the Hopper kernel, a block an instance, on CUDA;
@@ -27,7 +27,12 @@ This module keeps that model bit for bit:
   until every instance has drained (one device flag read a chunk) or
   ``max_steps`` binds, which it honours exactly; on CUDA a full chunk
   is replays of one CUDA graph of ``RING_GRAPH_STEPS`` steps, captured
-  once per runner and reused by every later run of its bucket.
+  once per runner and reused by every later run of its bucket;
+* ``engine_runner``: the process-wide cache of those runners, keyed by
+  shape bucket, device, batch size, flow mode and burst bound, so every
+  fabric whose plans land in one bucket — the per-epoch clones of an
+  adaptive run among them — shares one runner and its graph (the
+  counterpart of the reference's engines cached by shape).
 
 Engines (``simulate_fabric(engine=...)`` / ``fabric.EngineSpec``):
 
@@ -666,10 +671,27 @@ def _slot_results(final: _SlotState, E: int):
             final.credit_waits)
 
 
+def _slot_derived(links, route_out, cap, fc_mode, C: int) -> tuple:
+    """The run operands the slot step reads besides the plan's, made
+    from them: the replication out-queues with global queue ids, each
+    (link, side)'s delivery chip and the append budget (drop mode
+    enforces the logical budget ``cap`` at append time, clamped to the
+    width C; the stall modes never discard, C always fits), for (B,)
+    ``cap`` and a shared int or (B,) ``fc_mode``.  A runner that keeps
+    its operands across runs copies these in with them."""
+    if isinstance(fc_mode, int):
+        app_cap = (cap.clamp(max=C) if fc_mode == 0
+                   else torch.full_like(cap, C))
+    else:
+        app_cap = torch.where(fc_mode == 0, cap.clamp(max=C), C).to(_I32)
+    return (_global_queues(route_out, 2 * links.shape[1]), links.flip(-1),
+            app_cap)
+
+
 def _slot_step_body(L: int, E: int, C: int, max_burst: int,
                     scan_fn, update_fn, links, route_out, route_del,
                     route_wt, t_cycle_v, t_rev_v, t_idle_v, cap, fc_mode,
-                    xon):
+                    xon, derived: tuple | None = None):
     """Build the per-micro-transaction physics ``body(s, step_i) -> s'``.
 
     One implementation of the slot-engine step for B instances, closed
@@ -681,7 +703,9 @@ def _slot_step_body(L: int, E: int, C: int, max_burst: int,
     queue ids, with skipped lanes at B·Q, so each is one launch for the
     whole batch.  ``update_fn``, the delivery log and the ``n_ins`` /
     ``q_drops`` counters write in place, so the caller must not reuse
-    ``s``.
+    ``s``.  ``derived`` is ``_slot_derived``'s tuple where the caller
+    keeps it (a runner whose body outlives one run's operands); without
+    it the body makes its own from the operands.
     """
     B = links.shape[0]
     Q = 2 * L
@@ -698,18 +722,14 @@ def _slot_step_body(L: int, E: int, C: int, max_burst: int,
     log_base = (bidx * (E + 1)).to(_I32)
     e_slot = torch.tensor(E, dtype=_I32, device=dev)
     nq = torch.tensor(B * Q, dtype=_I32, device=dev)
-    route_out_g = _global_queues(route_out, Q)
-    # the chip a pop over (link, side) would deliver into, both sides
-    rx_chip_cand = links.flip(-1)
     never = torch.zeros((B, L, 2), dtype=torch.bool, device=dev)
-    # drop mode enforces the logical budget at append time; the stall
-    # modes never discard (the physical width C always fits)
-    if isinstance(cap, int) and isinstance(fc_mode, int):
-        app_cap = min(cap, C) if fc_mode == 0 else C
-    else:
-        app_cap = torch.where(torch.as_tensor(fc_mode, device=dev) == 0,
-                              torch.as_tensor(cap, device=dev).clamp(max=C),
-                              C).to(_I32).expand(B)
+    if derived is None:
+        derived = _slot_derived(
+            links, route_out,
+            torch.as_tensor(cap, dtype=_I32, device=dev).expand(B),
+            fc_mode, C)
+    # rx_chip_cand: the chip a pop over (link, side) would deliver into
+    route_out_g, rx_chip_cand, app_cap = derived
 
     def body(s: _SlotState, step_i: int) -> _SlotState:
         t_now = s.link.t                                      # (B, L)
@@ -890,13 +910,13 @@ def _capturing(graph):
 
 def _capture_steps(step, n_steps: int, wrappers, stats: dict):
     """Capture ``n_steps`` calls of ``step`` into one CUDA graph on the
-    current device; returns ``replay(n)``, which replays it ``n`` times.
-    ``stats`` gets the capture and instantiate seconds, and from each
-    ``replay(n)`` the host seconds it took to issue the replays
-    (``replay_host_s``) and the first of them (``first_replay_host_s``,
-    issued to an idle card, so no queue holds it back), and CUDA events
-    recorded before and after them (``replay_events``).  A failed
-    capture raises.
+    current device; returns ``replay(n, stats)``, which replays it ``n``
+    times.  ``stats`` gets the capture and instantiate seconds, and the
+    ``stats`` of each ``replay(n, stats)`` the host seconds it took to
+    issue the replays (``replay_host_s``) and the first of them
+    (``first_replay_host_s``, issued to an idle card, so no queue holds
+    it back), and CUDA events recorded before and after them
+    (``replay_events``).  A failed capture raises.
 
     Replays do not call the kernel wrappers, so their launch counts are
     kept here: the launches recorded during capture are taken back (none
@@ -915,7 +935,7 @@ def _capture_steps(step, n_steps: int, wrappers, stats: dict):
     for w, b in zip(wrappers, before):
         w.launches = b
 
-    def replay(n: int):
+    def replay(n: int, stats: dict):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         events[0].record()
         t0 = time.perf_counter()
@@ -933,83 +953,170 @@ def _capture_steps(step, n_steps: int, wrappers, stats: dict):
     return replay
 
 
-def _slot_run(L: int, E: int, C: int, max_steps: int, max_burst: int,
-              use_kernels: bool):
-    """The slot-engine ``run`` for one shape signature.
+class _SlotRun:
+    """The slot-engine runner for one shape signature.
 
-    ``run(q_time, q_dest, q_inj, sizes, init_tx, links, route_out,
+    ``runner(q_time, q_dest, q_inj, sizes, init_tx, links, route_out,
     route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap, fc_mode,
     xon)`` takes B instances' device tensors, each with a leading (B,)
-    axis (the (B, Q, C) planes are updated in place), and flow-control
-    scalars (plain ints the instances share, or (B,) tensors), steps
-    ``max_steps`` times and returns the 14-tuple of ``_slot_results``.
+    axis, and flow-control scalars (plain ints the instances share, or
+    (B,) tensors), steps ``max_steps`` times and returns the 14-tuple of
+    ``_slot_results``.
 
-    ``engine="reference"`` (``use_kernels=False``) loops ``body`` on the
-    host.  The kernel engine runs step 0 (the one whose switches are not
-    counted) through ``body``; every later step is ``step_static()``,
-    which runs ``body`` on one static carry and copies the result back
-    into it.  On CUDA, after step 1 has run eagerly (it loads both kernel
-    libraries and every kernel module before any capture),
-    ``GRAPH_STEPS`` calls of ``step_static`` are captured into a CUDA
-    graph once per run and replayed; the steps left over, and every step
-    of a run too short for ``GRAPH_MIN_REPLAYS`` replays, run eagerly
-    (``_graph_plan``).  On the CPU the same ``step_static`` runs in a
-    plain loop of the same plan.  ``run.graph`` reports the last run's
-    plan and, on CUDA, what ``_capture_steps`` records.
+    ``engine="reference"`` (``use_kernels=False``) loops the step body
+    on the host, built anew each run.  The kernel engine keeps what its
+    CUDA graph reads across runs, as ``_RingRun`` does: its first run
+    keeps that run's operand tensors (``cap`` and ``xon`` as (B,)
+    tensors; ``fc_mode`` too where it is per-instance), the derived ones
+    of ``_slot_derived``, the body closed over them, and one static
+    carry; every later run copies its operands into them.  Step 0 (the
+    one whose switches are not counted) runs through the body on a reset
+    carry, copied into the static one; every later step is
+    ``_step_static()``, the body on the static carry with its result
+    copied back.  On CUDA, after step 1 has run eagerly (it loads both
+    kernel libraries and every kernel module before any capture),
+    ``GRAPH_STEPS`` static steps are captured into a CUDA graph once per
+    runner — by ``warm`` or by the first run with room for
+    ``GRAPH_MIN_REPLAYS`` replays — and replayed by every run of the
+    bucket; the steps left over, and every step of a run too short for
+    those replays, run eagerly (``_graph_plan``).  On the CPU the same
+    static steps run in a plain loop of the same plan.  ``stats`` is the
+    last run's plan and, on CUDA, what ``_capture_steps`` records, and
+    whether that run ``captured``; ``captures`` counts the runner's
+    captures.  Results are copies: the next run overwrites the carry.
     """
-    from ..kernels import fabric_queue as kfq
-    from ..kernels import ops as kops
-    from ..kernels import ref as kref
-    if use_kernels:
-        scan_fn, update_fn = kops.fabric_queue_scan, kops.fabric_queue_update
-    else:
-        scan_fn, update_fn = kref.fabric_queue_scan, kref.fabric_queue_update
 
-    def run(q_time, q_dest, q_inj, sizes, init_tx, links, route_out,
-            route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap,
-            fc_mode, xon):
+    def __init__(self, L: int, E: int, C: int, max_steps: int,
+                 max_burst: int, use_kernels: bool):
+        self.dims = (L, E, C)
+        self.max_steps, self.max_burst = int(max_steps), int(max_burst)
+        self.use_kernels = use_kernels
+        self.ops: list | None = None
+        self.derived: tuple | None = None
+        self.body = None
+        self.static = None
+        self.replay = None          # (graph steps, replay) on CUDA
+        self.captures = 0
+        #: capture and instantiate seconds of the runner's last capture
+        self.capture_stats: dict = {}
+        self.stats: dict | None = None
+
+    def _fns(self):
+        from ..kernels import ops as kops
+        from ..kernels import ref as kref
+        if self.use_kernels:
+            return kops.fabric_queue_scan, kops.fabric_queue_update
+        return kref.fabric_queue_scan, kref.fabric_queue_update
+
+    def _bind(self, ops: tuple) -> None:
+        """Keep the first run's operands (the body closes over them);
+        copy later runs' into them."""
+        L, E, C = self.dims
+        (*tensors, cap, fc_mode, xon) = ops
+        B, dev = tensors[0].shape[0], tensors[0].device
+        cap, xon = (torch.as_tensor(v, dtype=_I32, device=dev).expand(B)
+                    .contiguous() for v in (cap, xon))
+        tensors += [cap, xon] + ([] if isinstance(fc_mode, int)
+                                 else [fc_mode])
+        derived = _slot_derived(tensors[5], tensors[6], cap, fc_mode, C)
+        if self.ops is not None:
+            torch._foreach_copy_(self.ops + list(self.derived),
+                                 tensors + list(derived))
+            return
+        self.ops, self.derived = tensors, derived
+        (_q, _d, _i, _sz, _tx, links, route_out, route_del, route_wt, tc,
+         tv, ti) = tensors[:12]
+        self.body = _slot_step_body(
+            L, E, C, self.max_burst, *self._fns(), links, route_out,
+            route_del, route_wt, tc, tv, ti, cap, fc_mode, xon,
+            derived=derived)
+
+    def _reset(self) -> None:
+        """A reset carry, step 0 on it (where the run has one), copied
+        into the static carry."""
+        L, E, _C = self.dims
+        q_time, q_dest, q_inj, sizes, init_tx = self.ops[:5]
         s = _slot_init(L, E, q_time, q_dest, q_inj, sizes, init_tx)
-        body = _slot_step_body(
-            L, E, C, max_burst, scan_fn, update_fn, links, route_out,
-            route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap,
-            fc_mode, xon)
-        if not use_kernels:
-            for step_i in range(max_steps):
+        if self.max_steps > 0:
+            s = self.body(s, 0)
+        if self.static is None:
+            self.static = _static_carry(s)
+        else:
+            _copy_carry(self.static, s)
+
+    def _step_static(self) -> None:
+        _copy_carry(self.static, self.body(self.static, 1))
+
+    def _replayer(self, graph_steps: int, stats: dict):
+        """``replay(n, stats)``: ``n`` replays of the runner's graph of
+        ``graph_steps`` static steps, captured now if it has none of
+        that length (on CUDA); a loop of as many static steps on the
+        CPU."""
+        if self.static.q_time.device.type != "cuda":
+            def loop(n: int, _stats: dict):
+                for _ in range(n * graph_steps):
+                    self._step_static()
+            return loop
+        if self.replay is None or self.replay[0] != graph_steps:
+            from ..kernels import fabric_queue as kfq
+            fn = _capture_steps(
+                self._step_static, graph_steps,
+                (kfq.fabric_queue_step, kfq.fabric_queue_update), stats)
+            self.replay = (graph_steps, fn)
+            self.captures += 1
+            stats["captured"] = True
+            self.capture_stats = {k: stats[k] for k in ("capture_s",
+                                                        "instantiate_s")}
+        return self.replay[1]
+
+    def warm(self, ops: tuple) -> None:
+        """The kernel engine on CUDA: load the kernels, bind ``ops`` (a
+        zero-event plan), run steps 0 and 1 eagerly and capture the graph
+        where this bucket's plan replays one, so a later run captures
+        nothing.  The reference engine, and any engine on the CPU, have
+        nothing to warm."""
+        if not self.use_kernels or ops[0].device.type != "cuda":
+            return
+        from ..kernels import _build
+        with torch.cuda.device(ops[0].device):
+            _build.load("fabric_queue")
+        self._bind(ops)
+        self._reset()
+        stats = {"captured": False}
+        if self.max_steps > 1:
+            self._step_static()
+        g = GRAPH_STEPS
+        if _graph_plan(self.max_steps, g, GRAPH_MIN_REPLAYS)[1]:
+            self._replayer(g, stats)
+        self.stats = stats
+
+    def __call__(self, *ops):
+        L, E, C = self.dims
+        if not self.use_kernels:
+            q_time, q_dest, q_inj, sizes, init_tx, *rest = ops
+            s = _slot_init(L, E, q_time, q_dest, q_inj, sizes, init_tx)
+            body = _slot_step_body(L, E, C, self.max_burst, *self._fns(),
+                                   *rest)
+            for step_i in range(self.max_steps):
                 s = body(s, step_i)
             return _slot_results(s, E)
-
+        self._bind(ops)
         graph_steps = GRAPH_STEPS
-        head, replays, tail = _graph_plan(max_steps, graph_steps,
+        head, replays, tail = _graph_plan(self.max_steps, graph_steps,
                                           GRAPH_MIN_REPLAYS)
         stats = {"graph_steps": graph_steps, "head": head,
-                 "replays": replays, "tail": tail}
-        run.graph = stats
-        if head:
-            s = body(s, 0)
-        static = _static_carry(s)
-
-        def step_static():
-            _copy_carry(static, body(static, 1))
-
+                 "replays": replays, "tail": tail, "captured": False}
+        self.stats = stats
+        self._reset()
         for _ in range(head - 1):
-            step_static()
+            self._step_static()
         if replays:
-            if q_time.device.type == "cuda":
-                replay = _capture_steps(
-                    step_static, graph_steps,
-                    (kfq.fabric_queue_step, kfq.fabric_queue_update), stats)
-            else:
-                def replay(n):
-                    for _ in range(n * graph_steps):
-                        step_static()
+            replay = self._replayer(graph_steps, stats)
             with torch.profiler.record_function(REPLAY_RANGE):
-                replay(replays)
+                replay(replays, stats)
         for _ in range(tail):
-            step_static()
-        return _slot_results(static, E)
-
-    run.graph = None
-    return run
+            self._step_static()
+        return tuple(t.clone() for t in _slot_results(self.static, E))
 
 
 # -----------------------------------------------------------------------
@@ -1134,12 +1241,11 @@ def _multistep_step_fn(L: int, E: int, C: int, max_burst: int, cap,
     return step_fn
 
 
-def _slot_run_multistep(L: int, E: int, C: int, max_steps: int,
-                        max_burst: int, chunk: int):
-    """Multi-step variant of :func:`_slot_run`: the same operand contract
-    and 14-tuple result, with the step loop run ``chunk`` steps per
-    ``kernels.ops.fabric_queue_multistep`` call over the packed carry of
-    every instance.
+class _MultistepRun:
+    """The multi-step variant of :class:`_SlotRun`: the same operand
+    contract and 14-tuple result, with the step loop run ``chunk`` steps
+    per ``kernels.ops.fabric_queue_multistep`` call over the packed
+    carry of every instance.
 
     A host loop makes ``ceil(max_steps / chunk)`` calls with ``base = 0,
     chunk, 2·chunk, ...`` (a device tensor each); the last runs
@@ -1147,31 +1253,48 @@ def _slot_run_multistep(L: int, E: int, C: int, max_steps: int,
     is honoured exactly.  Nothing is read back to the host.  On CUDA
     each call is one launch of the Hopper kernel for the whole batch (a
     block an instance), which updates the carry in place; on the CPU it
-    loops ``_slot_step_body`` over the plain queue step.
+    loops ``_slot_step_body`` over the plain queue step.  It holds no
+    tensors and no graph between runs (``captures`` stays 0).
     """
-    from ..kernels import ops as kops
-    from ..kernels import ref as kref
 
-    def run(q_time, q_dest, q_inj, sizes, init_tx, links, route_out,
-            route_del, route_wt, t_cycle_v, t_rev_v, t_idle_v, cap,
-            fc_mode, xon):
+    captures = 0
+    stats = None
+
+    def __init__(self, L: int, E: int, C: int, max_steps: int,
+                 max_burst: int, chunk: int):
+        self.dims = (L, E, C)
+        self.max_steps, self.max_burst = int(max_steps), int(max_burst)
+        self.chunk = int(chunk)
+
+    def warm(self, ops: tuple) -> None:
+        """Load the kernel (on CUDA)."""
+        if ops[0].device.type == "cuda":
+            from ..kernels import _build
+            with torch.cuda.device(ops[0].device):
+                _build.load("fabric_queue_multistep")
+
+    def __call__(self, q_time, q_dest, q_inj, sizes, init_tx, links,
+                 route_out, route_del, route_wt, t_cycle_v, t_rev_v,
+                 t_idle_v, cap, fc_mode, xon):
+        from ..kernels import ops as kops
+        from ..kernels import ref as kref
+        L, E, C = self.dims
+        max_steps, chunk = self.max_steps, self.chunk
         s = _slot_init(L, E, q_time, q_dest, q_inj, sizes, init_tx)
         carry = _pack_slot_state(s)
         consts = _multistep_consts(links, route_out, route_del, route_wt,
                                    t_cycle_v, t_rev_v, t_idle_v, cap,
                                    fc_mode, xon)
-        step_fn = _multistep_step_fn(L, E, C, max_burst, cap, fc_mode, xon,
-                                     kref.fabric_queue_scan,
+        step_fn = _multistep_step_fn(L, E, C, self.max_burst, cap, fc_mode,
+                                     xon, kref.fabric_queue_scan,
                                      kref.fabric_queue_update)
         bases = torch.arange(0, max(max_steps, 0), chunk, dtype=_I32,
                              device=q_time.device)
         for i in range(bases.numel()):
             carry = kops.fabric_queue_multistep(
                 carry, consts, bases[i:i + 1], step_fn=step_fn,
-                chunk=chunk, max_steps=max_steps, max_burst=max_burst)
+                chunk=chunk, max_steps=max_steps, max_burst=self.max_burst)
         return _slot_results(_unpack_slot_state(carry), E)
-
-    return run
 
 
 # -----------------------------------------------------------------------
@@ -1471,6 +1594,8 @@ class _RingRun:
         self.carry = None
         self.graph = None
         self.captures = 0
+        #: capture and instantiate seconds of the runner's last capture
+        self.capture_stats: dict = {}
         self.stats: dict = {}
 
     def _bind(self, ops: dict) -> None:
@@ -1526,8 +1651,9 @@ class _RingRun:
         t1 = time.perf_counter()
         self.graph.instantiate()
         self.captures += 1
-        stats.update(captured=True, capture_s=t1 - t0,
-                     instantiate_s=time.perf_counter() - t1)
+        self.capture_stats = {"capture_s": t1 - t0,
+                              "instantiate_s": time.perf_counter() - t1}
+        stats.update(captured=True, **self.capture_stats)
 
     def warm(self, ops: dict) -> None:
         """Bind ``ops`` (a zero-event plan) and, on CUDA, run step 0
@@ -1590,6 +1716,65 @@ class _RingRun:
             st.log_pk[:, :E, 2], st.sent, st.n_sw, st.link.t, st.drops,
             st.busy_ns, st.busy_steps, st.q_drops, st.stall_steps,
             st.credit_waits))
+
+
+# -----------------------------------------------------------------------
+# Engine runners shared by shape bucket
+# -----------------------------------------------------------------------
+
+#: Every engine runner of the process, by ``engine_runner``'s key.  Like
+#: the reference's engines (``functools.lru_cache(maxsize=None)`` by
+#: shape) it is never trimmed.  A ring or per-step kernel runner holds
+#: its operand and carry tensors — for ring-16 at B = 1, 5.9 MB of
+#: padded streams and planes on the ring engine, 0.3 MB of (2L, C)
+#: planes, tables and logs on the per-step engine — and, on the card,
+#: one captured CUDA graph of ``RING_GRAPH_STEPS`` / ``GRAPH_STEPS``
+#: steps with its memory pool; ``engine="reference"`` and multi-step
+#: runners hold nothing between runs.
+_RUNNERS: dict[tuple, object] = {}
+
+
+def _new_runner(bucket: tuple, fc_mode, max_burst):
+    """The runner a bucket's plans run on (``fc_mode`` / ``max_burst``
+    None: per-instance operands)."""
+    if bucket[0] == "ring":
+        _, Lp, _Np, Ep, C0, Dp, Cf, _Rp, _Kp, chunk = bucket
+        return _RingRun(Lp, Ep, C0, Dp, Cf, chunk, fc_mode, max_burst)
+    eng, L, E, C, max_steps, mb, _R, _K, kern, chunk = bucket
+    if kern == "multistep":
+        return _MultistepRun(L, E, C, max_steps, mb, chunk)
+    return _SlotRun(L, E, C, max_steps, mb, eng == "pallas")
+
+
+def engine_runner(bucket: tuple, device: torch.device, n_inst: int,
+                  fc_mode, max_burst, n_chips: int):
+    """The process-wide runner for ``n_inst`` instances of ``bucket`` on
+    ``device`` whose flow mode and burst bound are ``fc_mode`` /
+    ``max_burst`` (a shared int, or a tuple of per-instance values,
+    which the runner takes as operands: one runner for every such
+    tuple).  The slot engines' key adds ``n_chips``, the leading side of
+    their replication tables, which their bucket does not fix.  Made on
+    first use; every later run of the key copies its operands into it
+    (``_RingRun``, ``_SlotRun``)."""
+    key = (bucket, device, n_inst,
+           fc_mode if isinstance(fc_mode, int) else None,
+           max_burst if isinstance(max_burst, int) else None)
+    if bucket[0] != "ring":
+        key += (n_chips,)
+    runner = _RUNNERS.get(key)
+    if runner is None:
+        runner = _RUNNERS[key] = _new_runner(bucket, key[3], key[4])
+    return runner
+
+
+def runner_count(bucket: tuple, device: torch.device, *,
+                 batched: bool) -> int:
+    """Runners the process holds for ``bucket`` on ``device``: solo ones
+    (one instance) or, with ``batched``, those of batches, across every
+    batch size, flow mode and burst bound."""
+    return sum(1 for k in _RUNNERS
+               if k[0] == bucket and k[1] == device
+               and (k[2] > 1) == batched)
 
 
 # -----------------------------------------------------------------------

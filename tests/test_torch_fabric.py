@@ -300,17 +300,54 @@ def test_lifecycle_and_engine_names():
         tfab.EngineSpec(name="nope")
 
 
-def test_broken_table_refused_under_lossless_flow():
-    topo = trt.ring_topology(5)
-    rt = trt.RoutingTable.build(topo)
+def _broken_ring(n):
+    """Ring(n) tables whose routes to chip 3 loop 0 <-> 1: ``(next_link,
+    out_side, hops)``."""
+    rt = trt.RoutingTable.build(trt.ring_topology(n))
     nl, os_ = rt.next_link.copy(), rt.out_side.copy()
     nl[1, 3], os_[1, 3] = 0, 1
     nl[0, 3], os_[0, 3] = 0, 0
-    broken = trt.RoutingTable(nl, os_, rt.hops)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tfab.Fabric(topo, routing=broken, device=CPU,
-                    queues=tfab.QueuePolicy(capacity=4, flow="credit"))
-    tfab.Fabric(topo, routing=broken, device=CPU)      # drop mode admits
+    return nl, os_, rt.hops
+
+
+def test_broken_table_refused_under_lossless_flow():
+    """Ring-6 with the 0 <-> 1 loop: the routes that terminate still
+    form a cyclic channel-dependency graph, so credit flow refuses the
+    table with the reference's message, naming the cycle; drop mode
+    admits it."""
+    from repro.core.router import RoutingTable as JRoutingTable
+    arrs = _broken_ring(6)
+    with pytest.raises(ValueError) as want:
+        jfab.Fabric(ring_topology(6), routing=JRoutingTable(*arrs),
+                    queues=jfab.QueuePolicy(capacity=4, flow="credit"))
+    with pytest.raises(ValueError, match="channel-dependency") as got:
+        tfab.Fabric(trt.ring_topology(6), routing=trt.RoutingTable(*arrs),
+                    queues=tfab.QueuePolicy(capacity=4, flow="credit"),
+                    device=CPU)
+    assert str(got.value) == str(want.value)
+    tfab.Fabric(trt.ring_topology(6), routing=trt.RoutingTable(*arrs),
+                device=CPU)                            # drop mode admits
+
+
+def test_broken_pairs_quarantined_under_lossless_flow():
+    """Ring-5 with the same loop: the terminating routes' graph is
+    acyclic, so credit flow admits the table, quarantines the broken
+    pairs as the reference does, and refuses traffic that addresses
+    them with the reference's message."""
+    from repro.core.router import RoutingTable as JRoutingTable
+    arrs = _broken_ring(5)
+    jf = jfab.Fabric(ring_topology(5), routing=JRoutingTable(*arrs),
+                     queues=jfab.QueuePolicy(capacity=4, flow="credit"))
+    tf = tfab.Fabric(trt.ring_topology(5), routing=trt.RoutingTable(*arrs),
+                     queues=tfab.QueuePolicy(capacity=4, flow="credit"),
+                     device=CPU)
+    np.testing.assert_array_equal(tf._nonterm_mask, jf._nonterm_mask)
+    traffic = [np.asarray(a, np.int32) for a in ([2, 0], [0, 9], [4, 3])]
+    with pytest.raises(ValueError) as want:
+        jf.run(jtr.TrafficSpec(*map(jnp.asarray, traffic)))
+    with pytest.raises(ValueError, match="quarantined") as got:
+        tf.run(interop.from_reference(traffic=traffic).traffic)
+    assert str(got.value) == str(want.value)
 
 
 def test_results_stay_on_the_run_device():

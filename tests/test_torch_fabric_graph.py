@@ -148,6 +148,8 @@ def test_kernel_engine_runs_the_static_step(monkeypatch):
         return counted
 
     monkeypatch.setattr(tnet, "_slot_step_body", spy)
+    # a fresh runner cache, so the bucket's runner builds its body here
+    monkeypatch.setattr(tnet, "_RUNNERS", {})
     _, kw, arrays = _cell("ring16_credit")
     spec = spec_of(*arrays)
     steps = M * G + 7
@@ -155,7 +157,7 @@ def test_kernel_engine_runs_the_static_step(monkeypatch):
         spec, max_steps=steps)
     cf.run(spec, max_steps=steps)
     assert cf.graph == {"graph_steps": G, "head": 2, "replays": M,
-                        "tail": 5}
+                        "tail": 5, "captured": False, "captures": 0}
     assert [i for _, i in calls] == [0] + [1] * (steps - 1)
     assert len({c for c, _ in calls[1:]}) == 1
 

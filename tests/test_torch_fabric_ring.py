@@ -310,30 +310,37 @@ def test_small_planners_equal_reference():
             np.testing.assert_array_equal(x, y)
 
 
-def test_runner_reuse_across_runs_of_one_bucket():
+def test_runner_reuse_across_runs_of_one_bucket(monkeypatch):
     """compile() warms the bucket's solo runner on a zero-event plan;
     every later run of the bucket — other traffic, other multicast
-    trees (other replication tables), other event counts — copies its
-    operands into that runner's tensors and must equal a run on a fresh
-    fabric."""
+    trees (other replication tables), other event counts, other fabrics
+    — copies its operands into that runner's tensors and must equal the
+    reference package's run."""
     members, _ = mesh_multicast_case(8)
     kw = dict(topo=trt.mesh2d_topology(2, 4), addr=trt.AddressSpec(),
               mcast=tfab.MulticastPolicy("in_fabric",
                                          trt.MulticastTable(members)),
               queues=tfab.QueuePolicy(capacity=12, flow="credit"))
+    jkw = dict(topo=mesh2d_topology(2, 4), addr=AddressSpec(),
+               mcast=jfab.MulticastPolicy("in_fabric",
+                                          MulticastTable(members)),
+               queues=jfab.QueuePolicy(capacity=12, flow="credit"))
+    monkeypatch.setattr(tnet, "_RUNNERS", {})
     fab = tfab.Fabric(**kw, device=CPU)
-    specs = [both(*mesh_multicast_case(n, seed=s)[1])[1]
+    pairs = [both(*mesh_multicast_case(n, seed=s)[1])
              for n, s in ((8 * 12, 8), (8 * 9, 3), (8 * 12, 5))]
-    cf = fab.compile(specs[0])
-    assert len(cf._runners) == 1
-    runner = next(iter(cf._runners.values()))
-    for i, spec in enumerate(specs + specs[:1]):
+    cf = fab.compile(pairs[0][1])
+    assert len(tnet._RUNNERS) == 1 and cf.cache_size() == 1
+    runner = next(iter(tnet._RUNNERS.values()))
+    for i, (jspec, spec) in enumerate(pairs + pairs[:1]):
         assert fab._plan(spec, None).bucket == cf.bucket
         got = fab.run(spec)
-        want = tfab.Fabric(**kw, device=CPU).run(spec)
-        tnet.assert_results_equal(want, got, f"run {i}")
+        assert_same(jfab.Fabric(**jkw).run(jspec), got, f"run {i}")
         assert int(got.delivered) == got.injected
-    assert list(cf._runners.values()) == [runner]
+        other = tfab.Fabric(**kw, device=CPU).run(spec)   # same runner
+        tnet.assert_results_equal(got, other, f"run {i}, another fabric")
+    assert list(tnet._RUNNERS.values()) == [runner]
+    assert cf.cache_size() == 1
     g = cf.graph
     assert g["captures"] == 0 and not g["captured"]     # no graph here
     # drained before the bound: step 0, then whole chunks, a flag read

@@ -37,7 +37,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.kernels.selective_scan",
             "repro_torch.models.layers", "repro_torch.models.mamba",
             "repro_torch.models.transformer", "repro_torch.models.model",
-            "repro_torch.launch.serve"]
+            "repro_torch.launch.serve", "repro_torch.core.adaptive",
+            "repro_torch.analysis", "repro_torch.analysis.verify"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"

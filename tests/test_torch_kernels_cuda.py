@@ -205,7 +205,8 @@ def test_graph_run_matches_eager(cuda, cell, steps):
     head, replays, tail = net._graph_plan(n, G, net.GRAPH_MIN_REPLAYS)
     graph = cf.graph
     assert graph["replays"] == replays and graph["tail"] == tail
-    assert (replays > 0) == ("capture_s" in graph)
+    # compile() captured the bucket's graph (or found it captured)
+    assert not graph["captured"] and graph["captures"] == int(replays > 0)
     assert (replays > 0) == (graph.get("replay_device_s", 0) > 0)
     assert fq.fabric_queue_step.launches == n
     assert fq.fabric_queue_update.launches == n
@@ -319,20 +320,22 @@ def test_ring_engine_on_card_matches_cpu_and_reuses_its_graph(cuda):
 
 
 @pytest.mark.gpu
-def test_capture_survives_dropped_fabrics(cuda):
-    """A fabric and its compiled buckets reference each other, so the
-    CUDA graphs of a dropped fabric are freed by Python's collector; a
-    graph freed while another graph is being captured would invalidate
-    that capture.  Dropped fabrics pile up with the collector off, then
-    it runs at nearly every allocation while fresh fabrics capture."""
+def test_capture_survives_dropped_fabrics(cuda, monkeypatch):
+    """Garbage freed by Python's collector while a graph is being
+    captured must not invalidate that capture (a graph freed mid-capture
+    did, when each fabric kept its own).  Dropped fabrics and their
+    runners pile up with the collector off, then it runs at nearly every
+    allocation while fresh runners (a fresh runner cache) capture."""
     import gc
     kw, spec = _ring16()
     want = Fabric(**kw, device="cpu").run(spec, max_steps=400)
     threshold = gc.get_threshold()
+    monkeypatch.setattr(net, "_RUNNERS", {})
     gc.disable()
     try:
         for eng in ("ring", "pallas"):
             Fabric(**kw, device=cuda, engine=eng).run(spec, max_steps=400)
+        monkeypatch.setattr(net, "_RUNNERS", {})
         gc.set_threshold(1)
         gc.enable()
         for eng in ("ring", "pallas"):
@@ -370,6 +373,87 @@ def test_batch_on_card_matches_solo(cuda, engine):
                                                else 0)
     assert fq.fabric_queue_multistep.launches == (
         -(-700 // 128) if kern == "multistep" else 0)
+
+
+# --- runners shared by bucket: clones, reuse, quarantine ----------------
+
+@pytest.mark.gpu
+def test_clone_fabric_reuses_the_ring_graph(cuda):
+    """The adaptive loop's per-epoch clone (``_with_routing``, other
+    tables) runs on the ring runner its original warmed: no capture,
+    ``captures`` stays 1, and the run equals a fresh fabric's on the CPU
+    with the same tables."""
+    from repro_torch.core.router import RoutingTable
+    kw, spec = _ring16()
+    fab = Fabric(**kw, device=cuda)
+    cf = fab.compile(spec)
+    assert cf.graph["captures"] == 1
+    cost = np.full(16, 1024, np.int64)
+    cost[:3] = 4096
+    table = RoutingTable.build_weighted(ring_topology(16), cost)
+    clone = fab._with_routing(table)
+    assert clone.device == fab.device
+    res = clone.run(spec)
+    torch.cuda.synchronize()
+    g = clone._get_compiled(cf.bucket).graph
+    assert not g["captured"] and g["captures"] == 1 and g["replays"] > 0
+    assert clone._get_compiled(cf.bucket).cache_size() == cf.cache_size()
+    want = Fabric(**kw, routing=table, device="cpu").run(spec)
+    net.assert_results_equal(res, want, "clone on the card vs fresh cpu")
+
+
+@pytest.mark.gpu
+def test_step_graph_reused_across_runs_of_one_bucket(cuda, monkeypatch):
+    """The per-step kernel engine's graph, captured once for its bucket,
+    replayed by two runs of different traffic (seeds 2 and 3, 200 steps:
+    six replays each), each equal bit for bit to the eager
+    engine="reference" run on the card."""
+    monkeypatch.setattr(net, "_RUNNERS", {})
+    kw, _ = _ring16()
+    fab = Fabric(**kw, device=cuda, engine="pallas")
+    captures = []
+    for seed in (2, 3):
+        spec = _ring16(seed)[1]
+        res = fab.run(spec, max_steps=200)
+        torch.cuda.synchronize()
+        g = fab._get_compiled(fab._plan(spec, 200).bucket).graph
+        captures.append((g["captured"], g["captures"], g["replays"]))
+        want = Fabric(**kw, device=cuda, engine="reference").run(
+            spec, max_steps=200)
+        net.assert_results_equal(res, want, f"seed {seed}")
+    assert captures == [(True, 1, 6), (False, 1, 6)]
+    assert len(net._RUNNERS) == 2          # the step and plain engines
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ring", "pallas",
+                                    EngineSpec("pallas", kernel="multistep")])
+def test_quarantined_fabric_matches_reference_on_card(cuda, engine):
+    """Ring-4 whose routes (0, 1) and (3, 1) loop: admitted under credit
+    flow with those pairs quarantined; clean traffic on each engine
+    equals engine="reference" on the card, lossless."""
+    from repro_torch.core.fabric import StaticShortestPath
+    from repro_torch.core.router import RoutingTable
+    from _torch_cases import spec_of
+
+    def bent(topo, rt):
+        nl, os_ = rt.next_link.copy(), rt.out_side.copy()
+        nl[0, 1], os_[0, 1] = 3, 1
+        nl[3, 1], os_[3, 1] = 3, 0
+        return RoutingTable(next_link=nl, out_side=os_, hops=rt.hops)
+
+    kw = dict(topo=ring_topology(4), device=cuda,
+              routing=StaticShortestPath(table_override=bent),
+              queues=QueuePolicy(capacity=8, flow="credit"))
+    spec = spec_of([0, 1, 2, 3, 0, 2], [0, 0, 0, 0, 40, 40],
+                   [2, 3, 0, 2, 3, 1])
+    got = Fabric(**kw, engine=engine).run(spec)
+    want = Fabric(**kw, engine="reference").run(spec)
+    torch.cuda.synchronize()
+    net.assert_results_equal(got, want, f"quarantined ring-4 on {engine}")
+    assert int(got.delivered) == got.injected and int(got.drops) == 0
+    with pytest.raises(ValueError, match="quarantined"):
+        Fabric(**kw, engine=engine).run(spec_of([0], [0], [1]))
 
 
 # --- the multi-step kernel ----------------------------------------------
