@@ -203,7 +203,32 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                last logits and 8 teacher-forced decode steps' logits
                equal ``forward`` over the prompt and those tokens, to the
                stated tolerance (the reference's serving contract,
-               tests/test_archs.py:88-114).
+               tests/test_archs.py:88-114);
+19. serve_granite_3_2b — the dense family through
+               ``repro_torch.launch.serve``: granite-3-2b at its full
+               published widths and depth (40 layers, d_model 2048, 32
+               heads / 8 kv heads, d_ff 8192, vocab 49155 padded to
+               49280; 2.63 B float32 parameters drawn on the card from a
+               seeded generator, bf16 compute), 4 prompts of 2048 tokens
+               and 32 greedy tokens: finite logits, tokens in the
+               vocabulary, no launch of any port kernel (attention, the
+               FFN and the MoE are PyTorch ops, as the reference's are
+               jnp); prefill ms (first and again), ms per decode step,
+               tokens/s, peak memory, a profiled decode step's busy
+               share and time by group, and, timed apart with CUDA
+               events, the step's attention core and its weight casts;
+20. serve_consistency_dense — phase 18's check on granite's weights;
+21. serve_mixtral_8x22b_l2 — the MoE family: mixtral-8x22b at its full
+               widths (d_model 6144, 48 / 8 heads, 8 experts of d_ff
+               16384, top-2, window 4096) with the depth cut from 56
+               layers to 2 (``--layers 2``; stated in the line as
+               ``reduced``), 2 prompts of 6144 tokens, past the window,
+               so prefill builds the ring cache, then 32 greedy tokens;
+               the same fields as phase 19 and the MoE's drop_frac;
+22. serve_consistency_moe — phase 18's check on mixtral's weights with
+               ``capacity_factor = num_experts / top_k``, which drops no
+               token (checked: drop_frac == 0), on one 6144-token prompt,
+               so the decode steps run on the ring cache.
 
 Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -2748,17 +2773,27 @@ def phase_serve():
     return model, tokens, res.tokens, out
 
 
-def phase_serve_consistency(model, prompt, gen_tokens):
+def phase_serve_consistency(model, prompt, gen_tokens,
+                            label="serve_consistency"):
     """Float32 compute on the same weights: prefill and teacher-forced
-    decode against ``forward`` over the prompt and the forced tokens."""
+    decode against ``forward`` over the prompt and the forced tokens.
+    An MoE runs with ``capacity_factor = num_experts / top_k``, which
+    gives every expert a slot for every token: the capacity follows the
+    sequence length, so a forward over S + 8 tokens and a prefill over S
+    would otherwise drop other tokens by design."""
     import copy
+    import dataclasses
     import torch
     cfg32 = model.cfg.with_(compute_dtype=torch.float32)
+    if cfg32.moe is not None:
+        m = cfg32.moe
+        cfg32 = cfg32.with_(moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
     # the same parameters under another compute dtype: the model's methods
     # read their config from the model, the blocks hold none
     m32 = copy.copy(model)
     m32.cfg = cfg32
-    S = prompt.shape[1]
+    B, S = prompt.shape
     seq = torch.cat([prompt, gen_tokens[:, :SERVE_FORCED].to(prompt.dtype)],
                     1)
     errs = []
@@ -2769,27 +2804,199 @@ def phase_serve_consistency(model, prompt, gen_tokens):
 
     t0 = time.perf_counter()
     with torch.no_grad():
-        full, _ = m32.forward({"tokens": seq})
+        full, aux = m32.forward({"tokens": seq})
         check(full.dtype == torch.float32, "float32 compute gave "
                                            f"{full.dtype} logits")
-        logits, cache = m32.prefill({"tokens": prompt})
+        drop = float(aux["drop_frac"])
+        check(drop == 0.0, f"{label}: forward dropped {drop} of the MoE "
+                           f"choices at a capacity that keeps them all")
+        # room for the forced tokens: a full cache of depth S would clamp
+        # their slots to S - 1, as the reference's dynamic_update_slice does
+        logits, cache = m32.prefill({"tokens": prompt},
+                                    max_len=S + SERVE_FORCED)
         errs.append(err(full[:, S - 1], logits[:, 0]))
         for i in range(SERVE_FORCED):
+            pos = torch.full((B,), S + i, dtype=torch.int32,
+                             device=prompt.device)
             logits, cache = m32.decode_step(cache, seq[:, S + i:S + i + 1],
-                                            None)
+                                            pos)
             errs.append(err(full[:, S + i], logits[:, 0]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     worst = max(e[1] for e in errs)
-    emit("serve_consistency", tokens=list(seq.shape), forced=SERVE_FORCED,
-         tol=SERVE_CONSISTENCY_TOL,
+    extra = {}
+    if cfg32.moe is not None:
+        extra = {"capacity_factor": cfg32.moe.capacity_factor,
+                 "drop_frac": drop}
+    ring = [c for c in cache if "slot_pos" in c]
+    emit(label, tokens=list(seq.shape), forced=SERVE_FORCED,
+         tol=SERVE_CONSISTENCY_TOL, layers=model.cfg.n_layers,
+         ring_cache=bool(ring),
          prefill_max_abs_err=errs[0][0], prefill_scaled_err=errs[0][1],
          decode_max_abs_err=[e[0] for e in errs[1:]],
          decode_scaled_err=[e[1] for e in errs[1:]], worst_scaled_err=worst,
-         max_abs_logit=float(full.abs().max()), wall_s=wall)
+         max_abs_logit=float(full[..., :cfg32.vocab].abs().max()),
+         wall_s=wall, **extra)
     check(worst <= SERVE_CONSISTENCY_TOL,
-          f"serve_consistency: {worst} > {SERVE_CONSISTENCY_TOL}")
+          f"{label}: {worst} > {SERVE_CONSISTENCY_TOL}")
     return worst
+
+
+# --- the dense and MoE serve paths (no kernel of the port's own) -----------
+
+#: granite-3-2b at its published widths and depth (40 layers)
+GRANITE_ARGV = ["--arch", "granite_3_2b", "--batch", "4", "--prompt-len",
+                "2048", "--gen", "32", "--seed", "0"]
+#: mixtral-8x22b at its published widths, the depth cut from 56 layers
+#: to 2 (one card holds ~22 GB of its float32 weights, not ~564 GB);
+#: 6144-token prompts run past the 4096-token window: a ring cache
+MIXTRAL_LAYERS = 2
+MIXTRAL_ARGV = ["--arch", "mixtral_8x22b", "--layers", str(MIXTRAL_LAYERS),
+                "--batch", "2", "--prompt-len", "6144", "--gen", "32",
+                "--seed", "0"]
+#: (phase, argv, depth cut, consistency phase, rows it checks)
+LM_CELLS = (("serve_granite_3_2b", GRANITE_ARGV, None,
+             "serve_consistency_dense", 4),
+            ("serve_mixtral_8x22b_l2", MIXTRAL_ARGV,
+             {"n_layers": [56, MIXTRAL_LAYERS]}, "serve_consistency_moe", 1))
+LM_GROUPS = {"matmul": SERVE_GROUPS["matmul"],
+             "copies and casts": SERVE_GROUPS["copies and casts"],
+             "reductions and softmax": ("reduce", "softmax", "Reduce"),
+             "elementwise": ("elementwise", "vectorized", "unrolled")}
+
+
+def _decode_breakdown(model, cache, tok, pos) -> dict:
+    """CUDA-event ms of one decode step beside two of its parts, timed
+    apart: the attention core (``decode_attention``, float32 products,
+    on every layer's cache) and the per-call bf16 casts of the float32
+    weights that the products read."""
+    import torch
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    cd = cfg.compute_dtype
+    B, K, dh = tok.shape[0], cfg.n_kv_heads, cfg.d_head
+    G = cfg.n_heads // K
+    gen = torch.Generator(device=tok.device).manual_seed(0)
+    q = torch.randn((B, 1, K, G, dh), generator=gen, device=tok.device
+                    ).to(cd)
+    valid = [(c["slot_pos"] >= 0) if "slot_pos" in c else
+             torch.arange(c["k"].shape[1], device=tok.device)[None, :]
+             <= pos[:, None] for c in cache]
+
+    def attn_core():
+        for c, ok in zip(cache, valid):
+            L.decode_attention(q, c["k"], c["v"], ok)
+
+    weights = [w for name, w in model.named_parameters()
+               if w.dim() >= 2 and name != "embed.table"
+               and not name.endswith("router")]
+
+    def casts():
+        for w in weights:
+            w.to(cd)
+
+    with torch.no_grad():
+        step = time_ms(lambda: model.decode_step(cache, tok, pos), n=5,
+                       warm=1)
+        attn = time_ms(attn_core, n=5, warm=1)
+        cast = time_ms(casts, n=5, warm=1)
+    cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
+    return {"decode_step_event_ms": step, "attn_core_ms": attn,
+            "attn_core_share": attn / step, "weight_cast_ms": cast,
+            "weight_cast_share": cast / step,
+            "weight_cast_bytes": cast_bytes,
+            "weight_cast_bound_ms": cast_bytes / HBM_BYTES_S * 1e3}
+
+
+def phase_serve_lm(label, argv, reduced=None):
+    """A dense or MoE model served through ``repro_torch.launch.serve``:
+    ``serve.setup`` seeds it on the card, ``serve.generate`` prefills the
+    prompts and decodes greedily; no kernel of the port's own runs."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import param_count
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args, cfg, model, tokens = serve.setup(argv)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    _counts_zero()
+    res = serve.generate(model, tokens, args.gen)
+    launches = _counts()
+    live = res.logits[..., :cfg.vocab].float()
+    check(bool(torch.isfinite(live).all()), f"{label}: logits not finite")
+    check(tuple(res.tokens.shape) == (args.batch, args.gen)
+          and int(res.tokens.max()) < cfg.vocab
+          and int(res.tokens.min()) >= 0, f"{label}: tokens out of range")
+    check(all(v == 0 for v in launches.values()),
+          f"{label}: launches {launches}, expected no kernel of the port")
+    _counts_zero()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill({"tokens": tokens},
+                                      max_len=args.prompt_len + args.gen)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t0
+    same = bool(torch.equal(logits[:, -1], res.logits[:, 0]))
+    tok = res.tokens[:, :1]
+    pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int32,
+                     device=tokens.device)
+    with torch.no_grad():
+        model.decode_step(cache, tok, pos)
+    torch.cuda.synchronize()
+    again = _counts()
+    check(all(v == 0 for v in again.values()),
+          f"{label}: a prefill and a decode step launched {again}")
+    ring = [c for c in cache if "slot_pos" in c]
+    check(bool(ring) == bool(cfg.sliding_window
+                             and cfg.sliding_window < args.prompt_len),
+          f"{label}: ring cache {bool(ring)} for window "
+          f"{cfg.sliding_window} and {args.prompt_len}-token prompts")
+    with torch.no_grad():
+        prof = _profile_ticks(f"profile_{label}_decode",
+                              lambda: model.decode_step(cache, tok, pos),
+                              1, groups=LM_GROUPS, unit="step")
+    parts = _decode_breakdown(model, cache, tok, pos)
+    steps = args.gen - 1
+    out = {"params": n_params, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "batch": args.batch, "prompt_len": args.prompt_len,
+           "gen": args.gen, "init_s": init_s,
+           "prefill_ms": res.prefill_s * 1e3,
+           "prefill_again_ms": prefill2_s * 1e3,
+           "prefill_again_equal": same,
+           "decode_ms_per_step": res.decode_s / steps * 1e3,
+           "decode_tok_s": steps * args.batch / res.decode_s,
+           "generated_tok_s": args.gen * args.batch / (res.prefill_s
+                                                       + res.decode_s),
+           "launches": launches,
+           "ring_cache": [list(c["k"].shape) for c in ring[:1]],
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "decode_device_busy_share": prof["device_busy_share"],
+           "decode_kernels_per_step": prof.get("kernels_per_step"),
+           "decode_us_by_group": prof.get("us_per_step_by_group"),
+           **parts, "seq0": res.tokens[0, :12].tolist()}
+    if cfg.moe is not None:
+        with torch.no_grad():
+            _, aux = model.forward({"tokens": tokens})
+        out["drop_frac"] = float(aux["drop_frac"]) / cfg.n_layers
+        out["capacity_factor"] = cfg.moe.capacity_factor
+    if reduced:
+        out["reduced"] = reduced
+    emit(label, **out)
+    del cache, logits
+    return model, tokens, res.tokens, out
+
+
+def _free() -> None:
+    """Give a finished phase's model back to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2866,7 +3073,17 @@ def main() -> int:
     torch.cuda.synchronize()
     consistency = phase_serve_consistency(model, prompt, gen_tokens)
     del model
-    torch.cuda.empty_cache()
+    _free()
+    # each cell's model is checked in float32 compute on its first rows
+    # (mixtral's all-slot MoE capacity holds (rows, E, S + 8, d_ff)
+    # float32 buffers), then freed before the next cell's
+    for label, argv, reduced, check_label, rows in LM_CELLS:
+        model, prompt, gen_tokens, _ = phase_serve_lm(label, argv, reduced)
+        torch.cuda.synchronize()
+        phase_serve_consistency(model, prompt[:rows], gen_tokens[:rows],
+                                label=check_label)
+        del model, prompt, gen_tokens
+        _free()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),

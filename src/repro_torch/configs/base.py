@@ -1,12 +1,13 @@
 """Model configs and the architecture registry of the LM stack.
 
 The counterpart of the reference's ``configs/base.py``, cut to what the
-serving path of the Mamba family reads.  Each ported architecture has a
-module ``configs/<id>.py`` exposing ``CONFIG`` (the published
-configuration, value for value as in the reference) and
+serving paths of the Mamba, dense and MoE families read.  Each ported
+architecture has a module ``configs/<id>.py`` exposing ``CONFIG`` (the
+published configuration, value for value as in the reference) and
 ``smoke_config()`` (a reduced same-family config for CPU tests).  Dtypes
-are torch dtypes.  ``MoeConfig``, ``ShapeConfig``, ``RunConfig`` and
-``input_specs`` come with the slices that use them.
+are torch dtypes.  The cross-attention and frontend fields,
+``ShapeConfig``, ``RunConfig`` and ``input_specs`` come with the slices
+that use them.
 """
 
 from __future__ import annotations
@@ -18,8 +19,21 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["MambaConfig", "ModelConfig", "ARCH_IDS", "PORTED_ARCHS",
+__all__ = ["MoeConfig", "MambaConfig", "ModelConfig", "ARCH_IDS",
+           "PORTED_ARCHS",
            "get_config", "get_smoke_config"]
+
+
+@dataclass(frozen=True)
+class MoeConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    # the reference's expert sharding ("ep" / "tp"); one card runs both
+    # layouts the same way
+    layout: str = "ep"
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
 
 
 @dataclass(frozen=True)
@@ -43,14 +57,23 @@ class ModelConfig:
     d_head: int = 0            # 0 -> d_model // n_heads
     d_ff: int = 1024
     vocab: int = 1024
+    act: str = "silu"
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    sliding_window: int = 0    # 0 = full attention; >0 = SWA window
     causal: bool = True
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    moe: MoeConfig | None = None
+    moe_every: int = 1         # MoE replaces FFN every k-th layer (1 = all)
     mamba: MambaConfig | None = None
     block_pattern: Sequence[str] = ()
     modality: str = "text"
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    # attention chunking (chunked online softmax): 0 = auto
+    q_chunk: int = 0
+    kv_chunk: int = 0
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -73,7 +96,9 @@ ARCH_IDS = [
     "moonshot_v1_16b_a3b", "jamba_v01_52b", "falcon_mamba_7b",
 ]
 #: the ones the port runs
-PORTED_ARCHS = ("falcon_mamba_7b",)
+PORTED_ARCHS = ("falcon_mamba_7b", "granite_3_2b", "mixtral_8x22b",
+                "qwen3_14b", "minitron_8b", "granite_34b",
+                "moonshot_v1_16b_a3b")
 
 
 def _module(arch: str):
@@ -83,8 +108,9 @@ def _module(arch: str):
                          f"has {ARCH_IDS}")
     if name not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP A.11: attention, FFN and "
-            f"MoE blocks come later); the port runs {PORTED_ARCHS}")
+            f"{name} is not ported yet (ROADMAP A.11: the hybrid, "
+            f"cross-attention and encoder families come later); the port "
+            f"runs {PORTED_ARCHS}")
     return importlib.import_module(f"{__package__}.{name}")
 
 

@@ -79,6 +79,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .link import LinkTiming, PAPER_TIMING
 from .protocol_sim import BIG_NS, LinkState, reset_link, transact
 from .router import (AddressSpec, MulticastTable, MulticastTree,
@@ -92,7 +93,8 @@ __all__ = ["FabricResult", "FabricBatchResult", "simulate_fabric",
            "per_link_throughput_mev_s", "delivered_latencies",
            "delivery_multiset", "latency_stats", "batch_latency_stats",
            "batch_throughput_mev_s", "ENGINES", "DEFAULT_CHUNK_SIZE",
-           "RESULT_FIELDS", "assert_results_equal", "slot_carry_bytes"]
+           "RESULT_FIELDS", "assert_results_equal", "slot_carry_bytes",
+           "reset_links"]
 
 _BIG = BIG_NS
 _I32 = torch.int32
@@ -246,6 +248,16 @@ def batch_throughput_mev_s(batch: FabricBatchResult) -> torch.Tensor:
 def batch_latency_stats(batch: FabricBatchResult) -> list[dict]:
     """Per-instance ``latency_stats`` dicts, batch order."""
     return [latency_stats(r) for r in batch.results()]
+
+
+def reset_links(initial_tx, *, device=None) -> LinkState:
+    """Batched ``protocol_sim.reset_link``: ``initial_tx`` (L,) ints, one
+    polarity a link, gives a ``LinkState`` whose leaves are (L,) int32
+    tensors on ``device`` (``None``: the CUDA card)."""
+    m = torch.as_tensor(initial_tx, dtype=_I32)
+    if m.dim() != 1:
+        raise ValueError(f"initial_tx must be (L,), got {tuple(m.shape)}")
+    return reset_link(m, device=resolve_device(device))
 
 
 # -----------------------------------------------------------------------

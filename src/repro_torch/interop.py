@@ -17,8 +17,10 @@ AER payload path takes the reference's error-feedback residuals
 (:func:`aer_states_from_reference`) and its event slots
 (:func:`event_blocks_from_reference`), bfloat16 values included.  The
 LM stack takes the reference's parameter tree
-(:func:`lm_params_from_reference`) and its Mamba decode caches
-(:func:`mamba_cache_from_reference`).
+(:func:`lm_params_from_reference`), its Mamba and attention decode
+caches (:func:`mamba_cache_from_reference`,
+:func:`attn_cache_from_reference`) and a whole LM's cache of mixed
+layers (:func:`lm_cache_from_reference`).
 This module never imports the reference package: it only reads arrays.
 """
 
@@ -38,13 +40,14 @@ from .core.traffic import TrafficSpec
 from .device import resolve_device
 from .kernels.ops import EventBlocks
 from .models.model import LM
-from .models.transformer import n_periods, pattern_for
+from .models.transformer import _kinds, n_periods, pattern_for
 
 __all__ = ["Converted", "from_reference", "result_to_numpy",
            "batch_result_to_numpy", "batch_result_from_reference",
            "snn_params_from_reference", "cosim_weights_from_reference",
            "aer_states_from_reference", "event_blocks_from_reference",
-           "lm_params_from_reference", "mamba_cache_from_reference"]
+           "lm_params_from_reference", "mamba_cache_from_reference",
+           "attn_cache_from_reference", "lm_cache_from_reference"]
 
 
 class Converted(NamedTuple):
@@ -248,3 +251,41 @@ def mamba_cache_from_reference(cache: Mapping, *, device=None):
         raise ValueError(f"h must be (B, d_in, N) or stacked over layers, "
                          f"got {tuple(h.shape)}")
     return {"h": h.to(dev), "conv": conv.to(dev)}
+
+
+def attn_cache_from_reference(cache: Mapping, *, device=None):
+    """An attention decode cache from the reference's ``{"k", "v"}`` (B,
+    S, K, dh), with ``"slot_pos"`` (B, W) int32 for a ring, on ``device``
+    (``None``: the CUDA card), dtypes kept (bfloat16 included).  Stacked
+    over periods (k (P, B, S, K, dh), as the reference LM's
+    ``cache["pos<i>"]``), it gives a list of one cache a period."""
+    dev = resolve_device(device)
+    if set(cache) - {"k", "v", "slot_pos"} or not {"k", "v"} <= set(cache):
+        raise ValueError(f"an attention cache holds k, v and, for a ring, "
+                         f"slot_pos; got {sorted(cache)}")
+    t = {name: _tensor(leaf) for name, leaf in cache.items()}
+    if t["k"].dim() not in (4, 5) or t["v"].shape != t["k"].shape:
+        raise ValueError(f"k and v must share a (B, S, K, dh) shape or be "
+                         f"stacked over periods, got {tuple(t['k'].shape)} "
+                         f"and {tuple(t['v'].shape)}")
+    if "slot_pos" in t and t["slot_pos"].dtype != torch.int32:
+        raise ValueError(f"slot_pos must be int32, got {t['slot_pos'].dtype}")
+    if t["k"].dim() == 5:
+        return [{name: leaf[p].to(dev) for name, leaf in t.items()}
+                for p in range(t["k"].shape[0])]
+    return {name: leaf.to(dev) for name, leaf in t.items()}
+
+
+def lm_cache_from_reference(cache: Mapping, cfg, *, device=None) -> list:
+    """The port's LM decode cache (one dict a layer) from the reference
+    LM's (``{"pos<i>": cache stacked over periods}``): layer
+    ``p·len(pattern) + i`` gets period ``p`` of ``pos<i>``, a Mamba or
+    an attention cache by its block kind."""
+    pat = pattern_for(cfg)
+    per_pos = [mamba_cache_from_reference(cache[f"pos{i}"], device=device)
+               if kind == "mamba" else
+               attn_cache_from_reference(cache[f"pos{i}"], device=device)
+               for i, kind in enumerate(pat)]
+    kinds = _kinds(cfg)
+    return [per_pos[layer % len(pat)][layer // len(pat)]
+            for layer in range(len(kinds))]

@@ -3,13 +3,21 @@
 The counterpart of the reference's ``launch/serve.py``: seed a model,
 prefill a batch of ``SyntheticLM`` prompts, then step the decode caches
 token by token with greedy sampling, and print the reference's summary
-line.  It runs on the CUDA card unless ``--device cpu`` says otherwise;
-on the card each Mamba block's prefill scan is one launch of the
-hand-written B7 kernel, and decode runs no kernel of the port's own.
+line.  It serves the Mamba family (falcon_mamba_7b), the dense family
+(granite_3_2b, qwen3_14b, minitron_8b, granite_34b) and the MoE family
+(mixtral_8x22b, moonshot_v1_16b_a3b).  It runs on the CUDA card unless
+``--device cpu`` says otherwise; on the card each Mamba block's prefill
+scan is one launch of the hand-written B7 kernel, and attention, the
+FFN and the MoE run in PyTorch ops (the reference has no TPU kernel for
+them either).  ``--layers`` cuts the depth (the published widths kept)
+for a model that one card cannot hold: mixtral-8x22b's 56 layers are
+about 564 GB of float32 weights, two of them about 22 GB.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --batch 4 --prompt-len 2048 --gen 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \\
+      --layers 2 --batch 2 --prompt-len 6144 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \\
       --smoke --device cpu
 """
 
@@ -53,6 +61,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's)")
     ap.add_argument("--device", default=None,
                     help="cuda (default: the current card) or cpu")
     return ap
@@ -67,6 +78,8 @@ def setup(argv=None):
     pin_precision()
     cfg = get_smoke_config(args.arch) if args.smoke else \
         get_config(args.arch)
+    if args.layers is not None:
+        cfg = cfg.with_(n_layers=args.layers)
     if not cfg.causal:
         raise ValueError(f"{args.arch} is encoder-only: nothing to decode")
     model = build_model(cfg, seed=args.seed, device=dev)

@@ -2,23 +2,26 @@
 serving entry points.
 
 The counterpart of the reference's ``models/model.py`` for token LMs
-whose blocks the port runs (the Mamba family, so far).  ``LM`` is an
-``nn.Module`` holding the parameters, named as the reference's tree
-(``embed.table``, ``stack.blocks.<l>.{ln1,mamba}``, ``ln_f.scale``,
+whose blocks the port runs (the Mamba, dense and MoE families).
+``LM`` is an ``nn.Module`` holding the parameters, named as the
+reference's tree (``embed.table``,
+``stack.blocks.<l>.{ln1,mamba,attn,ln2,ffn,moe}``, ``ln_f.scale``,
 ``head.w``); ``build_model`` draws them from a seeded
 ``torch.Generator`` on the model's device.  The methods mirror the
 reference's pure functions:
 
-  forward(batch)                 -> (logits, aux)     full-sequence
+  forward(batch)                 -> (logits, aux)     full-sequence;
+                                    aux: the MoE losses summed over layers
   score(batch)                   -> logits
-  init_cache(batch, max_len)     -> cache (one {"h", "conv"} a layer)
+  init_cache(batch, max_len)     -> cache (one dict a layer)
   prefill(batch, max_len=None)   -> (last-position logits, cache)
   decode_step(cache, tokens, pos) -> (logits, cache)
 
 ``batch`` is ``{"tokens": (B, S) int}``.  The loss, chunked
-cross-entropy, tied embeddings and the audio/vision frontends come
-later (ROADMAP A.11).  The reference's ``shard_activation`` annotations
-are dropped: the slice runs on one card.
+cross-entropy, tied embeddings, the audio/vision frontends and the
+hybrid and cross-attention blocks come later (ROADMAP A.11).  The
+reference's ``shard_activation`` annotations are dropped: the slice
+runs on one card.
 """
 
 from __future__ import annotations
@@ -32,18 +35,19 @@ from . import transformer as T
 
 __all__ = ["LM", "build_model", "param_count"]
 
-_AUX_KEYS = ("aux_loss", "z_loss", "drop_frac")
-
 
 class LM(nn.Module):
     """The parameters, uninitialised until ``init`` (or a load)."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if cfg.modality != "text" or cfg.tie_embeddings:
+        if cfg.modality != "text":
             raise NotImplementedError(
-                "frontends and tied embeddings are not ported yet "
-                "(ROADMAP A.11)")
+                f"modality {cfg.modality!r} is not ported yet (ROADMAP "
+                f"A.11: the audio and image frontends come later)")
+        if cfg.tie_embeddings:
+            raise NotImplementedError(
+                "tied embeddings are not ported yet (ROADMAP A.11)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = L.Embed(cfg.vocab, cfg.d_model, cfg.param_dtype,
@@ -70,11 +74,15 @@ class LM(nn.Module):
         logits = L.linear(self.head.w, h, cfg.compute_dtype)
         return L.mask_padded_vocab(logits, cfg.vocab)
 
+    def _embed_tokens(self, tokens: torch.Tensor):
+        """Embeddings and the positions 0..S-1 of every row, (B, S)."""
+        h = L.embed(self.embed, tokens, self.cfg.compute_dtype)
+        B, S = tokens.shape
+        return h, torch.arange(S, device=h.device).expand(B, S)
+
     def forward(self, batch: dict):
-        cfg = self.cfg
-        h = L.embed(self.embed, batch["tokens"], cfg.compute_dtype)
-        h = T.stack_apply(self.stack, cfg, h)
-        aux = {k: torch.zeros((), device=h.device) for k in _AUX_KEYS}
+        h, positions = self._embed_tokens(batch["tokens"])
+        h, aux = T.stack_apply(self.stack, self.cfg, h, positions)
         return self._head(h), aux
 
     def score(self, batch: dict) -> torch.Tensor:
@@ -88,9 +96,9 @@ class LM(nn.Module):
     def prefill(self, batch: dict, max_len=None):
         """Returns (logits for the last position (B, 1, V), decode
         cache)."""
-        cfg = self.cfg
-        h = L.embed(self.embed, batch["tokens"], cfg.compute_dtype)
-        h, cache = T.stack_prefill(self.stack, cfg, h, max_len=max_len)
+        h, positions = self._embed_tokens(batch["tokens"])
+        h, cache = T.stack_prefill(self.stack, self.cfg, h, positions,
+                                   max_len=max_len)
         return self._head(h[:, -1:]), cache
 
     def decode_step(self, cache: list, tokens: torch.Tensor, pos):

@@ -38,7 +38,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.models.layers", "repro_torch.models.mamba",
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.launch.serve", "repro_torch.core.adaptive",
-            "repro_torch.analysis", "repro_torch.analysis.verify"]
+            "repro_torch.analysis", "repro_torch.analysis.verify",
+            "repro_torch.models.moe", "repro_torch.configs.granite_3_2b",
+            "repro_torch.configs.mixtral_8x22b"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"

@@ -238,15 +238,21 @@ def test_cross_entropy_matches_reference(masked):
     assert abs(got - want) <= 1e-6 * max(1.0, abs(want))
 
 
-def test_configs_match_reference():
+@pytest.mark.parametrize("arch", cb.PORTED_ARCHS)
+def test_configs_match_reference(arch):
     for get_p, get_r in ((cb.get_config, ref_get_config),
                          (cb.get_smoke_config, ref_smoke_config)):
-        p, r = get_p(ARCH), get_r(ARCH)
+        p, r = get_p(arch), get_r(arch)
         for f in ("name", "family", "n_layers", "d_model", "n_heads",
-                  "n_kv_heads", "d_head", "d_ff", "vocab", "causal",
-                  "tie_embeddings", "norm_eps", "modality", "dt_rank"):
+                  "n_kv_heads", "d_head", "d_ff", "vocab", "act", "qk_norm",
+                  "rope_theta", "sliding_window", "causal", "tie_embeddings",
+                  "norm_eps", "moe_every", "block_pattern", "modality",
+                  "q_chunk", "kv_chunk", "dt_rank"):
             assert getattr(p, f) == getattr(r, f), f
-        assert p.mamba.__dict__ == r.mamba.__dict__
+        for sub in ("mamba", "moe"):
+            assert (getattr(p, sub) is None) == (getattr(r, sub) is None)
+            if getattr(p, sub) is not None:
+                assert getattr(p, sub).__dict__ == getattr(r, sub).__dict__
         assert (p.param_dtype, p.compute_dtype) == (torch.float32,
                                                     torch.bfloat16)
     assert cb.get_config(ARCH).dt_rank == 256
@@ -255,7 +261,12 @@ def test_configs_match_reference():
     with pytest.raises(ValueError, match="unknown"):
         cb.get_config("no_such_model")
     with pytest.raises(NotImplementedError, match="A.11"):
-        LM(cb.get_smoke_config(ARCH).with_(family="dense"), device=CPU)
+        LM(cb.get_smoke_config(ARCH).with_(family="vision"), device=CPU)
+
+
+def test_moe_config_defaults_match_reference():
+    from repro.configs.base import MoeConfig as RefMoeConfig
+    assert cb.MoeConfig().__dict__ == RefMoeConfig().__dict__
 
 
 def test_one_full_width_layer_matches_reference():
