@@ -181,13 +181,14 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                card=True) (the reference test's shapes, one-step
                sequences, widths that are not multiples of 32, 1 to 32
                states, subnormal and zero exp(dt·A), zero inputs, and
-               falcon-mamba-7b's prefill shape (4, 2048, 8192, 16) with
-               its real A and a softplus dt, and shapes at the kernel's
-               tile edges): max abs and relative error of y and h_final,
-               each within its stated tolerance, and whether each is
-               bit-equal; then B7 timed at the serve shape with the
-               profiler and with CUDA events, beside its bound and its
-               plain version;
+               falcon-mamba-7b's prefill shape (4, 2048, 8192, 16) and
+               jamba-v0.1-52b's (2, 4096, 8192, 16), each with the
+               model's real A and a softplus dt, and shapes at the
+               kernel's tile edges): max abs and relative error of y and
+               h_final, each within its stated tolerance, and whether
+               each is bit-equal; then B7 timed at the serve shape with
+               the profiler and with CUDA events, beside its bound and
+               its plain version, and at jamba's shape beside its bound;
 17. serve_falcon_mamba_7b — the slice's main path, through
                ``repro_torch.launch.serve``: falcon-mamba-7b at its full
                published widths and depth (64 layers, 7.27 B float32
@@ -228,7 +229,46 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 22. serve_consistency_moe — phase 18's check on mixtral's weights with
                ``capacity_factor = num_experts / top_k``, which drops no
                token (checked: drop_frac == 0), on one 6144-token prompt,
-               so the decode steps run on the ring cache.
+               so the decode steps run on the ring cache;
+23. serve_jamba_v01_52b_l8 — the hybrid family: jamba-v0.1-52b at its
+               full widths (d_model 4096, 32 / 8 heads, 16 experts of
+               d_ff 14336, top-2, Mamba d_inner 8192, N = 16, vocab
+               65536) with the depth cut from 32 layers to one 8-layer
+               period (every block kind; ``reduced`` in the line; ~13.3
+               B float32 parameters), 2 prompts of 4096 tokens, 32
+               greedy tokens: phase 19's fields, the MoE's drop_frac,
+               exactly 7 B7 launches a prefill (one a Mamba layer) and 0
+               a decode step, no other port kernel;
+24. serve_consistency_hybrid — phase 18's check on jamba's weights, one
+               prompt cut to its first 1024 tokens (stated in the line),
+               ``capacity_factor = num_experts / top_k``: the forced
+               decode steps run through the Mamba caches and the
+               attention cache;
+25. serve_llama32_vision_11b — the vision family: llama-3.2-11b-vision
+               at its full widths and depth (40 layers, 8 of them gated
+               cross-attention; d_model 4096, 32 / 8 heads, d_ff 14336,
+               vocab 128256; ~9.8 B float32 parameters), every xgate set
+               to 1.0 after the seeded init (stated in the line: at the
+               reference's 0 the image changes nothing), 4 prompts of
+               2048 tokens with 1600 stub image tokens of width 1280
+               each, 32 greedy tokens: phase 19's fields, no port
+               kernel, every cross-attention cache handed back unchanged
+               by a decode step, and the last prefill logits moved by
+               another seed's image;
+26. serve_consistency_vision — phase 18's check on llama's weights with
+               the gates at 1.0, on the first prompt and its image;
+27. score_hubert_xlarge — the encoder family through ``LM.score``:
+               hubert-xlarge at its full widths and depth (48 layers,
+               d_model 1280, 16 heads, GELU MLP 5120, vocab 504 padded
+               to 512, bidirectional; ~0.95 B parameters), 8 utterances
+               of 1024 stub frames of width 1280: finite (8, 1024, 512)
+               logits, no padded id winning an argmax, no port kernel;
+               in float32 compute, the last frame of utterance 0 moving
+               its first frame's logits, and utterance 0 alone equal to
+               its batch row within 2e-4 scaled; ms a scored batch (first
+               and again), frames/s, peak memory, a profiled call's busy
+               share and time by group.  Each phase from 23 on reports
+               its seconds (``phase_s``).
 
 Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -2615,6 +2655,21 @@ SERVE_GROUPS = {"selective_scan (B7)": ("selective_scan",),
                 "copies and casts": ("copy", "Memcpy", "memcpy")}
 
 
+def _scan_bound(B, S, d, N) -> dict:
+    """B7's least time at (B, S, d_in, N): its bytes once each against
+    its exponentials at the SFU rate and its other float32 operations."""
+    byts = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
+    exps = B * S * d * N
+    flops = 6 * B * S * d * N  # dt·A, abar·h, + bx, (dt·x)·B, h·C, the sum
+    tb = byts / HBM_BYTES_S * 1e3
+    to = max(exps / SFU_OPS_S, flops / FP32_OPS_S) * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": byts, "bytes_ms": tb, "exponentials": exps,
+            "exp_ms": exps / SFU_OPS_S * 1e3, "fp32_ops": flops,
+            "fp32_ms": flops / FP32_OPS_S * 1e3}
+
+
 def phase_scan_kernel():
     """B7 against its plain version on every ``scan_cases(card=True)``
     case, then timed at the serve shape."""
@@ -2622,10 +2677,11 @@ def phase_scan_kernel():
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import selective_scan as ssk
-    from _torch_cases import (SCAN_SERVE_SHAPE, scan_arrays, scan_errors,
-                              scan_specs)
+    from _torch_cases import (SCAN_JAMBA_SHAPE, SCAN_SERVE_SHAPE,
+                              scan_arrays, scan_errors, scan_specs)
     dev = torch.device("cuda", 0)
     cases, worst_abs, worst_rel, serve_args = [], 0.0, 0.0, None
+    jamba_args = None
     underflow, unequal = 0, {"y": [], "h_final": []}
 
     def held(name, tol, want, got, errs):
@@ -2662,6 +2718,8 @@ def phase_scan_kernel():
                       **errs})
         if tuple(shape) == SCAN_SERVE_SHAPE:
             serve_args = args
+        elif tuple(shape) == SCAN_JAMBA_SHAPE:
+            jamba_args = args
         del got, want
     emit("scan_vs_plain", cases=cases, max_abs_err=worst_abs,
          max_rel_err=worst_rel, subnormal_or_zero_abar=underflow,
@@ -2669,7 +2727,6 @@ def phase_scan_kernel():
     check(underflow > 0, "no scan case had a subnormal or zero exp(dt·A)")
 
     x, dt, b, c, a = serve_args
-    B, S, d, N = SCAN_SERVE_SHAPE
 
     def kern():
         return ssk.selective_scan(x, dt, b, c, a)
@@ -2679,22 +2736,19 @@ def phase_scan_kernel():
 
     dms, pdms = device_ms(kern, n=20), device_ms(plain, n=2)
     seen = dms is not None and pdms is not None
-    byts = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
-    exps = B * S * d * N
-    flops = 6 * B * S * d * N  # dt·A, abar·h, + bx, (dt·x)·B, h·C, the sum
-    tb = byts / HBM_BYTES_S * 1e3
-    to = max(exps / SFU_OPS_S, flops / FP32_OPS_S) * 1e3
+    bound = _scan_bound(*SCAN_SERVE_SHAPE)
+    jms = device_ms(lambda: ssk.selective_scan(*jamba_args), n=20)
     out = {"ms": dms if seen else time_ms(kern, n=20, warm=3),
            "plain_ms": pdms if seen else time_ms(plain, n=2, warm=1),
            "ms_source": ("profiler device time per call" if seen
                          else "CUDA events, back-to-back calls"),
-           "call_ms": time_ms(kern, n=20, warm=3),
-           "bound_ms": max(tb, to),
-           "bound_by": "bytes" if tb >= to else "operations",
-           "bytes": byts, "bytes_ms": tb, "exponentials": exps,
-           "exp_ms": exps / SFU_OPS_S * 1e3, "fp32_ops": flops,
-           "fp32_ms": flops / FP32_OPS_S * 1e3, "library_ms": None,
-           "max_abs_err": worst_abs, "max_rel_err": worst_rel}
+           "call_ms": time_ms(kern, n=20, warm=3), **bound,
+           "library_ms": None,
+           "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+           "jamba_shape": list(SCAN_JAMBA_SHAPE),
+           "jamba_ms": jms if jms is not None else time_ms(
+               lambda: ssk.selective_scan(*jamba_args), n=20, warm=3),
+           "jamba_bound_ms": _scan_bound(*SCAN_JAMBA_SHAPE)["bound_ms"]}
     emit("scan_kernel_time", shape=list(SCAN_SERVE_SHAPE), **out,
          library="none: no PyTorch call computes the selective scan")
     return out
@@ -2708,7 +2762,8 @@ def phase_serve():
     from repro_torch.models.model import param_count
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    args, cfg, model, tokens = serve.setup(SERVE_ARGV)
+    args, cfg, model, batch = serve.setup(SERVE_ARGV)
+    tokens = batch["tokens"]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     check(not torch.backends.cuda.matmul
@@ -2716,7 +2771,7 @@ def phase_serve():
           "bf16 products must accumulate in float32")
     n_params = param_count(model)
     _counts_zero()
-    res = serve.generate(model, tokens, args.gen)
+    res = serve.generate(model, batch, args.gen)
     launches = _counts()
     live = res.logits[..., :cfg.vocab].float()
     check(bool(torch.isfinite(live).all()), "serve: logits not finite")
@@ -2770,20 +2825,23 @@ def phase_serve():
            "seq0": res.tokens[0, :12].tolist()}
     emit("serve_falcon_mamba_7b", **out)
     del cache, logits
-    return model, tokens, res.tokens, out
+    return model, batch, res.tokens, out
 
 
-def phase_serve_consistency(model, prompt, gen_tokens,
-                            label="serve_consistency"):
+def phase_serve_consistency(model, batch, gen_tokens,
+                            label="serve_consistency", max_prompt=None):
     """Float32 compute on the same weights: prefill and teacher-forced
     decode against ``forward`` over the prompt and the forced tokens.
-    An MoE runs with ``capacity_factor = num_experts / top_k``, which
-    gives every expert a slot for every token: the capacity follows the
-    sequence length, so a forward over S + 8 tokens and a prefill over S
-    would otherwise drop other tokens by design."""
+    ``batch`` is the prompt batch (``"tokens"`` and, for an image model,
+    ``"img_embed"``); ``max_prompt`` cuts the prompt to its first
+    tokens.  An MoE runs with ``capacity_factor = num_experts / top_k``,
+    which gives every expert a slot for every token: the capacity
+    follows the sequence length, so a forward over S + 8 tokens and a
+    prefill over S would otherwise drop other tokens by design."""
     import copy
     import dataclasses
     import torch
+    t_phase = time.perf_counter()
     cfg32 = model.cfg.with_(compute_dtype=torch.float32)
     if cfg32.moe is not None:
         m = cfg32.moe
@@ -2793,6 +2851,7 @@ def phase_serve_consistency(model, prompt, gen_tokens,
     # read their config from the model, the blocks hold none
     m32 = copy.copy(model)
     m32.cfg = cfg32
+    prompt = batch["tokens"][:, :max_prompt]
     B, S = prompt.shape
     seq = torch.cat([prompt, gen_tokens[:, :SERVE_FORCED].to(prompt.dtype)],
                     1)
@@ -2804,7 +2863,7 @@ def phase_serve_consistency(model, prompt, gen_tokens,
 
     t0 = time.perf_counter()
     with torch.no_grad():
-        full, aux = m32.forward({"tokens": seq})
+        full, aux = m32.forward(dict(batch, tokens=seq))
         check(full.dtype == torch.float32, "float32 compute gave "
                                            f"{full.dtype} logits")
         drop = float(aux["drop_frac"])
@@ -2812,7 +2871,7 @@ def phase_serve_consistency(model, prompt, gen_tokens,
                            f"choices at a capacity that keeps them all")
         # room for the forced tokens: a full cache of depth S would clamp
         # their slots to S - 1, as the reference's dynamic_update_slice does
-        logits, cache = m32.prefill({"tokens": prompt},
+        logits, cache = m32.prefill(dict(batch, tokens=prompt),
                                     max_len=S + SERVE_FORCED)
         errs.append(err(full[:, S - 1], logits[:, 0]))
         for i in range(SERVE_FORCED):
@@ -2828,6 +2887,10 @@ def phase_serve_consistency(model, prompt, gen_tokens,
     if cfg32.moe is not None:
         extra = {"capacity_factor": cfg32.moe.capacity_factor,
                  "drop_frac": drop}
+    if max_prompt is not None:
+        extra["prompt_cut"] = [batch["tokens"].shape[1], S]
+    if "img_embed" in batch:
+        extra["img_tokens"] = list(batch["img_embed"].shape)
     ring = [c for c in cache if "slot_pos" in c]
     emit(label, tokens=list(seq.shape), forced=SERVE_FORCED,
          tol=SERVE_CONSISTENCY_TOL, layers=model.cfg.n_layers,
@@ -2836,13 +2899,13 @@ def phase_serve_consistency(model, prompt, gen_tokens,
          decode_max_abs_err=[e[0] for e in errs[1:]],
          decode_scaled_err=[e[1] for e in errs[1:]], worst_scaled_err=worst,
          max_abs_logit=float(full[..., :cfg32.vocab].abs().max()),
-         wall_s=wall, **extra)
+         wall_s=wall, phase_s=time.perf_counter() - t_phase, **extra)
     check(worst <= SERVE_CONSISTENCY_TOL,
           f"{label}: {worst} > {SERVE_CONSISTENCY_TOL}")
     return worst
 
 
-# --- the dense and MoE serve paths (no kernel of the port's own) -----------
+# --- the dense, MoE, hybrid and vision serve paths, the encoder ------------
 
 #: granite-3-2b at its published widths and depth (40 layers)
 GRANITE_ARGV = ["--arch", "granite_3_2b", "--batch", "4", "--prompt-len",
@@ -2854,22 +2917,55 @@ MIXTRAL_LAYERS = 2
 MIXTRAL_ARGV = ["--arch", "mixtral_8x22b", "--layers", str(MIXTRAL_LAYERS),
                 "--batch", "2", "--prompt-len", "6144", "--gen", "32",
                 "--seed", "0"]
-#: (phase, argv, depth cut, consistency phase, rows it checks)
-LM_CELLS = (("serve_granite_3_2b", GRANITE_ARGV, None,
-             "serve_consistency_dense", 4),
+#: jamba-v0.1-52b at its published widths, the depth cut from 32 layers
+#: to one 8-layer period (every block kind: 3 mamba_ffn, 4 mamba_moe, 1
+#: attn_ffn; ~13.3 B float32 parameters, ~53 GB; all 32 ~206 GB)
+JAMBA_LAYERS = 8
+JAMBA_ARGV = ["--arch", "jamba_v01_52b", "--layers", str(JAMBA_LAYERS),
+              "--batch", "2", "--prompt-len", "4096", "--gen", "32",
+              "--seed", "0"]
+#: llama-3.2-11b-vision at its published widths and depth (40 layers, 8
+#: of them gated cross-attention over 1600 stub image tokens of width
+#: 1280)
+LLAMA_ARGV = ["--arch", "llama32_vision_11b", "--batch", "4",
+              "--prompt-len", "2048", "--gen", "32", "--seed", "0"]
+#: the cross-attention gates' value in the vision phases: the reference
+#: initialises them to 0, where the image cannot change a token
+XGATE = 1.0
+#: the hybrid's float32 check cuts its prompt to this many tokens: at
+#: 4096 its all-slot float32 MoE buffers (16 experts x 4104 slots x
+#: 14336, ~3.8 GB each, several live at once in the SiLU) would sit
+#: beside ~53 GB of weights
+HYBRID_CHECK_PROMPT = 1024
+#: (phase, argv, depth cut, B7 launches a prefill, xgate, consistency
+#: phase, rows it checks, prompt tokens it keeps)
+LM_CELLS = (("serve_granite_3_2b", GRANITE_ARGV, None, 0, None,
+             "serve_consistency_dense", 4, None),
             ("serve_mixtral_8x22b_l2", MIXTRAL_ARGV,
-             {"n_layers": [56, MIXTRAL_LAYERS]}, "serve_consistency_moe", 1))
+             {"n_layers": [56, MIXTRAL_LAYERS]}, 0, None,
+             "serve_consistency_moe", 1, None),
+            ("serve_jamba_v01_52b_l8", JAMBA_ARGV,
+             {"n_layers": [32, JAMBA_LAYERS]}, 7, None,
+             "serve_consistency_hybrid", 1, HYBRID_CHECK_PROMPT),
+            ("serve_llama32_vision_11b", LLAMA_ARGV, None, 0, XGATE,
+             "serve_consistency_vision", 1, None))
 LM_GROUPS = {"matmul": SERVE_GROUPS["matmul"],
              "copies and casts": SERVE_GROUPS["copies and casts"],
              "reductions and softmax": ("reduce", "softmax", "Reduce"),
-             "elementwise": ("elementwise", "vectorized", "unrolled")}
+             "elementwise": ("elementwise", "vectorized", "unrolled"),
+             "selective_scan (B7)": ("selective_scan",)}
+#: float32 parameters that the products read as they are (the Mamba
+#: block's float32 products, the router) or outside a decode step (the
+#: image frontend): no bf16 cast a step
+UNCAST = ("router", "conv_w", "x_proj", "dt_proj", "A_log", "frontend.w")
 
 
 def _decode_breakdown(model, cache, tok, pos) -> dict:
     """CUDA-event ms of one decode step beside two of its parts, timed
     apart: the attention core (``decode_attention``, float32 products,
-    on every layer's cache) and the per-call bf16 casts of the float32
-    weights that the products read."""
+    on every attention layer's cache, cross-attention's included) and
+    the per-call bf16 casts of the float32 weights that the products
+    read."""
     import torch
     from repro_torch.models import layers as L
     cfg = model.cfg
@@ -2879,17 +2975,19 @@ def _decode_breakdown(model, cache, tok, pos) -> dict:
     gen = torch.Generator(device=tok.device).manual_seed(0)
     q = torch.randn((B, 1, K, G, dh), generator=gen, device=tok.device
                     ).to(cd)
+    attn = [c for c in cache if "k" in c]
     valid = [(c["slot_pos"] >= 0) if "slot_pos" in c else
              torch.arange(c["k"].shape[1], device=tok.device)[None, :]
-             <= pos[:, None] for c in cache]
+             <= pos[:, None] for c in attn]
 
     def attn_core():
-        for c, ok in zip(cache, valid):
+        for c, ok in zip(attn, valid):
             L.decode_attention(q, c["k"], c["v"], ok)
 
     weights = [w for name, w in model.named_parameters()
-               if w.dim() >= 2 and name != "embed.table"
-               and not name.endswith("router")]
+               if w.dim() >= 2 and (name != "embed.table"
+                                    or cfg.tie_embeddings)
+               and not name.endswith(UNCAST)]
 
     def casts():
         for w in weights:
@@ -2898,61 +2996,124 @@ def _decode_breakdown(model, cache, tok, pos) -> dict:
     with torch.no_grad():
         step = time_ms(lambda: model.decode_step(cache, tok, pos), n=5,
                        warm=1)
-        attn = time_ms(attn_core, n=5, warm=1)
+        core = time_ms(attn_core, n=5, warm=1)
         cast = time_ms(casts, n=5, warm=1)
     cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
-    return {"decode_step_event_ms": step, "attn_core_ms": attn,
-            "attn_core_share": attn / step, "weight_cast_ms": cast,
+    return {"decode_step_event_ms": step, "attn_core_ms": core,
+            "attn_core_share": core / step, "weight_cast_ms": cast,
             "weight_cast_share": cast / step,
             "weight_cast_bytes": cast_bytes,
             "weight_cast_bound_ms": cast_bytes / HBM_BYTES_S * 1e3}
 
 
-def phase_serve_lm(label, argv, reduced=None):
-    """A dense or MoE model served through ``repro_torch.launch.serve``:
+def _set_xgates(model, value: float) -> int:
+    """Every cross-attention gate of ``model`` set to ``value``; the
+    number of gates."""
+    import torch
+    gates = [b.xgate for b in model.stack.blocks if hasattr(b, "xgate")]
+    with torch.no_grad():
+        for g in gates:
+            g.fill_(value)
+    return len(gates)
+
+
+def _vision_checks(label, model, cfg, args, batch, cache, tok, pos,
+                   logits) -> dict:
+    """A decode step hands every cross-attention layer's cache back
+    unchanged (the same tensors, the same values), and the last prefill
+    logits move when the image is another seed's."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    cross = [i for i, b in enumerate(model.stack.blocks)
+             if hasattr(b, "xgate")]
+    kept = {i: cache[i]["k"].clone() for i in cross}
+    with torch.no_grad():
+        _, new = model.decode_step(cache, tok, pos)
+    same = all(new[i] is cache[i] and torch.equal(new[i]["k"], kept[i])
+               for i in cross)
+    check(same, f"{label}: a decode step changed a cross-attention cache")
+    other = SyntheticLM(cfg.vocab, args.prompt_len, args.batch,
+                        seed=args.seed + 1, modality=cfg.modality,
+                        d_frontend=cfg.d_frontend,
+                        n_img_tokens=cfg.n_img_tokens).batch(0)
+    img = torch.from_numpy(other["img_embed"]).to(tok.device)
+    with torch.no_grad():
+        moved, _ = model.prefill(dict(batch, img_embed=img))
+    delta = float((moved[:, -1].float() - logits[:, -1].float()).abs().max())
+    check(delta > 0, f"{label}: another image left the logits unchanged")
+    del new, moved
+    return {"cross_layers": len(cross), "cross_cache_unchanged": same,
+            "other_image_max_logit_change": delta,
+            "cross_cache": list(cache[cross[0]]["k"].shape)}
+
+
+def phase_serve_lm(label, argv, reduced=None, scans=0, xgate=None):
+    """A model served through ``repro_torch.launch.serve``:
     ``serve.setup`` seeds it on the card, ``serve.generate`` prefills the
-    prompts and decodes greedily; no kernel of the port's own runs."""
+    prompts (with their stub image embeddings for a vision model) and
+    decodes greedily.  ``scans`` is the number of B7 launches a prefill
+    must make (one a Mamba layer) and a decode step none; no other port
+    kernel runs.  ``xgate`` sets every cross-attention gate after the
+    seeded init."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models.model import param_count
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    args, cfg, model, tokens = serve.setup(argv)
+    t_phase = t0 = time.perf_counter()
+    args, cfg, model, batch = serve.setup(argv)
+    tokens = batch["tokens"]
+    n_gates = 0 if xgate is None else _set_xgates(model, xgate)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(model)
+
+    def held(launches, want, what):
+        check(launches.get("selective_scan", 0) == want
+              and all(v == 0 for k, v in launches.items()
+                      if k != "selective_scan"),
+              f"{label}: {what} launched {launches}, expected {want} "
+              f"selective_scan and no other port kernel")
+
     _counts_zero()
-    res = serve.generate(model, tokens, args.gen)
+    res = serve.generate(model, batch, args.gen)
     launches = _counts()
     live = res.logits[..., :cfg.vocab].float()
     check(bool(torch.isfinite(live).all()), f"{label}: logits not finite")
     check(tuple(res.tokens.shape) == (args.batch, args.gen)
           and int(res.tokens.max()) < cfg.vocab
           and int(res.tokens.min()) >= 0, f"{label}: tokens out of range")
-    check(all(v == 0 for v in launches.values()),
-          f"{label}: launches {launches}, expected no kernel of the port")
+    held(launches, scans, "the run")
     _counts_zero()
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, cache = model.prefill({"tokens": tokens},
+        logits, cache = model.prefill(batch,
                                       max_len=args.prompt_len + args.gen)
     torch.cuda.synchronize()
     prefill2_s = time.perf_counter() - t0
+    prefill_launches = _counts()
+    held(prefill_launches, scans, "a prefill")
     same = bool(torch.equal(logits[:, -1], res.logits[:, 0]))
     tok = res.tokens[:, :1]
     pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int32,
                      device=tokens.device)
+    _counts_zero()
     with torch.no_grad():
         model.decode_step(cache, tok, pos)
     torch.cuda.synchronize()
-    again = _counts()
-    check(all(v == 0 for v in again.values()),
-          f"{label}: a prefill and a decode step launched {again}")
+    decode_launches = _counts()
+    held(decode_launches, 0, "a decode step")
     ring = [c for c in cache if "slot_pos" in c]
     check(bool(ring) == bool(cfg.sliding_window
                              and cfg.sliding_window < args.prompt_len),
           f"{label}: ring cache {bool(ring)} for window "
           f"{cfg.sliding_window} and {args.prompt_len}-token prompts")
+    vision = {}
+    if n_gates:
+        vision = _vision_checks(label, model, cfg, args, batch, cache, tok,
+                                pos, logits)
+        vision["xgate"] = {"value": xgate, "gates": n_gates,
+                           "why": "the reference initialises every xgate "
+                                  "to 0, where the image changes nothing"}
     with torch.no_grad():
         prof = _profile_ticks(f"profile_{label}_decode",
                               lambda: model.decode_step(cache, tok, pos),
@@ -2972,23 +3133,117 @@ def phase_serve_lm(label, argv, reduced=None):
            "generated_tok_s": args.gen * args.batch / (res.prefill_s
                                                        + res.decode_s),
            "launches": launches,
+           "prefill_launches": prefill_launches,
+           "decode_step_launches": decode_launches,
            "ring_cache": [list(c["k"].shape) for c in ring[:1]],
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9,
            "decode_device_busy_share": prof["device_busy_share"],
            "decode_kernels_per_step": prof.get("kernels_per_step"),
            "decode_us_by_group": prof.get("us_per_step_by_group"),
-           **parts, "seq0": res.tokens[0, :12].tolist()}
+           **parts, **vision, "seq0": res.tokens[0, :12].tolist()}
     if cfg.moe is not None:
         with torch.no_grad():
-            _, aux = model.forward({"tokens": tokens})
-        out["drop_frac"] = float(aux["drop_frac"]) / cfg.n_layers
+            _, aux = model.forward(batch)
+        n_moe = sum(hasattr(b, "moe") for b in model.stack.blocks)
+        out["drop_frac"] = float(aux["drop_frac"]) / n_moe
         out["capacity_factor"] = cfg.moe.capacity_factor
     if reduced:
         out["reduced"] = reduced
-    emit(label, **out)
     del cache, logits
-    return model, tokens, res.tokens, out
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(label, **out)
+    return model, batch, res.tokens, out
+
+
+#: hubert-xlarge at its published widths and depth, 8 utterances of 1024
+#: stub frames (20 s of audio each at 50 frames a second)
+HUBERT_BATCH, HUBERT_FRAMES = 8, 1024
+#: |float32 score of utterance 0 alone - its row of the batch| <=
+#: tol + tol·|batch row| (the serving contract's 2e-4)
+HUBERT_TOL = 2e-4
+
+
+def phase_score_hubert():
+    """The encoder family: hubert-xlarge scored through ``LM.score`` at
+    full width and depth on ``SyntheticLM``'s audio frames; then, in
+    float32 compute on the same weights, bidirectionality (the last
+    frame of utterance 0 moves its first frame's logits) and batch
+    independence (utterance 0 alone equals its row)."""
+    import copy
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.model import build_model, param_count
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("hubert_xlarge")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    frames = torch.from_numpy(SyntheticLM(
+        cfg.vocab, HUBERT_FRAMES, HUBERT_BATCH, seed=0,
+        modality=cfg.modality, d_frontend=cfg.d_frontend).batch(0)
+        ["frames"]).to(model.device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _counts_zero()
+    times = []
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits = model.score({"frames": frames})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = _counts()
+    check(all(v == 0 for v in launches.values()),
+          f"score_hubert_xlarge: launches {launches}, expected no kernel "
+          f"of the port")
+    want = (HUBERT_BATCH, HUBERT_FRAMES, padded_vocab(cfg.vocab))
+    check(tuple(logits.shape) == want
+          and bool(torch.isfinite(logits[..., :cfg.vocab].float()).all()),
+          f"score_hubert_xlarge: logits {tuple(logits.shape)} not finite "
+          f"or not {want}")
+    check(int(logits.argmax(-1).max()) < cfg.vocab,
+          "score_hubert_xlarge: a padded id won an argmax")
+    with torch.no_grad():
+        prof = _profile_ticks("profile_score_hubert_xlarge",
+                              lambda: model.score({"frames": frames}), 1,
+                              groups=LM_GROUPS, unit="batch")
+    m32 = copy.copy(model)
+    m32.cfg = cfg.with_(compute_dtype=torch.float32)
+    with torch.no_grad():
+        full = m32.score({"frames": frames})
+        alone = m32.score({"frames": frames[:1]})
+        other = frames[:1].clone()
+        other[0, -1] += 1.0
+        moved = m32.score({"frames": other})
+    first = float((moved[0, 0] - alone[0, 0]).abs().max())
+    check(first > 0, "score_hubert_xlarge: the last frame did not reach "
+                     "the first frame's logits (a causal mask?)")
+    d = (alone[0] - full[0]).abs()
+    indep = float((d / (1 + full[0].abs())).max())
+    check(indep <= HUBERT_TOL, f"score_hubert_xlarge: utterance 0 alone "
+                               f"differs from its batch row by {indep}")
+    out = {"params": param_count(model), "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": cfg.n_heads, "d_ff": cfg.d_ff,
+           "vocab": [cfg.vocab, logits.shape[-1]], "act": cfg.act,
+           "causal": cfg.causal, "batch": HUBERT_BATCH,
+           "frames": HUBERT_FRAMES, "init_s": init_s,
+           "score_ms": times[0] * 1e3, "score_again_ms": times[1] * 1e3,
+           "frames_per_s": HUBERT_BATCH * HUBERT_FRAMES / times[1],
+           "launches": launches,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "device_busy_share": prof["device_busy_share"],
+           "kernels_per_batch": prof.get("kernels_per_batch"),
+           "us_by_group": prof.get("us_per_batch_by_group"),
+           "first_frame_change_from_last": first,
+           "batch_independence_scaled_err": indep, "tol": HUBERT_TOL,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("score_hubert_xlarge", **out)
+    del model, m32, logits, full
+    return out
 
 
 def _free() -> None:
@@ -3069,21 +3324,28 @@ def main() -> int:
     torch.cuda.synchronize()
     ktimes["selective_scan"] = phase_scan_kernel()
     torch.cuda.synchronize()
-    model, prompt, gen_tokens, serve_out = phase_serve()
+    model, batch, gen_tokens, serve_out = phase_serve()
     torch.cuda.synchronize()
-    consistency = phase_serve_consistency(model, prompt, gen_tokens)
+    consistency = phase_serve_consistency(model, batch, gen_tokens)
     del model
     _free()
     # each cell's model is checked in float32 compute on its first rows
-    # (mixtral's all-slot MoE capacity holds (rows, E, S + 8, d_ff)
-    # float32 buffers), then freed before the next cell's
-    for label, argv, reduced, check_label, rows in LM_CELLS:
-        model, prompt, gen_tokens, _ = phase_serve_lm(label, argv, reduced)
+    # (an MoE's all-slot capacity holds (rows, E, S + 8, d_ff) float32
+    # buffers), then freed before the next cell's
+    lm_out = {}
+    for (label, argv, reduced, scans, xgate, check_label, rows,
+         keep) in LM_CELLS:
+        model, batch, gen_tokens, lm_out[label] = phase_serve_lm(
+            label, argv, reduced, scans=scans, xgate=xgate)
         torch.cuda.synchronize()
-        phase_serve_consistency(model, prompt[:rows], gen_tokens[:rows],
-                                label=check_label)
-        del model, prompt, gen_tokens
+        phase_serve_consistency(model, {k: v[:rows] for k, v in
+                                        batch.items()},
+                                gen_tokens[:rows], label=check_label,
+                                max_prompt=keep)
+        del model, batch, gen_tokens
         _free()
+    phase_score_hubert()
+    _free()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
@@ -3151,11 +3413,18 @@ def main() -> int:
                        cosim_closed_ms_per_tick=closed_ms,
                        cosim_open_ms_per_tick=open_ms,
                        snn_fig6_ms_per_tick=snn_ms)
+    jamba = lm_out["serve_jamba_v01_52b_l8"]
     by_name["selective_scan"].update(
         max_rel_err=ktimes["selective_scan"]["max_rel_err"],
         serve_prefill_ms=serve_out["prefill_again_ms"],
         serve_decode_ms_per_step=serve_out["decode_ms_per_step"],
-        serve_consistency_scaled_err=consistency)
+        serve_consistency_scaled_err=consistency,
+        serve_jamba_launches=jamba["launches"]["selective_scan"],
+        serve_jamba_prefill_ms=jamba["prefill_again_ms"],
+        serve_jamba_decode_ms_per_step=jamba["decode_ms_per_step"],
+        jamba_shape=ktimes["selective_scan"]["jamba_shape"],
+        jamba_shape_ms=ktimes["selective_scan"]["jamba_ms"],
+        jamba_shape_bound_ms=ktimes["selective_scan"]["jamba_bound_ms"])
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,13 +1,13 @@
 """Model configs and the architecture registry of the LM stack.
 
 The counterpart of the reference's ``configs/base.py``, cut to what the
-serving paths of the Mamba, dense and MoE families read.  Each ported
+serving and scoring paths of the ten architectures read.  Each
 architecture has a module ``configs/<id>.py`` exposing ``CONFIG`` (the
 published configuration, value for value as in the reference) and
 ``smoke_config()`` (a reduced same-family config for CPU tests).  Dtypes
-are torch dtypes.  The cross-attention and frontend fields,
-``ShapeConfig``, ``RunConfig`` and ``input_specs`` come with the slices
-that use them.
+are torch dtypes.  The loss and remat fields, ``ShapeConfig``,
+``RunConfig`` and ``input_specs`` come with the trainer and the
+pod-scale tools (ROADMAP A.11b, A.11c).
 """
 
 from __future__ import annotations
@@ -68,7 +68,13 @@ class ModelConfig:
     moe_every: int = 1         # MoE replaces FFN every k-th layer (1 = all)
     mamba: MambaConfig | None = None
     block_pattern: Sequence[str] = ()
-    modality: str = "text"
+    # vision: cross-attention at position ``xattn_pos`` of every period of
+    # ``xattn_period`` layers; image tokens come from a stub frontend
+    xattn_period: int = 0
+    xattn_pos: int = 3
+    n_img_tokens: int = 0
+    d_frontend: int = 0        # stub modality frontend embedding width
+    modality: str = "text"     # text | audio_frames | image+text
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     # attention chunking (chunked online softmax): 0 = auto
@@ -95,10 +101,8 @@ ARCH_IDS = [
     "llama32_vision_11b", "hubert_xlarge", "mixtral_8x22b",
     "moonshot_v1_16b_a3b", "jamba_v01_52b", "falcon_mamba_7b",
 ]
-#: the ones the port runs
-PORTED_ARCHS = ("falcon_mamba_7b", "granite_3_2b", "mixtral_8x22b",
-                "qwen3_14b", "minitron_8b", "granite_34b",
-                "moonshot_v1_16b_a3b")
+#: the ones the port runs: all of them
+PORTED_ARCHS = tuple(ARCH_IDS)
 
 
 def _module(arch: str):
@@ -106,11 +110,6 @@ def _module(arch: str):
     if name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch!r}; the reference "
                          f"has {ARCH_IDS}")
-    if name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP A.11: the hybrid, "
-            f"cross-attention and encoder families come later); the port "
-            f"runs {PORTED_ARCHS}")
     return importlib.import_module(f"{__package__}.{name}")
 
 

@@ -206,14 +206,16 @@ def _leaves(tree: Mapping, prefix: str = ""):
 def lm_params_from_reference(params: Mapping, cfg, *, device=None) -> LM:
     """An ``LM`` holding the reference LM's parameters (its ``init``
     tree, as numpy or JAX arrays) on ``device`` (``None``: the CUDA
-    card).  ``embed.table``, ``ln_f.scale`` and ``head.w`` carry over by
-    name; each stacked leaf ``stack/pos<i>/<path>[p]`` goes to layer
-    ``p·len(pattern) + i`` as ``stack.blocks.<layer>.<path>``.  Every
-    parameter must be given, in the port's shape and dtype."""
+    card).  The top-level leaves carry over by name (``embed.table``,
+    ``frontend.w``, ``ln_f.scale``, ``head.w``; a tied model has no
+    ``head``, an audio model no ``embed``); each stacked leaf
+    ``stack/pos<i>/<path>[p]`` goes to layer ``p·len(pattern) + i`` as
+    ``stack.blocks.<layer>.<path>`` (a cross-attention block's scalar
+    ``xgate`` included).  Every parameter must be given, in the port's
+    shape and dtype."""
     model = LM(cfg, device=device)
-    state = {"embed.table": params["embed"]["table"],
-             "ln_f.scale": params["ln_f"]["scale"],
-             "head.w": params["head"]["w"]}
+    state = {f"{top}.{path}": leaf for top in params if top != "stack"
+             for path, leaf in _leaves(params[top])}
     pat = pattern_for(cfg)
     for i in range(len(pat)):
         for path, leaf in _leaves(params["stack"][f"pos{i}"]):
@@ -279,11 +281,12 @@ def attn_cache_from_reference(cache: Mapping, *, device=None):
 def lm_cache_from_reference(cache: Mapping, cfg, *, device=None) -> list:
     """The port's LM decode cache (one dict a layer) from the reference
     LM's (``{"pos<i>": cache stacked over periods}``): layer
-    ``p·len(pattern) + i`` gets period ``p`` of ``pos<i>``, a Mamba or
-    an attention cache by its block kind."""
+    ``p·len(pattern) + i`` gets period ``p`` of ``pos<i>``, a Mamba cache
+    for a ``mamba*`` block, else an attention cache (a cross-attention
+    block's image ``{"k", "v"}`` included)."""
     pat = pattern_for(cfg)
     per_pos = [mamba_cache_from_reference(cache[f"pos{i}"], device=device)
-               if kind == "mamba" else
+               if kind.startswith("mamba") else
                attn_cache_from_reference(cache[f"pos{i}"], device=device)
                for i, kind in enumerate(pat)]
     kinds = _kinds(cfg)

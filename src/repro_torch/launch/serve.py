@@ -3,20 +3,29 @@
 The counterpart of the reference's ``launch/serve.py``: seed a model,
 prefill a batch of ``SyntheticLM`` prompts, then step the decode caches
 token by token with greedy sampling, and print the reference's summary
-line.  It serves the Mamba family (falcon_mamba_7b), the dense family
-(granite_3_2b, qwen3_14b, minitron_8b, granite_34b) and the MoE family
-(mixtral_8x22b, moonshot_v1_16b_a3b).  It runs on the CUDA card unless
-``--device cpu`` says otherwise; on the card each Mamba block's prefill
-scan is one launch of the hand-written B7 kernel, and attention, the
-FFN and the MoE run in PyTorch ops (the reference has no TPU kernel for
-them either).  ``--layers`` cuts the depth (the published widths kept)
-for a model that one card cannot hold: mixtral-8x22b's 56 layers are
-about 564 GB of float32 weights, two of them about 22 GB.
+line.  It serves every causal architecture: the Mamba family
+(falcon_mamba_7b), the dense family (granite_3_2b, qwen3_14b,
+minitron_8b, granite_34b), the MoE family (mixtral_8x22b,
+moonshot_v1_16b_a3b), the hybrid (jamba_v01_52b) and the vision decoder
+(llama32_vision_11b, whose prompts carry ``SyntheticLM``'s stub image
+embeddings; prefill fills the cross-attention caches once).  The
+encoder hubert_xlarge is refused: it is scored (``LM.score``), as in
+the reference, which has no decode path for it.  It runs on the CUDA
+card unless ``--device cpu`` says otherwise; on the card each Mamba
+block's prefill scan is one launch of the hand-written B7 kernel, and
+attention, cross-attention, the FFN and the MoE run in PyTorch ops (the
+reference has no TPU kernel for them either).  ``--layers`` cuts the
+depth (the published widths kept) for a model that one card cannot
+hold: mixtral-8x22b's 56 layers are about 564 GB of float32 weights,
+two of them about 22 GB; one 8-layer period of jamba-v0.1-52b is about
+53 GB of its ~206.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \\
       --layers 2 --batch 2 --prompt-len 6144 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \\
+      --layers 8 --batch 2 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \\
       --smoke --device cpu
 """
@@ -71,8 +80,11 @@ def _parser() -> argparse.ArgumentParser:
 
 def setup(argv=None):
     """Parse the flags, pin the product precision, seed the model and
-    make the prompt batch: returns ``(args, cfg, model, tokens)``, the
-    tokens a (batch, prompt_len) int32 tensor on the model's device."""
+    make the prompt batch: returns ``(args, cfg, model, batch)``,
+    ``batch`` the ``SyntheticLM`` prompts on the model's device:
+    ``{"tokens": (batch, prompt_len) int32}``, with ``"img_embed"``
+    (batch, n_img_tokens, d_frontend) float32 for an ``"image+text"``
+    model, as the reference's serve builds it."""
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     pin_precision()
@@ -84,9 +96,13 @@ def setup(argv=None):
         raise ValueError(f"{args.arch} is encoder-only: nothing to decode")
     model = build_model(cfg, seed=args.seed, device=dev)
     data = SyntheticLM(cfg.vocab, args.prompt_len, args.batch,
-                       seed=args.seed, modality=cfg.modality)
-    tokens = torch.from_numpy(data.batch(0)["tokens"]).to(dev)
-    return args, cfg, model, tokens
+                       seed=args.seed, modality=cfg.modality,
+                       d_frontend=cfg.d_frontend,
+                       n_img_tokens=cfg.n_img_tokens)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(0).items()
+             if k not in ("labels", "mask")}
+    return args, cfg, model, batch
 
 
 def _sync(dev: torch.device) -> None:
@@ -95,13 +111,14 @@ def _sync(dev: torch.device) -> None:
 
 
 @torch.no_grad()
-def generate(model: LM, tokens: torch.Tensor, gen: int) -> Generation:
-    """Prefill ``tokens`` (B, S), then ``gen - 1`` greedy decode steps:
-    ``gen`` new tokens, each the first argmax of its logits."""
-    bsz, s = tokens.shape
+def generate(model: LM, batch: dict, gen: int) -> Generation:
+    """Prefill ``batch`` (``"tokens"`` (B, S) and, for an image model,
+    ``"img_embed"``), then ``gen - 1`` greedy decode steps: ``gen`` new
+    tokens, each the first argmax of its logits."""
+    bsz, s = batch["tokens"].shape
     dev = model.device
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": tokens}, max_len=s + gen)
+    logits, cache = model.prefill(batch, max_len=s + gen)
     tok = logits[:, -1].argmax(-1)[:, None]
     out_tokens, out_logits = [tok], [logits[:, -1]]
     _sync(dev)
@@ -121,8 +138,8 @@ def generate(model: LM, tokens: torch.Tensor, gen: int) -> Generation:
 
 
 def main(argv=None) -> torch.Tensor:
-    args, cfg, model, tokens = setup(argv)
-    res = generate(model, tokens, args.gen)
+    args, cfg, model, batch = setup(argv)
+    res = generate(model, batch, args.gen)
     gen, t_prefill, t_decode = res.tokens, res.prefill_s, res.decode_s
     print(f"{cfg.name}: prefill({args.batch}x{args.prompt_len}) "
           f"{t_prefill*1e3:.1f} ms; decode {args.gen - 1} steps "

@@ -1,7 +1,8 @@
 """Model substrate of the LM stack: parameter helpers, linear products,
 RMSNorm, the token embedding, RoPE, attention (GQA / MQA, sliding
-window, qk-norm; chunked online softmax for full sequences, a one-token
-core for decode), the FFN and the output head.
+window, qk-norm, cross-attention over image tokens; chunked online
+softmax for full sequences, a one-token core for decode), the FFN and
+the output head.
 
 The counterpart of the reference's ``models/layers.py``.  Parameters are
 stored in ``cfg.param_dtype`` (float32 master copies) and cast to
@@ -133,7 +134,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA / MQA / SWA) — chunked online-softmax ("flash") core
+# Attention (GQA / MQA / SWA / cross) — chunked online-softmax ("flash") core
 # ---------------------------------------------------------------------------
 
 def _chunk_mask(q_idx: torch.Tensor, kv_idx: torch.Tensor, causal: bool,
@@ -303,44 +304,57 @@ def attn_init(p: Attention, cfg, generator: torch.Generator) -> None:
                 scale=(H * dh) ** -0.5 / (2 * cfg.n_layers) ** 0.5)
 
 
-def _project_qkv(p: Attention, cfg, x, positions):
-    """q (B, S, H, dh), k and v (B, S, K, dh) in the compute dtype, after
-    qk-norm and RoPE."""
+def _project_qkv(p: Attention, cfg, x, kv_src, positions,
+                 use_rope: bool = True):
+    """q (B, S, H, dh) from ``x``, k and v (B, S, K, dh) from ``kv_src``,
+    in the compute dtype, after qk-norm and (``use_rope``, self-attention
+    only) RoPE at ``positions``."""
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     cd = cfg.compute_dtype
     q = linear(p.wq.w, x, cd).reshape(B, -1, H, dh)
-    k = linear(p.wk.w, x, cd).reshape(B, -1, K, dh)
-    v = linear(p.wv.w, x, cd).reshape(B, -1, K, dh)
+    k = linear(p.wk.w, kv_src, cd).reshape(B, -1, K, dh)
+    v = linear(p.wv.w, kv_src, cd).reshape(B, -1, K, dh)
     if cfg.qk_norm:
         q = rmsnorm(p.qn, q, cfg.norm_eps)
         k = rmsnorm(p.kn, k, cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), \
-        rope(k, positions, cfg.rope_theta), v
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
-def _attn(p: Attention, cfg, x, positions):
-    """Full-sequence self-attention: ``(out (B, S, D), k, v)``; prefill
-    keeps k and v for its cache (the reference projects them again)."""
+def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None):
+    """Full-sequence attention: ``(out (B, S, D), k, v)``; prefill
+    keeps a self-attention layer's k and v for its cache (the reference
+    projects them again).  With ``kv_src`` (B, Skv, D) it is
+    cross-attention, as the reference runs it: keys and values from
+    ``kv_src``, no RoPE on q or k, never causal."""
     B, S, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    causal = cfg.causal if causal is None else causal
+    cross = kv_src is not None
+    q, k, v = _project_qkv(p, cfg, x, kv_src if cross else x, positions,
+                           use_rope=not cross)
     q = q.reshape(B, S, K, H // K, dh)
     qc = cfg.q_chunk or min(1024, S)
-    kc = cfg.kv_chunk or min(1024, S)
-    out = flash_attention(q, k, v, causal=cfg.causal,
+    kc = cfg.kv_chunk or min(1024, k.shape[1])
+    out = flash_attention(q, k, v, causal=causal and not cross,
                           window=cfg.sliding_window, q_chunk=qc,
                           kv_chunk=kc)
     out = linear(p.wo.w, out.reshape(B, S, H * dh), cfg.compute_dtype)
     return out, k, v
 
 
-def attn_apply(p: Attention, cfg, x, positions) -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill). x: (B, S, D)."""
-    return _attn(p, cfg, x, positions)[0]
+def attn_apply(p: Attention, cfg, x, positions, *, causal=None,
+               kv_src=None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill). x: (B, S, D); causal
+    ``None`` means ``cfg.causal``; ``kv_src`` (B, Skv, D) makes it
+    cross-attention."""
+    return _attn(p, cfg, x, positions, causal=causal, kv_src=kv_src)[0]
 
 
-def attn_decode(p: Attention, cfg, x, cache: dict, pos):
+def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None):
     """One-token decode. x: (B, 1, D); pos: (B,) absolute position of the
     new token.  Two cache layouts:
 
@@ -349,33 +363,46 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos):
                    positions per slot (−1 = empty) — for sliding-window
                    attention the cache is only window-deep, slots recycle.
 
-    Returns ``(out, new_cache)``; the input cache is left as it was.
+    Cross-attention (``kv_src`` not None, e.g. ``"static"``) reads the
+    precomputed image cache {"k","v"} (B, n_img, K, dh) with every slot
+    valid, ropes nothing and writes nothing: the cache it returns is
+    the one it was given.  Returns ``(out, new_cache)``; the input cache
+    is left as it was.
     """
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    pos = torch.as_tensor(pos, device=x.device).long()
-    q, kn, vn = _project_qkv(p, cfg, x, pos[:, None])
-    ring = "slot_pos" in cache
-    Smax = cache["k"].shape[1]
-    # a full cache's slot is clamped into range, as dynamic_update_slice
-    # clamps the reference's
-    slot = pos % Smax if ring else pos.clamp(0, Smax - 1)
-    rows = torch.arange(B, device=x.device)
-    k = cache["k"].index_put((rows, slot), kn[:, 0])
-    v = cache["v"].index_put((rows, slot), vn[:, 0])
-    new_cache = {"k": k, "v": v}
-    if ring:
-        slot_pos = cache["slot_pos"].index_put(
-            (rows, slot), pos.to(cache["slot_pos"].dtype))
-        new_cache["slot_pos"] = slot_pos
-        valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-        if cfg.sliding_window > 0:
-            valid &= (pos[:, None] - slot_pos) < cfg.sliding_window
+    if kv_src is not None:
+        k, v = cache["k"], cache["v"]
+        q = linear(p.wq.w, x, cfg.compute_dtype).reshape(B, 1, H, dh)
+        if cfg.qk_norm:
+            q = rmsnorm(p.qn, q, cfg.norm_eps)
+        valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        new_cache = cache
     else:
-        idx = torch.arange(Smax, device=x.device)
-        valid = idx[None, :] <= pos[:, None]
-        if cfg.sliding_window > 0:
-            valid &= (pos[:, None] - idx[None, :]) < cfg.sliding_window
+        pos = torch.as_tensor(pos, device=x.device).long()
+        q, kn, vn = _project_qkv(p, cfg, x, x, pos[:, None])
+        ring = "slot_pos" in cache
+        Smax = cache["k"].shape[1]
+        # a full cache's slot is clamped into range, as
+        # dynamic_update_slice clamps the reference's
+        slot = pos % Smax if ring else pos.clamp(0, Smax - 1)
+        rows = torch.arange(B, device=x.device)
+        k = cache["k"].index_put((rows, slot), kn[:, 0])
+        v = cache["v"].index_put((rows, slot), vn[:, 0])
+        new_cache = {"k": k, "v": v}
+        if ring:
+            slot_pos = cache["slot_pos"].index_put(
+                (rows, slot), pos.to(cache["slot_pos"].dtype))
+            new_cache["slot_pos"] = slot_pos
+            valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+            if cfg.sliding_window > 0:
+                valid &= (pos[:, None] - slot_pos) < cfg.sliding_window
+        else:
+            idx = torch.arange(Smax, device=x.device)
+            valid = idx[None, :] <= pos[:, None]
+            if cfg.sliding_window > 0:
+                valid &= (pos[:, None] - idx[None, :]) < cfg.sliding_window
     out = decode_attention(q.reshape(B, 1, K, H // K, dh), k, v, valid)
     out = linear(p.wo.w, out.reshape(B, 1, H * dh), cfg.compute_dtype)
     return out, new_cache

@@ -1,12 +1,11 @@
-"""Top-level LM: embedding + block stack + final norm + head, and the
-serving entry points.
+"""Top-level LM: embedding or modality frontend + block stack + final
+norm + head, and the serving and scoring entry points.
 
-The counterpart of the reference's ``models/model.py`` for token LMs
-whose blocks the port runs (the Mamba, dense and MoE families).
-``LM`` is an ``nn.Module`` holding the parameters, named as the
-reference's tree (``embed.table``,
-``stack.blocks.<l>.{ln1,mamba,attn,ln2,ffn,moe}``, ``ln_f.scale``,
-``head.w``); ``build_model`` draws them from a seeded
+The counterpart of the reference's ``models/model.py`` for all ten
+architectures.  ``LM`` is an ``nn.Module`` holding the parameters, named
+as the reference's tree (``embed.table``, ``frontend.w``,
+``stack.blocks.<l>.{ln1,mamba,attn,xgate,ln2,ffn,moe}``,
+``ln_f.scale``, ``head.w``); ``build_model`` draws them from a seeded
 ``torch.Generator`` on the model's device.  The methods mirror the
 reference's pure functions:
 
@@ -17,11 +16,18 @@ reference's pure functions:
   prefill(batch, max_len=None)   -> (last-position logits, cache)
   decode_step(cache, tokens, pos) -> (logits, cache)
 
-``batch`` is ``{"tokens": (B, S) int}``.  The loss, chunked
-cross-entropy, tied embeddings, the audio/vision frontends and the
-hybrid and cross-attention blocks come later (ROADMAP A.11).  The
-reference's ``shard_activation`` annotations are dropped: the slice
-runs on one card.
+``batch`` is ``{"tokens": (B, S) int}`` for text;
+``{"frames": (B, S, d_frontend) float}`` for ``"audio_frames"`` (hubert:
+no token embedding, the frames go through the stub frontend, one
+linear ``d_frontend -> d_model``); ``{"tokens", "img_embed": (B,
+n_img_tokens, d_frontend) float}`` for ``"image+text"`` (llama-3.2-
+vision: the same frontend projects the stub image embeddings, which
+the cross-attention blocks read).  With ``tie_embeddings`` there is no
+head: the logits are ``h @ embed.table.T`` in the compute dtype.  An
+encoder-only model (``causal=False``) scores and has no decode step.
+The loss and chunked cross-entropy come with the trainer (ROADMAP
+A.11b).  The reference's ``shard_activation`` annotations are dropped:
+the model runs on one card.
 """
 
 from __future__ import annotations
@@ -35,58 +41,80 @@ from . import transformer as T
 
 __all__ = ["LM", "build_model", "param_count"]
 
+MODALITIES = ("text", "audio_frames", "image+text")
+
 
 class LM(nn.Module):
     """The parameters, uninitialised until ``init`` (or a load)."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if cfg.modality != "text":
-            raise NotImplementedError(
-                f"modality {cfg.modality!r} is not ported yet (ROADMAP "
-                f"A.11: the audio and image frontends come later)")
-        if cfg.tie_embeddings:
-            raise NotImplementedError(
-                "tied embeddings are not ported yet (ROADMAP A.11)")
+        if cfg.modality not in MODALITIES:
+            raise ValueError(f"unknown modality {cfg.modality!r}; the "
+                             f"reference has {MODALITIES}")
+        if cfg.tie_embeddings and cfg.modality == "audio_frames":
+            raise ValueError(f"{cfg.name}: tied embeddings need a token "
+                             f"embedding, which audio frames do not have")
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = L.Embed(cfg.vocab, cfg.d_model, cfg.param_dtype,
-                             device=dev)
+        if cfg.modality != "audio_frames":
+            self.embed = L.Embed(cfg.vocab, cfg.d_model, cfg.param_dtype,
+                                 device=dev)
+        if cfg.modality != "text":
+            self.frontend = L.Linear(cfg.d_frontend, cfg.d_model,
+                                     cfg.param_dtype, device=dev)
         self.stack = T.Stack(cfg, device=dev)
         self.ln_f = L.RMSNorm(cfg.d_model, device=dev)
-        self.head = L.Head(cfg, device=dev)
+        if not cfg.tie_embeddings:
+            self.head = L.Head(cfg, device=dev)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return self.ln_f.scale.device
 
     def init(self, generator: torch.Generator) -> "LM":
         """Draw every random parameter in place from ``generator`` (on
-        the model's device): the embedding, each layer, the head."""
-        L.embed_init(self.embed, generator)
+        the model's device): the embedding, the frontend, each layer,
+        the head."""
+        if hasattr(self, "embed"):
+            L.embed_init(self.embed, generator)
+        if hasattr(self, "frontend"):
+            L.linear_init(self.frontend, generator)
         T.stack_init(self.stack, self.cfg, generator)
-        L.head_init(self.head, self.cfg, generator)
+        if hasattr(self, "head"):
+            L.head_init(self.head, self.cfg, generator)
         return self
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = L.rmsnorm(self.ln_f, h, cfg.norm_eps)
-        logits = L.linear(self.head.w, h, cfg.compute_dtype)
+        w = self.embed.table.T if cfg.tie_embeddings else self.head.w
+        logits = L.linear(w, h, cfg.compute_dtype)
         return L.mask_padded_vocab(logits, cfg.vocab)
 
-    def _embed_tokens(self, tokens: torch.Tensor):
-        """Embeddings and the positions 0..S-1 of every row, (B, S)."""
-        h = L.embed(self.embed, tokens, self.cfg.compute_dtype)
-        B, S = tokens.shape
-        return h, torch.arange(S, device=h.device).expand(B, S)
+    def _embed_inputs(self, batch: dict):
+        """``(h (B, S, D), positions 0..S-1 of every row (B, S), img)``:
+        token embeddings or projected frames, and the projected image
+        tokens (B, n_img, D) for ``"image+text"`` (else None)."""
+        cfg = self.cfg
+        cd = cfg.compute_dtype
+        if cfg.modality == "audio_frames":
+            h = L.linear(self.frontend.w, batch["frames"], cd)
+        else:
+            h = L.embed(self.embed, batch["tokens"], cd)
+        img = None
+        if cfg.modality == "image+text":
+            img = L.linear(self.frontend.w, batch["img_embed"], cd)
+        B, S = h.shape[:2]
+        return h, torch.arange(S, device=h.device).expand(B, S), img
 
     def forward(self, batch: dict):
-        h, positions = self._embed_tokens(batch["tokens"])
-        h, aux = T.stack_apply(self.stack, self.cfg, h, positions)
+        h, positions, img = self._embed_inputs(batch)
+        h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img)
         return self._head(h), aux
 
     def score(self, batch: dict) -> torch.Tensor:
-        """Full-sequence logits (no cache)."""
+        """Full-sequence logits (no cache): an encoder's scoring."""
         return self.forward(batch)[0]
 
     def init_cache(self, batch_size: int, max_len: int) -> list:
@@ -96,14 +124,17 @@ class LM(nn.Module):
     def prefill(self, batch: dict, max_len=None):
         """Returns (logits for the last position (B, 1, V), decode
         cache)."""
-        h, positions = self._embed_tokens(batch["tokens"])
-        h, cache = T.stack_prefill(self.stack, self.cfg, h, positions,
+        h, positions, img = self._embed_inputs(batch)
+        h, cache = T.stack_prefill(self.stack, self.cfg, h, positions, img,
                                    max_len=max_len)
         return self._head(h[:, -1:]), cache
 
     def decode_step(self, cache: list, tokens: torch.Tensor, pos):
         """tokens: (B, 1) int; pos: (B,) absolute positions."""
         cfg = self.cfg
+        if not cfg.causal:
+            raise ValueError(f"{cfg.name} is encoder-only (causal=False): "
+                             f"it is scored (LM.score), not decoded")
         h = L.embed(self.embed, tokens, cfg.compute_dtype)
         h, cache = T.stack_decode(self.stack, cfg, h, pos, cache)
         return self._head(h), cache

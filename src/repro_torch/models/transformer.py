@@ -1,6 +1,7 @@
 """Layer stack of the LM: the block pattern and the stack's forward,
-prefill and decode, for the ``"mamba"``, ``"attn_ffn"`` and
-``"attn_moe"`` block kinds.
+prefill and decode, for every block kind of the reference:
+``attn_ffn``, ``attn_moe``, ``xattn_ffn``, ``mamba``, ``mamba_ffn`` and
+``mamba_moe``.
 
 The counterpart of the reference's ``models/transformer.py``.  The
 reference stacks each pattern position's parameters over periods and
@@ -8,13 +9,16 @@ runs one ``lax.scan``; the port keeps one module per layer in an
 ``nn.ModuleList`` and loops over it in Python (PyTorch runs eagerly;
 layer ``l`` is the reference's period ``l // len(pattern)``, position
 ``l % len(pattern)``).  A block is ``x + mixer(ln1(x))`` then, for the
-``_ffn`` / ``_moe`` kinds, ``x + ffn_or_moe(ln2(x))``.  Attention layers
+``_ffn`` / ``_moe`` kinds, ``x + ffn_or_moe(ln2(x))``; the mixer is
+self-attention (``attn_*``), a Mamba layer (``mamba*``) or gated
+cross-attention over the image tokens (``xattn_*``: its output times
+``tanh(xgate)``, the gate a float32 scalar initialised to 0 as in the
+reference, so a fresh model's image changes nothing).  Attention layers
 keep a full K/V cache, or a window-deep ring cache when the sliding
-window is shorter than the cache.  The hybrid kinds (``mamba_ffn``,
-``mamba_moe``) and cross-attention (``xattn_ffn``) raise
-``NotImplementedError`` until their slice (ROADMAP A.11).  The
-reference's ``shard_activation`` annotations are dropped: the slice runs
-on one card.
+window is shorter than the cache; cross-attention layers keep the image
+tokens' K/V, filled once by prefill (or ``precompute_cross_cache``) and
+never written by decode.  The reference's ``shard_activation``
+annotations are dropped: the stack runs on one card.
 """
 
 from __future__ import annotations
@@ -26,14 +30,16 @@ from . import layers as L
 from . import mamba as M
 from . import moe as MOE
 
-__all__ = ["AUX_KEYS", "pattern_for", "n_periods", "Block", "Stack",
-           "stack_init", "stack_apply", "init_cache", "stack_prefill",
-           "_ring_positions", "stack_decode"]
+__all__ = ["AUX_KEYS", "KINDS", "pattern_for", "n_periods", "Block",
+           "Stack", "stack_init", "stack_apply", "init_cache",
+           "precompute_cross_cache", "stack_prefill", "_ring_positions",
+           "stack_decode"]
 
 #: the auxiliary sums a forward returns (the MoE blocks' losses)
 AUX_KEYS = ("aux_loss", "z_loss", "drop_frac")
-#: the block kinds the port runs
-PORTED_KINDS = ("mamba", "attn_ffn", "attn_moe")
+#: the block kinds of the reference
+KINDS = ("attn_ffn", "attn_moe", "xattn_ffn", "mamba", "mamba_ffn",
+         "mamba_moe")
 
 
 def pattern_for(cfg) -> tuple[str, ...]:
@@ -42,9 +48,9 @@ def pattern_for(cfg) -> tuple[str, ...]:
     if cfg.family == "mamba":
         return ("mamba",)
     if cfg.family == "vision":
-        raise NotImplementedError(
-            "family 'vision' is not ported yet (ROADMAP A.11: "
-            "cross-attention and the image frontend come later)")
+        pat = ["attn_ffn"] * cfg.xattn_period
+        pat[cfg.xattn_pos] = "xattn_ffn"
+        return tuple(pat)
     if cfg.family == "moe":
         if cfg.moe_every <= 1:
             return ("attn_moe",)
@@ -61,34 +67,36 @@ def n_periods(cfg) -> int:
 
 
 def _kinds(cfg) -> list[str]:
-    """The block kind of every layer, refusing kinds not ported."""
+    """The block kind of every layer."""
     pat = pattern_for(cfg)
     for kind in pat:
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP A.11: "
-                f"the hybrid and cross-attention blocks come later); the "
-                f"port runs {PORTED_KINDS}")
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; the reference "
+                             f"has {KINDS}")
     return [pat[i % len(pat)] for i in range(n_periods(cfg) * len(pat))]
 
 
 class Block(nn.Module):
-    """One block: ``ln1`` and its mixer (``mamba`` or ``attn``), then
-    ``ln2`` and ``ffn`` or ``moe`` for the ``_ffn`` / ``_moe`` kinds."""
+    """One block: ``ln1`` and its mixer (``attn``, with the scalar
+    ``xgate`` for cross-attention, or ``mamba``), then ``ln2`` and
+    ``ffn`` or ``moe`` for the ``_ffn`` / ``_moe`` kinds."""
 
     def __init__(self, cfg, kind: str, *, device=None):
         super().__init__()
         self.kind = kind
         self.ln1 = L.RMSNorm(cfg.d_model, device=device)
-        if kind == "mamba":
+        if kind.startswith("mamba"):
             self.mamba = M.Mamba(cfg, device=device)
         else:
             self.attn = L.Attention(cfg, device=device)
+            if kind.startswith("xattn"):
+                self.xgate = L.param((), torch.float32, device, fill=0.0)
+        if kind.endswith("_ffn"):
             self.ln2 = L.RMSNorm(cfg.d_model, device=device)
-            if kind == "attn_ffn":
-                self.ffn = L.FFN(cfg, device=device)
-            else:
-                self.moe = MOE.MoE(cfg, device=device)
+            self.ffn = L.FFN(cfg, device=device)
+        elif kind.endswith("_moe"):
+            self.ln2 = L.RMSNorm(cfg.d_model, device=device)
+            self.moe = MOE.MoE(cfg, device=device)
 
 
 class Stack(nn.Module):
@@ -99,54 +107,101 @@ class Stack(nn.Module):
 
 
 def stack_init(stack: Stack, cfg, generator: torch.Generator) -> None:
-    """Draw every block's random parameters in place, layer by layer."""
+    """Draw every block's random parameters in place, layer by layer:
+    the mixer, then the FFN or MoE (an ``xgate`` keeps its 0)."""
     for blk in stack.blocks:
-        if blk.kind == "mamba":
+        if blk.kind.startswith("mamba"):
             M.mamba_init(blk.mamba, cfg, generator)
-            continue
-        L.attn_init(blk.attn, cfg, generator)
-        if blk.kind == "attn_ffn":
-            L.ffn_init(blk.ffn, cfg, generator)
         else:
+            L.attn_init(blk.attn, cfg, generator)
+        if blk.kind.endswith("_ffn"):
+            L.ffn_init(blk.ffn, cfg, generator)
+        elif blk.kind.endswith("_moe"):
             MOE.moe_init(blk.moe, cfg, generator)
+
+
+def _gated(blk: Block, mix: torch.Tensor) -> torch.Tensor:
+    """``tanh(xgate)`` in float32, cast to the mix's dtype, times the
+    mix in that dtype, as the reference gates cross-attention."""
+    return torch.tanh(blk.xgate).to(mix.dtype) * mix
 
 
 def _channel_mix(blk: Block, cfg, x: torch.Tensor):
     """``x + ffn_or_moe(ln2(x))`` and the MoE's aux dict (None for an
-    FFN)."""
+    FFN or a bare ``mamba`` block, which has no channel mix)."""
+    if blk.kind == "mamba":
+        return x, None
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    if blk.kind == "attn_ffn":
+    if blk.kind.endswith("_ffn"):
         return x + L.ffn_apply(blk.ffn, cfg, h), None
     y, aux = MOE.moe_apply(blk.moe, cfg, h)
     return x + y, aux
 
 
-def _block_apply(blk: Block, cfg, x: torch.Tensor, positions):
+def _block_apply(blk: Block, cfg, x: torch.Tensor, positions, img):
     """One block's full-sequence forward: ``(x, aux or None)``."""
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
-    if blk.kind == "mamba":
-        return x + M.mamba_apply(blk.mamba, cfg, h), None
-    return _channel_mix(blk, cfg, x + L.attn_apply(blk.attn, cfg, h,
-                                                   positions))
+    if blk.kind.startswith("xattn"):
+        mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,
+                                       kv_src=img, causal=False))
+    elif blk.kind.startswith("attn"):
+        mix = L.attn_apply(blk.attn, cfg, h, positions)
+    else:
+        mix = M.mamba_apply(blk.mamba, cfg, h)
+    return _channel_mix(blk, cfg, x + mix)
 
 
-def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions):
-    """Full-sequence forward. x: (B, S, D); positions (B, S) -> (x, aux
-    sums over layers, float32 scalars, summed in layer order)."""
+def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None):
+    """Full-sequence forward. x: (B, S, D); positions (B, S); img (B,
+    n_img, D), the projected image tokens, for cross-attention -> (x,
+    aux sums over layers, float32 scalars, summed in layer order)."""
     aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for blk in stack.blocks:
-        x, aux_b = _block_apply(blk, cfg, x, positions)
+        x, aux_b = _block_apply(blk, cfg, x, positions, img)
         if aux_b is not None:
             aux = {k: aux[k] + aux_b[k] for k in AUX_KEYS}
     return x, aux
 
 
+def _cross_cache(cfg, batch: int, *, device=None) -> dict:
+    shape = (batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.d_head)
+    return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for name in ("k", "v")}
+
+
 def init_cache(cfg, batch: int, max_len: int, *, device=None) -> list:
-    """One cache a layer: ``{"h", "conv"}`` (zeros) for a Mamba block, an
-    attention cache (zeros; a ring's ``slot_pos`` −1) otherwise."""
-    return [M.init_mamba_cache(cfg, batch, device=device) if kind == "mamba"
-            else L.init_attn_cache(cfg, batch, max_len, device=device)
-            for kind in _kinds(cfg)]
+    """One cache a layer, zeros: ``{"h", "conv"}`` for a Mamba block, the
+    image tokens' ``{"k", "v"}`` (B, n_img_tokens, K, dh) for
+    cross-attention, an attention cache (a ring's ``slot_pos`` −1)
+    otherwise."""
+    def one(kind):
+        if kind.startswith("xattn"):
+            return _cross_cache(cfg, batch, device=device)
+        if kind.startswith("attn"):
+            return L.init_attn_cache(cfg, batch, max_len, device=device)
+        return M.init_mamba_cache(cfg, batch, device=device)
+
+    return [one(kind) for kind in _kinds(cfg)]
+
+
+def _cross_kv(attn: L.Attention, cfg, img: torch.Tensor) -> dict:
+    """A cross-attention layer's cache from the projected image tokens:
+    ``img @ wk`` and ``img @ wv`` in the compute dtype, (B, n_img, K,
+    dh).  As in the reference, no ``kn`` qk-norm is applied here, though
+    ``attn_apply``'s keys get it (ROADMAP queue C)."""
+    B = img.shape[0]
+    K, dh, cd = cfg.n_kv_heads, cfg.d_head, cfg.compute_dtype
+    return {"k": L.linear(attn.wk.w, img, cd).reshape(B, -1, K, dh),
+            "v": L.linear(attn.wv.w, img, cd).reshape(B, -1, K, dh)}
+
+
+def precompute_cross_cache(stack: Stack, cfg, cache: list,
+                           img: torch.Tensor) -> list:
+    """``cache`` with every cross-attention layer's entry filled from the
+    projected image tokens ``img`` (B, n_img, D); the other layers'
+    entries are the same objects."""
+    return [_cross_kv(blk.attn, cfg, img) if blk.kind.startswith("xattn")
+            else c for blk, c in zip(stack.blocks, cache, strict=True)]
 
 
 def _ring_positions(S: int, W: int, B: int, device=None) -> torch.Tensor:
@@ -181,12 +236,13 @@ def _attn_cache(k: torch.Tensor, v: torch.Tensor, max_len: int,
             "v": torch.nn.functional.pad(v, pad), "slot_pos": sp}
 
 
-def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions,
+def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
                   max_len=None):
     """Forward that also returns the decode cache: ``(hidden, [cache of
     each layer])``.  Attention layers keep their K/V with room for
     ``max_len`` positions (a ring of the window when it is shorter);
-    Mamba layers keep the final recurrent and conv state."""
+    cross-attention layers the image tokens' K/V; Mamba layers the
+    final recurrent and conv state."""
     S = x.shape[1]
     max_len = max(max_len or 0, S)
     W = cfg.sliding_window if (cfg.sliding_window and
@@ -194,30 +250,36 @@ def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions,
     caches = []
     for blk in stack.blocks:
         h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
-        if blk.kind == "mamba":
+        if blk.kind.startswith("xattn"):
+            mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,
+                                           kv_src=img, causal=False))
+            caches.append(_cross_kv(blk.attn, cfg, img))
+        elif blk.kind.startswith("attn"):
+            mix, k, v = L._attn(blk.attn, cfg, h, positions)
+            caches.append(_attn_cache(k, v, max_len, W))
+        else:
             mix, st = M.mamba_prefill(blk.mamba, cfg, h)
             caches.append(st)
-            x = x + mix
-            continue
-        mix, k, v = L._attn(blk.attn, cfg, h, positions)
-        caches.append(_attn_cache(k, v, max_len, W))
         x, _ = _channel_mix(blk, cfg, x + mix)
     return x, caches
 
 
 def stack_decode(stack: Stack, cfg, x: torch.Tensor, pos, cache: list):
     """One-token decode. x: (B, 1, D); ``pos`` (B,) the new token's
-    absolute position (a Mamba block does not read it).  Returns ``(x,
-    new cache)``; the input cache is left as it was."""
+    absolute position (Mamba and cross-attention blocks do not read
+    it).  Returns ``(x, new cache)``; the input cache is left as it was,
+    and a cross-attention layer's entry is passed on as it is."""
     new_cache = []
     for blk, c in zip(stack.blocks, cache, strict=True):
         h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
-        if blk.kind == "mamba":
+        if blk.kind.startswith("xattn"):
+            mix, nc = L.attn_decode(blk.attn, cfg, h, c, pos,
+                                    kv_src="static")
+            mix = _gated(blk, mix)
+        elif blk.kind.startswith("attn"):
+            mix, nc = L.attn_decode(blk.attn, cfg, h, c, pos)
+        else:
             mix, nc = M.mamba_decode(blk.mamba, cfg, h, c)
-            new_cache.append(nc)
-            x = x + mix
-            continue
-        mix, nc = L.attn_decode(blk.attn, cfg, h, c, pos)
         new_cache.append(nc)
         x, _ = _channel_mix(blk, cfg, x + mix)
     return x, new_cache

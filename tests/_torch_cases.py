@@ -822,6 +822,10 @@ SCAN_SHAPES = ((1, 32, 16, 4), (2, 64, 32, 8), (2, 48, 8, 16),
 #: falcon-mamba-7b's prefill scan on the serve path: 4 prompts of 2048
 #: tokens, d_inner 8192, d_state 16
 SCAN_SERVE_SHAPE = (4, 2048, 8192, 16)
+#: jamba-v0.1-52b's prefill scan on its serve path: 2 prompts of 4096
+#: tokens, d_inner 2 * 4096 = 8192, d_state 16 (its Mamba layers draw A
+#: and dt as falcon-mamba-7b's do)
+SCAN_JAMBA_SHAPE = (2, 4096, 8192, 16)
 #: (B, S, d_in, N) at the kernel's tile edges, small enough for the CPU:
 #: S one 32-step tile +- 1, d_in a block's channels +- 1 (64 at two
 #: threads a channel, 128 at N = 1), N in {1, 17, 32}
@@ -831,7 +835,7 @@ SCAN_CARD_EDGE_SHAPES = ((64, 33, 63, 17), (66, 31, 129, 32))
 #: |kernel - plain| <= tol + tol·|plain| for y and h_final: the
 #: reference's own tolerance at the test shapes
 #: (tests/test_kernels_scan.py:33), ten times that over the serve
-#: shape's 2048 steps (PERF.md says why)
+#: shapes' 2048 and 4096 steps (PERF.md says why)
 SCAN_TOL = 1e-5
 SCAN_SERVE_TOL = 1e-4
 
@@ -904,6 +908,8 @@ def scan_specs(card=False):
             ("falcon-1x256x1000", (1, 256, 1000, 16), {"falcon": True},
              SCAN_TOL),
             ("falcon-serve", SCAN_SERVE_SHAPE, {"falcon": True},
+             SCAN_SERVE_TOL),
+            ("jamba-serve", SCAN_JAMBA_SHAPE, {"falcon": True},
              SCAN_SERVE_TOL),
         ]
     return specs

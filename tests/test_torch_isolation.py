@@ -40,7 +40,10 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.launch.serve", "repro_torch.core.adaptive",
             "repro_torch.analysis", "repro_torch.analysis.verify",
             "repro_torch.models.moe", "repro_torch.configs.granite_3_2b",
-            "repro_torch.configs.mixtral_8x22b"]
+            "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.configs.llama32_vision_11b",
+            "repro_torch.configs.hubert_xlarge"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"

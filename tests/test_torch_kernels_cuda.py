@@ -898,7 +898,7 @@ def test_serve_smoke_on_card_launches_scan_in_prefill_only(cuda):
     toks = torch.randint(0, cfg.vocab, (2, 12), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(1))
     ssk.selective_scan.launches = 0
-    res = serve.generate(model, toks, 6)
+    res = serve.generate(model, {"tokens": toks}, 6)
     assert ssk.selective_scan.launches == cfg.n_layers
     assert res.tokens.shape == (2, 6) and int(res.tokens.max()) < cfg.vocab
     assert torch.isfinite(res.logits.float()).all()

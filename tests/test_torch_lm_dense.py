@@ -42,7 +42,7 @@ from repro_torch.configs import base as cb
 from repro_torch.launch import serve
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.model import LM, build_model, param_count
+from repro_torch.models.model import build_model, param_count
 
 from _subproc import run_with_devices
 
@@ -485,32 +485,26 @@ def test_one_full_width_granite_layer_matches_reference():
     _close(want, got)
 
 
-# --- what is still unported ------------------------------------------------
+# --- every architecture --------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "llama32_vision_11b",
-                                  "hubert_xlarge"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="A.11"):
-        cb.get_config(arch)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        cb.get_smoke_config(arch)
-
-
-@pytest.mark.parametrize("changes,match", [
-    (dict(family="hybrid", block_pattern=("mamba", "mamba_moe")),
-     "block kind 'mamba_moe'.*A.11"),
-    (dict(family="hybrid", block_pattern=("attn_moe", "mamba_ffn")),
-     "block kind 'mamba_ffn'.*A.11"),
-    (dict(family="vision"), "family 'vision'.*A.11"),
-    (dict(family="encoder", causal=False, modality="audio_frames"),
-     "modality 'audio_frames'.*A.11"),
-    (dict(modality="image+text"), "modality 'image\\+text'.*A.11"),
-    (dict(tie_embeddings=True), "tied embeddings.*A.11"),
-])
-def test_lm_refuses_what_is_unported(changes, match):
-    """The blocks and inputs of jamba (hybrid kinds), llama-3.2-vision
-    (cross-attention, image tokens), hubert (audio frames) and tied
-    embeddings still raise with their A.11 label."""
-    cfg = cb.get_smoke_config("mixtral_8x22b").with_(**changes)
-    with pytest.raises(NotImplementedError, match=match):
-        LM(cfg, device=CPU)
+@pytest.mark.parametrize("arch", cb.ARCH_IDS)
+def test_every_arch_builds_and_runs_at_smoke_size(arch):
+    """Each of the reference's ten architectures builds on the CPU from a
+    seed and scores its smoke batch (tokens, audio frames or tokens with
+    stub image embeddings) to finite logits over the padded vocabulary,
+    padded ids never winning an argmax."""
+    cfg = cb.get_smoke_config(arch)
+    model = build_model(cfg, seed=0, device=CPU)
+    rng = np.random.default_rng(1)
+    if cfg.modality == "audio_frames":
+        batch = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, 12, cfg.d_frontend)).astype(np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(_tokens((2, 12), vocab=cfg.vocab))}
+    if cfg.modality == "image+text":
+        batch["img_embed"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_frontend)).astype(np.float32))
+    logits = model.score(batch)
+    assert logits.shape == (2, 12, RL.padded_vocab(cfg.vocab))
+    assert bool(torch.isfinite(logits[..., :cfg.vocab].float()).all())
+    assert int(logits.argmax(-1).max()) < cfg.vocab

@@ -31,7 +31,7 @@ from repro_torch.configs import base as cb
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import serve
 from repro_torch.models import layers as L
-from repro_torch.models.model import LM, build_model, param_count
+from repro_torch.models.model import build_model, param_count
 
 CPU = "cpu"
 TOL = 2e-5
@@ -246,7 +246,8 @@ def test_configs_match_reference(arch):
         for f in ("name", "family", "n_layers", "d_model", "n_heads",
                   "n_kv_heads", "d_head", "d_ff", "vocab", "act", "qk_norm",
                   "rope_theta", "sliding_window", "causal", "tie_embeddings",
-                  "norm_eps", "moe_every", "block_pattern", "modality",
+                  "norm_eps", "moe_every", "block_pattern", "xattn_period",
+                  "xattn_pos", "n_img_tokens", "d_frontend", "modality",
                   "q_chunk", "kv_chunk", "dt_rank"):
             assert getattr(p, f) == getattr(r, f), f
         for sub in ("mamba", "moe"):
@@ -256,12 +257,13 @@ def test_configs_match_reference(arch):
         assert (p.param_dtype, p.compute_dtype) == (torch.float32,
                                                     torch.bfloat16)
     assert cb.get_config(ARCH).dt_rank == 256
-    with pytest.raises(NotImplementedError, match="A.11"):
-        cb.get_config("jamba_v01_52b")
+    jamba, ref_jamba = cb.get_config("jamba_v01_52b"), \
+        ref_get_config("jamba_v01_52b")
+    assert (jamba.block_pattern, jamba.moe.__dict__, jamba.mamba.__dict__) \
+        == (ref_jamba.block_pattern, ref_jamba.moe.__dict__,
+            ref_jamba.mamba.__dict__)
     with pytest.raises(ValueError, match="unknown"):
         cb.get_config("no_such_model")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        LM(cb.get_smoke_config(ARCH).with_(family="vision"), device=CPU)
 
 
 def test_moe_config_defaults_match_reference():
