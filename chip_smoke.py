@@ -11,7 +11,7 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
 
 1. device    — name, capability (must be 9.0), nvidia-smi name and power
                limit (also printed raw on a line of its own);
-2. build     — the six libraries, one nvcc each, started together:
+2. build     — the seven libraries, one nvcc each, started together:
                seconds and ptxas's resource report;
 3. kernels   — the per-step pair (B1, B2) against their plain PyTorch
                versions on the card, bit for bit: B1 at every
@@ -269,8 +269,46 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                and again), frames/s, peak memory, a profiled call's busy
                share and time by group.  Each phase from 23 on reports
                its seconds (``phase_s``).
+28. scan_bwd_vs_plain — B7's backward kernel (csrc/selective_scan_bwd.cu,
+               kernel work from a module: no TPU kernel) against
+               ``ref.selective_scan_bwd`` on every ``scan_cases(card=
+               True)`` case (subnormal and zero exp(dt·A), N = 1..32,
+               widths off the tile edges, falcon's (4, 2048, 8192, 16)
+               and jamba's shape), dh_final zero and random, each of the
+               five gradients within its tolerance x max|plain|, and each
+               run twice, bit-equal; then ``SelectiveScanFn`` on CUDA
+               against autograd through the plain scan on CUDA at two
+               small shapes (which cotangent goes where, dh_final's
+               seeding), and scan_bwd_kernel_time: the kernel timed at
+               the training shape with the profiler and CUDA events,
+               beside its bound and its plain version;
+29. train_falcon_mamba_7b_l16 — training through
+               ``repro_torch.launch.train`` (``setup``, ``run``):
+               falcon-mamba-7b at its full widths with the depth cut
+               from 64 layers to 16 (``reduced``: its full state of
+               float32 parameters, gradients and two moments is ~116
+               GB), 4 x 2048 SyntheticLM tokens a step, bf16 products,
+               "full" remat, 8 steps under deterministic algorithms:
+               every metric finite each step, exactly 32 B7 launches a
+               step (16 forward, 16 in the recompute) and 16 of its
+               backward, no other port kernel; ms a step (first, median
+               of the rest), tokens/s, peak memory, mfu (6 x params x
+               tokens / (step s x 989e12)); a profiled step's busy share
+               and time by group, the AdamW update and the chunked
+               cross-entropy timed alone, two steps without
+               deterministic algorithms;
+30. train_granite_3_2b — the same for granite-3-2b at full widths and
+               depth (40 layers, ~42 GB of state): no port kernel;
+31. train_restart_drill — falcon-mamba's and granite's smoke configs on
+               the card, 30 steps with a checkpoint every 5, clean and
+               with failures at steps 7, 13 and 18: 3 restarts, the
+               parameters and moments bit-equal to the clean run's, the
+               last 5 steps' mean loss below the first 5's, and falcon's
+               clean run exactly 60 B7 and 30 backward launches a Mamba
+               layer.
 
-Then the ``{"kernels": [...]}`` summary, the nvidia-smi line again and,
+Then the ``{"kernels": [...]}`` summary (B1–B7 and B7's backward), the
+nvidia-smi line again and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and the last line is never printed.  Without
 CUDA (or outside a checkout of the repository) it exits non-zero before
@@ -280,11 +318,16 @@ printing any result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# the training phases run under PyTorch's deterministic algorithms, which
+# need this cuBLAS workspace setting before the process's first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
@@ -409,7 +452,8 @@ def phase_device():
 
 
 LIBRARIES = ("fabric_queue", "fabric_queue_multistep", "lif_step",
-             "aer_encode", "aer_decode", "selective_scan")
+             "aer_encode", "aer_decode", "selective_scan",
+             "selective_scan_bwd")
 
 
 def phase_build():
@@ -1871,7 +1915,7 @@ def _wrappers():
     from repro_torch.kernels import selective_scan as ssk
     return (fq.fabric_queue_step, fq.fabric_queue_update,
             fq.fabric_queue_multistep, lk.lif_step, aek.aer_encode,
-            adk.aer_decode, ssk.selective_scan)
+            adk.aer_decode, ssk.selective_scan, ssk.selective_scan_bwd)
 
 
 def _counts_zero():
@@ -2056,7 +2100,7 @@ def phase_cosim():
     check(launches == {"fabric_queue_step": 0, "fabric_queue_update": 0,
                        "fabric_queue_multistep": want_b3, "lif_step": T,
                        "aer_encode": 0, "aer_decode": 0,
-                       "selective_scan": 0},
+                       "selective_scan": 0, "selective_scan_bwd": 0},
           f"cosim: launches {launches}, expected {T} lif_step and "
           f"{want_b3} fabric_queue_multistep, no other kernel")
     return launches, wall / T * 1e3, open_wall / T * 1e3
@@ -3246,6 +3290,357 @@ def phase_score_hubert():
     return out
 
 
+# --- training (A.11b): B7's backward, falcon-mamba and granite, drills ---
+
+#: the gradients of the scan's backward, in its return order
+SCAN_GRADS = ("dx", "ddt", "db", "dc", "da")
+
+
+def _scan_bwd_bound(B, S, d, N) -> dict:
+    """The scan backward's least time at (B, S, d_in, N) with no
+    dh_final (a training step's): x, dt, dy read and dx, ddt written
+    (B·S·d_in each), B, C read and dB, dC written (B·S·N each), A read
+    and dA written, against its B·S·d_in·N exponentials a_t at the SFU
+    rate and its float32 operations (~20 an element-step: the forward
+    recurrence's 4, the reverse's g, the dC, dB, dx, ddt and dA terms and
+    the carry)."""
+    byts = 4 * (5 * B * S * d + 4 * B * S * N + 2 * d * N)
+    exps = B * S * d * N
+    flops = 20 * B * S * d * N
+    tb = byts / HBM_BYTES_S * 1e3
+    to = max(exps / SFU_OPS_S, flops / FP32_OPS_S) * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": byts, "bytes_ms": tb, "exponentials": exps,
+            "exp_ms": exps / SFU_OPS_S * 1e3, "fp32_ops": flops,
+            "fp32_ms": flops / FP32_OPS_S * 1e3}
+
+
+def phase_scan_bwd_kernel():
+    """The scan's backward kernel against ``ref.selective_scan_bwd`` on
+    every ``scan_specs(card=True)`` case, dh_final zero and random, each
+    run twice (bit-equal); ``SelectiveScanFn`` on CUDA against autograd
+    through the plain forward on CUDA; then timed at the training shape
+    beside its bound and its plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ssk
+    from _torch_cases import (SCAN_TRAIN_SHAPE, scan_arrays, scan_bwd_tol,
+                              scan_cotangents, scan_specs)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cases, worst_abs, worst_scaled = [], 0.0, 0.0
+    train_args = train_spec = None
+    for spec in scan_specs(card=True):
+        name, shape, _, _ = spec
+        tol = scan_bwd_tol(spec)
+        args = [torch.from_numpy(v).to(dev) for v in scan_arrays(spec)]
+        for dh in (False, True):
+            dy, dhf = (torch.from_numpy(v).to(dev)
+                       for v in scan_cotangents(spec, dh))
+            dhf = dhf if dh else None
+            got = ssk.selective_scan_bwd(*args, dy, dhf)
+            again = ssk.selective_scan_bwd(*args, dy, dhf)
+            want = ref.selective_scan_bwd(*args, dy, dhf)
+            torch.cuda.synchronize()
+            errs = {}
+            for label, w, g, g2 in zip(SCAN_GRADS, want, got, again):
+                check(g.shape == w.shape and g.dtype == torch.float32,
+                      f"{name}: {label} shape or dtype differs")
+                check(bool(torch.isfinite(g).all()),
+                      f"{name}: {label} not finite")
+                check(torch.equal(g.view(torch.int32), g2.view(torch.int32)),
+                      f"{name}: {label} differs between two runs")
+                ab = float((g - w).abs().max()) if g.numel() else 0.0
+                top = float(w.abs().max()) if w.numel() else 0.0
+                scaled = ab / top if top > 0 else ab
+                errs[label] = {"max_abs_err": ab, "scaled_err": scaled}
+                check(ab <= tol * top + 1e-30,
+                      f"{name} dh={dh}: {label} off by {ab} > {tol} x "
+                      f"max |plain| {top}")
+                worst_abs = max(worst_abs, ab)
+                worst_scaled = max(worst_scaled, scaled)
+            cases.append({"case": name, "shape": list(shape),
+                          "dh_final": dh, "tol": tol, "bit_equal_rerun":
+                          True, **errs})
+            del got, again, want
+        if tuple(shape) == SCAN_TRAIN_SHAPE and train_args is None:
+            train_args, train_spec = args, spec
+        else:
+            del args
+    emit("scan_bwd_vs_plain", cases=cases, max_abs_err=worst_abs,
+         max_scaled_err=worst_scaled,
+         tolerance="|kernel - plain| <= tol x max|plain| per gradient")
+    # the autograd wiring on the card: which cotangent goes where
+    wiring = []
+    for shape in ((2, 40, 24, 16), (1, 33, 65, 5)):
+        B, S, d, N = shape
+        g = torch.Generator(device=dev).manual_seed(B * 100 + S)
+        ins = [torch.randn((B, S, d), generator=g, device=dev),
+               torch.rand((B, S, d), generator=g, device=dev) * 0.3,
+               torch.randn((B, S, N), generator=g, device=dev),
+               torch.randn((B, S, N), generator=g, device=dev),
+               -torch.rand((d, N), generator=g, device=dev) - 0.1]
+        dy = torch.randn((B, S, d), generator=g, device=dev)
+        dh = torch.randn((B, d, N), generator=g, device=dev)
+        for with_h in (False, True):
+            a1 = [t.clone().requires_grad_() for t in ins]
+            a2 = [t.clone().requires_grad_() for t in ins]
+            before = ssk.selective_scan_bwd.launches
+            y1, h1 = ssk.SelectiveScanFn.apply(*a1)
+            y2, h2 = ref.selective_scan(*a2)
+            outs1, outs2, cots = ((y1, h1), (y2, h2), (dy, dh)) if with_h \
+                else ((y1,), (y2,), (dy,))
+            g1 = torch.autograd.grad(outs1, a1, cots)
+            g2 = torch.autograd.grad(outs2, a2, cots)
+            check(ssk.selective_scan_bwd.launches == before + 1,
+                  "SelectiveScanFn's backward did not launch the kernel")
+            err = max(float((p - q).abs().max() / q.abs().max())
+                      for p, q in zip(g1, g2))
+            check(err <= 1e-5, f"SelectiveScanFn {shape} dh={with_h}: "
+                               f"{err} from autograd through the plain scan")
+            wiring.append({"shape": list(shape), "dh_final": with_h,
+                           "scaled_err": err})
+    x, dt, b, c, a = train_args
+    dy = torch.from_numpy(scan_cotangents(train_spec, False)[0]).to(dev)
+
+    def kern():
+        return ssk.selective_scan_bwd(x, dt, b, c, a, dy)
+
+    def plain():
+        return ref.selective_scan_bwd(x, dt, b, c, a, dy)
+
+    dms, pdms = device_ms(kern, n=10), device_ms(plain, n=1)
+    seen = dms is not None and pdms is not None
+    call_ms = time_ms(kern, n=10, warm=2)
+    bound = _scan_bwd_bound(*SCAN_TRAIN_SHAPE)
+    out = {"ms": dms if seen else call_ms,
+           "plain_ms": pdms if seen else time_ms(plain, n=1, warm=0),
+           "ms_source": ("profiler device time per call (the scan kernel "
+                         "and its reduction)" if seen
+                         else "CUDA events, back-to-back calls"),
+           "call_ms": call_ms, **bound, "library_ms": None,
+           "max_abs_err": worst_abs, "max_scaled_err": worst_scaled,
+           "plan": ssk.bwd_plan(SCAN_TRAIN_SHAPE[3]),
+           "forward_ms": time_ms(lambda: ssk.selective_scan(x, dt, b, c, a),
+                                 n=10, warm=2)}
+    emit("scan_bwd_kernel_time", shape=list(SCAN_TRAIN_SHAPE), **out,
+         wiring=wiring, phase_s=time.perf_counter() - t_phase,
+         library="none: no PyTorch call computes the scan's gradient")
+    del train_args, x, dt, b, c, a, dy
+    return out
+
+
+#: falcon-mamba-7b at its published widths, the depth cut from 64 layers
+#: to 16: its full training state (float32 parameters, gradients and two
+#: moments, 16 bytes a parameter) is ~116 GB, 16 layers ~36 GB
+FALCON_TRAIN_LAYERS = 16
+TRAIN_STEPS = 8
+FALCON_TRAIN_ARGV = ["--arch", "falcon_mamba_7b", "--layers",
+                     str(FALCON_TRAIN_LAYERS), "--batch", "4", "--seq",
+                     "2048", "--steps", str(TRAIN_STEPS), "--seed", "0",
+                     "--log-every", "0"]
+#: granite-3-2b at its published widths and depth (~42 GB of state)
+GRANITE_TRAIN_ARGV = ["--arch", "granite_3_2b", "--batch", "4", "--seq",
+                      "2048", "--steps", str(TRAIN_STEPS), "--seed", "0",
+                      "--log-every", "0"]
+#: (phase, argv, depth cut, B7 forward and backward launches a step: with
+#: per-period "full" remat a Mamba layer's scan runs in the forward and
+#: again in the recompute, and its backward kernel once)
+TRAIN_CELLS = (("train_falcon_mamba_7b_l16", FALCON_TRAIN_ARGV,
+                {"n_layers": [64, FALCON_TRAIN_LAYERS]},
+                (2 * FALCON_TRAIN_LAYERS, FALCON_TRAIN_LAYERS)),
+               ("train_granite_3_2b", GRANITE_TRAIN_ARGV, None, (0, 0)))
+TRAIN_GROUPS = {"B7 forward": ("selective_scan_kernel",),
+                "B7 backward": ("selective_scan_bwd",),
+                "matmul": SERVE_GROUPS["matmul"],
+                "copies and casts": SERVE_GROUPS["copies and casts"],
+                "reductions": ("reduce", "Reduce"),
+                "elementwise": ("elementwise", "vectorized", "unrolled"),
+                "index and scatter": ("index", "scatter", "gather",
+                                      "sort", "Sort")}
+#: the bf16 dense peak of the H100 SXM (data sheet), for mfu
+BF16_PEAK_FLOPS = 989e12
+
+
+def phase_train_lm(label, argv, reduced, b7):
+    """A model trained through ``repro_torch.launch.train`` (``setup``
+    then ``run``): ``TRAIN_STEPS`` steps of SyntheticLM batches, every
+    metric finite each step and the B7 launches of each step exactly
+    ``b7`` (forward, backward) with no other port kernel; ms a step (the
+    first, the median of the rest), tokens/s, peak memory, mfu; then one
+    more step profiled (busy share, time by group), the AdamW update and
+    the cross-entropy timed alone, and two steps without deterministic
+    algorithms, to price them."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import param_count
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as tl
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    r = train.setup(argv)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(r.model)
+    cfg, args = r.cfg, r.args
+    tokens = args.batch * args.seq
+    times, losses, per_step = [], [], []
+    mark = [0.0]
+
+    def on_metrics(step, m):
+        vals = {k: float(v) for k, v in m.items()}   # syncs the step
+        now = time.perf_counter()
+        times.append(now - mark[0])
+        mark[0] = now
+        check(all(v == v and abs(v) != float("inf") for v in vals.values()),
+              f"{label}: step {step} metrics not finite: {vals}")
+        losses.append(vals["loss"])
+        per_step.append(_counts())
+        _counts_zero()
+
+    _counts_zero()
+    mark[0] = time.perf_counter()
+    state, info = train.run(r, on_metrics=on_metrics)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"selective_scan": b7[0], "selective_scan_bwd": b7[1]}
+    for i, c in enumerate(per_step):
+        check(all(c.get(k, 0) == want.get(k, 0) for k in c),
+              f"{label}: step {i + 1} launched {c}, expected {want} and "
+              f"no other port kernel")
+    step_s = statistics.median(times[1:])
+    batch = r.data.batch(args.steps)
+    _counts_zero()
+    prof = _profile_ticks(f"profile_{label}",
+                          lambda: r.step_fn(state, batch), 1,
+                          groups=TRAIN_GROUPS, unit="step")
+    prof_counts = _counts()
+    # the AdamW update alone (CUDA events) on zero gradients at lr 0: the
+    # step's update, leaving the parameters as they are
+    zeros = {k: torch.zeros_like(p) for k, p in state.params.items()}
+    opt = state.opt
+    adamw_ms = time_ms(lambda: adamw.update(zeros, opt, state.params,
+                                            lr=0.0), n=2, warm=1)
+    del zeros
+    # the cross-entropy alone: the final hidden states through the
+    # chunked head and NLL, forward and backward
+    g = torch.Generator(device=batch["labels"].device).manual_seed(5)
+    h = torch.randn((args.batch, args.seq, cfg.d_model), generator=g,
+                    device=batch["labels"].device).to(cfg.compute_dtype)
+    h.requires_grad_()
+    chunk = r.model._loss_chunk(args.seq) or args.seq
+
+    def ce():
+        nll = L.chunked_cross_entropy(r.model._head_raw, h,
+                                      batch["labels"], None, chunk)
+        nll.backward()
+        h.grad = None
+
+    ce_ms = time_ms(ce, n=3, warm=1)
+    for p in r.model.parameters():
+        p.grad = None
+    del h
+    loose = tl.make_train_step(r.model, r.run_cfg, deterministic=False)
+    loose_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = loose(state, batch)
+        float(m["loss"])
+        loose_times.append(time.perf_counter() - t1)
+    flops = 6 * n_params * tokens
+    out = {"params": n_params, "layers": cfg.n_layers, "batch": args.batch,
+           "seq": args.seq, "tokens_per_step": tokens, "steps": args.steps,
+           "reduced": reduced, "compute_dtype": str(cfg.compute_dtype),
+           "remat": cfg.remat, "grad_accum": r.run_cfg.grad_accum,
+           "init_s": init_s, "first_step_ms": times[0] * 1e3,
+           "step_ms_median": step_s * 1e3,
+           "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": tokens / step_s, "loss_first": losses[0],
+           "loss_last": losses[-1], "max_memory_allocated_gb": peak_gb,
+           "mfu": flops / (step_s * BF16_PEAK_FLOPS),
+           "mfu_formula": "6 x params x tokens / (step s x 989e12)",
+           "b7_launches_per_step": {"forward": b7[0], "backward": b7[1]},
+           "launches": {k: sum(c.get(k, 0) for c in per_step)
+                        for k in want},
+           "profiled_step_launches": prof_counts,
+           "device_busy_share": prof["device_busy_share"],
+           "us_by_group": prof.get("us_per_step_by_group"),
+           "adamw_ms": adamw_ms,
+           "cross_entropy_ms": ce_ms, "loss_chunk": chunk,
+           "nondeterministic_step_ms": [t * 1e3 for t in loose_times],
+           "restarts": info["restarts"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(label, **out)
+    del r, state, batch, loose
+    return out
+
+
+DRILL_ARGV = ["--smoke", "--steps", "30", "--batch", "8", "--seq", "64",
+              "--lr", "3e-3", "--checkpoint-every", "5", "--log-every", "0",
+              "--seed", "0"]
+DRILL_FAILS = "7,13,18"
+
+
+def phase_train_restart_drill():
+    """The restart drill on the card: falcon-mamba's and granite's smoke
+    configs, 30 steps with a checkpoint every 5, once clean and once with
+    failures injected at steps 7, 13 and 18: 3 restarts, parameters and
+    moments bit-equal to the clean run's, the mean loss of the last 5
+    steps below that of the first 5; falcon's runs go through B7 and its
+    backward kernel."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in ("falcon_mamba_7b", "granite_3_2b"):
+        runs = {}
+        for fails in ("", DRILL_FAILS):
+            losses = []
+            _counts_zero()
+            with tempfile.TemporaryDirectory() as d:
+                argv = ["--arch", arch, *DRILL_ARGV, "--checkpoint-dir", d]
+                if fails:
+                    argv += ["--fail-at", fails]
+                t0 = time.perf_counter()
+                state, info = train.main(argv, on_metrics=lambda s, m:
+                                         losses.append(float(m["loss"])))
+                secs = time.perf_counter() - t0
+            runs[fails] = (state, info, losses, _counts(), secs)
+        (clean, cinfo, closs, ccount, csec), \
+            (drill, dinfo, _, dcount, dsec) = runs[""], runs[DRILL_FAILS]
+        check(cinfo["restarts"] == 0 and dinfo["restarts"] == 3,
+              f"drill {arch}: restarts {cinfo['restarts']} and "
+              f"{dinfo['restarts']}, expected 0 and 3")
+        same = all(torch.equal(p, drill.params[k])
+                   for k, p in clean.params.items()) and \
+            all(torch.equal(clean.opt.mu[k], drill.opt.mu[k])
+                and torch.equal(clean.opt.nu[k], drill.opt.nu[k])
+                for k in clean.params)
+        check(same, f"drill {arch}: the restarted run's state differs "
+                    f"from the clean run's")
+        first, last = statistics.mean(closs[:5]), statistics.mean(closs[-5:])
+        check(last < first, f"drill {arch}: mean loss of the last 5 steps "
+                            f"{last} not below the first 5's {first}")
+        n_mamba = sum(b.kind.startswith("mamba")
+                      for b in cinfo["model"].stack.blocks)
+        check(ccount["selective_scan_bwd"] == 30 * n_mamba
+              and ccount["selective_scan"] == 60 * n_mamba,
+              f"drill {arch}: clean run launched {ccount}, expected "
+              f"{60 * n_mamba} B7 and {30 * n_mamba} backward")
+        out[arch] = {"restarts": dinfo["restarts"], "bit_equal": same,
+                     "loss_first5": first, "loss_last5": last,
+                     "clean_launches": ccount, "drill_launches": dcount,
+                     "clean_s": csec, "drill_s": dsec}
+        del runs, clean, drill
+    emit("train_restart_drill", steps=30, checkpoint_every=5,
+         fail_at=DRILL_FAILS, runs=out,
+         phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def _free() -> None:
     """Give a finished phase's model back to the card."""
     import gc
@@ -3346,6 +3741,14 @@ def main() -> int:
         _free()
     phase_score_hubert()
     _free()
+    ktimes["selective_scan_bwd"] = phase_scan_bwd_kernel()
+    _free()
+    train_out = {}
+    for label, argv, reduced, b7 in TRAIN_CELLS:
+        train_out[label] = phase_train_lm(label, argv, reduced, b7)
+        _free()
+    drill = phase_train_restart_drill()
+    _free()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
@@ -3359,14 +3762,18 @@ def main() -> int:
             "aer_decode": (aer_launches["aer_decode"],
                            ("aer_granite3_2b_layer",)),
             "selective_scan": (serve_out["launches"]["selective_scan"],
-                               ("serve_falcon_mamba_7b",))}
+                               ("serve_falcon_mamba_7b",)),
+            "selective_scan_bwd": (
+                train_out[TRAIN_CELLS[0][0]]["launches"]["selective_scan_bwd"],
+                (TRAIN_CELLS[0][0],))}
     source = {"fabric_queue_step": csrc + "fabric_queue.cu",
               "fabric_queue_update": csrc + "fabric_queue.cu",
               "fabric_queue_multistep": csrc + "fabric_queue_multistep.cu",
               "lif_step": csrc + "lif_step.cu",
               "aer_encode": csrc + "aer_encode.cu",
               "aer_decode": csrc + "aer_decode.cu",
-              "selective_scan": csrc + "selective_scan.cu"}
+              "selective_scan": csrc + "selective_scan.cu",
+              "selective_scan_bwd": csrc + "selective_scan_bwd.cu"}
     replaces = {"fabric_queue_step":
                 "src/repro/kernels/fabric_queue.py:109",
                 "fabric_queue_update":
@@ -3376,7 +3783,10 @@ def main() -> int:
                 "lif_step": "src/repro/kernels/lif_step.py:29",
                 "aer_encode": "src/repro/kernels/aer_encode.py:67",
                 "aer_decode": "src/repro/kernels/aer_decode.py:39",
-                "selective_scan": "src/repro/kernels/selective_scan.py:51"}
+                "selective_scan": "src/repro/kernels/selective_scan.py:51",
+                # no TPU kernel: the reference differentiates its chunked
+                # jnp scan; this kernel is B7's gradient
+                "selective_scan_bwd": "src/repro/models/mamba.py:76"}
     kernels = []
     for kname, k in ktimes.items():
         n_launch, path_bucket = main[kname]
@@ -3424,7 +3834,21 @@ def main() -> int:
         serve_jamba_decode_ms_per_step=jamba["decode_ms_per_step"],
         jamba_shape=ktimes["selective_scan"]["jamba_shape"],
         jamba_shape_ms=ktimes["selective_scan"]["jamba_ms"],
-        jamba_shape_bound_ms=ktimes["selective_scan"]["jamba_bound_ms"])
+        jamba_shape_bound_ms=ktimes["selective_scan"]["jamba_bound_ms"],
+        train_launches={label: o["launches"]["selective_scan"]
+                        for label, o in train_out.items()},
+        train_launches_per_step={label: o["b7_launches_per_step"]["forward"]
+                                 for label, o in train_out.items()})
+    falcon_train = train_out[TRAIN_CELLS[0][0]]
+    by_name["selective_scan_bwd"].update(
+        replaces_note="no TPU kernel: kernel work from a module (the "
+                      "gradient of B7, which the reference gets by "
+                      "differentiating its jnp scan)",
+        max_scaled_err=ktimes["selective_scan_bwd"]["max_scaled_err"],
+        launches_per_step=falcon_train["b7_launches_per_step"]["backward"],
+        train_step_ms=falcon_train["step_ms_median"],
+        drill_launches=drill["falcon_mamba_7b"]["clean_launches"][
+            "selective_scan_bwd"])
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

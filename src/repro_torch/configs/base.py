@@ -5,9 +5,9 @@ serving and scoring paths of the ten architectures read.  Each
 architecture has a module ``configs/<id>.py`` exposing ``CONFIG`` (the
 published configuration, value for value as in the reference) and
 ``smoke_config()`` (a reduced same-family config for CPU tests).  Dtypes
-are torch dtypes.  The loss and remat fields, ``ShapeConfig``,
-``RunConfig`` and ``input_specs`` come with the trainer and the
-pod-scale tools (ROADMAP A.11b, A.11c).
+are torch dtypes.  ``RunConfig`` carries the trainer's knobs, field for
+field as the reference's; ``ShapeConfig`` and ``input_specs`` come with
+the pod-scale tools (ROADMAP A.11c).
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["MoeConfig", "MambaConfig", "ModelConfig", "ARCH_IDS",
-           "PORTED_ARCHS",
+__all__ = ["MoeConfig", "MambaConfig", "ModelConfig", "RunConfig",
+           "REMAT_POLICIES", "ARCH_IDS", "PORTED_ARCHS",
            "get_config", "get_smoke_config"]
 
 
@@ -80,6 +80,12 @@ class ModelConfig:
     # attention chunking (chunked online softmax): 0 = auto
     q_chunk: int = 0
     kv_chunk: int = 0
+    # sequence-chunked cross-entropy (never materializes (B,S,V) logits):
+    # 0 = auto (chunk when S*V is large), -1 = disabled
+    loss_chunk: int = 0
+
+    # remat policy of the layer stack: none | dots | full
+    remat: str = "full"
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -93,6 +99,36 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+#: the stack's remat policies (``ModelConfig.remat``)
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """The trainer's knobs, the reference's ``RunConfig`` field for
+    field.  On one card ``dp_reduce``, ``aer_*``, ``fsdp``,
+    ``seq_parallel`` and ``rules_overrides`` are read by nothing: the
+    reductions across cards and the sharding rules wait for ROADMAP
+    A.11c, and with one device the reference ignores them too."""
+    # gradient cross-replica reduction: psum | bidir_ring | ring | aer_topk
+    dp_reduce: str = "psum"
+    aer_frac: float = 0.02          # fraction shipped per step (aer_topk)
+    aer_budget: int = 128
+    fsdp: bool = True               # shard params over the data axis too
+    seq_parallel: bool = False      # shard residual-stream seq over model
+    rules_overrides: tuple = ()     # of (key, value) pairs
+    grad_accum: int = 1
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 0       # 0 = off
+    checkpoint_dir: str = ""
+    keep_checkpoints: int = 3
 
 
 #: the reference's architectures (``repro.configs.base.ARCH_IDS``)

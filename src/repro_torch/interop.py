@@ -20,7 +20,9 @@ LM stack takes the reference's parameter tree
 (:func:`lm_params_from_reference`), its Mamba and attention decode
 caches (:func:`mamba_cache_from_reference`,
 :func:`attn_cache_from_reference`) and a whole LM's cache of mixed
-layers (:func:`lm_cache_from_reference`).
+layers (:func:`lm_cache_from_reference`).  A training run carries over
+with :func:`train_state_from_reference` (parameters, AdamW moments,
+steps).
 This module never imports the reference package: it only reads arrays.
 """
 
@@ -47,7 +49,8 @@ __all__ = ["Converted", "from_reference", "result_to_numpy",
            "snn_params_from_reference", "cosim_weights_from_reference",
            "aer_states_from_reference", "event_blocks_from_reference",
            "lm_params_from_reference", "mamba_cache_from_reference",
-           "attn_cache_from_reference", "lm_cache_from_reference"]
+           "attn_cache_from_reference", "lm_cache_from_reference",
+           "train_state_from_reference"]
 
 
 class Converted(NamedTuple):
@@ -203,6 +206,21 @@ def _leaves(tree: Mapping, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+def _lm_leaves(tree: Mapping, cfg) -> dict:
+    """The reference LM's parameter-shaped tree (its params, or an
+    optimiser moment of them) by the port's parameter names: top-level
+    leaves by name, each stacked leaf ``stack/pos<i>/<path>[p]`` as
+    ``stack.blocks.<p·len(pattern) + i>.<path>``."""
+    out = {f"{top}.{path}": leaf for top in tree if top != "stack"
+           for path, leaf in _leaves(tree[top])}
+    pat = pattern_for(cfg)
+    for i in range(len(pat)):
+        for path, leaf in _leaves(tree["stack"][f"pos{i}"]):
+            for p in range(n_periods(cfg)):
+                out[f"stack.blocks.{p * len(pat) + i}.{path}"] = leaf[p]
+    return out
+
+
 def lm_params_from_reference(params: Mapping, cfg, *, device=None) -> LM:
     """An ``LM`` holding the reference LM's parameters (its ``init``
     tree, as numpy or JAX arrays) on ``device`` (``None``: the CUDA
@@ -214,13 +232,7 @@ def lm_params_from_reference(params: Mapping, cfg, *, device=None) -> LM:
     ``xgate`` included).  Every parameter must be given, in the port's
     shape and dtype."""
     model = LM(cfg, device=device)
-    state = {f"{top}.{path}": leaf for top in params if top != "stack"
-             for path, leaf in _leaves(params[top])}
-    pat = pattern_for(cfg)
-    for i in range(len(pat)):
-        for path, leaf in _leaves(params["stack"][f"pos{i}"]):
-            for p in range(n_periods(cfg)):
-                state[f"stack.blocks.{p * len(pat) + i}.{path}"] = leaf[p]
+    state = _lm_leaves(params, cfg)
     own = model.state_dict()
     if set(state) != set(own):
         raise ValueError(f"parameter names differ: missing "
@@ -292,3 +304,47 @@ def lm_cache_from_reference(cache: Mapping, cfg, *, device=None) -> list:
     kinds = _kinds(cfg)
     return [per_pos[layer % len(pat)][layer // len(pat)]
             for layer in range(len(kinds))]
+
+
+def train_state_from_reference(state, cfg, *, device=None):
+    """``(model, TrainState)`` from the reference's ``TrainState``
+    (``params``, ``opt`` = ``AdamWState(step, mu, nu)``, ``aer``,
+    ``step``; JAX or numpy leaves) on ``device`` (``None``: the CUDA
+    card): the parameters through :func:`lm_params_from_reference`, with
+    gradients enabled, and ``mu``, ``nu`` (and any AER residuals) by the
+    same stacked-to-block mapping, float32; the two step counters as
+    int32 host scalars.  The state's ``params`` are the model's own, as
+    ``runtime.train_loop.init_state`` makes them."""
+    from .optim.adamw import AdamWState
+    from .runtime.train_loop import TrainState
+    model = lm_params_from_reference(state.params, cfg, device=device)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+
+    def moments(tree):
+        leaves = _lm_leaves(tree, cfg)
+        if set(leaves) != set(params):
+            raise ValueError(f"moment names differ from the parameters': "
+                             f"{sorted(set(leaves) ^ set(params))}")
+        return {k: _tensor(leaves[k]).to(params[k].device) for k in params}
+
+    def step_of(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+
+    opt = AdamWState(step=step_of(state.opt.step), mu=moments(state.opt.mu),
+                     nu=moments(state.opt.nu))
+    aer = None
+    if state.aer is not None:
+        from .core.sparse_collectives import AerState
+        res = moments(_map_leaves(lambda a: a.residual, state.aer))
+        aer = {k: AerState(residual=v) for k, v in res.items()}
+    return model, TrainState(params=params, opt=opt, aer=aer,
+                             step=step_of(state.step))
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over the leaves of nested dicts (a leaf may be a NamedTuple,
+    as the reference's ``AerState``)."""
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)

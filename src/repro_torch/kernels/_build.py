@@ -2,7 +2,7 @@
 
 The sources under ``csrc/`` (``fabric_queue.cu``,
 ``fabric_queue_multistep.cu``, ``lif_step.cu``, ``aer_encode.cu``,
-``aer_decode.cu``, ``selective_scan.cu``) have a plain C interface, so
+``aer_decode.cu``, ``selective_scan.cu``, ``selective_scan_bwd.cu``) have a plain C interface, so
 one ``nvcc`` call per source (each its own library) builds them in
 seconds, with no PyTorch headers:
 
@@ -68,6 +68,10 @@ SIGNATURES = {
     },
     "selective_scan": {
         "selective_scan_launch": [_P] * 5 + [_I] * 4 + [_P, _P, _P],
+    },
+    "selective_scan_bwd": {
+        "selective_scan_bwd_plan": [_I, _PI],
+        "selective_scan_bwd_launch": [_P] * 7 + [_I] * 4 + [_P] * 9 + [_P],
     },
 }
 

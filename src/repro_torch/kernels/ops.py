@@ -107,10 +107,11 @@ def aer_decode(idx, val, block: int):
 def selective_scan(x, dt, b_ssm, c_ssm, a):
     """The Mamba S6 scan: x, dt (B, S, d_in), b_ssm/c_ssm (B, S, N), a
     (d_in, N), float32.  Returns ``(y (B, S, d_in), h_final (B, d_in,
-    N))``."""
-    if not _on_cuda(x, "selective_scan"):
-        return ref.selective_scan(x, dt, b_ssm, c_ssm, a)
-    return ssk.selective_scan(x, dt, b_ssm, c_ssm, a)
+    N))``, differentiable: through ``SelectiveScanFn``, whose forward and
+    backward are B7 and its backward kernel on CUDA tensors and the plain
+    versions on CPU tensors."""
+    _on_cuda(x, "selective_scan")
+    return ssk.SelectiveScanFn.apply(x, dt, b_ssm, c_ssm, a)
 
 
 # --- the AER compress path ---------------------------------------------

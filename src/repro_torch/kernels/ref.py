@@ -6,7 +6,8 @@ transaction queue step of the slot engine, ported from the reference
 multi-step kernel, a loop of an injected step over the packed carry;
 ``lif_step`` is the LIF membrane update; ``aer_encode`` / ``aer_decode``
 are the AER payload path's event encoder and decoder;
-``selective_scan`` is the Mamba S6 recurrence.
+``selective_scan`` is the Mamba S6 recurrence and
+``selective_scan_bwd`` its gradient.
 ``q_time`` is (Q, C) int32 release times with ``BIG_NS`` (2**30)
 marking empty/consumed one-shot slots; ``t_q`` is the (Q,) per-queue
 clock.  The CUDA kernels in ``fabric_queue.py``, ``lif_step.py``,
@@ -213,6 +214,10 @@ def aer_decode(idx: torch.Tensor, val: torch.Tensor, block: int):
     return dense.to(val.dtype)
 
 
+def _scan_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
                    c_ssm: torch.Tensor, a: torch.Tensor):
     """The S6 recurrence as a float32 time-step loop, the counterpart of
@@ -222,13 +227,14 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
         y_t = Σ_n h_t·C_t
 
     x, dt: (B, S, d_in); b_ssm, c_ssm: (B, S, N); a: (d_in, N).  Returns
-    ``(y (B, S, d_in), h_final (B, d_in, N))``, float32.
+    ``(y (B, S, d_in), h_final (B, d_in, N))``, float32 (float64 where x
+    is float64, as a gradient check wants).
     """
-    x, dt = x.float(), dt.float()
-    b_ssm, c_ssm, a = b_ssm.float(), c_ssm.float(), a.float()
+    f = _scan_dtype(x)
+    x, dt = x.to(f), dt.to(f)
+    b_ssm, c_ssm, a = b_ssm.to(f), c_ssm.to(f), a.to(f)
     bsz, seq, d_in = x.shape
-    h = torch.zeros((bsz, d_in, a.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    h = torch.zeros((bsz, d_in, a.shape[1]), dtype=f, device=x.device)
     y = torch.empty_like(x)
     for t in range(seq):
         abar = torch.exp(dt[:, t, :, None] * a)
@@ -236,3 +242,62 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
         h = abar * h + bx
         y[:, t] = (h * c_ssm[:, t, None, :]).sum(-1)
     return y, h
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
+                       b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+                       a: torch.Tensor, dy: torch.Tensor,
+                       dh_final: torch.Tensor | None = None):
+    """The gradient of ``selective_scan`` as a reverse-time loop, written
+    out term by term: given ``dy`` (B, S, d_in), the cotangent of y, and
+    ``dh_final`` (B, d_in, N), that of h_final (None: zeros), returns
+    ``(dx, ddt, db, dc, da)`` in float32 (float64 for float64 operands),
+    each shaped as its operand.
+
+    With ``a_t = exp(dt_t·A)`` and the carry ``G`` seeded by ``dh_final``,
+    for t = S-1 down to 0:
+
+        g_t   = dy_t ⊗ C_t + G                 (dL/dh_t)
+        dC_t  = Σ_d dy_t·h_t
+        dB_t  = Σ_d g_t·dt_t·x_t
+        dx_t  = Σ_n g_t·dt_t·B_t
+        ddt_t = Σ_n g_t·(x_t·B_t + A·a_t·h_{t-1})
+        dA   += Σ_b g_t·dt_t·a_t·h_{t-1}
+        G     = a_t ⊙ g_t
+
+    It stores the forward trajectory h (B, S, d_in, N): it is the plain
+    version, which the kernel (``csrc/selective_scan_bwd.cu``) is held
+    against, not a path for long sequences.
+    """
+    f = _scan_dtype(x)
+    x, dt, dy = x.to(f), dt.to(f), dy.to(f)
+    b_ssm, c_ssm, a = b_ssm.to(f), c_ssm.to(f), a.to(f)
+    bsz, seq, d_in = x.shape
+    n = a.shape[1]
+    dev = x.device
+    h = torch.zeros((bsz, d_in, n), dtype=f, device=dev)
+    hs = []
+    for t in range(seq):
+        abar = torch.exp(dt[:, t, :, None] * a)
+        bx = (dt[:, t] * x[:, t])[..., None] * b_ssm[:, t, None, :]
+        h = abar * h + bx
+        hs.append(h)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.empty_like(b_ssm), torch.empty_like(c_ssm)
+    da = torch.zeros_like(a)
+    zero = torch.zeros((bsz, d_in, n), dtype=f, device=dev)
+    g_carry = zero if dh_final is None else dh_final.to(f)
+    for t in range(seq - 1, -1, -1):
+        dtt = dt[:, t, :, None]                        # (B, d_in, 1)
+        xt = x[:, t, :, None]
+        bt = b_ssm[:, t, None, :]                      # (B, 1, N)
+        abar = torch.exp(dtt * a)
+        h_prev = hs[t - 1] if t > 0 else zero
+        g = dy[:, t, :, None] * c_ssm[:, t, None, :] + g_carry
+        dc[:, t] = (dy[:, t, :, None] * hs[t]).sum(1)
+        db[:, t] = (g * (dtt * xt)).sum(1)
+        dx[:, t] = (g * dtt * bt).sum(-1)
+        ddt[:, t] = (g * (xt * bt + a * abar * h_prev)).sum(-1)
+        da += (g * dtt * abar * h_prev).sum(0)
+        g_carry = abar * g
+    return dx, ddt, db, dc, da

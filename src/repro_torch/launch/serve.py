@@ -110,11 +110,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def generate(model: LM, batch: dict, gen: int) -> Generation:
     """Prefill ``batch`` (``"tokens"`` (B, S) and, for an image model,
     ``"img_embed"``), then ``gen - 1`` greedy decode steps: ``gen`` new
-    tokens, each the first argmax of its logits."""
+    tokens, each the first argmax of its logits.  It runs under
+    ``torch.inference_mode()``, so a model that was just trained (whose
+    parameters need gradients) builds no autograd graph."""
     bsz, s = batch["tokens"].shape
     dev = model.device
     t0 = time.perf_counter()

@@ -12,7 +12,8 @@ XLA for a float32 product of bf16 operands
 (``preferred_element_type=float32``), the port casts both operands to
 float32 first: a bf16 x bf16 product is exact in float32, so the sums
 accumulate in float32 as XLA's do.  Parameters are ``nn.Parameter``s
-that need no gradient: the port serves, and training comes later.  The
+created without gradients, so serving builds no graph; the trainer turns
+them on (``runtime.train_loop.init_state``).  The
 reference's ``shard_activation`` annotations are dropped: the slice
 runs on one card.  Attention is PyTorch ops tile for tile, as the
 reference's jnp; no fused attention library call is on the path.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["_normal", "param", "Linear", "linear_init", "linear", "RMSNorm",
            "rmsnorm", "padded_vocab", "Embed", "embed_init", "embed",
@@ -30,7 +32,7 @@ __all__ = ["_normal", "param", "Linear", "linear_init", "linear", "RMSNorm",
            "Attention", "attn_init", "_project_qkv", "attn_apply",
            "attn_decode", "init_attn_cache", "_ACTS", "FFN", "ffn_init",
            "ffn_apply", "Head", "head_init", "mask_padded_vocab",
-           "cross_entropy"]
+           "cross_entropy", "chunked_cross_entropy"]
 
 
 def _normal(generator: torch.Generator, shape, scale: float,
@@ -42,8 +44,11 @@ def _normal(generator: torch.Generator, shape, scale: float,
 
 
 def param(shape, dtype: torch.dtype, device, fill=None) -> nn.Parameter:
-    """An uninitialised (or ``fill``-ed) parameter that needs no
-    gradient."""
+    """An uninitialised (or ``fill``-ed) parameter, created without a
+    gradient: serving and scoring build no autograd graph.  The trainer
+    enables gradients on every parameter of the model at once
+    (``runtime.train_loop.init_state`` calls ``model.requires_grad_()``),
+    as the reference differentiates every leaf of its tree."""
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         t.fill_(fill)
@@ -508,3 +513,49 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _chunk_nll(head_fn, hc: torch.Tensor, lc: torch.Tensor,
+               mc: torch.Tensor):
+    """One chunk's ``(Σ masked NLL, Σ mask)``, its logits in float32."""
+    logits = head_fn(hc).float()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, lc.long()[..., None])[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def chunked_cross_entropy(head_fn, h: torch.Tensor, labels: torch.Tensor,
+                          mask=None, chunk: int = 256) -> torch.Tensor:
+    """Sequence-chunked NLL, the reference's ``chunked_cross_entropy``:
+    per chunk of ``chunk`` positions, project the hidden states to
+    logits with ``head_fn``, take the masked NLL sum, and drop the
+    logits; each chunk runs under ``torch.utils.checkpoint``
+    (non-reentrant), the counterpart of the reference's
+    ``@jax.checkpoint``, so backward recomputes them.  Peak logits
+    memory is (B, chunk, V) instead of (B, S, V).  S is padded up to a
+    multiple of ``chunk`` with label 0 and mask 0 (no mask given: ones
+    over the real positions), and the sums are carried chunk by chunk in
+    order, as the reference's scan carries them.  Returns the float32
+    mean over the mask (at least 1)."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    mask = torch.ones((B, S), dtype=torch.float32, device=h.device) \
+        if mask is None else mask.float()
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, h.shape[1], chunk):
+        part = (head_fn, h[:, i:i + chunk], labels[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        if torch.is_grad_enabled():
+            nll_sum, m_sum = checkpoint(_chunk_nll, *part,
+                                        use_reentrant=False)
+        else:
+            nll_sum, m_sum = _chunk_nll(*part)
+        total = total + nll_sum
+        count = count + m_sum
+    return total / count.clamp(min=1.0)

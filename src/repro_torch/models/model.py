@@ -11,6 +11,7 @@ reference's pure functions:
 
   forward(batch)                 -> (logits, aux)     full-sequence;
                                     aux: the MoE losses summed over layers
+  loss(batch)                    -> (scalar, metrics) train objective
   score(batch)                   -> logits
   init_cache(batch, max_len)     -> cache (one dict a layer)
   prefill(batch, max_len=None)   -> (last-position logits, cache)
@@ -25,9 +26,11 @@ vision: the same frontend projects the stub image embeddings, which
 the cross-attention blocks read).  With ``tie_embeddings`` there is no
 head: the logits are ``h @ embed.table.T`` in the compute dtype.  An
 encoder-only model (``causal=False``) scores and has no decode step.
-The loss and chunked cross-entropy come with the trainer (ROADMAP
-A.11b).  The reference's ``shard_activation`` annotations are dropped:
-the model runs on one card.
+``loss`` is the reference's train objective: the token NLL (masked for
+audio frames) plus the MoE losses, through the sequence-chunked
+cross-entropy when the full (B, S, V) logits would be large.  The
+reference's ``shard_activation`` annotations are dropped: the model runs
+on one card.
 """
 
 from __future__ import annotations
@@ -85,12 +88,17 @@ class LM(nn.Module):
             L.head_init(self.head, self.cfg, generator)
         return self
 
-    def _head(self, h: torch.Tensor) -> torch.Tensor:
+    def _head_raw(self, h: torch.Tensor) -> torch.Tensor:
+        """The head projection WITHOUT the final norm (a pre-normed
+        input): ``h @ head.w``, or ``h @ embed.table.T`` when tied, in
+        the compute dtype, padded vocab ids masked."""
         cfg = self.cfg
-        h = L.rmsnorm(self.ln_f, h, cfg.norm_eps)
         w = self.embed.table.T if cfg.tie_embeddings else self.head.w
         logits = L.linear(w, h, cfg.compute_dtype)
         return L.mask_padded_vocab(logits, cfg.vocab)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        return self._head_raw(L.rmsnorm(self.ln_f, h, self.cfg.norm_eps))
 
     def _embed_inputs(self, batch: dict):
         """``(h (B, S, D), positions 0..S-1 of every row (B, S), img)``:
@@ -112,6 +120,43 @@ class LM(nn.Module):
         h, positions, img = self._embed_inputs(batch)
         h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img)
         return self._head(h), aux
+
+    def _loss_chunk(self, S: int) -> int:
+        """Positions a cross-entropy chunk (0: no chunking):
+        ``cfg.loss_chunk`` when set (-1 turns chunking off), else 256
+        where S > 512 and the vocab is at least 32768, as the
+        reference's auto rule."""
+        cfg = self.cfg
+        if cfg.loss_chunk == -1:
+            return 0
+        if cfg.loss_chunk > 0:
+            return cfg.loss_chunk
+        return 256 if (S > 512 and cfg.vocab >= 32768) else 0
+
+    def loss(self, batch: dict):
+        """``(total, metrics)``: the mean token NLL over ``batch
+        ["labels"]`` (weighted by ``batch["mask"]`` where given) plus the
+        MoE aux and z losses; ``metrics`` holds ``nll``, ``aux_loss``,
+        ``z_loss``, ``drop_frac`` and ``loss`` (the total), float32
+        scalars."""
+        cfg = self.cfg
+        mask = batch.get("mask")
+        labels = batch["labels"]
+        chunk = self._loss_chunk(labels.shape[1])
+        if chunk:
+            h, positions, img = self._embed_inputs(batch)
+            h, aux = T.stack_apply(self.stack, cfg, h, positions, img)
+            h = L.rmsnorm(self.ln_f, h, cfg.norm_eps)
+            nll = L.chunked_cross_entropy(self._head_raw, h, labels, mask,
+                                          chunk)
+        else:
+            logits, aux = self.forward(batch)
+            nll = L.cross_entropy(logits, labels, mask)
+        total = nll + aux["aux_loss"] + aux["z_loss"]
+        metrics = {"nll": nll, "aux_loss": aux["aux_loss"],
+                   "z_loss": aux["z_loss"], "drop_frac": aux["drop_frac"],
+                   "loss": total}
+        return total, metrics
 
     def score(self, batch: dict) -> torch.Tensor:
         """Full-sequence logits (no cache): an encoder's scoring."""

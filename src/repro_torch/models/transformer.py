@@ -18,14 +18,26 @@ keep a full K/V cache, or a window-deep ring cache when the sliding
 window is shorter than the cache; cross-attention layers keep the image
 tokens' K/V, filled once by prefill (or ``precompute_cross_cache``) and
 never written by decode.  The reference's ``shard_activation``
-annotations are dropped: the stack runs on one card.
+annotations are dropped: the stack runs on one card.  Under autograd
+``stack_apply`` follows ``cfg.remat`` as the reference's layer scan
+does, one pattern period (the reference's scan body) at a time:
+``"full"`` recomputes a period's activations in backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
+matrix products' outputs and recomputes the rest (a selective
+checkpoint whose policy saves ``aten.mm`` and ``aten.bmm``), ``"none"``
+keeps everything; the values are the same under each.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ..configs.base import REMAT_POLICIES
 from . import layers as L
 from . import mamba as M
 from . import moe as MOE
@@ -151,15 +163,49 @@ def _block_apply(blk: Block, cfg, x: torch.Tensor, positions, img):
     return _channel_mix(blk, cfg, x + mix)
 
 
-def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None):
-    """Full-sequence forward. x: (B, S, D); positions (B, S); img (B,
-    n_img, D), the projected image tokens, for cross-attention -> (x,
-    aux sums over layers, float32 scalars, summed in layer order)."""
-    aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
-    for blk in stack.blocks:
+def _period_apply(blocks, cfg, x: torch.Tensor, aux: dict, positions,
+                  img):
+    """The blocks of one pattern period, the aux sums carried through."""
+    for blk in blocks:
         x, aux_b = _block_apply(blk, cfg, x, positions, img)
         if aux_b is not None:
             aux = {k: aux[k] + aux_b[k] for k in AUX_KEYS}
+    return x, aux
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep the products' outputs (the
+    reference's ``checkpoint_dots``), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None):
+    """Full-sequence forward. x: (B, S, D); positions (B, S); img (B,
+    n_img, D), the projected image tokens, for cross-attention -> (x,
+    aux sums over layers, float32 scalars, summed in layer order).
+    Under autograd each pattern period runs under ``cfg.remat``."""
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {cfg.remat!r}; the reference has "
+                         f"{REMAT_POLICIES}")
+    aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
+    period = len(pattern_for(cfg))
+    blocks = list(stack.blocks)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
+    for i in range(0, len(blocks), period):
+        args = (blocks[i:i + period], cfg, x, aux, positions, img)
+        if remat == "none":
+            x, aux = _period_apply(*args)
+        elif remat == "full":
+            x, aux = checkpoint(_period_apply, *args, use_reentrant=False)
+        else:
+            x, aux = checkpoint(
+                _period_apply, *args, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _dots_policy))
     return x, aux
 
 

@@ -24,7 +24,8 @@ and, for the card, the full-width and 8-peer shapes of the
 widths that are not multiples of 32, 1 to 32 states (powers of two and
 not), steps whose ``exp(dt·A)`` is subnormal or 0, zero inputs, shapes at
 the kernel's tile edges and, for the card, falcon-mamba-7b's prefill
-shape.  Only numpy is imported at
+shape; ``scan_cotangents`` gives each the seeded dy and dh_final its
+gradient is checked with.  Only numpy is imported at
 module level; ``repro_torch`` inside the functions that need it."""
 
 from fractions import Fraction
@@ -838,6 +839,16 @@ SCAN_CARD_EDGE_SHAPES = ((64, 33, 63, 17), (66, 31, 129, 32))
 #: shapes' 2048 and 4096 steps (PERF.md says why)
 SCAN_TOL = 1e-5
 SCAN_SERVE_TOL = 1e-4
+#: |kernel - plain| <= tol · max|plain| for each gradient of the scan's
+#: backward (float32 sums over d_in, N and B·S in another order: the CPU
+#: plain version meets the reference's pullback within ~5e-7 of the max
+#: on the CPU cases), ten times that over the serve shapes' 2048 and
+#: 4096 steps
+SCAN_BWD_TOL = 1e-5
+SCAN_BWD_SERVE_TOL = 1e-4
+#: falcon-mamba-7b's training scan on the card (4 sequences of 2048
+#: tokens, d_inner 8192, d_state 16): the serve shape
+SCAN_TRAIN_SHAPE = SCAN_SERVE_SHAPE
 
 
 def _softplus(v):
@@ -939,3 +950,19 @@ def scan_errors(want, got):
     rel = d / np.maximum(np.abs(w), np.finfo(np.float32).tiny)
     return (float(d.max(initial=0.0)), float(rel.max(initial=0.0)),
             float((d / (1.0 + np.abs(w))).max(initial=0.0)))
+
+
+def scan_cotangents(spec, dh: bool):
+    """The seeded ``(dy (B, S, d_in), dh_final (B, d_in, N))`` float32 of
+    one ``scan_specs`` entry; ``dh_final`` is zeros unless ``dh``."""
+    _, (bsz, seq, d_in, n), _, _ = spec
+    rng = np.random.default_rng(bsz * 7 + seq * 5 + d_in * 3 + n)
+    dy = rng.standard_normal((bsz, seq, d_in), np.float32)
+    dhf = (rng.standard_normal((bsz, d_in, n), np.float32) if dh
+           else np.zeros((bsz, d_in, n), np.float32))
+    return dy, dhf
+
+
+def scan_bwd_tol(spec) -> float:
+    """The backward's tolerance of one ``scan_specs`` entry."""
+    return SCAN_BWD_SERVE_TOL if spec[3] == SCAN_SERVE_TOL else SCAN_BWD_TOL

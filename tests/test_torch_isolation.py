@@ -43,7 +43,11 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.configs.mixtral_8x22b",
             "repro_torch.configs.jamba_v01_52b",
             "repro_torch.configs.llama32_vision_11b",
-            "repro_torch.configs.hubert_xlarge"]
+            "repro_torch.configs.hubert_xlarge", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.runtime.train_loop",
+            "repro_torch.runtime.fault", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.launch.train"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"
@@ -118,9 +122,12 @@ def test_default_device_needs_cuda(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg, device="cuda")
+    from repro_torch.launch import train
     for argv in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", "falcon_mamba_7b", "--smoke", *argv])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", "falcon_mamba_7b", "--smoke", *argv])
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.lm_params_from_reference({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

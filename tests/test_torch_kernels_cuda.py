@@ -10,9 +10,10 @@ launches,
 the LIF update on the
 shared LIF cases, the AER encoder and decoder on the shared AER
 cases, full width and 8-peer decode included, and the selective scan on
-the shared scan cases, falcon-mamba-7b's prefill shape included), and
-the co-simulation, SNN, AER all-reduce and LM serve paths launching
-them.
+the shared scan cases, falcon-mamba-7b's prefill shape included, and
+the scan's backward kernel and autograd Function on the same cases), and
+the co-simulation, SNN, AER all-reduce, LM serve and training paths
+launching them.
 
 Marked ``gpu``: each test skips where there is no CUDA card (the kernels
 have no CPU mode).  This file imports no JAX, so it runs on the machine
@@ -52,7 +53,8 @@ from _torch_cases import (AER_ROUTE_CASES, LIF_CARD_SHAPES, LIF_PARAMS,
                           carry_err, clone, lif_cases, lif_double_roundings,
                           multistep_cases, multistep_operands, planes,
                           offset_tensor, run_schedule, scan_arrays,
-                          scan_case, scan_errors, scan_specs,
+                          scan_bwd_tol, scan_case, scan_cotangents,
+                          scan_errors, scan_specs,
                           sentinel_scan_case, STEP_OFFSETS,
                           STEP_SHAPES, update_case)
 
@@ -887,8 +889,119 @@ def test_selective_scan_wrapper_validates_operands(cuda):
     with pytest.raises(ValueError, match="N = 33"):
         ssk.selective_scan(x, x, wide, wide, -torch.ones((16, 33),
                                                          device=cuda))
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssk.selective_scan(x.requires_grad_(), x.detach(), bc, bc, a)
+    # the raw wrapper builds no graph (gradients go through
+    # SelectiveScanFn, whose backward is the backward kernel)
+    y, h = ssk.selective_scan(x.clone().requires_grad_(), x, bc, bc, a)
+    assert not y.requires_grad and not h.requires_grad
+    dy = torch.zeros_like(x)
+    with pytest.raises(ValueError, match="dy"):
+        ssk.selective_scan_bwd(x, x, bc, bc, a, dy[:, :4])
+    with pytest.raises(ValueError, match="dh_final"):
+        ssk.selective_scan_bwd(x, x, bc, bc, a, dy,
+                               torch.zeros((2, 16, 3), device=cuda))
+    with pytest.raises(TypeError):
+        ssk.selective_scan_bwd(x, x, bc, bc, a, dy.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [False, True], ids=["dh0", "dh"])
+@pytest.mark.parametrize("spec", scan_specs(card=True), ids=lambda s: s[0])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, spec, dh):
+    """Each of dx, ddt, dB, dC, dA within ``scan_bwd_tol(spec)`` x
+    max|plain| of ``ref.selective_scan_bwd``, and the same bits on a
+    second run (no float atomics)."""
+    args = [torch.from_numpy(v).to(cuda) for v in scan_arrays(spec)]
+    dy, dhf = (torch.from_numpy(v).to(cuda)
+               for v in scan_cotangents(spec, dh))
+    dhf = dhf if dh else None
+    got = ssk.selective_scan_bwd(*args, dy, dhf)
+    again = ssk.selective_scan_bwd(*args, dy, dhf)
+    want = ref.selective_scan_bwd(*args, dy, dhf)
+    torch.cuda.synchronize()
+    tol = scan_bwd_tol(spec)
+    for w, g, g2 in zip(want, got, again):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(g, g2)
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max()) \
+            + 1e-30, spec[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 40, 24, 16), (1, 33, 65, 5)])
+def test_selective_scan_fn_on_card_matches_autograd_through_plain(cuda,
+                                                                  shape):
+    """``SelectiveScanFn`` on CUDA tensors (B7 and its backward kernel)
+    routes each cotangent as autograd through the plain scan does."""
+    B, S, d, N = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ins = [torch.randn((B, S, d), generator=g, device=cuda),
+           torch.rand((B, S, d), generator=g, device=cuda) * 0.3,
+           torch.randn((B, S, N), generator=g, device=cuda),
+           torch.randn((B, S, N), generator=g, device=cuda),
+           -torch.rand((d, N), generator=g, device=cuda) - 0.1]
+    dy = torch.randn((B, S, d), generator=g, device=cuda)
+    dh = torch.randn((B, d, N), generator=g, device=cuda)
+    a1 = [t.clone().requires_grad_() for t in ins]
+    a2 = [t.clone().requires_grad_() for t in ins]
+    n0, b0 = ssk.selective_scan.launches, ssk.selective_scan_bwd.launches
+    got = torch.autograd.grad(ops.selective_scan(*a1), a1, (dy, dh))
+    assert (ssk.selective_scan.launches - n0,
+            ssk.selective_scan_bwd.launches - b0) == (1, 1)
+    want = torch.autograd.grad(ref.selective_scan(*a2), a2, (dy, dh))
+    for w, v in zip(want, got):
+        assert float((v - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_train_smoke_on_card_launches_scan_forward_and_backward(cuda):
+    """Three training steps of falcon-mamba's smoke config on the card:
+    with "full" remat each Mamba layer's scan runs in the forward and in
+    the recompute, its backward kernel once; the metrics are finite."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_smoke_config("falcon_mamba_7b")
+    model = build_model(cfg, seed=0, device=cuda)
+    run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    state = tl.init_state(model, run)
+    step = tl.make_train_step(model, run)
+    data = SyntheticLM(cfg.vocab, 32, 4, seed=1)
+    for s in range(3):
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in data.batch(s).items()}
+        ssk.selective_scan.launches = ssk.selective_scan_bwd.launches = 0
+        state, m = step(state, batch)
+        assert (ssk.selective_scan.launches,
+                ssk.selective_scan_bwd.launches) == (2 * cfg.n_layers,
+                                                     cfg.n_layers)
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "jamba_v01_52b"])
+def test_train_smoke_on_card_is_deterministic(cuda, arch):
+    """Two runs of three steps from the same seed end with the same bits
+    on the card: the MoE dispatch's and the embedding's backward run
+    under deterministic algorithms (jamba's also through B7's backward
+    kernel)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_smoke_config(arch)
+    run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    data = SyntheticLM(cfg.vocab, 32, 4, seed=1)
+    ends = []
+    for _ in range(2):
+        model = build_model(cfg, seed=0, device=cuda)
+        state = tl.init_state(model, run)
+        step = tl.make_train_step(model, run)
+        for s in range(3):
+            state, m = step(state, {k: torch.from_numpy(v).to(cuda)
+                                    for k, v in data.batch(s).items()})
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+        ends.append(state)
+    for k, p in ends[0].params.items():
+        assert torch.equal(p, ends[1].params[k]), k
 
 
 @pytest.mark.gpu
