@@ -305,7 +305,32 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                parameters and moments bit-equal to the clean run's, the
                last 5 steps' mean loss below the first 5's, and falcon's
                clean run exactly 60 B7 and 30 backward launches a Mamba
-               layer.
+               layer;
+32. train_dp_world1_equal — the data-parallel step
+               (``make_train_step(..., rules)`` over
+               ``make_host_mesh(data=1)`` and ``make_rules(fsdp=False)``)
+               in a world of one over NCCL (an in-process HashStore; the
+               machine has one card and NCCL refuses two ranks on one
+               device; several ranks are held against the reference on
+               the CPU): falcon-mamba-7b at full width with the depth cut
+               to 2 layers, 4 x 2048 tokens, 3 steps under deterministic
+               algorithms; ``psum``, ``ring`` and ``bidir_ring``
+               parameters, moments and metrics bit-equal to
+               ``rules=None``;
+33. train_falcon_mamba_7b_l16_aer — the same data-parallel step on
+               falcon-mamba-7b at full width, 16 of its 64 layers, 4 x
+               2048 tokens, bf16 products, "full" remat, ``aer_topk``
+               (frac 0.05, budget 128), 8 steps: finite metrics, each
+               step exactly one B5 and one B6 launch a reference leaf
+               (13), 32 B7 and 16 of its backward; ms a step (median of
+               the last 6), ``aer_reduce`` ms by CUDA events, wire words
+               against the 2.22 G dense words, peak memory; the
+               embedding leaf's step-1 reduced gradient and residual
+               bit-equal to the plain encoder and decoder's; a ninth
+               step profiled (busy share, device time by group: B5,
+               B6, the thresholds' sort, B7, products, copies,
+               elementwise, NCCL); then the same cell under ``psum``, 4
+               steps, for comparison.
 
 Then the ``{"kernels": [...]}`` summary (B1–B7 and B7's backward), the
 nvidia-smi line again and,
@@ -317,6 +342,7 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -2546,7 +2572,8 @@ def _layer_grads(step: int):
     return make(GRANITE_3_2B_LAYER)
 
 
-def _leaf_vs_plain(g, residual, red, new_residual):
+def _leaf_vs_plain(g, residual, red, new_residual, frac=AER_FRAC,
+                   budget=AER_BUDGET):
     """One leaf of one ``aer_topk`` step in a world of one, held against
     the plain encoder and decoder on the same tiles and thresholds:
     ``(reduced equal, residual' equal, events, events wanted)``.  The
@@ -2558,8 +2585,8 @@ def _leaf_vs_plain(g, residual, red, new_residual):
     from repro_torch.kernels import ref as R
     y = g + residual
     tiles, size = K.pad_to_blocks(y, AER_BLOCK)
-    tau = K.tau_from_fraction(tiles, AER_FRAC)
-    idx, val, count, wanted = R.aer_encode(tiles, tau, AER_BUDGET)
+    tau = K.tau_from_fraction(tiles, frac)
+    idx, val, count, wanted = R.aer_encode(tiles, tau, budget)
     mask_total = ((tiles.abs() >= tau[:, None]) & (tiles != 0)).sum(
         1, dtype=torch.int32)
     check(torch.equal(wanted, mask_total),
@@ -2569,7 +2596,7 @@ def _leaf_vs_plain(g, residual, red, new_residual):
             torch.equal(new_residual,
                         K.unpad_from_blocks(tiles - dec, size, g.shape)),
             int(count.sum()), int(torch.clamp(mask_total,
-                                              max=AER_BUDGET).sum()))
+                                              max=budget).sum()))
 
 
 def phase_aer_layer():
@@ -3641,6 +3668,282 @@ def phase_train_restart_drill():
     return out
 
 
+#: the data-parallel phases run in a world of one over NCCL (the card's
+#: machine has one card, and NCCL refuses two ranks on one device);
+#: several ranks are held against the reference on the CPU
+#: (tests/test_torch_train_dp*.py)
+DP_BATCH, DP_SEQ = 4, 2048
+DP_EQUAL_LAYERS, DP_EQUAL_STEPS = 2, 3
+DP_AER_STEPS, DP_PSUM_STEPS = 8, 4
+DP_AER_FRAC = 0.05            # launch.train's --aer-frac default
+DP_AER_BUDGET = 128           # RunConfig.aer_budget
+
+
+DP_GROUPS = {"aer_encode (B5)": ("aer_encode",),
+             "aer_decode (B6)": ("aer_decode",),
+             "sort (tau)": ("sort", "Sort", "radix"),
+             "B7 forward": ("selective_scan_kernel",),
+             "B7 backward": ("selective_scan_bwd",),
+             "matmul": SERVE_GROUPS["matmul"],
+             "copies and casts": SERVE_GROUPS["copies and casts"],
+             "reductions": ("reduce", "Reduce"),
+             "elementwise": ("elementwise", "vectorized", "unrolled"),
+             "nccl": ("nccl",)}
+
+
+@contextlib.contextmanager
+def _world_of_one():
+    """An NCCL process group of one rank (an in-process store)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_run(layers, mode, steps, dp=True):
+    """falcon-mamba-7b at full width on ``layers`` layers, its state and
+    its step: data-parallel (``make_host_mesh(data=1)``,
+    ``make_rules(fsdp=False)``) unless ``dp`` is false; the launcher's
+    run settings."""
+    import torch
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_config("falcon_mamba_7b").with_(n_layers=layers)
+    run = RunConfig(dp_reduce=mode, learning_rate=1e-3,
+                    warmup_steps=max(steps // 10, 1), total_steps=steps,
+                    aer_frac=DP_AER_FRAC, aer_budget=DP_AER_BUDGET,
+                    fsdp=False)
+    model = build_model(cfg, seed=0, device=torch.device("cuda", 0))
+    rules = make_rules(make_host_mesh(data=1), fsdp=False,
+                       kv_heads=cfg.n_kv_heads,
+                       d_head=cfg.d_head) if dp else None
+    return (cfg, model, tl.init_state(model, run),
+            tl.make_train_step(model, run, rules))
+
+
+def _dp_batch(cfg, step: int) -> dict:
+    import torch
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(cfg.vocab, DP_SEQ, DP_BATCH, seed=0)
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in data.batch(step).items()}
+
+
+def phase_train_dp_world1_equal():
+    """The data-parallel step in a world of one: falcon-mamba-7b at full
+    width on 2 layers, 4 x 2048 tokens, 3 steps under deterministic
+    algorithms; ``psum``, ``ring`` and ``bidir_ring`` under the rules
+    must give parameters, both moments and every metric bit-equal to
+    the same steps with ``rules=None`` (a mean over one rank is
+    exact)."""
+    import torch
+    from repro_torch.launch.serve import pin_precision
+    t_phase = time.perf_counter()
+    pin_precision()
+    out, ref = {}, None
+    with _world_of_one():
+        for mode in (None, "psum", "ring", "bidir_ring"):
+            cfg, model, state, step = _dp_run(
+                DP_EQUAL_LAYERS, mode or "psum", DP_EQUAL_STEPS,
+                dp=mode is not None)
+            metrics, times, counts = [], [], []
+            for s in range(DP_EQUAL_STEPS):
+                batch = _dp_batch(cfg, s)
+                torch.cuda.synchronize()
+                _counts_zero()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                metrics.append({k: v.clone() for k, v in m.items()})
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                counts.append(_counts())
+            snap = {"params": {k: p.detach().clone()
+                               for k, p in state.params.items()},
+                    "mu": {k: v.clone() for k, v in state.opt.mu.items()},
+                    "nu": {k: v.clone() for k, v in state.opt.nu.items()},
+                    "metrics": metrics}
+            want = {"selective_scan": 2 * DP_EQUAL_LAYERS,
+                    "selective_scan_bwd": DP_EQUAL_LAYERS}
+            for i, c in enumerate(counts):
+                check(all(c.get(k, 0) == want.get(k, 0) for k in c),
+                      f"train_dp_world1_equal {mode}: step {i + 1} "
+                      f"launched {c}, expected {want}")
+            label = mode or "no_rules"
+            row = {"step_ms": times, "loss": [float(m["loss"])
+                                              for m in metrics]}
+            if ref is None:
+                ref = snap
+            else:
+                eq = {part: all(torch.equal(v, ref[part][k])
+                                for k, v in snap[part].items())
+                      for part in ("params", "mu", "nu")}
+                eq["metrics"] = all(
+                    torch.equal(a[k].cpu(), b[k].cpu())
+                    for a, b in zip(snap["metrics"], ref["metrics"])
+                    for k in a)
+                row["bit_equal"] = eq
+                check(all(eq.values()), f"train_dp_world1_equal: {mode} "
+                      f"under rules differs from rules=None: {eq}")
+            out[label] = row
+            del model, state, step, snap
+            _free()
+    del ref
+    _free()
+    emit("train_dp_world1_equal", arch="falcon_mamba_7b",
+         layers=DP_EQUAL_LAYERS, reduced={"n_layers": [64,
+                                                      DP_EQUAL_LAYERS]},
+         batch=DP_BATCH, seq=DP_SEQ, steps=DP_EQUAL_STEPS, world=1,
+         backend="nccl", modes=out, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def phase_train_dp_aer():
+    """falcon-mamba-7b at full width on 16 layers, 4 x 2048 tokens,
+    ``aer_topk`` (frac 0.05, budget 128) through the data-parallel step
+    in a world of one, 8 steps; then ``psum``, 4 steps.  ms a step, the
+    reduction's ms by CUDA events, wire words, peak memory, launches a
+    step (B5 and B6 once a reference leaf, B7 32, its backward 16); the
+    embedding leaf's step-1 reduction bit-equal to the plain encoder
+    and decoder's."""
+    import torch
+    from repro_torch.core import sparse_collectives as sc
+    from repro_torch.launch.serve import pin_precision
+    from repro_torch.models.model import param_count
+    from repro_torch.runtime import train_loop as tl
+    t_phase = time.perf_counter()
+    pin_precision()
+    out, grab = {}, {}
+    with _world_of_one():
+        for mode, steps in (("aer_topk", DP_AER_STEPS),
+                            ("psum", DP_PSUM_STEPS)):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cfg, model, state, step = _dp_run(FALCON_TRAIN_LAYERS, mode,
+                                              steps)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n_params = param_count(model)
+            n_leaves = len(tl.ReferenceLeaves(model).members)
+            emb_shape = tuple(model.embed.table.shape)
+            events, at = [], [0]
+            owner, name = ((tl.ReferenceLeaves, "aer_reduce")
+                           if mode == "aer_topk" else
+                           (sc, "reduce_gradients"))
+            orig, orig_leaf = getattr(owner, name), sc.aer_allreduce
+
+            def timed(*a, **k):
+                e = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                e[0].record()
+                r = orig(*a, **k)
+                e[1].record()
+                events.append(e)
+                return r
+
+            def leaf(x, st, group=None, **k):
+                take = at[0] == 0 and tuple(x.shape) == emb_shape
+                if take:
+                    grab.update(g=x.clone(), res=st.residual.clone())
+                r, new, w = orig_leaf(x, st, group, **k)
+                if take:
+                    grab.update(red=r.clone(), new=new.residual.clone())
+                return r, new, w
+
+            setattr(owner, name, timed)
+            sc.aer_allreduce = leaf
+            times, words, losses, counts = [], [], [], []
+            try:
+                for s in range(steps):
+                    at[0] = s
+                    batch = _dp_batch(cfg, s)
+                    torch.cuda.synchronize()
+                    _counts_zero()
+                    t1 = time.perf_counter()
+                    state, m = step(state, batch)
+                    vals = {k: float(v) for k, v in m.items()}
+                    times.append((time.perf_counter() - t1) * 1e3)
+                    counts.append(_counts())
+                    check(all(v == v and abs(v) != float("inf")
+                              for v in vals.values()),
+                          f"train dp {mode}: step {s + 1} metrics not "
+                          f"finite: {vals}")
+                    losses.append(vals["loss"])
+                    words.append(int(vals["wire_words"]))
+            finally:
+                setattr(owner, name, orig)
+                sc.aer_allreduce = orig_leaf
+            torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            red_ms = [a.elapsed_time(b) for a, b in events]
+            aer = mode == "aer_topk"
+            prof = None
+            if aer:            # one more step, profiled: time by group
+                batch = _dp_batch(cfg, steps)
+                prof = _profile_ticks(
+                    "profile_train_falcon_mamba_7b_l16_aer",
+                    lambda: step(state, batch), 1, groups=DP_GROUPS,
+                    unit="step")
+            want = {"selective_scan": 2 * FALCON_TRAIN_LAYERS,
+                    "selective_scan_bwd": FALCON_TRAIN_LAYERS,
+                    "aer_encode": n_leaves if aer else 0,
+                    "aer_decode": n_leaves if aer else 0}
+            for i, c in enumerate(counts):
+                check(all(c.get(k, 0) == want.get(k, 0) for k in c),
+                      f"train dp {mode}: step {i + 1} launched {c}, "
+                      f"expected {want}")
+            check(all(w > 0 for w in words) if aer else not any(words),
+                  f"train dp {mode}: wire words {words}")
+            tail = times[2:] if aer else times[1:]
+            out[mode] = {
+                "steps": steps, "init_s": init_s,
+                "step_ms_all": times, "step_ms_median": statistics.median(
+                    tail), "median_of": len(tail),
+                "reduce_ms_all": red_ms,
+                "reduce_ms_median": statistics.median(red_ms[len(red_ms)
+                                                             - len(tail):]),
+                "tokens_per_s": DP_BATCH * DP_SEQ / (
+                    statistics.median(tail) / 1e3),
+                "loss": losses, "wire_words": words,
+                "launches_per_step": want,
+                "max_memory_allocated_gb": peak_gb}
+            if aer:
+                out[mode].update(
+                    reference_leaves=n_leaves,
+                    wire_words_over_dense=statistics.mean(words) / n_params,
+                    device_busy_share=prof["device_busy_share"],
+                    us_by_group=prof.get("us_per_step_by_group"))
+            del model, state, step
+            _free()
+        check(set(grab) == {"g", "res", "red", "new"},
+              "the embedding leaf's step-1 reduction was not captured")
+        red_eq, res_eq, ev, ev_mask = _leaf_vs_plain(
+            grab["g"], grab["res"], grab["red"], grab["new"],
+            frac=DP_AER_FRAC, budget=DP_AER_BUDGET)
+    check(red_eq and res_eq and ev == ev_mask,
+          f"train dp aer_topk: the embedding's step-1 reduced gradient "
+          f"(equal {red_eq}) or residual (equal {res_eq}) differs from "
+          f"the plain encoder and decoder's, or events {ev} != {ev_mask}")
+    emb = list(grab["g"].shape)
+    del grab
+    _free()
+    emit("train_falcon_mamba_7b_l16_aer", arch="falcon_mamba_7b",
+         layers=FALCON_TRAIN_LAYERS,
+         reduced={"n_layers": [64, FALCON_TRAIN_LAYERS]}, batch=DP_BATCH,
+         seq=DP_SEQ, world=1, backend="nccl", frac=DP_AER_FRAC,
+         budget=DP_AER_BUDGET, params=n_params, dense_words=n_params,
+         embedding_leaf={"shape": emb, "reduced_equal_plain": red_eq,
+                         "residual_equal_plain": res_eq, "events": ev},
+         runs=out, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def _free() -> None:
     """Give a finished phase's model back to the card."""
     import gc
@@ -3749,6 +4052,10 @@ def main() -> int:
         _free()
     drill = phase_train_restart_drill()
     _free()
+    phase_train_dp_world1_equal()
+    _free()
+    dp = phase_train_dp_aer()
+    _free()
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),
@@ -3818,6 +4125,14 @@ def main() -> int:
     by_name["fabric_queue_multistep"]["adaptive_ring16_launches"] = \
         adaptive_rows["multistep"]["launches"]["fabric_queue_multistep"]
     by_name["aer_decode"]["aer_layer_ms_per_step"] = aer_ms
+    # the data-parallel falcon-mamba-7b cell (16 layers, aer_topk): one
+    # B5 and one B6 launch a reference leaf a step
+    for kname in ("aer_encode", "aer_decode"):
+        by_name[kname].update(
+            train_launches_per_step={
+                "train_falcon_mamba_7b_l16_aer":
+                    dp["aer_topk"]["launches_per_step"][kname]},
+            train_reduce_ms_per_step=dp["aer_topk"]["reduce_ms_median"])
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],
                        cosim_closed_ms_per_tick=closed_ms,
@@ -3837,8 +4152,11 @@ def main() -> int:
         jamba_shape_bound_ms=ktimes["selective_scan"]["jamba_bound_ms"],
         train_launches={label: o["launches"]["selective_scan"]
                         for label, o in train_out.items()},
-        train_launches_per_step={label: o["b7_launches_per_step"]["forward"]
-                                 for label, o in train_out.items()})
+        train_launches_per_step={
+            **{label: o["b7_launches_per_step"]["forward"]
+               for label, o in train_out.items()},
+            "train_falcon_mamba_7b_l16_aer":
+                dp["aer_topk"]["launches_per_step"]["selective_scan"]})
     falcon_train = train_out[TRAIN_CELLS[0][0]]
     by_name["selective_scan_bwd"].update(
         replaces_note="no TPU kernel: kernel work from a module (the "
@@ -3847,6 +4165,9 @@ def main() -> int:
         max_scaled_err=ktimes["selective_scan_bwd"]["max_scaled_err"],
         launches_per_step=falcon_train["b7_launches_per_step"]["backward"],
         train_step_ms=falcon_train["step_ms_median"],
+        aer_cell_launches_per_step=dp["aer_topk"]["launches_per_step"][
+            "selective_scan_bwd"],
+        aer_cell_step_ms=dp["aer_topk"]["step_ms_median"],
         drill_launches=drill["falcon_mamba_7b"]["clean_launches"][
             "selective_scan_bwd"])
     emit("done", total_s=time.perf_counter() - t_start)

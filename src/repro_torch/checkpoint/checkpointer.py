@@ -19,8 +19,21 @@ them mid-update.  ``restore(step, target)`` checks each leaf's shape,
 casts it to the target leaf's dtype and writes it INTO the target's
 tensor, on its device, returning the target: the state's parameters are
 the model's, and a second copy of a card-sized state would not fit
-beside the first.  Restoring onto a new mesh (``shardings``) waits for
-ROADMAP A.11c.
+beside the first.
+
+Under data parallelism (``group``: the mesh's data-parallel process
+group, whose ranks hold the same replicated state) every rank calls
+``save``, ``wait``, ``latest_step`` and ``restore`` together, at the
+same points.  Rank 0 of the group alone writes; ``wait`` joins its
+writer and then holds every rank at a barrier, so a manifest is read
+only after it is written; ``latest_step`` is rank 0's answer, broadcast,
+so every rank restores the same checkpoint.  ``restore(step, target,
+shardings=)`` takes ``runtime.train_loop.state_shardings``' tree on the
+(possibly new, possibly smaller) mesh: a replicated leaf is loaded
+whole on every rank; a spec that splits a leaf over several ranks waits
+for ROADMAP A.11d and raises ``NotImplementedError``, as the reference
+writes its shards through ``jax.device_put``
+(``src/repro/checkpoint/checkpointer.py:104-124``).
 """
 
 from __future__ import annotations
@@ -33,24 +46,36 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.compat import barrier, global_rank, group_device
 
 __all__ = ["Checkpointer"]
 
 
-def _flatten_with_paths(tree, prefix: str = ""):
-    """``(path, tensor)`` of every tensor leaf: NamedTuple fields in
-    order, dict keys in order, ``None`` skipped."""
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _is_sharding(x) -> bool:
+    return hasattr(x, "spec") and hasattr(x, "shards")
+
+
+def _flatten_with_paths(tree, prefix: str = "", leaf=_is_tensor):
+    """``(path, leaf)`` of every leaf (a tensor, or what ``leaf``
+    says): NamedTuple fields in order, dict keys in order, ``None``
+    skipped."""
     if tree is None:
         return
-    if isinstance(tree, torch.Tensor):
+    if leaf(tree):
         yield prefix, tree
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for name in tree._fields:
             yield from _flatten_with_paths(getattr(tree, name),
-                                           f"{prefix}{name}/")
+                                           f"{prefix}{name}/", leaf)
     elif isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _flatten_with_paths(v, f"{prefix}{k}/")
+            yield from _flatten_with_paths(v, f"{prefix}{k}/", leaf)
     else:
         raise TypeError(f"checkpoint leaf {prefix!r} is a "
                         f"{type(tree).__name__}, not a tensor")
@@ -78,15 +103,27 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, group=None):
         self.dir = directory
         self.keep = keep
+        self.group = group
         self._thread: threading.Thread | None = None
-        os.makedirs(directory, exist_ok=True)
+        if self._writer:
+            os.makedirs(directory, exist_ok=True)
+        if group is not None:
+            barrier(group)
+
+    @property
+    def _writer(self) -> bool:
+        return self.group is None or dist.get_rank(self.group) == 0
 
     # ------------------------------------------------------------ save --
     def save(self, step: int, tree, blocking: bool = False):
         self.wait()
+        if not self._writer:
+            if blocking:
+                barrier(self.group)
+            return
         leaves = list(_flatten_with_paths(tree))
         arrays = {k.rstrip("/"): _host_copy(t) for k, t in leaves}
         dtypes = {k.rstrip("/"): str(t.dtype).removeprefix("torch.")
@@ -117,6 +154,8 @@ class Checkpointer:
 
         if blocking:
             _write()
+            if self.group is not None:
+                barrier(self.group)
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
@@ -125,6 +164,8 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            barrier(self.group)
 
     def _gc(self):
         steps = self.all_steps()
@@ -143,16 +184,32 @@ class Checkpointer:
         return sorted(out)
 
     def latest_step(self):
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        steps = self.all_steps() if self._writer else []
+        last = steps[-1] if steps else -1
+        if self.group is not None:
+            t = torch.tensor([last], dtype=torch.int64,
+                             device=group_device(self.group))
+            dist.broadcast(t, global_rank(self.group, 0), group=self.group)
+            last = int(t)
+        return None if last < 0 else last
 
     def restore(self, step: int, target_tree, shardings=None):
         """Write checkpoint ``step`` into ``target_tree``'s tensors (shapes
         checked, values cast to each target's dtype, on its device) and
-        return the target."""
+        return the target.  ``shardings``: a tree of ``NamedSharding``
+        parallel to the target (``state_shardings`` on the new mesh)."""
         if shardings is not None:
-            raise NotImplementedError("restoring onto a new mesh "
-                                      "(shardings) waits for ROADMAP A.11c")
+            specs = dict(_flatten_with_paths(shardings, leaf=_is_sharding))
+            for key, _ in _flatten_with_paths(target_tree):
+                sh = specs.get(key)
+                if sh is None:
+                    raise ValueError(f"no sharding for checkpoint leaf "
+                                     f"{key.rstrip('/')}")
+                if sh.shards > 1:
+                    raise NotImplementedError(
+                        f"{key.rstrip('/')}: spec {tuple(sh.spec)} splits "
+                        f"it over {sh.shards} ranks; restoring sharded "
+                        f"leaves waits for ROADMAP A.11d")
         self.wait()
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:

@@ -76,7 +76,7 @@ def aer_allreduce(x: torch.Tensor, state: AerState, group=None, *,
         K.EventBlocks(all_idx.reshape(n * nb, budget),
                       all_val.reshape(n * nb, budget), ev.count, ev.wanted),
         block).reshape(n, nb, block)
-    summed = dec_all.sum(0) / n
+    summed = dec_all.sum(0).div_(n)
 
     own_dec = dec_all[axis_index(group)]
     new_residual = K.unpad_from_blocks(tiles - own_dec, size, x.shape)

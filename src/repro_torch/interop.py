@@ -22,7 +22,7 @@ caches (:func:`mamba_cache_from_reference`,
 :func:`attn_cache_from_reference`) and a whole LM's cache of mixed
 layers (:func:`lm_cache_from_reference`).  A training run carries over
 with :func:`train_state_from_reference` (parameters, AdamW moments,
-steps).
+steps, and the data-parallel step's AER residuals).
 This module never imports the reference package: it only reads arrays.
 """
 
@@ -50,7 +50,7 @@ __all__ = ["Converted", "from_reference", "result_to_numpy",
            "aer_states_from_reference", "event_blocks_from_reference",
            "lm_params_from_reference", "mamba_cache_from_reference",
            "attn_cache_from_reference", "lm_cache_from_reference",
-           "train_state_from_reference"]
+           "train_state_from_reference", "aer_residuals_from_reference"]
 
 
 class Converted(NamedTuple):
@@ -311,8 +311,9 @@ def train_state_from_reference(state, cfg, *, device=None):
     (``params``, ``opt`` = ``AdamWState(step, mu, nu)``, ``aer``,
     ``step``; JAX or numpy leaves) on ``device`` (``None``: the CUDA
     card): the parameters through :func:`lm_params_from_reference`, with
-    gradients enabled, and ``mu``, ``nu`` (and any AER residuals) by the
-    same stacked-to-block mapping, float32; the two step counters as
+    gradients enabled, and ``mu``, ``nu`` by the same stacked-to-block
+    mapping, float32; any AER residuals as the data-parallel step keeps
+    them (:func:`aer_residuals_from_reference`); the two step counters as
     int32 host scalars.  The state's ``params`` are the model's own, as
     ``runtime.train_loop.init_state`` makes them."""
     from .optim.adamw import AdamWState
@@ -335,11 +336,31 @@ def train_state_from_reference(state, cfg, *, device=None):
                      nu=moments(state.opt.nu))
     aer = None
     if state.aer is not None:
-        from .core.sparse_collectives import AerState
-        res = moments(_map_leaves(lambda a: a.residual, state.aer))
-        aer = {k: AerState(residual=v) for k, v in res.items()}
+        aer = aer_residuals_from_reference(state.aer, cfg, model)
     return model, TrainState(params=params, opt=opt, aer=aer,
                              step=step_of(state.step))
+
+
+def aer_residuals_from_reference(aer, cfg, model) -> dict:
+    """The trainer's ``aer_topk`` residuals (``TrainState.aer``) from the
+    reference's (its tree of ``AerState`` or of arrays, one a parameter
+    leaf): keyed as ``runtime.train_loop.ReferenceLeaves`` keys them,
+    ``stack.pos<i>.<path>`` kept stacked over periods as the reference
+    holds it, on ``model``'s device."""
+    from .core.sparse_collectives import AerState
+    from .runtime.train_loop import ReferenceLeaves
+    res = _map_leaves(lambda a: getattr(a, "residual", a), aer)
+    flat = {f"{top}.{path}": leaf for top in res if top != "stack"
+            for path, leaf in _leaves(res[top])}
+    for pos, tree in res.get("stack", {}).items():
+        flat.update((f"stack.{pos}.{path}", leaf)
+                    for path, leaf in _leaves(tree))
+    keys = ReferenceLeaves(model).members.keys()
+    if set(flat) != set(keys):
+        raise ValueError(f"residual leaves differ from the model's: "
+                         f"{sorted(set(flat) ^ set(keys))}")
+    return {k: AerState(residual=_tensor(flat[k]).to(model.device))
+            for k in sorted(keys)}
 
 
 def _map_leaves(fn, tree):

@@ -153,6 +153,10 @@ def unpad_from_blocks(tiles: torch.Tensor, orig_size: int, shape):
     return tiles.reshape(-1)[:orig_size].reshape(shape)
 
 
+#: entries a chunk of ``tau_from_fraction``'s rows (256 MB of float32)
+TAU_CHUNK = 1 << 26
+
+
 def tau_from_fraction(x_tiles: torch.Tensor, frac: float) -> torch.Tensor:
     """Per-block threshold that keeps about ``frac`` of the entries: the
     ``1 - frac`` quantile of ``|x|`` along each row, in x's dtype.
@@ -164,8 +168,15 @@ def tau_from_fraction(x_tiles: torch.Tensor, frac: float) -> torch.Tensor:
     the last line into ``fma(s[floor h], 1 - w, s[ceil h] * w)``, which
     the float64 route below rounds once, as the FMA does, except on a
     double rounding; ``tests/test_torch_aer.py`` holds it to within one
-    float32 ulp of the reference.
+    float32 ulp of the reference.  Rows go through in chunks of about
+    ``TAU_CHUNK`` entries, so the sort's copies of a billion-entry
+    gradient (values and int64 indices) need not fit beside it; each
+    row's value does not depend on the chunking.
     """
+    rows = max(1, TAU_CHUNK // max(1, x_tiles.shape[1]))
+    if x_tiles.shape[0] > rows:
+        return torch.cat([tau_from_fraction(x_tiles[i:i + rows], frac)
+                          for i in range(0, x_tiles.shape[0], rows)])
     a = x_tiles.float().abs()
     n = a.shape[1]
     a = torch.where(torch.isnan(a).any(1, keepdim=True), float("nan"), a)

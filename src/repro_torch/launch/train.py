@@ -10,8 +10,17 @@ backward kernel; the rest is PyTorch ops and autograd.  ``--layers``
 cuts the depth (the published widths kept) for a model whose training
 state (float32 parameters, gradients and two moments, 16 bytes a
 parameter) one card cannot hold: falcon-mamba-7b's 64 layers are about
-116 GB of it, 16 layers about 36 GB.  ``--mesh-data > 1`` (manual data
-parallelism over several cards) waits for ROADMAP A.11c.
+116 GB of it, 16 layers about 36 GB.
+
+``--mesh-data N`` (N > 1) trains data-parallel over N processes, one a
+rank, as ``torchrun`` starts them: it reads ``RANK``, ``WORLD_SIZE``
+(which must be N) and ``LOCAL_RANK``, joins the process group (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``; ``MASTER_ADDR`` and
+``MASTER_PORT`` from ``torchrun``), builds ``make_host_mesh(data=N)``
+and ``make_rules(fsdp=False)``, hands every rank rank 0's parameters,
+and reduces the gradients with ``--dp-reduce``.  ``--batch`` is the
+global batch; each rank trains on its ``batch / N`` rows.  Only rank 0
+prints.
 
 On the card the step runs under PyTorch's deterministic algorithms (so
 a restarted run ends bit-identical to an uninterrupted one), which need
@@ -37,15 +46,18 @@ import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import Checkpointer
 from ..configs.base import RunConfig, get_config, get_smoke_config
 from ..data import SyntheticLM
 from ..device import resolve_device
 from ..models.model import build_model, param_count
+from ..parallel.sharding import make_rules
 from ..runtime.fault import (FailureInjector, StragglerMonitor,
                              run_with_restarts)
 from ..runtime.train_loop import init_state, make_train_step
+from .mesh import make_host_mesh
 from .serve import pin_precision
 
 __all__ = ["parser", "Run", "setup", "run", "main"]
@@ -64,8 +76,8 @@ def parser() -> argparse.ArgumentParser:
                     choices=["psum", "ring", "bidir_ring", "aer_topk"])
     ap.add_argument("--aer-frac", type=float, default=0.05)
     ap.add_argument("--mesh-data", type=int, default=0,
-                    help="manual DP over N devices (0 = single device; "
-                         "more than 1 waits for ROADMAP A.11c)")
+                    help="data parallelism over N ranks started by "
+                         "torchrun (0 or 1 = one device)")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--checkpoint-dir",
                     default=os.path.join(tempfile.gettempdir(),
@@ -94,6 +106,27 @@ class Run(NamedTuple):
     ckpt: Checkpointer
     injector: FailureInjector | None
     monitor: StragglerMonitor
+    rules: object             # the mesh's sharding rules (None: one device)
+    owns_group: bool          # setup joined the process group
+
+
+def _join_group(n: int, device):
+    """Join ``torchrun``'s process group of ``n`` ranks (unless this
+    process already belongs to one); returns ``(device, joined)``."""
+    dev = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", "1"))
+    if n != world:
+        raise ValueError(f"--mesh-data {n} needs {n} processes (torchrun "
+                         f"--nproc-per-node {n}); WORLD_SIZE is {world}")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        return dev, False
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            rank=int(os.environ["RANK"]), world_size=n)
+    return dev, True
 
 
 def setup(argv=None) -> Run:
@@ -101,11 +134,11 @@ def setup(argv=None) -> Run:
     device, and make the state, the step, the data and the checkpointer.
     Prints the run's line (parameters, the depth cut if any)."""
     args = parser().parse_args(argv)
+    owns = False
     if args.mesh_data > 1:
-        raise NotImplementedError(
-            f"--mesh-data {args.mesh_data}: manual data parallelism over "
-            f"several cards waits for ROADMAP A.11c")
-    dev = resolve_device(args.device)
+        dev, owns = _join_group(args.mesh_data, args.device)
+    else:
+        dev = resolve_device(args.device)
     pin_precision()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     full_layers = cfg.n_layers
@@ -116,14 +149,31 @@ def setup(argv=None) -> Run:
                         total_steps=args.steps, aer_frac=args.aer_frac,
                         checkpoint_every=args.checkpoint_every, fsdp=False)
     model = build_model(cfg, seed=args.seed, device=dev)
+    rules = group = None
+    lead = True
+    if args.mesh_data > 1:
+        mesh = make_host_mesh(data=args.mesh_data, model=1)
+        rules = make_rules(mesh, fsdp=False, kv_heads=cfg.n_kv_heads,
+                           d_head=cfg.d_head)
+        group = mesh.dp_group
+        lead = dist.get_rank() == 0
+        with torch.no_grad():
+            for p in model.parameters():
+                dist.broadcast(p, 0, group=group)
+        if lead:
+            print(f"mesh: {dict(mesh.shape)} dp_reduce={args.dp_reduce} "
+                  f"backend={dist.get_backend(group)}")
+    if not lead:
+        args.log_every = 0
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=args.seed,
                        modality=cfg.modality, d_frontend=cfg.d_frontend,
                        n_img_tokens=cfg.n_img_tokens)
     state = init_state(model, run_cfg)
     cut = (f" (depth cut from {full_layers} to {cfg.n_layers} layers)"
            if cfg.n_layers != full_layers else "")
-    print(f"{cfg.name}: {param_count(model):,} params{cut}, "
-          f"{args.steps} steps, reduce={args.dp_reduce}, device={dev}")
+    if lead:
+        print(f"{cfg.name}: {param_count(model):,} params{cut}, "
+              f"{args.steps} steps, reduce={args.dp_reduce}, device={dev}")
 
     class DeviceData:
         def batch(self, s):
@@ -134,10 +184,11 @@ def setup(argv=None) -> Run:
         int(s) for s in args.fail_at.split(",") if s)) if args.fail_at \
         else None
     return Run(args=args, cfg=cfg, run_cfg=run_cfg, model=model,
-               state=state, step_fn=make_train_step(model, run_cfg),
+               state=state, step_fn=make_train_step(model, run_cfg, rules),
                data=DeviceData(), ckpt=Checkpointer(args.checkpoint_dir,
-                                                    keep=3),
-               injector=injector, monitor=StragglerMonitor())
+                                                    keep=3, group=group),
+               injector=injector, monitor=StragglerMonitor(), rules=rules,
+               owns_group=owns)
 
 
 def run(r: Run, *, on_metrics=None):
@@ -152,8 +203,9 @@ def run(r: Run, *, on_metrics=None):
         injector=r.injector, monitor=r.monitor, log_every=r.args.log_every,
         on_metrics=on_metrics)
     dt = time.time() - t0
-    print(f"done in {dt:.1f}s — restarts={info['restarts']} "
-          f"stragglers={len(info['straggler_events'])}")
+    if r.rules is None or dist.get_rank() == 0:
+        print(f"done in {dt:.1f}s — restarts={info['restarts']} "
+              f"stragglers={len(info['straggler_events'])}")
     return state, dict(info, seconds=dt)
 
 
@@ -161,7 +213,11 @@ def main(argv=None, *, on_metrics=None):
     """``run(setup(argv))``: returns ``(state, info)``, ``info`` also
     holding the model (``"model"``) and its config (``"cfg"``)."""
     r = setup(argv)
-    state, info = run(r, on_metrics=on_metrics)
+    try:
+        state, info = run(r, on_metrics=on_metrics)
+    finally:
+        if r.owns_group:
+            dist.destroy_process_group()
     return state, dict(info, model=r.model, cfg=r.cfg)
 
 

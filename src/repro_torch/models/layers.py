@@ -27,10 +27,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 __all__ = ["_normal", "param", "Linear", "linear_init", "linear", "RMSNorm",
-           "rmsnorm", "padded_vocab", "Embed", "embed_init", "embed",
+           "rmsnorm", "NORM_AXES", "EMBED_AXES", "HEAD_AXES",
+           "FRONTEND_AXES", "padded_vocab", "Embed", "embed_init", "embed",
            "rope", "_chunk_mask", "flash_attention", "decode_attention",
-           "Attention", "attn_init", "_project_qkv", "attn_apply",
-           "attn_decode", "init_attn_cache", "_ACTS", "FFN", "ffn_init",
+           "Attention", "attn_axes", "attn_init", "_project_qkv", "attn_apply",
+           "attn_decode", "init_attn_cache", "_ACTS", "FFN", "ffn_axes", "ffn_init",
            "ffn_apply", "Head", "head_init", "mask_padded_vocab",
            "cross_entropy", "chunked_cross_entropy"]
 
@@ -93,6 +94,14 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p.scale.float()).to(x.dtype)
+
+
+#: the logical axes of the top-level parameters (the reference's
+#: ``rmsnorm_init``, ``embed_init``, ``head_init`` and frontend axes)
+NORM_AXES = {"scale": ("embed",)}
+EMBED_AXES = {"table": ("vocab", "embed")}
+HEAD_AXES = {"w": ("embed", "vocab")}
+FRONTEND_AXES = {"w": ("none", "embed")}
 
 
 def padded_vocab(vocab: int, mult: int = 128) -> int:
@@ -301,6 +310,16 @@ class Attention(nn.Module):
             self.kn = RMSNorm(dh, device=device)
 
 
+def attn_axes(cfg) -> dict:
+    """The logical axes of an ``Attention``'s parameters (the
+    reference's ``attn_init`` axes)."""
+    a = {"wq": {"w": ("embed", "heads_q")}, "wk": {"w": ("embed", "heads_kv")},
+         "wv": {"w": ("embed", "heads_kv")}, "wo": {"w": ("heads_q", "embed")}}
+    if cfg.qk_norm:
+        a["qn"] = a["kn"] = {"scale": ("none",)}
+    return a
+
+
 def attn_init(p: Attention, cfg, generator: torch.Generator) -> None:
     H, dh = cfg.n_heads, cfg.d_head
     for w in (p.wq, p.wk, p.wv):
@@ -460,6 +479,14 @@ class FFN(nn.Module):
             self.wg = Linear(D, d_ff, pd, device=device)
         self.wi = Linear(D, d_ff, pd, device=device)
         self.wo = Linear(d_ff, D, pd, device=device)
+
+
+def ffn_axes(cfg) -> dict:
+    """The logical axes of an ``FFN``'s parameters."""
+    a = {"wi": {"w": ("embed", "ff")}, "wo": {"w": ("ff", "embed")}}
+    if cfg.act in ("silu", "gelu") and cfg.family != "encoder":
+        a["wg"] = {"w": ("embed", "ff")}
+    return a
 
 
 def ffn_init(p: FFN, cfg, generator: torch.Generator) -> None:

@@ -22,7 +22,7 @@ from torch import nn
 from ..kernels import ops
 from .layers import _normal, linear, param
 
-__all__ = ["Mamba", "mamba_init", "softplus", "_ssm_inputs",
+__all__ = ["Mamba", "MAMBA_AXES", "mamba_init", "softplus", "_ssm_inputs",
            "_causal_depthwise_conv", "_mamba_fwd", "mamba_apply",
            "mamba_prefill", "init_mamba_cache", "mamba_decode"]
 
@@ -52,6 +52,21 @@ class Mamba(nn.Module):
             requires_grad=False)
         self.D_skip = param((d_in,), torch.float32, device, fill=1.0)
         self.out_proj = param((d_in, D), pd, device)
+
+
+#: the logical axes of a ``Mamba``'s parameters (the reference's
+#: ``mamba_init`` axes)
+MAMBA_AXES = {
+    "in_proj": ("embed", "mamba_inner"),
+    "conv_w": ("none", "mamba_inner"),
+    "conv_b": ("mamba_inner",),
+    "x_proj": ("mamba_inner", "none"),
+    "dt_proj": ("none", "mamba_inner"),
+    "dt_bias": ("mamba_inner",),
+    "A_log": ("mamba_inner", "none"),
+    "D_skip": ("mamba_inner",),
+    "out_proj": ("mamba_inner", "embed"),
+}
 
 
 def mamba_init(p: Mamba, cfg, generator: torch.Generator) -> None:

@@ -88,6 +88,35 @@ class LM(nn.Module):
             L.head_init(self.head, self.cfg, generator)
         return self
 
+    def param_axes(self) -> dict:
+        """Each parameter's logical axes by its name: the reference's
+        ``init`` axes tree, each stacked ``("layers", ...)`` leaf given
+        per block without its ``"layers"`` axis."""
+        cfg = self.cfg
+        tree = {"ln_f": L.NORM_AXES}
+        if hasattr(self, "embed"):
+            tree["embed"] = L.EMBED_AXES
+        if hasattr(self, "frontend"):
+            tree["frontend"] = L.FRONTEND_AXES
+        if hasattr(self, "head"):
+            tree["head"] = L.HEAD_AXES
+        for i, blk in enumerate(self.stack.blocks):
+            tree[f"stack.blocks.{i}"] = T.block_axes(cfg, blk.kind)
+        out = {}
+
+        def walk(t, prefix):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix[:-1]] = t
+        walk(tree, "")
+        names = {n for n, _ in self.named_parameters()}
+        if set(out) != names:
+            raise AssertionError(f"axes and parameters differ: "
+                                 f"{sorted(set(out) ^ names)}")
+        return {n: out[n] for n, _ in self.named_parameters()}
+
     def _head_raw(self, h: torch.Tensor) -> torch.Tensor:
         """The head projection WITHOUT the final norm (a pre-normed
         input): ``h @ head.w``, or ``h @ embed.table.T`` when tied, in

@@ -20,7 +20,7 @@ from torch import nn
 
 from .layers import _ACTS, _normal, param
 
-__all__ = ["MoE", "moe_init", "_capacity", "_top_k", "moe_apply"]
+__all__ = ["MoE", "moe_axes", "moe_init", "_capacity", "_top_k", "moe_apply"]
 
 
 class MoE(nn.Module):
@@ -35,6 +35,16 @@ class MoE(nn.Module):
         self.wg = param((E, D, F), pd, device)
         self.wi = param((E, D, F), pd, device)
         self.wo = param((E, F, D), pd, device)
+
+
+def moe_axes(cfg) -> dict:
+    """The logical axes of a ``MoE``'s parameters: experts over the
+    model axis for the ``"ep"`` layout, else the FFN width."""
+    ep = cfg.moe.layout == "ep"
+    e_ax = "experts" if ep else "none"
+    f_ax = "none" if ep else "ff"
+    return {"router": ("none", "none"), "wg": (e_ax, "embed", f_ax),
+            "wi": (e_ax, "embed", f_ax), "wo": (e_ax, f_ax, "embed")}
 
 
 def moe_init(p: MoE, cfg, generator: torch.Generator) -> None:

@@ -43,7 +43,7 @@ from . import mamba as M
 from . import moe as MOE
 
 __all__ = ["AUX_KEYS", "KINDS", "pattern_for", "n_periods", "Block",
-           "Stack", "stack_init", "stack_apply", "init_cache",
+           "block_axes", "Stack", "stack_init", "stack_apply", "init_cache",
            "precompute_cross_cache", "stack_prefill", "_ring_positions",
            "stack_decode"]
 
@@ -109,6 +109,23 @@ class Block(nn.Module):
         elif kind.endswith("_moe"):
             self.ln2 = L.RMSNorm(cfg.d_model, device=device)
             self.moe = MOE.MoE(cfg, device=device)
+
+
+def block_axes(cfg, kind: str) -> dict:
+    """The logical axes of a ``Block``'s parameters (the reference's
+    ``_block_init`` axes, one layer: no ``"layers"`` axis)."""
+    a = {"ln1": dict(L.NORM_AXES)}
+    if kind.startswith("mamba"):
+        a["mamba"] = dict(M.MAMBA_AXES)
+    else:
+        a["attn"] = L.attn_axes(cfg)
+        if kind.startswith("xattn"):
+            a["xgate"] = ()
+    if kind.endswith("_ffn"):
+        a["ln2"], a["ffn"] = dict(L.NORM_AXES), L.ffn_axes(cfg)
+    elif kind.endswith("_moe"):
+        a["ln2"], a["moe"] = dict(L.NORM_AXES), MOE.moe_axes(cfg)
+    return a
 
 
 class Stack(nn.Module):

@@ -7,6 +7,13 @@ periodic and asynchronous, and the driver restores the latest
 checkpoint on a failure and replays, ending BITWISE-identical to an
 uninterrupted run.  Straggler mitigation watches each step's wall time
 against a running EMA and records the steps past a threshold multiple.
+
+Under data parallelism every rank runs ``run_with_restarts`` with the
+same injector, so an injected failure is raised on every rank at the
+same step, before the step's collectives; the checkpointer, built on
+the mesh's data-parallel group, writes from rank 0, and its ``wait`` and
+``latest_step`` are collective, so every rank restores the same
+checkpoint and replays the same steps.
 """
 
 from __future__ import annotations

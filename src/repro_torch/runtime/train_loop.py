@@ -1,19 +1,47 @@
-"""Training step factory on one device, the port's counterpart of the
-reference's ``runtime/train_loop.py``.
+"""Training step factory, the port's counterpart of the reference's
+``runtime/train_loop.py``: on one device, or data-parallel over the
+ranks of a mesh with a selectable gradient reduction (the paper's
+technique as a knob of the trainer).
 
-``make_train_step(model, run_cfg)`` returns ``step(state, batch) ->
-(state, metrics)``: the loss and its gradients by autograd (averaged
-over ``run_cfg.grad_accum`` microbatches, one backward each), the
-warm-up-cosine learning rate, and the AdamW update in place.  The
+``make_train_step(model, run_cfg, rules=None)`` returns ``step(state,
+batch) -> (state, metrics)``: the loss and its gradients by autograd
+(averaged over ``run_cfg.grad_accum`` microbatches, one backward each),
+the warm-up-cosine learning rate, and the AdamW update in place.  The
 metrics are the reference's ``METRIC_KEYS``: with ``grad_accum > 1`` the
 reference averages the loss over the microbatches for its gradient but
-reports the LAST microbatch's metrics, and so does the port.
+reports the LAST microbatch's metrics, and so does the port.  Without
+rules the reference ignores ``dp_reduce`` and reports ``wire_words`` 0;
+so does the port.
 
-With one device and no sharding rules the reference ignores
-``dp_reduce`` and reports ``wire_words`` 0; so does the port.  Manual
-data parallelism over several cards (``rules``, ``state_shardings``,
-the ``ring`` / ``bidir_ring`` / ``aer_topk`` reductions) waits for
-ROADMAP A.11c and raises ``NotImplementedError``.
+With ``rules`` (a mesh from ``launch.mesh.make_host_mesh``) the step is
+the reference's manual data parallelism, one process a rank where the
+reference runs ``shard_map`` over its data axes in one process: every
+rank takes the global batch and keeps its rows (rank r of N takes rows
+``r·b/N .. (r+1)·b/N``, ``shard_map``'s block split of ``P("data")``),
+computes its gradients, and reduces them over the mesh's data-parallel
+group with ``run_cfg.dp_reduce`` -- ``psum`` (``all_reduce``),
+``ring``, ``bidir_ring`` (``core/halfduplex``) or ``aer_topk`` (the
+event-sparse all-reduce, B5 and B6 once a leaf).  The metrics are
+averaged over the group, as the reference's ``pmean``; ``wire_words``
+is this rank's count of shipped events under ``aer_topk`` (the
+reference's replicated output is its first device's) and 0 otherwise.
+Every rank then applies the same update to the same reduced gradients,
+so the parameters stay replicated bit for bit.
+
+``aer_topk`` tiles each gradient as the reference tiles its leaves: the
+reference stacks a pattern position's parameters over periods
+(``stack/pos<i>/<path>``, shape ``(periods, ...)``), so its blocks of
+1,024 entries run across layers wherever one layer's tensor is not a
+multiple of 1,024 (norm scales, ``D_skip``).  ``ReferenceLeaves``
+stacks the port's per-layer gradients into those leaves before the
+reduction and hands each layer its slice after, and the AER residuals
+are kept in the stacked layout, keyed ``stack.pos<i>.<path>``
+(top-level leaves keep their parameter's name).
+
+A mesh whose model axis is past 1 (tensor, expert, sequence
+parallelism) and a spec that splits a parameter over several ranks
+(FSDP on a data axis past 1) wait for ROADMAP A.11d and raise
+``NotImplementedError``.
 
 Determinism: a run restarted from a checkpoint must end bit-identical
 to an uninterrupted one.  On the card the step runs under
@@ -36,47 +64,126 @@ import os
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..core import sparse_collectives as sc
+from ..models.transformer import n_periods, pattern_for
 from ..optim import adamw
+from ..parallel.compat import DP_AXES, axis_index, axis_size
+from ..parallel.sharding import NamedSharding, PartitionSpec, \
+    partition_params
 
 # deterministic cuBLAS, read by PyTorch at the process's first product
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-__all__ = ["METRIC_KEYS", "TrainState", "init_state", "make_train_step",
-           "state_shardings"]
+__all__ = ["METRIC_KEYS", "DP_MODES", "TrainState", "ReferenceLeaves",
+           "init_state", "make_train_step", "state_shardings"]
 
 METRIC_KEYS = ("nll", "aux_loss", "z_loss", "drop_frac", "loss",
                "grad_norm", "lr", "wire_words")
+DP_MODES = ("psum", "ring", "bidir_ring", "aer_topk")
 
 
 class TrainState(NamedTuple):
     params: dict            # name -> the model's own nn.Parameter
     opt: adamw.AdamWState
-    aer: dict | None        # error-feedback residuals (aer_topk only)
+    aer: dict | None        # aer_topk's residuals, by ReferenceLeaves key
     step: torch.Tensor      # 0-d int32, on the host
+
+
+class ReferenceLeaves:
+    """The reference's parameter leaves over the port's parameters.
+
+    A top-level parameter is a leaf of its own, under its name.  Layer
+    ``l`` of the port is the reference's period ``l // len(pattern)`` at
+    position ``l % len(pattern)``, so the leaf ``stack.pos<i>.<path>``
+    stacks ``stack.blocks.<p·len(pattern) + i>.<path>`` over the periods
+    ``p``, in period order: shape ``(periods, *layer shape)``, the
+    layout of the reference's ``stack/pos<i>/<path>``."""
+
+    def __init__(self, model):
+        pat = pattern_for(model.cfg)
+        periods = n_periods(model.cfg)
+        self.members: dict = {}       # key -> port names (None: not stacked)
+        for name, _ in model.named_parameters():
+            if not name.startswith("stack.blocks."):
+                self.members[name] = None
+                continue
+            layer, path = name[len("stack.blocks."):].split(".", 1)
+            p, i = divmod(int(layer), len(pat))
+            self.members.setdefault(f"stack.pos{i}.{path}",
+                                    [None] * periods)[p] = name
+
+    def take(self, tree: dict, key: str) -> torch.Tensor:
+        """Leaf ``key`` from port-named tensors, popped from ``tree`` (a
+        stacked leaf is a new tensor, so its layers' tensors can go)."""
+        names = self.members[key]
+        if names is None:
+            return tree.pop(key)
+        return torch.stack([tree.pop(n) for n in names])
+
+    def split(self, key: str, leaf: torch.Tensor) -> dict:
+        """Leaf ``key`` back to port-named tensors (views)."""
+        names = self.members[key]
+        return {key: leaf} if names is None else dict(zip(names,
+                                                          leaf.unbind(0)))
+
+    def aer_reduce(self, grads: dict, aer: dict, group=None, *,
+                   frac: float, budget: int):
+        """``aer_topk`` over ``group`` on port-named gradients: ``(reduced
+        port-named gradients, residuals, this rank's wire words)``.
+
+        One reference leaf at a time, in the reference's leaf order,
+        through ``aer_allreduce`` (what ``reduce_gradients`` runs a
+        leaf); ``grads`` is emptied as its leaves are taken, and each new
+        residual is written into ``aer``'s tensor, so at most one leaf's
+        copies live at once beside the state (which is what lets
+        falcon-mamba-7b's 16-layer state train on one card)."""
+        if aer is None or aer.keys() != self.members.keys():
+            raise ValueError("aer_topk needs the state's residuals a "
+                             "ReferenceLeaves leaf (init_state makes them)")
+        red, words = {}, []
+        for key in sorted(self.members):
+            r, new, w = sc.aer_allreduce(self.take(grads, key), aer[key],
+                                         group, frac=frac, budget=budget)
+            aer[key].residual.copy_(new.residual)
+            del new
+            red.update(self.split(key, r))
+            words.append(w)
+        return red, aer, torch.stack(words).sum(dtype=torch.int32)
+
+    def zeros(self, params: dict) -> dict:
+        """A zero ``AerState`` a leaf, shaped and typed as the leaf."""
+        def z(k, names):
+            p = params[k if names is None else names[0]]
+            shape = p.shape if names is None else (len(names), *p.shape)
+            return sc.AerState(residual=torch.zeros(
+                shape, dtype=p.dtype, device=p.device))
+        return {k: z(k, names) for k, names in self.members.items()}
 
 
 def init_state(model, run_cfg) -> TrainState:
     """The state of a fresh run around ``model``'s parameters (drawn by
     ``build_model`` from its seed, or loaded): gradients enabled on every
-    parameter, zero moments, step 0.  The state's ``params`` ARE the
-    model's parameters, which the step updates in place."""
+    parameter, zero moments, step 0, and for ``aer_topk`` zero residuals
+    a ``ReferenceLeaves`` leaf.  The state's ``params`` ARE the model's
+    parameters, which the step updates in place."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     opt = adamw.init(params)
-    aer = {k: sc.AerState.init(p.detach()) for k, p in params.items()} \
+    aer = ReferenceLeaves(model).zeros(
+        {k: p.detach() for k, p in params.items()}) \
         if run_cfg.dp_reduce == "aer_topk" else None
     return TrainState(params=params, opt=opt, aer=aer,
                       step=torch.zeros((), dtype=torch.int32))
 
 
-def _split(batch: dict, n: int) -> list:
-    """``n`` microbatches of consecutive rows."""
+def _split(batch: dict, n: int, parts: str = "microbatches") -> list:
+    """``n`` blocks of consecutive rows."""
     rows = next(iter(batch.values())).shape[0]
     if rows % n:
         raise ValueError(f"batch of {rows} rows does not split into "
-                         f"{n} microbatches")
+                         f"{n} {parts}")
     m = rows // n
     return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             for i in range(n)]
@@ -117,25 +224,71 @@ def _deterministic(on: bool):
         tud.fill_uninitialized_memory = prev[2]
 
 
+def _data_parallel(model, run_cfg, rules):
+    """The data-parallel group of ``rules.mesh`` for this process, after
+    refusing what the port does not run yet."""
+    mesh = rules.mesh
+    if run_cfg.dp_reduce not in DP_MODES:
+        raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
+                         f"of {DP_MODES}")
+    other = {a: n for a, n in mesh.shape.items()
+             if a not in DP_AXES and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} past 1 (tensor, expert or sequence "
+            f"parallelism) wait for ROADMAP A.11d; the port runs "
+            f"data-only meshes")
+    for name, axes in model.param_axes().items():
+        sh = rules.param_sharding(axes)
+        if sh.shards > 1:
+            raise NotImplementedError(
+                f"{name}: spec {tuple(sh.spec)} splits it over "
+                f"{sh.shards} ranks (FSDP); sharded parameters wait for "
+                f"ROADMAP A.11d, use make_rules(fsdp=False)")
+    if mesh.groups is None:
+        raise ValueError("the rules' mesh has no process groups (an "
+                         "abstract mesh): build it with make_host_mesh")
+    return mesh.dp_group
+
+
+def _pmean(metrics: dict, group) -> dict:
+    """Each metric averaged over ``group`` (one all-reduce)."""
+    keys = sorted(metrics)
+    t = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(t, group=group)
+    t = t / axis_size(group)
+    return dict(zip(keys, t.unbind(0)))
+
+
 def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
     """Returns ``step(state, batch) -> (state, metrics)`` for ``model``.
 
     ``batch`` holds tensors on the model's device (``tokens`` /
-    ``frames``, ``labels``, and ``mask`` / ``img_embed`` by modality);
+    ``frames``, ``labels``, and ``mask`` / ``img_embed`` by modality):
+    the global batch, whose rows each rank splits under ``rules``.
     ``metrics`` maps every ``METRIC_KEYS`` entry to a detached float32
     0-d tensor.  The state's ``params`` must be the model's parameters
     (``init_state`` and ``Checkpointer.restore`` keep them so).
     ``deterministic`` (default: on for a CUDA model) runs each step under
-    PyTorch's deterministic algorithms.  ``rules`` (a mesh's sharding)
-    waits for ROADMAP A.11c."""
-    if rules is not None:
-        raise NotImplementedError(
-            "make_train_step with sharding rules (manual data parallelism "
-            "over several cards) waits for ROADMAP A.11c; one device takes "
-            "rules=None")
+    PyTorch's deterministic algorithms.  ``rules`` (``parallel.sharding
+    .make_rules`` over a mesh of ranks) makes it a data-parallel step
+    reducing with ``run_cfg.dp_reduce``; every rank of the mesh calls
+    it together."""
     own = dict(model.named_parameters())
     det = (next(iter(own.values())).device.type == "cuda"
            if deterministic is None else deterministic)
+    mode = run_cfg.dp_reduce
+    group = None if rules is None else _data_parallel(model, run_cfg, rules)
+    leaves = ReferenceLeaves(model) if group is not None and \
+        mode == "aer_topk" else None
+
+    def reduce(grads: dict, aer):
+        if leaves is None:
+            red, _, words = sc.reduce_gradients(grads, None, group,
+                                                mode=mode)
+            return red, aer, words
+        return leaves.aer_reduce(grads, aer, group, frac=run_cfg.aer_frac,
+                                 budget=run_cfg.aer_budget)
 
     def step(state: TrainState, batch: dict):
         if state.params.keys() != own.keys() or any(
@@ -143,12 +296,24 @@ def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
             raise ValueError("state.params must be the model's own "
                              "parameters (init_state and "
                              "Checkpointer.restore keep them so)")
+        aer = state.aer
+        wire = torch.zeros((), dtype=torch.float32)
         with _deterministic(det):
             for p in own.values():
                 p.grad = None
+            if group is not None:         # this rank's block of rows
+                batch = _split(batch, axis_size(group),
+                               "data-parallel ranks")[axis_index(group)]
             _, metrics = _loss_with_accum(model, batch, run_cfg.grad_accum)
             grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                      for k, p in own.items()}
+            for p in own.values():
+                p.grad = None
+            if group is not None:
+                red, aer, words = reduce(grads, aer)
+                grads = {k: red[k] for k in own}
+                metrics = _pmean(metrics, group)
+                wire = words.float()
             lr = adamw.warmup_cosine(
                 state.step, base_lr=run_cfg.learning_rate,
                 warmup_steps=run_cfg.warmup_steps,
@@ -157,18 +322,25 @@ def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
                 grads, state.opt, state.params, lr=lr,
                 weight_decay=run_cfg.weight_decay,
                 grad_clip=run_cfg.grad_clip)
-            for p in own.values():
-                p.grad = None
+            del grads
         metrics = {k: v.detach().float() for k, v in metrics.items()}
-        metrics.update(grad_norm=gnorm, lr=lr,
-                       wire_words=torch.zeros((), dtype=torch.float32))
-        return TrainState(params=params, opt=opt, aer=state.aer,
+        metrics.update(grad_norm=gnorm, lr=lr, wire_words=wire)
+        return TrainState(params=params, opt=opt, aer=aer,
                           step=state.step + 1), metrics
 
     return step
 
 
 def state_shardings(state, axes, rules):
-    """Shardings of a ``TrainState`` over a mesh: ROADMAP A.11c."""
-    raise NotImplementedError("state_shardings (a sharded train state "
-                              "over a mesh) waits for ROADMAP A.11c")
+    """``NamedSharding``s of a ``TrainState`` over ``rules.mesh``, given
+    the model's logical axes (``LM.param_axes()``): the parameters and
+    both moments follow the parameter specs; the step counters and the
+    AER residuals are replicated."""
+    pspec = partition_params(axes, rules)
+    rep = NamedSharding(rules.mesh, PartitionSpec())
+    return TrainState(
+        params=pspec,
+        opt=adamw.AdamWState(step=rep, mu=pspec, nu=pspec),
+        aer=None if state.aer is None else {
+            k: sc.AerState(residual=rep) for k in state.aer},
+        step=rep)

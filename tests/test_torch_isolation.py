@@ -47,7 +47,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.optim.adamw", "repro_torch.runtime.train_loop",
             "repro_torch.runtime.fault", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointer",
-            "repro_torch.launch.train"]
+            "repro_torch.launch.train", "repro_torch.parallel.sharding",
+            "repro_torch.launch.mesh"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"
@@ -128,6 +129,9 @@ def test_default_device_needs_cuda(monkeypatch):
             serve.main(["--arch", "falcon_mamba_7b", "--smoke", *argv])
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--arch", "falcon_mamba_7b", "--smoke", *argv])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", "falcon_mamba_7b", "--smoke",
+                        "--mesh-data", "2", *argv])
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.lm_params_from_reference({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -13,7 +13,8 @@ cases, full width and 8-peer decode included, and the selective scan on
 the shared scan cases, falcon-mamba-7b's prefill shape included, and
 the scan's backward kernel and autograd Function on the same cases), and
 the co-simulation, SNN, AER all-reduce, LM serve and training paths
-launching them.
+launching them (the data-parallel ``aer_topk`` step in a world of one
+among them).
 
 Marked ``gpu``: each test skips where there is no CUDA card (the kernels
 have no CPU mode).  This file imports no JAX, so it runs on the machine
@@ -975,6 +976,52 @@ def test_train_smoke_on_card_launches_scan_forward_and_backward(cuda):
                 ssk.selective_scan_bwd.launches) == (2 * cfg.n_layers,
                                                      cfg.n_layers)
         assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+@pytest.mark.gpu
+def test_dp_aer_step_world_of_one_on_card(cuda):
+    """One data-parallel ``aer_topk`` step of falcon-mamba's smoke config
+    in a world of one over NCCL (``make_host_mesh(data=1)``,
+    ``make_rules(fsdp=False)``): one B5 and one B6 launch a reference
+    leaf (the stack's leaves stacked over layers), the scan's forward
+    twice and its backward once a layer; finite metrics, wire words > 0,
+    and the residuals in the stacked layout."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.runtime import train_loop as tl
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        cfg = get_smoke_config("falcon_mamba_7b")
+        model = build_model(cfg, seed=0, device=cuda)
+        run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=2,
+                        dp_reduce="aer_topk", aer_frac=0.05, fsdp=False)
+        rules = make_rules(make_host_mesh(data=1), fsdp=False)
+        state = tl.init_state(model, run)
+        step = tl.make_train_step(model, run, rules)
+        leaves = tl.ReferenceLeaves(model).members
+        assert state.aer["stack.pos0.ln1.scale"].residual.shape == (
+            cfg.n_layers, cfg.d_model)
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+                 SyntheticLM(cfg.vocab, 32, 4, seed=1).batch(0).items()}
+        for f in (aek.aer_encode, adk.aer_decode, ssk.selective_scan,
+                  ssk.selective_scan_bwd):
+            f.launches = 0
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        assert (aek.aer_encode.launches, adk.aer_decode.launches) == (
+            len(leaves), len(leaves))
+        assert (ssk.selective_scan.launches,
+                ssk.selective_scan_bwd.launches) == (2 * cfg.n_layers,
+                                                     cfg.n_layers)
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+        assert float(m["wire_words"]) > 0
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.gpu

@@ -159,17 +159,34 @@ def test_state_holds_the_models_parameters():
         step(foreign, batch)
     aer = tl.init_state(build_model(pcfg, seed=0, device=CPU),
                         RunConfig(dp_reduce="aer_topk"))
-    assert set(aer.aer) == set(own)
+    # one residual a reference leaf (the stack's stacked over periods)
+    assert set(aer.aer) == set(tl.ReferenceLeaves(model).members)
+    assert set(aer.aer) >= {"embed.table", "stack.pos0.attn.wq.w"}
 
 
 def test_data_parallel_paths_wait_for_a11c():
+    """The data-parallel step, ``state_shardings`` and ``--mesh-data``
+    came with A.11c (``tests/test_torch_train_dp*.py`` run them on gloo
+    ranks); what still waits names ROADMAP A.11d: a model axis past 1
+    and specs that split a parameter over ranks (FSDP)."""
+    from repro_torch.parallel.compat import Mesh
+    from repro_torch.parallel.sharding import make_rules
     _, pcfg = _f32("granite_3_2b")
     model = build_model(pcfg, seed=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        tl.make_train_step(model, RunConfig(), rules=object())
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        tl.state_shardings(None, None, object())
-    with pytest.raises(NotImplementedError, match="A.11c"):
+    with pytest.raises(NotImplementedError, match="A.11d"):
+        tl.make_train_step(model, RunConfig(), rules=make_rules(
+            Mesh({"data": 1, "model": 2}), fsdp=False))
+    with pytest.raises(NotImplementedError, match="A.11d"):
+        tl.make_train_step(model, RunConfig(), rules=make_rules(
+            Mesh({"data": 2, "model": 1}), fsdp=True))
+    with pytest.raises(ValueError, match="abstract mesh"):
+        tl.make_train_step(model, RunConfig(), rules=make_rules(
+            Mesh({"data": 2, "model": 1}), fsdp=False))
+    state = tl.init_state(model, RunConfig())
+    sh = tl.state_shardings(state, model.param_axes(), make_rules(
+        Mesh({"data": 2, "model": 1}), fsdp=False))
+    assert all(s.shards == 1 for s in sh.params.values())
+    with pytest.raises(ValueError, match="needs 2 processes"):
         train.main(["--arch", "granite_3_2b", "--smoke", "--device", "cpu",
                     "--mesh-data", "2"])
 
@@ -253,11 +270,28 @@ class TestCheckpointer:
         assert ck.all_steps() == [1]
 
     def test_elastic_reshard_restore_waits_for_a11c(self, setup, tmp_path):
+        """``restore(shardings=)`` came with A.11c: replicated leaves
+        load whole; a spec that splits a leaf over ranks waits for
+        A.11d; a leaf without a sharding is refused."""
+        from repro_torch.parallel.compat import Mesh
+        from repro_torch.parallel.sharding import make_rules
         cfg, run_cfg, _ = setup
         state, _ = _fresh(cfg, run_cfg)
         ck = Checkpointer(str(tmp_path))
         ck.save(1, state, blocking=True)
-        with pytest.raises(NotImplementedError, match="A.11c"):
+        model = build_model(cfg, seed=1, device=CPU)
+        other = tl.init_state(model, run_cfg)
+        mesh = Mesh({"data": 2, "model": 1})
+        rep = tl.state_shardings(other, model.param_axes(),
+                                 make_rules(mesh, fsdp=False))
+        ck.restore(1, other, shardings=rep)
+        assert all(torch.equal(p, other.params[k])
+                   for k, p in state.params.items())
+        sharded = tl.state_shardings(other, model.param_axes(),
+                                     make_rules(mesh, fsdp=True))
+        with pytest.raises(NotImplementedError, match="A.11d"):
+            ck.restore(1, other, shardings=sharded)
+        with pytest.raises(ValueError, match="no sharding"):
             ck.restore(1, state, shardings={})
 
     def test_restore_checks_shapes(self, setup, tmp_path):
@@ -376,13 +410,23 @@ def test_train_state_from_reference_carries_every_leaf():
                                                       device=CPU)
     own = dict(model.named_parameters())
     want = interop._lm_leaves(rstate.params, pcfg)
-    assert set(state.params) == set(own) == set(want) == set(state.aer)
+    assert set(state.params) == set(own) == set(want)
     for k, p in own.items():
         assert state.params[k] is p and p.requires_grad
         np.testing.assert_array_equal(p.detach().numpy(),
                                       np.asarray(want[k]))
-        for t in (state.opt.mu[k], state.opt.nu[k], state.aer[k].residual):
+        for t in (state.opt.mu[k], state.opt.nu[k]):
             assert t.dtype == torch.float32 and t.shape == p.shape
             assert not t.any()
+    # the residuals in the data-parallel step's layout: one a reference
+    # leaf, the stack's stacked over periods as the reference holds them
+    members = tl.ReferenceLeaves(model).members
+    assert set(state.aer) == set(members)
+    for k, names in members.items():
+        t = state.aer[k].residual
+        shape = own[k].shape if names is None else \
+            (len(names), *own[names[0]].shape)
+        assert t.dtype == torch.float32 and t.shape == shape
+        assert not t.any()
     assert state.step.dtype == state.opt.step.dtype == torch.int32
     assert int(state.step) == int(state.opt.step) == 0
