@@ -330,7 +330,31 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                step profiled (busy share, device time by group: B5,
                B6, the thresholds' sort, B7, products, copies,
                elementwise, NCCL); then the same cell under ``psum``, 4
-               steps, for comparison.
+               steps, for comparison;
+34. dryrun_vs_card — the FLOP / byte counter (``launch.cost``) held
+               against the card: phases 29 and 30's cells and one
+               prefill and one decode step of phase 17's, each traced on
+               ``meta`` (``launch.dryrun.trace_step``, no weight
+               allocated) and then counted in one real step on the card:
+               flops and bytes equal, B7 32 and its backward 16 a
+               training step on both, the predicted peak (argument bytes
+               plus the counter's peak of live bytes) beside
+               ``max_memory_allocated``, ``mfu_counted`` (counted flops /
+               (the uncounted phase's median step s x 989e12)) beside
+               the 6·N·D mfu, and the step's roofline fraction
+               (max(flops / 989e12, bytes / 3.35e12) / its time);
+35. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
+               of ``--all`` (each arch x shape its ``shapes_for``
+               lists, full width, the production shapes) on the 16 x 16
+               pod mesh, on the ``meta`` device (no card, no weights),
+               one process a cell, ``POD_WORKERS`` at a time, started
+               after the build on the host's spare cores while the card
+               phases run: the roofline table (``launch.roofline``) on
+               its own lines, then each cell's flops, bytes, argument
+               and temporary bytes a device and whether they fit the
+               card's 80 GB, and the wall time.  The 2 x 16 x 16
+               multi-pod mesh is traced on a CPU host (it doubles the
+               phase).
 
 Then the ``{"kernels": [...]}`` summary (B1–B7 and B7's backward), the
 nvidia-smi line again and,
@@ -363,9 +387,6 @@ HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 INT32_OPS_S = 64 * 132 * 1.98e9
 # H100 SXM fp32 rate outside the tensor cores (data sheet; an FMA is two)
 FP32_OPS_S = 67e12
-# H100 SXM special function unit rate (one exponential each): 16 a clock
-# per SM x 132 SMs x 1.98 GHz boost
-SFU_OPS_S = 16 * 132 * 1.98e9
 ANCHOR_MEV_S, ANCHOR_TOL = 28.6, 0.001
 # the cosim gate's floor on |closed - open| spike counts
 # (benchmarks/fabric_smoke.py:494, MIN_COSIM_DIVERGENCE)
@@ -2726,21 +2747,6 @@ SERVE_GROUPS = {"selective_scan (B7)": ("selective_scan",),
                 "copies and casts": ("copy", "Memcpy", "memcpy")}
 
 
-def _scan_bound(B, S, d, N) -> dict:
-    """B7's least time at (B, S, d_in, N): its bytes once each against
-    its exponentials at the SFU rate and its other float32 operations."""
-    byts = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
-    exps = B * S * d * N
-    flops = 6 * B * S * d * N  # dt·A, abar·h, + bx, (dt·x)·B, h·C, the sum
-    tb = byts / HBM_BYTES_S * 1e3
-    to = max(exps / SFU_OPS_S, flops / FP32_OPS_S) * 1e3
-    return {"bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": byts, "bytes_ms": tb, "exponentials": exps,
-            "exp_ms": exps / SFU_OPS_S * 1e3, "fp32_ops": flops,
-            "fp32_ms": flops / FP32_OPS_S * 1e3}
-
-
 def phase_scan_kernel():
     """B7 against its plain version on every ``scan_cases(card=True)``
     case, then timed at the serve shape."""
@@ -2807,7 +2813,7 @@ def phase_scan_kernel():
 
     dms, pdms = device_ms(kern, n=20), device_ms(plain, n=2)
     seen = dms is not None and pdms is not None
-    bound = _scan_bound(*SCAN_SERVE_SHAPE)
+    bound = ssk.scan_bound(*SCAN_SERVE_SHAPE)
     jms = device_ms(lambda: ssk.selective_scan(*jamba_args), n=20)
     out = {"ms": dms if seen else time_ms(kern, n=20, warm=3),
            "plain_ms": pdms if seen else time_ms(plain, n=2, warm=1),
@@ -2819,7 +2825,7 @@ def phase_scan_kernel():
            "jamba_shape": list(SCAN_JAMBA_SHAPE),
            "jamba_ms": jms if jms is not None else time_ms(
                lambda: ssk.selective_scan(*jamba_args), n=20, warm=3),
-           "jamba_bound_ms": _scan_bound(*SCAN_JAMBA_SHAPE)["bound_ms"]}
+           "jamba_bound_ms": ssk.scan_bound(*SCAN_JAMBA_SHAPE)["bound_ms"]}
     emit("scan_kernel_time", shape=list(SCAN_SERVE_SHAPE), **out,
          library="none: no PyTorch call computes the selective scan")
     return out
@@ -3323,26 +3329,6 @@ def phase_score_hubert():
 SCAN_GRADS = ("dx", "ddt", "db", "dc", "da")
 
 
-def _scan_bwd_bound(B, S, d, N) -> dict:
-    """The scan backward's least time at (B, S, d_in, N) with no
-    dh_final (a training step's): x, dt, dy read and dx, ddt written
-    (B·S·d_in each), B, C read and dB, dC written (B·S·N each), A read
-    and dA written, against its B·S·d_in·N exponentials a_t at the SFU
-    rate and its float32 operations (~20 an element-step: the forward
-    recurrence's 4, the reverse's g, the dC, dB, dx, ddt and dA terms and
-    the carry)."""
-    byts = 4 * (5 * B * S * d + 4 * B * S * N + 2 * d * N)
-    exps = B * S * d * N
-    flops = 20 * B * S * d * N
-    tb = byts / HBM_BYTES_S * 1e3
-    to = max(exps / SFU_OPS_S, flops / FP32_OPS_S) * 1e3
-    return {"bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": byts, "bytes_ms": tb, "exponentials": exps,
-            "exp_ms": exps / SFU_OPS_S * 1e3, "fp32_ops": flops,
-            "fp32_ms": flops / FP32_OPS_S * 1e3}
-
-
 def phase_scan_bwd_kernel():
     """The scan's backward kernel against ``ref.selective_scan_bwd`` on
     every ``scan_specs(card=True)`` case, dh_final zero and random, each
@@ -3440,7 +3426,7 @@ def phase_scan_bwd_kernel():
     dms, pdms = device_ms(kern, n=10), device_ms(plain, n=1)
     seen = dms is not None and pdms is not None
     call_ms = time_ms(kern, n=10, warm=2)
-    bound = _scan_bwd_bound(*SCAN_TRAIN_SHAPE)
+    bound = ssk.scan_bwd_bound(*SCAN_TRAIN_SHAPE)
     out = {"ms": dms if seen else call_ms,
            "plain_ms": pdms if seen else time_ms(plain, n=1, warm=0),
            "ms_source": ("profiler device time per call (the scan kernel "
@@ -3944,6 +3930,251 @@ def phase_train_dp_aer():
     return out
 
 
+# --- the pod-scale tools (A.11c): the counter against the card, the pod
+
+#: the dry-run processes that run beside the card phases
+POD_WORKERS = 4
+POD_DIR = ROOT / "build" / "dryrun_torch"
+
+
+class PodDryRun:
+    """Every ``--all`` cell of the dry-run on the pod mesh, one
+    ``python -m repro_torch.launch.dryrun --arch A --shape S --mesh pod``
+    process a cell, ``POD_WORKERS`` at a time, longest cells first, with
+    no card (``CUDA_VISIBLE_DEVICES`` empty) and one thread each.
+    ``wait`` collects them; ``stop`` ends any still running."""
+
+    def __init__(self, workers: int = POD_WORKERS):
+        from concurrent.futures import ThreadPoolExecutor
+        from repro_torch.configs.base import ARCH_IDS, get_config, shapes_for
+        order = {"prefill": 0, "train": 1, "decode": 2}
+        cells = [(a, s.name, order[s.kind], get_config(a).n_layers)
+                 for a in ARCH_IDS for s in shapes_for(get_config(a))]
+        self.cells = [(a, s) for a, s, k, n in
+                      sorted(cells, key=lambda c: (c[2], -c[3]))]
+        POD_DIR.mkdir(parents=True, exist_ok=True)
+        self.env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                    "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+        self.procs: list = []
+        self.stopped = False
+        self.t0 = time.perf_counter()
+        self.pool = ThreadPoolExecutor(workers)
+        self.futures = [self.pool.submit(self._one, a, sh)
+                        for a, sh in self.cells]
+
+    def _one(self, arch: str, shape: str):
+        if self.stopped:
+            return arch, shape, None, "stopped"
+        log = POD_DIR / f"{arch}--{shape}--pod.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "pod",
+                 "--out-dir", str(POD_DIR)], cwd=ROOT, env=self.env,
+                stdout=f, stderr=subprocess.STDOUT)
+            self.procs.append(proc)
+            rc = proc.wait()
+        return arch, shape, time.perf_counter() - t0, rc
+
+    def wait(self):
+        out = [f.result() for f in self.futures]
+        self.pool.shutdown()
+        return out, time.perf_counter() - self.t0
+
+    def stop(self):
+        self.stopped = True
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _counted_step(model, kind, batch, run_cfg, *, state=None, cache=None,
+                  seq_len=0):
+    """One step of ``kind`` under a fresh counter (the dry-run's own
+    calls), with the card's peak memory over it when on the card;
+    returns ``(counter result, step output, max_memory_allocated or
+    None)``."""
+    import torch
+    from repro_torch.launch import cost, dryrun
+    on_card = model.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    c = cost.Counter()
+    out = dryrun.trace_step(model, kind, batch, run_cfg, counter=c,
+                            state=state, cache=cache, seq_len=seq_len)
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    return c.result(), out, peak
+
+
+def _held(label, meta, card, kernels_want=None) -> dict:
+    """The meta and card counts of one step: flops and bytes equal (the
+    operator tallies named where they differ), the kernels' launches as
+    ``kernels_want``."""
+    diff = {k: (meta["op_counts"].get(k), card["op_counts"].get(k))
+            for k in set(meta["op_counts"]) | set(card["op_counts"])
+            if meta["op_counts"].get(k) != card["op_counts"].get(k)}
+    check(meta["flops"] == card["flops"] and
+          meta["bytes_accessed"] == card["bytes_accessed"] and not diff,
+          f"{label}: meta counts {meta['flops']}, {meta['bytes_accessed']} "
+          f"against the card's {card['flops']}, {card['bytes_accessed']}; "
+          f"operators differing: {diff}")
+    launches = {k: v["launches"] for k, v in card["kernels"].items()}
+    check(launches == {k: v["launches"] for k, v in
+                       meta["kernels"].items()},
+          f"{label}: kernel records differ between meta and the card")
+    if kernels_want is not None:
+        check(launches == kernels_want, f"{label}: launches {launches}, "
+                                        f"expected {kernels_want}")
+    return launches
+
+
+def _roofline(flops, nbytes, step_s) -> dict:
+    from repro_torch.device import H100
+    tc, tm = flops / H100["bf16_flops_s"], nbytes / H100["hbm_bytes_s"]
+    return {"t_compute_ms": tc * 1e3, "t_memory_ms": tm * 1e3,
+            "bound_by": "compute" if tc >= tm else "memory",
+            "mfu_counted": flops / (step_s * H100["bf16_flops_s"]),
+            "roofline_fraction": max(tc, tm) / step_s}
+
+
+def phase_dryrun_vs_card(train_out: dict, serve_out: dict):
+    """The counter on the card against the dry-run on ``meta``, for the
+    training cells (phases 29, 30) and one prefill and one decode step
+    of the falcon-mamba-7b serve cell (phase 17).  Step times come from
+    those phases' uncounted runs: counting slows a step."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import dryrun, serve, train
+    from repro_torch.models.model import build_model, param_count
+    from repro_torch.parallel.compat import Mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.runtime import train_loop as tl
+    t_phase = time.perf_counter()
+    one = Mesh({"data": 1, "model": 1})
+    rows = {}
+    for label, argv, _, b7 in TRAIN_CELLS:
+        r = train.setup(argv)
+        cfg, run_cfg = r.cfg, r.run_cfg
+        batch = r.data.batch(0)
+        meta_model = build_model(cfg, device="meta")
+        meta_state = tl.init_state(meta_model, run_cfg)
+        meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for k, v in batch.items()}
+        t0 = time.perf_counter()
+        meta, _, _ = _counted_step(meta_model, "train", meta_batch,
+                                   run_cfg, state=meta_state)
+        trace_s = time.perf_counter() - t0
+        rules = make_rules(one, fsdp=False, kv_heads=cfg.n_kv_heads,
+                           d_head=cfg.d_head)
+        args = sum(dryrun.device_bytes(t, s, one) for t, s in
+                   dryrun.argument_specs(meta_model, rules, one, meta_batch,
+                                         state=meta_state))
+        _counts_zero()
+        card, _, peak = _counted_step(r.model, "train", batch, run_cfg,
+                                      state=r.state)
+        want = {k: n for k, n in zip(("selective_scan",
+                                      "selective_scan_bwd"), b7) if n}
+        launches = _held(label, meta, card, want)
+        wrappers = _counts()
+        check(all(wrappers.get(k, 0) == n for k, n in want.items()),
+              f"{label}: the wrappers counted {wrappers}, expected {want}")
+        step_s = train_out[label]["step_ms_median"] / 1e3
+        rows[label] = {
+            "flops": card["flops"], "bytes_accessed": card["bytes_accessed"],
+            "flops_6nd": 6 * param_count(r.model) * batch["labels"].numel(),
+            "launches": launches, "meta_trace_s": trace_s,
+            "argument_bytes": args,
+            "predicted_peak_bytes": args + meta["peak_live_bytes"],
+            "max_memory_allocated": peak,
+            "step_ms_median": step_s * 1e3, "mfu": train_out[label]["mfu"],
+            **_roofline(card["flops"], card["bytes_accessed"], step_s)}
+        del r, batch, meta_model, meta_state
+        _free()
+    args_, cfg, model, batch = serve.setup(SERVE_ARGV)
+    s, gen = batch["tokens"].shape[1], args_.gen
+    meta_model = build_model(cfg, device="meta")
+    run_cfg = RunConfig()
+    for label, dev_model, dev_batch in (
+            ("meta", meta_model, {k: torch.empty(v.shape, dtype=v.dtype,
+                                                 device="meta")
+                                  for k, v in batch.items()}),
+            ("card", model, batch)):
+        pre, (logits, cache), ppeak = _counted_step(
+            dev_model, "prefill", dev_batch, run_cfg, seq_len=s + gen)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        pos = torch.full((tok.shape[0],), s, dtype=torch.int32,
+                         device=tok.device)
+        dec, _, dpeak = _counted_step(dev_model, "decode",
+                                      {"tokens": tok, "pos": pos}, run_cfg,
+                                      cache=cache)
+        rows.setdefault("serve_falcon_mamba_7b", {})[label] = (
+            pre, dec, ppeak, dpeak)
+        del logits, cache
+    (mp, md, _, _), (cp, cd, ppeak, dpeak) = (
+        rows["serve_falcon_mamba_7b"]["meta"],
+        rows["serve_falcon_mamba_7b"]["card"])
+    _held("serve_falcon_mamba_7b prefill", mp, cp,
+          {"selective_scan": cfg.n_layers})
+    _held("serve_falcon_mamba_7b decode", md, cd, {})
+    rows["serve_falcon_mamba_7b"] = {
+        f"{kind}_{k}": v for kind, res, peak, ms in (
+            ("prefill", cp, ppeak, serve_out["prefill_again_ms"]),
+            ("decode", cd, dpeak, serve_out["decode_ms_per_step"]))
+        for k, v in {"flops": res["flops"],
+                     "bytes_accessed": res["bytes_accessed"],
+                     "peak_live_bytes": res["peak_live_bytes"],
+                     "max_memory_allocated": peak, "ms": ms,
+                     **_roofline(res["flops"], res["bytes_accessed"],
+                                 ms / 1e3)}.items()}
+    del model, batch, meta_model
+    emit("dryrun_vs_card", cells=rows, equal=True,
+         mfu_counted_formula="counted flops / (median step s x 989e12)",
+         roofline_fraction_formula="max(flops / 989e12, bytes / 3.35e12) "
+                                   "/ measured step s",
+         phase_s=time.perf_counter() - t_phase)
+    return rows
+
+
+def phase_dryrun_pod(pod: PodDryRun):
+    """Collect the pod dry-run started after the build: every cell's
+    record, the roofline table, and whether each cell fits a card."""
+    from repro_torch.device import H100
+    from repro_torch.launch import roofline
+    results, wall = pod.wait()
+    failed = [(a, sh, rc) for a, sh, _, rc in results if rc != 0]
+    check(not failed, f"dryrun_pod: cells failed: {failed} (logs in "
+                      f"{POD_DIR.relative_to(ROOT)})")
+    cells = roofline.load_cells("pod", dryrun_dir=str(POD_DIR))
+    check(len(cells) == len(pod.cells),
+          f"dryrun_pod: {len(cells)} records for {len(pod.cells)} cells")
+    print(roofline.table(cells), flush=True)
+    out = []
+    for c in cells:
+        mem = c["memory"]
+        need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        out.append({"arch": c["arch"], "shape": c["shape"],
+                    "flops": c["flops"], "bytes": c["bytes_accessed"],
+                    "collective_bytes": c["collective_bytes_total"],
+                    "collectives_incomplete": c["collective_lower_bound"],
+                    "argument_bytes": mem["argument_size_in_bytes"],
+                    "temp_bytes": mem["temp_size_in_bytes"],
+                    "fits_80GB": need <= H100["hbm_bytes"],
+                    "dominant": c["dominant"],
+                    "trace_s": c["lower_s"]})
+    emit("dryrun_pod", mesh={"data": 16, "model": 16}, cells=out,
+         wall_s=wall, workers=POD_WORKERS,
+         cell_s={f"{a}--{sh}": t for a, sh, t, _ in results},
+         multipod="traced on a CPU host, not here (it doubles the phase)")
+    return out
+
+
 def _free() -> None:
     """Give a finished phase's model back to the card."""
     import gc
@@ -3975,6 +4206,15 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_build()
     torch.cuda.synchronize()
+    pod = PodDryRun()
+    try:
+        return _main_phases(name, smi, t_start, pod)
+    finally:
+        pod.stop()
+
+
+def _main_phases(name, smi, t_start, pod) -> int:
+    import torch
     ktimes = phase_kernels()
     torch.cuda.synchronize()
     ktimes["fabric_queue_multistep"] = phase_multistep_kernel()
@@ -4056,6 +4296,9 @@ def main() -> int:
     _free()
     dp = phase_train_dp_aer()
     _free()
+    phase_dryrun_vs_card(train_out, serve_out)
+    _free()
+    phase_dryrun_pod(pod)
 
     csrc = "src/repro_torch/kernels/csrc/"
     main = {"fabric_queue_step": (launches["fabric_queue_step"], bucket),

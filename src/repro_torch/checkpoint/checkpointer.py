@@ -187,7 +187,7 @@ class Checkpointer:
         steps = self.all_steps() if self._writer else []
         last = steps[-1] if steps else -1
         if self.group is not None:
-            t = torch.tensor([last], dtype=torch.int64,
+            t = torch.tensor([last], dtype=torch.int64,  # torchlint: disable=TL002 (once a restore)
                              device=group_device(self.group))
             dist.broadcast(t, global_rank(self.group, 0), group=self.group)
             last = int(t)

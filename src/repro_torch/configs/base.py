@@ -6,8 +6,11 @@ architecture has a module ``configs/<id>.py`` exposing ``CONFIG`` (the
 published configuration, value for value as in the reference) and
 ``smoke_config()`` (a reduced same-family config for CPU tests).  Dtypes
 are torch dtypes.  ``RunConfig`` carries the trainer's knobs, field for
-field as the reference's; ``ShapeConfig`` and ``input_specs`` come with
-the pod-scale tools (ROADMAP A.11c).
+field as the reference's.  ``ShapeConfig``, the four shape sets, their
+skip rules (``shapes_for``) and ``input_specs`` are the reference's too:
+``input_specs`` builds the batch of an (arch x shape) cell as tensors on
+the ``meta`` device by default (shapes and dtypes, no storage), which is
+what the dry-run traces.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ from typing import Sequence
 import torch
 
 __all__ = ["MoeConfig", "MambaConfig", "ModelConfig", "RunConfig",
-           "REMAT_POLICIES", "ARCH_IDS", "PORTED_ARCHS",
+           "REMAT_POLICIES", "ShapeConfig", "TRAIN_4K", "PREFILL_32K",
+           "DECODE_32K", "LONG_500K", "ALL_SHAPES", "shapes_for",
+           "input_specs", "ARCH_IDS", "PORTED_ARCHS",
            "get_config", "get_smoke_config"]
 
 
@@ -106,12 +111,69 @@ REMAT_POLICIES = ("none", "dots", "full")
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                  LONG_500K)}
+
+
+def shapes_for(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The reference's skip rules: encoder-only archs have no decode
+    shapes; ``long_500k`` needs a sub-quadratic path (SSM, hybrid or a
+    sliding window)."""
+    out = [TRAIN_4K, PREFILL_32K]
+    if cfg.causal:
+        out.append(DECODE_32K)
+        if cfg.family in ("mamba", "hybrid") or cfg.sliding_window > 0:
+            out.append(LONG_500K)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                device="meta") -> dict:
+    """The batch of an (arch x shape) cell, the reference's keys, shapes
+    and dtypes, as uninitialised tensors on ``device`` (``meta`` by
+    default: no storage).  Train and prefill take int32 ``tokens`` and
+    ``labels`` (B, S), or float32 ``frames`` (B, S, d_frontend) with
+    int32 ``labels`` and ``mask`` for audio; decode takes one int32
+    token (B, 1) and its position (B,); an image model adds float32
+    ``img_embed`` (B, n_img_tokens, d_frontend) to either."""
+    b, s = shape.global_batch, shape.seq_len
+    f32, i32 = torch.float32, torch.int32
+
+    def t(size, dtype):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.modality == "audio_frames":
+            specs = {"frames": t((b, s, cfg.d_frontend), f32),
+                     "labels": t((b, s), i32), "mask": t((b, s), i32)}
+        else:
+            specs = {"tokens": t((b, s), i32), "labels": t((b, s), i32)}
+    else:
+        specs = {"tokens": t((b, 1), i32), "pos": t((b,), i32)}
+    if cfg.modality == "image+text":
+        specs["img_embed"] = t((b, cfg.n_img_tokens, cfg.d_frontend), f32)
+    return specs
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """The trainer's knobs, the reference's ``RunConfig`` field for
-    field.  On one card ``dp_reduce``, ``aer_*``, ``fsdp``,
-    ``seq_parallel`` and ``rules_overrides`` are read by nothing: the
-    reductions across cards and the sharding rules wait for ROADMAP
-    A.11c, and with one device the reference ignores them too."""
+    field.  ``dp_reduce`` and ``aer_*`` are read by the data-parallel
+    step (with one device and no rules the reference ignores them too);
+    ``fsdp``, ``seq_parallel`` and ``rules_overrides`` build the
+    sharding rules of the launcher and the dry-run."""
     # gradient cross-replica reduction: psum | bidir_ring | ring | aer_topk
     dp_reduce: str = "psum"
     aer_frac: float = 0.02          # fraction shipped per step (aer_topk)

@@ -10,8 +10,10 @@ counter-rotating rings, so both directions of every link carry traffic.
 
 Every rank of the process group calls these with a tensor of one shape.
 The reference's ``jax.lax.ppermute`` over the ring becomes one
-``dist.batch_isend_irecv`` a hop (send to the next rank, receive from
-the previous one, or the other way round), with the reference's chunk
+``parallel.compat.ppermute`` a hop (a ``dist.batch_isend_irecv``: send
+to the next rank, receive from the previous one, or the other way
+round; on an abstract mesh's ``RecordingGroup`` it is only recorded),
+with the reference's chunk
 order, so each rank adds the same values in the same order as the
 reference's device of that index.  All variants equal an all-reduce sum
 (tested with 8 gloo ranks on the CPU).
@@ -20,9 +22,8 @@ reference's device of that index.  All variants equal an all-reduce sum
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
-from ..parallel.compat import axis_index, axis_size, global_rank
+from ..parallel.compat import axis_index, axis_size, ppermute
 
 __all__ = ["ring_reduce_scatter", "ring_all_gather", "ring_allreduce",
            "wire_bytes_per_direction"]
@@ -34,12 +35,7 @@ def _ppermute(t: torch.Tensor, group, reverse: bool) -> torch.Tensor:
     n, i = axis_size(group), axis_index(group)
     step = -1 if reverse else 1
     out = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t.contiguous(),
-                      global_rank(group, (i + step) % n), group),
-           dist.P2POp(dist.irecv, out,
-                      global_rank(group, (i - step) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    ppermute(t, out, (i + step) % n, (i - step) % n, group)
     return out
 
 

@@ -20,7 +20,9 @@ the data-parallel gradient sync built on that idea:
 
 Every rank of the process group calls these together.  Where the
 reference takes a mesh ``axis_name`` inside ``shard_map``, these take a
-``torch.distributed`` process group (``None``: the default group).
+``torch.distributed`` process group (``None``: the default group), or
+the ``RecordingGroup`` of an abstract mesh, whose collectives the
+dry-run's counter records without moving anything.
 Gradient trees are nested dicts of tensors, walked in sorted-key order
 (``jax.tree``'s order for dicts).  Also here: the dense baselines and the
 wire-volume accounting.
@@ -31,10 +33,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from ..kernels import ops as K
-from ..parallel.compat import axis_index, axis_size
+from ..parallel.compat import all_gather, all_reduce, axis_index, axis_size
 from . import halfduplex as hd
 
 __all__ = ["AerState", "aer_allreduce", "dense_allreduce",
@@ -69,8 +70,8 @@ def aer_allreduce(x: torch.Tensor, state: AerState, group=None, *,
     nb = tiles.shape[0]
     all_idx = ev.idx.new_empty((n, nb, budget))
     all_val = ev.val.new_empty((n, nb, budget))
-    dist.all_gather(list(all_idx.unbind(0)), ev.idx, group=group)
-    dist.all_gather(list(all_val.unbind(0)), ev.val, group=group)
+    all_gather(all_idx, ev.idx, group)
+    all_gather(all_val, ev.val, group)
 
     dec_all = K.aer_decompress(
         K.EventBlocks(all_idx.reshape(n * nb, budget),
@@ -92,7 +93,7 @@ def dense_allreduce(x: torch.Tensor, group=None, *,
     n = axis_size(group)
     if schedule == "psum":
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        all_reduce(out, group)
         return out / n
     if schedule not in ("ring", "bidir_ring"):
         raise ValueError(f"unknown schedule {schedule!r}")

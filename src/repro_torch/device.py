@@ -4,24 +4,36 @@ Every entry point (``Fabric``, ``simulate_fabric``,
 ``protocol_sim.simulate``) takes ``device=None``, which means the CUDA
 card.  Without CUDA that is an error, not a quiet move to the CPU: the
 caller who wants the plain-PyTorch path says ``device="cpu"``, as the
-tests do.  There is no environment override.
+tests do.  ``device="meta"`` is the abstract device of the dry-run:
+tensors with shapes and dtypes and no storage, on which the LM paths
+trace without computing.  It is reached only when named, never chosen
+for the caller.  There is no environment override.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "require_hopper"]
+__all__ = ["resolve_device", "require_hopper", "H100"]
 
 #: compute capability the hand-written kernels are built for (sm_90a)
 HOPPER = (9, 0)
+
+#: NVIDIA H100 80GB HBM3 SXM data-sheet rates (dense, at its 700 W
+#: limit; none measured): bf16 tensor-core FLOP/s, float32 FLOP/s outside
+#: the tensor cores (an FMA is two), HBM bytes/s, device memory, and the
+#: special function units' exponentials a second (16 a clock per SM x
+#: 132 SMs x 1.98 GHz boost)
+H100 = {"bf16_flops_s": 989e12, "fp32_flops_s": 67e12,
+        "hbm_bytes_s": 3.35e12, "hbm_bytes": 80e9,
+        "sfu_ops_s": 16 * 132 * 1.98e9}
 
 
 def resolve_device(device: str | torch.device | None = None
                    ) -> torch.device:
     """``None`` -> the current CUDA device (raises without CUDA); any
-    other value is taken as given, and a CUDA device without CUDA
-    raises too."""
+    other value is taken as given (``cuda``, ``cpu`` or ``meta``), and a
+    CUDA device without CUDA raises too."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -35,8 +47,9 @@ def resolve_device(device: str | torch.device | None = None
                                f"available")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu "
+                         f"or meta")
     return dev
 
 

@@ -2,10 +2,16 @@
 around the encoder and decoder.
 
 A CUDA tensor goes to the hand-written kernel (which launches or
-raises); a CPU tensor goes to the plain version in ``ref``.  There is no
-environment override and no fallback: on the card the plain path is
-reached only when the caller asks for it — ``engine="reference"`` of the
-fabric, or a direct call of ``ref``.
+raises); a CPU tensor goes to the plain version in ``ref``.  The kernels
+of the LM paths (B5, B6 and B7 with its backward) also take ``meta``
+tensors, the dry-run's abstract device: a shape-only route returns
+``torch.empty`` outputs of the kernel's shapes and dtypes.  The fabric
+kernels (B1-B4) refuse ``meta``.  Each LM kernel runs inside
+``launch.cost.kernel``, which reports its operand and result bytes to an
+active counter whatever the route.  There is no environment override
+and no fallback: on the card the plain path is reached only when the
+caller asks for it — ``engine="reference"`` of the fabric, or a direct
+call of ``ref``.
 
 The compress path (the counterpart of the reference's
 ``kernels/ops.py:33-139``) flattens and zero-pads a tensor into
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core import events as ev
+from ..launch import cost
 from . import aer_decode as adk
 from . import aer_encode as aek
 from . import fabric_queue as fq
@@ -42,11 +49,41 @@ DEFAULT_BUDGET = 128
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    """The fabric kernels' route: True on CUDA, False on the CPU; any
+    other device (``meta`` too) is refused."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"{name}: unsupported device {t.device}")
+    raise ValueError(f"{name}: unsupported device {t.device}; it takes "
+                     f"cuda or cpu tensors")
+
+
+def _route(t: torch.Tensor, name: str) -> str:
+    """An LM kernel's route: ``"cuda"``, ``"cpu"`` or ``"meta"``."""
+    if t.device.type in ("cuda", "cpu", "meta"):
+        return t.device.type
+    raise ValueError(f"{name}: unsupported device {t.device}; it takes "
+                     f"cuda, cpu or meta tensors")
+
+
+def _meta_encode(x, tau, budget: int):
+    nb = x.shape[0]
+    i32 = dict(dtype=torch.int32, device=x.device)
+    return (torch.empty((nb, budget), **i32),
+            torch.empty((nb, budget), dtype=x.dtype, device=x.device),
+            torch.empty((nb,), **i32), torch.empty((nb,), **i32))
+
+
+def _meta_decode(idx, val, block: int):
+    return torch.empty((idx.shape[0], block), dtype=val.dtype,
+                       device=val.device)
+
+
+_ENCODE = {"cuda": aek.aer_encode, "cpu": ref.aer_encode,
+           "meta": _meta_encode}
+_DECODE = {"cuda": adk.aer_decode, "cpu": ref.aer_decode,
+           "meta": _meta_decode}
 
 
 def fabric_queue_scan(q_time, q_dest, t_q):
@@ -92,25 +129,25 @@ def lif_step(v, i_syn, *, decay: float = 0.9, v_th: float = 1.0,
 def aer_encode(x, tau, budget: int):
     """Encode (nb, block) tiles into event slots; ``tau`` is (nb,) in x's
     dtype.  Returns ``(idx, val, count, wanted)``."""
-    if not _on_cuda(x, "aer_encode"):
-        return ref.aer_encode(x, tau, budget)
-    return aek.aer_encode(x, tau, budget)
+    route = _route(x, "aer_encode")
+    with cost.kernel("aer_encode") as k:
+        return k.record((x, tau), _ENCODE[route](x, tau, budget))
 
 
 def aer_decode(idx, val, block: int):
     """Decode (nb, budget) event slots into (nb, block) of val's dtype."""
-    if not _on_cuda(idx, "aer_decode"):
-        return ref.aer_decode(idx, val, block)
-    return adk.aer_decode(idx, val, block)
+    route = _route(idx, "aer_decode")
+    with cost.kernel("aer_decode") as k:
+        return k.record((idx, val), _DECODE[route](idx, val, block))
 
 
 def selective_scan(x, dt, b_ssm, c_ssm, a):
     """The Mamba S6 scan: x, dt (B, S, d_in), b_ssm/c_ssm (B, S, N), a
     (d_in, N), float32.  Returns ``(y (B, S, d_in), h_final (B, d_in,
     N))``, differentiable: through ``SelectiveScanFn``, whose forward and
-    backward are B7 and its backward kernel on CUDA tensors and the plain
-    versions on CPU tensors."""
-    _on_cuda(x, "selective_scan")
+    backward are B7 and its backward kernel on CUDA tensors, the plain
+    versions on CPU tensors and the shape-only routes on meta tensors."""
+    _route(x, "selective_scan")
     return ssk.SelectiveScanFn.apply(x, dt, b_ssm, c_ssm, a)
 
 

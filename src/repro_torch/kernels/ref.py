@@ -125,7 +125,7 @@ def fabric_queue_multistep(carry, consts, base, *, step_fn, chunk: int,
     so this module needs nothing of the engine.  Returns the stepped
     carry tuple.
     """
-    b = int(torch.as_tensor(base).reshape(-1)[0])
+    b = int(torch.as_tensor(base).reshape(-1)[0])  # torchlint: disable=TL001 (documented: the plain loop)
     carry = tuple(carry)
     consts = tuple(consts)
     for i in range(min(chunk, max_steps - b)):
@@ -160,7 +160,7 @@ def aer_encode(x: torch.Tensor, tau: torch.Tensor, budget: int):
     any, else 0.
     """
     nb, block = x.shape
-    tau = torch.as_tensor(tau, device=x.device).to(x.dtype).reshape(-1, 1)
+    tau = torch.as_tensor(tau, device=x.device).to(x.dtype).reshape(-1, 1)  # torchlint: disable=TL002 (the plain version)
     xf = x.float()
     mask = (xf.abs() >= tau.float()) & (xf != 0)
     csum = mask.to(torch.int32).cumsum(1, dtype=torch.int32)
@@ -168,13 +168,13 @@ def aer_encode(x: torch.Tensor, tau: torch.Tensor, budget: int):
         nb, dtype=torch.int32, device=x.device)
     bad = ~torch.isfinite(xf)
     nf = bad.sum(1, dtype=torch.int32)[:, None]
-    nan = torch.tensor(float("nan"), dtype=x.dtype, device=x.device)
+    nan = torch.tensor(float("nan"), dtype=x.dtype, device=x.device)  # torchlint: disable=TL002 (the plain version)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     # a spare last column takes every unselected entry, then is dropped
     dest = torch.where(mask & (csum <= budget), csum - 1, budget).long()
     pos = torch.arange(block, dtype=torch.int32,
                        device=x.device).expand(nb, block)
-    idx = torch.full((nb, budget + 1), -1, dtype=torch.int32,
+    idx = torch.full((nb, budget + 1), -1, dtype=torch.int32,  # torchlint: disable=TL002 (the plain version)
                      device=x.device).scatter_(1, dest, pos)
     val = torch.where(nf > 0, nan, zero).expand(nb, budget + 1).clone()
     val.scatter_(1, dest, torch.where(nf - bad.to(torch.int32) > 0, nan, x))

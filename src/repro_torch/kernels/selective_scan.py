@@ -45,7 +45,17 @@ at 3.35 TB/s; it takes ~3.7 ms there on an H100.
 ``SelectiveScanFn`` is the ``torch.autograd.Function`` of the scan: on
 CUDA tensors its forward is B7 and its backward the kernel above; on CPU
 tensors its forward is ``ref.selective_scan`` and its backward
-``ref.selective_scan_bwd``.  ``ops.selective_scan`` calls it.
+``ref.selective_scan_bwd``; on ``meta`` tensors (the dry-run) both are
+shape-only routes that return ``torch.empty`` outputs of the kernels'
+shapes and dtypes.  Each runs inside ``launch.cost.kernel``, which
+reports the bytes of ``scan_bound`` / ``scan_bwd_bound`` to an active
+counter, whatever the route.  ``ops.selective_scan`` calls it.
+
+``scan_bound`` and ``scan_bwd_bound`` are the kernels' least times on an
+H100 SXM (data-sheet rates, ``device.H100``) at (B, S, d_in, N): the
+bytes they must move, each operand read once and each result written
+once, against their exponentials on the special function units and
+their other float32 operations.
 """
 
 from __future__ import annotations
@@ -55,13 +65,47 @@ import functools
 
 import torch
 
+from ..device import H100
+from ..launch import cost
 from . import _build, ref
 
 __all__ = ["selective_scan", "selective_scan_bwd", "bwd_plan",
-           "SelectiveScanFn", "MAX_STATE"]
+           "SelectiveScanFn", "MAX_STATE", "scan_bound", "scan_bwd_bound"]
 
 #: the widest state the kernel takes
 MAX_STATE = 32
+
+
+def _bound(byts: int, exps: int, flops: int) -> dict:
+    tb = byts / H100["hbm_bytes_s"] * 1e3
+    te = exps / H100["sfu_ops_s"] * 1e3
+    tf = flops / H100["fp32_flops_s"] * 1e3
+    to = max(te, tf)
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": byts, "bytes_ms": tb, "exponentials": exps,
+            "exp_ms": te, "fp32_ops": flops, "fp32_ms": tf}
+
+
+def scan_bound(B: int, S: int, d: int, N: int) -> dict:
+    """B7 at (B, S, d_in, N): x, dt, B, C and A read, y and h_final
+    written, against B·S·d_in·N exponentials and ~6 float32 operations
+    an element-step (dt·A, abar·h, + bx, (dt·x)·B, h·C, the sum)."""
+    byts = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
+    return _bound(byts, B * S * d * N, 6 * B * S * d * N)
+
+
+def scan_bwd_bound(B: int, S: int, d: int, N: int,
+                   dh_final: bool = False) -> dict:
+    """The scan's backward at (B, S, d_in, N): x, dt, dy read and dx,
+    ddt written (B·S·d_in each), B, C read and dB, dC written (B·S·N
+    each), A read and dA written, and dh_final read when given (a
+    training step gives none), against its B·S·d_in·N exponentials and
+    ~20 float32 operations an element-step (the forward recurrence's 4,
+    the reverse's g, the dC, dB, dx, ddt and dA terms and the carry)."""
+    byts = 4 * (5 * B * S * d + 4 * B * S * N + 2 * d * N
+                + (B * d * N if dh_final else 0))
+    return _bound(byts, B * S * d * N, 20 * B * S * d * N)
 
 
 def _check(name: str, x, dt, b_ssm, c_ssm, a, **more) -> None:
@@ -179,18 +223,42 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
 selective_scan_bwd.launches = 0
 
 
+def _meta_scan(x, dt, b_ssm, c_ssm, a):
+    """B7's shapes and dtypes, computing nothing (the dry-run's route)."""
+    bsz, _, d_in = x.shape
+    return (torch.empty_like(x),
+            torch.empty((bsz, d_in, a.shape[1]), dtype=torch.float32,
+                        device=x.device))
+
+
+def _meta_scan_bwd(x, dt, b_ssm, c_ssm, a, dy, dh_final=None):
+    """The backward kernel's shapes and dtypes, computing nothing."""
+    return (torch.empty_like(x), torch.empty_like(x),
+            torch.empty_like(b_ssm), torch.empty_like(c_ssm),
+            torch.empty_like(a))
+
+
+_FWD = {"cuda": selective_scan, "cpu": ref.selective_scan,
+        "meta": _meta_scan}
+_BWD = {"cuda": selective_scan_bwd, "cpu": ref.selective_scan_bwd,
+        "meta": _meta_scan_bwd}
+
+
 class SelectiveScanFn(torch.autograd.Function):
     """``(y, h_final) = scan(x, dt, b_ssm, c_ssm, a)`` with its gradient.
     The forward saves only its operands; the backward recomputes the
     states it needs.  CUDA tensors go to the kernels, CPU tensors to the
-    plain versions in ``ref``; there is no other path."""
+    plain versions in ``ref``, meta tensors to the shape-only routes;
+    there is no other path."""
 
     @staticmethod
     def forward(ctx, x, dt, b_ssm, c_ssm, a):
         ctx.save_for_backward(x, dt, b_ssm, c_ssm, a)
-        if x.device.type == "cuda":
-            return selective_scan(x, dt, b_ssm, c_ssm, a)
-        return ref.selective_scan(x, dt, b_ssm, c_ssm, a)
+        ops = (x, dt, b_ssm, c_ssm, a)
+        with cost.kernel("selective_scan") as k:
+            out = _FWD[x.device.type](*ops)
+            return k.record(ops, out,
+                            nbytes=scan_bound(*x.shape, a.shape[1])["bytes"])
 
     @staticmethod
     def backward(ctx, dy, dh_final):
@@ -198,6 +266,9 @@ class SelectiveScanFn(torch.autograd.Function):
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dh_final is not None:
             dh_final = dh_final.contiguous()
-        if x.device.type == "cuda":
-            return selective_scan_bwd(x, dt, b_ssm, c_ssm, a, dy, dh_final)
-        return ref.selective_scan_bwd(x, dt, b_ssm, c_ssm, a, dy, dh_final)
+        ops = (x, dt, b_ssm, c_ssm, a, dy, dh_final)
+        with cost.kernel("selective_scan_bwd") as k:
+            out = _BWD[x.device.type](*ops)
+            nbytes = scan_bwd_bound(*x.shape, a.shape[1],
+                                    dh_final is not None)["bytes"]
+            return k.record(ops, out, nbytes=nbytes)

@@ -128,7 +128,7 @@ def generate(model: LM, batch: dict, gen: int) -> Generation:
 
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        pos = torch.full((bsz,), s + i, dtype=torch.int32, device=dev)
+        pos = torch.full((bsz,), s + i, dtype=torch.int32, device=dev)  # torchlint: disable=TL002 (a fill, no copy)
         logits, cache = model.decode_step(cache, tok, pos)
         tok = logits[:, -1].argmax(-1)[:, None]
         out_tokens.append(tok)

@@ -14,8 +14,9 @@ float32 first: a bf16 x bf16 product is exact in float32, so the sums
 accumulate in float32 as XLA's do.  Parameters are ``nn.Parameter``s
 created without gradients, so serving builds no graph; the trainer turns
 them on (``runtime.train_loop.init_state``).  The
-reference's ``shard_activation`` annotations are dropped: the slice
-runs on one card.  Attention is PyTorch ops tile for tile, as the
+reference's ``shard_activation`` annotations are kept at its places: a
+no-op unless sharding rules are installed (the dry-run installs them,
+and its counter reads the axes).  Attention is PyTorch ops tile for tile, as the
 reference's jnp; no fused attention library call is on the path.
 """
 
@@ -25,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.sharding import shard_activation as shard
 
 __all__ = ["_normal", "param", "Linear", "linear_init", "linear", "RMSNorm",
            "rmsnorm", "NORM_AXES", "EMBED_AXES", "HEAD_AXES",
@@ -250,7 +253,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     for qi in range(nq):
         q_tile = qf[:, qi]
         q_idx = q_offset + qi * qc + torch.arange(qc, device=q.device)
-        m = torch.full((B, K, G, qc), -torch.inf, device=q.device)
+        m = torch.full((B, K, G, qc), -torch.inf, device=q.device)  # torchlint: disable=TL002 (an accumulator's fill)
         l = torch.zeros((B, K, G, qc), device=q.device)
         acc = torch.zeros((B, K, G, qc, dh), device=q.device)
         interior = [ki for ki in range(nk)
@@ -345,6 +348,9 @@ def _project_qkv(p: Attention, cfg, x, kv_src, positions,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = shard(q, ("batch", None, "heads_q", None))
+    k = shard(k, ("batch", None, "heads_kv", None))
+    v = shard(v, ("batch", None, "heads_kv", None))
     return q, k, v
 
 
@@ -367,7 +373,7 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None):
                           window=cfg.sliding_window, q_chunk=qc,
                           kv_chunk=kc)
     out = linear(p.wo.w, out.reshape(B, S, H * dh), cfg.compute_dtype)
-    return out, k, v
+    return shard(out, ("batch", "seq_sp", "embed")), k, v
 
 
 def attn_apply(p: Attention, cfg, x, positions, *, causal=None,
@@ -404,7 +410,7 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None):
                            device=x.device)
         new_cache = cache
     else:
-        pos = torch.as_tensor(pos, device=x.device).long()
+        pos = torch.as_tensor(pos, device=x.device).long()  # torchlint: disable=TL002 (pos is a device tensor)
         q, kn, vn = _project_qkv(p, cfg, x, x, pos[:, None])
         ring = "slot_pos" in cache
         Smax = cache["k"].shape[1]
@@ -427,6 +433,8 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None):
             valid = idx[None, :] <= pos[:, None]
             if cfg.sliding_window > 0:
                 valid &= (pos[:, None] - idx[None, :]) < cfg.sliding_window
+        k = shard(k, ("batch", "kv_seq", "heads_kv", None))
+        v = shard(v, ("batch", "kv_seq", "heads_kv", None))
     out = decode_attention(q.reshape(B, 1, K, H // K, dh), k, v, valid)
     out = linear(p.wo.w, out.reshape(B, 1, H * dh), cfg.compute_dtype)
     return out, new_cache
@@ -502,7 +510,8 @@ def ffn_apply(p: FFN, cfg, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.compute_dtype
     h = linear(p.wi.w, x, cd)
     h = act(linear(p.wg.w, x, cd)) * h if hasattr(p, "wg") else act(h)
-    return linear(p.wo.w, h, cd)
+    h = shard(h, ("batch", None, "ff"))
+    return shard(linear(p.wo.w, h, cd), ("batch", "seq_sp", "embed"))
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ launch of the hand-written B7 kernel per block and sequence, on the CPU
 its plain time-step loop.  Decode is the O(1) recurrence in plain
 PyTorch (no kernel in the reference either) with a (d_conv-1)-deep
 convolution cache.  The reference's ``shard_activation`` annotations
-are dropped: the slice runs on one card.
+are kept at its places (no-ops unless sharding rules are installed).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..parallel.sharding import shard_activation as shard
 from .layers import _normal, linear, param
 
 __all__ = ["Mamba", "MAMBA_AXES", "mamba_init", "softplus", "_ssm_inputs",
@@ -136,6 +137,7 @@ def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor):
     S = x.shape[1]
     xz = linear(p.in_proj, x, cd)
     x_part, z = xz.chunk(2, dim=-1)
+    x_part = shard(x_part, ("batch", None, "mamba_inner"))
     x_conv = F.silu(_causal_depthwise_conv(
         x_part.float(), p.conv_w.float(), p.conv_b.float()))
     dt, b_ssm, c_ssm = _ssm_inputs(p, cfg, x_conv)
@@ -145,7 +147,8 @@ def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor):
                                     c_ssm.contiguous(), a)
     y = y + x_conv * p.D_skip
     y = (y * F.silu(z.float())).to(cd)
-    out = linear(p.out_proj, y, cd)
+    y = shard(y, ("batch", None, "mamba_inner"))
+    out = shard(linear(p.out_proj, y, cd), ("batch", "seq_sp", "embed"))
     conv_state = x_part[:, S - (m.d_conv - 1):].float()
     return out, h_final, conv_state
 

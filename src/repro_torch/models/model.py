@@ -29,8 +29,8 @@ encoder-only model (``causal=False``) scores and has no decode step.
 ``loss`` is the reference's train objective: the token NLL (masked for
 audio frames) plus the MoE losses, through the sequence-chunked
 cross-entropy when the full (B, S, V) logits would be large.  The
-reference's ``shard_activation`` annotations are dropped: the model runs
-on one card.
+reference's ``shard_activation`` annotations are kept at its places
+(no-ops unless sharding rules are installed).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.sharding import shard_activation as shard
 from . import layers as L
 from . import transformer as T
 
@@ -123,8 +124,10 @@ class LM(nn.Module):
         the compute dtype, padded vocab ids masked."""
         cfg = self.cfg
         w = self.embed.table.T if cfg.tie_embeddings else self.head.w
-        logits = L.linear(w, h, cfg.compute_dtype)
-        return L.mask_padded_vocab(logits, cfg.vocab)
+        logits = L.mask_padded_vocab(L.linear(w, h, cfg.compute_dtype),
+                                     cfg.vocab)
+        return shard(logits, ("batch", None, "vocab")) \
+            if logits.dim() == 3 else logits
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         return self._head_raw(L.rmsnorm(self.ln_f, h, self.cfg.norm_eps))
@@ -142,7 +145,9 @@ class LM(nn.Module):
         img = None
         if cfg.modality == "image+text":
             img = L.linear(self.frontend.w, batch["img_embed"], cd)
+            img = shard(img, ("batch", None, "embed"))
         B, S = h.shape[:2]
+        h = shard(h, ("batch", "seq_sp", "embed"))
         return h, torch.arange(S, device=h.device).expand(B, S), img
 
     def forward(self, batch: dict):
@@ -209,7 +214,8 @@ class LM(nn.Module):
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only (causal=False): "
                              f"it is scored (LM.score), not decoded")
-        h = L.embed(self.embed, tokens, cfg.compute_dtype)
+        h = shard(L.embed(self.embed, tokens, cfg.compute_dtype),
+                  ("batch", None, "embed"))
         h, cache = T.stack_decode(self.stack, cfg, h, pos, cache)
         return self._head(h), cache
 
@@ -217,8 +223,12 @@ class LM(nn.Module):
 def build_model(cfg, *, seed: int = 0, device=None) -> LM:
     """An ``LM`` on ``device`` (``None``: the CUDA card) with parameters
     drawn from ``torch.Generator(device).manual_seed(seed)``; one seed
-    gives one model per device type (CPU and CUDA generators differ)."""
+    gives one model per device type (CPU and CUDA generators differ).
+    On ``meta`` nothing is drawn: the parameters have shapes and dtypes
+    only, and no generator is made."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return LM(cfg, device=dev)
     return LM(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(seed))
 

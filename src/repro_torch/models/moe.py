@@ -9,8 +9,9 @@ gate per (expert, slot)) are built by an indexed write of the kept
 choices, tokens are gathered into (B, E, C, D) expert buffers, the
 experts run as batched products in the compute dtype, and each slot's
 gated output is added back to its token.  The reference's expert
-sharding layouts (``cfg.moe.layout``) and ``shard_activation``
-annotations are dropped: the slice runs on one card.
+sharding layouts (``cfg.moe.layout``) run the same way on one card; its
+``shard_activation`` annotations are kept at its places (no-ops unless
+sharding rules are installed).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.sharding import shard_activation as shard
 from .layers import _ACTS, _normal, param
 
 __all__ = ["MoE", "moe_axes", "moe_init", "_capacity", "_top_k", "moe_apply"]
@@ -90,7 +92,9 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor):
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
 
     # position-in-expert via one-hot cumsum over the (S*K) dispatch order
-    oh = torch.nn.functional.one_hot(choice, E).to(torch.int32)
+    # one-hot by comparison: F.one_hot reads its input's minimum back to
+    # the host on the CPU, and decomposes differently on each device
+    oh = (choice[..., None] == torch.arange(E, device=dev)).to(torch.int32)
     oh_flat = oh.reshape(B, S * K, E)
     pos_flat = torch.cumsum(oh_flat, 1, dtype=torch.int32) - oh_flat
     pos = (pos_flat.reshape(B, S, K, E) * oh).sum(-1)      # (B, S, K)
@@ -117,12 +121,17 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor):
     rows = torch.arange(B, device=dev)[:, None, None]
     buf = x[rows, slot_tok]                                # (B, E, C, D)
     buf = torch.where(slot_valid[..., None], buf, 0.0).to(cd)
+    ep = m.layout == "ep"
+    buf = shard(buf, ("batch", "experts" if ep else None, None, None))
 
     # expert FFN (batched products)
     h = torch.einsum("becd,edf->becf", buf, p.wi.to(cd))
     hg = torch.einsum("becd,edf->becf", buf, p.wg.to(cd))
     h = act(hg) * h
+    h = shard(h, ("batch", "experts" if ep else None, None,
+                  None if ep else "ff"))
     y = torch.einsum("becf,efd->becd", h, p.wo.to(cd))     # (B, E, C, D)
+    y = shard(y, ("batch", "experts" if ep else None, None, None))
 
     # combine: weight each slot's output by its gate, then add it back to
     # its token position
@@ -131,6 +140,7 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor):
             ).reshape(-1)
     out = torch.zeros((B * S, D), dtype=cd, device=dev).index_add_(
         0, flat, contrib.reshape(-1, D)).reshape(B, S, D)
+    out = shard(out, ("batch", "seq_sp", "embed"))
 
     # aux losses (Switch-style load balance + router z-loss)
     frac_tok = oh.float().sum(2).mean((0, 1))                # f_e

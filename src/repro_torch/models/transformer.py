@@ -18,7 +18,8 @@ keep a full K/V cache, or a window-deep ring cache when the sliding
 window is shorter than the cache; cross-attention layers keep the image
 tokens' K/V, filled once by prefill (or ``precompute_cross_cache``) and
 never written by decode.  The reference's ``shard_activation``
-annotations are dropped: the stack runs on one card.  Under autograd
+annotations are kept at its places, one a pattern period (no-ops unless
+sharding rules are installed).  Under autograd
 ``stack_apply`` follows ``cfg.remat`` as the reference's layer scan
 does, one pattern period (the reference's scan body) at a time:
 ``"full"`` recomputes a period's activations in backward
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import REMAT_POLICIES
+from ..parallel.sharding import shard_activation as shard
 from . import layers as L
 from . import mamba as M
 from . import moe as MOE
@@ -183,6 +185,7 @@ def _block_apply(blk: Block, cfg, x: torch.Tensor, positions, img):
 def _period_apply(blocks, cfg, x: torch.Tensor, aux: dict, positions,
                   img):
     """The blocks of one pattern period, the aux sums carried through."""
+    x = shard(x, ("batch", "seq_sp", "embed"))
     for blk in blocks:
         x, aux_b = _block_apply(blk, cfg, x, positions, img)
         if aux_b is not None:
@@ -311,7 +314,10 @@ def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
     W = cfg.sliding_window if (cfg.sliding_window and
                                cfg.sliding_window < max_len) else 0
     caches = []
-    for blk in stack.blocks:
+    period = len(pattern_for(cfg))
+    for i, blk in enumerate(stack.blocks):
+        if i % period == 0:
+            x = shard(x, ("batch", "seq_sp", "embed"))
         h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
         if blk.kind.startswith("xattn"):
             mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,

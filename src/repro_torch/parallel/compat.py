@@ -13,7 +13,10 @@ devices, and makes one process group for each slice along the data
 axes (``"pod"`` and ``"data"``): the ranks that share every other
 coordinate.  ``Mesh.dp_group`` is this process's.  A ``Mesh`` built
 directly (``groups=None``) is abstract: it has a shape and names, and
-serves sharding rules and specs without any process group.
+serves sharding rules and specs without any process group; its
+``dp_group`` is a ``RecordingGroup``, the dry-run's stand-in, whose
+collectives (``all_reduce``, ``all_gather``, ``ppermute`` here) report
+themselves to the active ``launch.cost`` counter and move nothing.
 ``set_mesh`` installs a mesh for the current thread, as ``jax.set_mesh``
 does.
 """
@@ -29,9 +32,12 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
+from ..launch import cost
+
 __all__ = ["axis_size", "axis_index", "global_rank", "Mesh", "make_mesh",
            "set_mesh", "current_mesh", "DP_AXES", "group_device",
-           "barrier"]
+           "barrier", "RecordingGroup", "all_reduce", "all_gather",
+           "ppermute"]
 
 #: the mesh axes data parallelism spans
 DP_AXES = ("pod", "data")
@@ -39,14 +45,67 @@ DP_AXES = ("pod", "data")
 _state = threading.local()
 
 
+@dataclass(frozen=True)
+class RecordingGroup:
+    """The stand-in process group of an abstract mesh: ``size`` ranks,
+    this process rank 0.  Its collectives move nothing: each reports its
+    kind and result to the active counter and leaves its output as it
+    was allocated, with the right shape and dtype.  Calling one with no
+    counter active is an error (nothing would be reduced)."""
+    size: int
+
+
+def _recorded(kind: str, result: torch.Tensor) -> None:
+    if cost.active() is None:
+        raise RuntimeError(f"{kind} on a RecordingGroup (an abstract "
+                           f"mesh) moves nothing and needs an active "
+                           f"launch.cost.Counter to record it")
+    cost.record_collective(kind, result)
+
+
 def axis_size(group=None) -> int:
     """Number of ranks in ``group`` (``None``: the default group)."""
+    if isinstance(group, RecordingGroup):
+        return group.size
     return dist.get_world_size(group)
 
 
 def axis_index(group=None) -> int:
     """This process's rank within ``group``."""
+    if isinstance(group, RecordingGroup):
+        return 0
     return dist.get_rank(group)
+
+
+def all_reduce(t: torch.Tensor, group=None) -> None:
+    """The sum of ``t`` over ``group``, in place."""
+    if isinstance(group, RecordingGroup):
+        return _recorded("all-reduce", t)
+    cost.record_collective("all-reduce", t)
+    dist.all_reduce(t, group=group)
+
+
+def all_gather(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
+    """Every rank's ``t`` into ``out`` (``(n, *t.shape)``), in rank
+    order."""
+    if isinstance(group, RecordingGroup):
+        return _recorded("all-gather", out)
+    cost.record_collective("all-gather", out)
+    dist.all_gather(list(out.unbind(0)), t, group=group)
+
+
+def ppermute(t: torch.Tensor, out: torch.Tensor, to: int, frm: int,
+             group=None) -> None:
+    """Send ``t`` to rank ``to`` of ``group`` and receive rank ``frm``'s
+    into ``out`` (one hop of a ring)."""
+    if isinstance(group, RecordingGroup):
+        return _recorded("collective-permute", out)
+    cost.record_collective("collective-permute", out)
+    ops = [dist.P2POp(dist.isend, t.contiguous(), global_rank(group, to),
+                      group),
+           dist.P2POp(dist.irecv, out, global_rank(group, frm), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
 
 
 def global_rank(group, rank: int) -> int:
@@ -102,11 +161,16 @@ class Mesh:
         return {name: out[name] for name in self.axis_names}
 
     @property
+    def dp_size(self) -> int:
+        """Ranks along the data axes."""
+        return math.prod(n for a, n in self.shape.items() if a in DP_AXES)
+
+    @property
     def dp_group(self):
-        """This process's data-parallel process group."""
+        """This process's data-parallel process group; an abstract
+        mesh's is its ``RecordingGroup``."""
         if self.groups is None:
-            raise ValueError("an abstract mesh has no process groups; "
-                             "build one with make_mesh")
+            return RecordingGroup(self.dp_size)
         c = self.coords(dist.get_rank())
         return self.groups[tuple(c[a] for a in self.axis_names
                                  if a not in DP_AXES)]

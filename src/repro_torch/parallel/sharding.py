@@ -24,7 +24,9 @@ span model.  The default tables are the reference's:
 
 The port runs one process a rank.  On a mesh whose model axis is 1 each
 process already holds only its rows of the batch, so
-``shard_activation`` has nothing to do and hands the tensor back; the
+``shard_activation`` has nothing to do and hands the tensor back (under
+the dry-run's ``launch.cost`` counter it tags the tensor with the mesh
+axes its names resolve to, which the counter divides by); the
 execution of specs that split a tensor over several ranks (a model axis
 past 1, FSDP over a data axis past 1) waits for ROADMAP A.11d and is
 refused where a step is built (``runtime.train_loop``).
@@ -36,9 +38,11 @@ import contextlib
 import threading
 from dataclasses import dataclass
 
+from ..launch import cost
+
 __all__ = ["PartitionSpec", "NamedSharding", "Rules", "make_rules",
            "use_rules", "current_rules", "shard_activation", "partition_params",
-           "param_specs", "is_axes"]
+           "param_specs", "is_axes", "mesh_axes"]
 
 _state = threading.local()
 
@@ -149,15 +153,27 @@ def use_rules(rules: Rules | None):
         _state.rules = prev
 
 
+def mesh_axes(spec) -> set:
+    """The mesh axes a ``PartitionSpec`` names."""
+    out = set()
+    for entry in spec:
+        out.update(e for e in (entry if isinstance(entry, tuple)
+                               else (entry,)) if e is not None)
+    return out
+
+
 def shard_activation(x, axes):
     """Annotate an activation with logical axes: a no-op without rules;
     with rules, ``axes`` must name every dimension (``ValueError``
-    otherwise, as in the reference), and ``x`` comes back as it is."""
-    if current_rules() is None:
+    otherwise, as in the reference), and ``x`` comes back as it is,
+    tagged for an active ``launch.cost`` counter with the mesh axes the
+    names resolve to."""
+    rules = current_rules()
+    if rules is None:
         return x
     if len(axes) != x.dim():
         raise ValueError(f"axes {axes} vs rank {x.dim()}")
-    return x
+    return cost.tag(x, mesh_axes(rules.act_spec(axes)))
 
 
 def is_axes(t) -> bool:

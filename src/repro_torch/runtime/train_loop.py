@@ -43,6 +43,13 @@ parallelism) and a spec that splits a parameter over several ranks
 (FSDP on a data axis past 1) wait for ROADMAP A.11d and raise
 ``NotImplementedError``.
 
+``make_recorded_step(model, run_cfg, group)`` is the step the dry-run
+traces over an abstract mesh (``launch.dryrun``): ``group`` is the
+mesh's ``RecordingGroup``, the step takes the global batch (the view of
+the reference's SPMD program, which the counter divides per device), and
+its reduction and ``pmean`` are recorded by the active counter, not
+executed.
+
 Determinism: a run restarted from a checkpoint must end bit-identical
 to an uninterrupted one.  On the card the step runs under
 ``torch.use_deterministic_algorithms(True)``, because the backward of
@@ -64,12 +71,12 @@ import os
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from ..core import sparse_collectives as sc
 from ..models.transformer import n_periods, pattern_for
 from ..optim import adamw
-from ..parallel.compat import DP_AXES, axis_index, axis_size
+from ..parallel.compat import (DP_AXES, RecordingGroup, all_reduce,
+                               axis_index, axis_size)
 from ..parallel.sharding import NamedSharding, PartitionSpec, \
     partition_params
 
@@ -77,7 +84,8 @@ from ..parallel.sharding import NamedSharding, PartitionSpec, \
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 __all__ = ["METRIC_KEYS", "DP_MODES", "TrainState", "ReferenceLeaves",
-           "init_state", "make_train_step", "state_shardings"]
+           "init_state", "make_train_step", "make_recorded_step",
+           "state_shardings"]
 
 METRIC_KEYS = ("nll", "aux_loss", "z_loss", "drop_frac", "loss",
                "grad_norm", "lr", "wire_words")
@@ -255,7 +263,7 @@ def _pmean(metrics: dict, group) -> dict:
     """Each metric averaged over ``group`` (one all-reduce)."""
     keys = sorted(metrics)
     t = torch.stack([metrics[k].detach().float() for k in keys])
-    dist.all_reduce(t, group=group)
+    all_reduce(t, group)
     t = t / axis_size(group)
     return dict(zip(keys, t.unbind(0)))
 
@@ -274,13 +282,34 @@ def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
     .make_rules`` over a mesh of ranks) makes it a data-parallel step
     reducing with ``run_cfg.dp_reduce``; every rank of the mesh calls
     it together."""
+    group = None if rules is None else _data_parallel(model, run_cfg, rules)
+    return _make_step(model, run_cfg, group, deterministic)
+
+
+def make_recorded_step(model, run_cfg, group: RecordingGroup):
+    """The data-parallel step over an abstract mesh's ``RecordingGroup``,
+    as the dry-run traces it: the global batch, every parameter whole
+    (the reference's SPMD program, which the counter divides per device,
+    so a model axis past 1 and FSDP are counted, not executed), and the
+    ``run_cfg.dp_reduce`` reduction and ``pmean`` recorded by the active
+    counter.  Its collectives raise without one."""
+    if not isinstance(group, RecordingGroup):
+        raise TypeError(f"make_recorded_step takes a RecordingGroup, got "
+                        f"{group!r}; use make_train_step to run a step")
+    if run_cfg.dp_reduce not in DP_MODES:
+        raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
+                         f"of {DP_MODES}")
+    return _make_step(model, run_cfg, group, False)
+
+
+def _make_step(model, run_cfg, group, deterministic):
     own = dict(model.named_parameters())
     det = (next(iter(own.values())).device.type == "cuda"
            if deterministic is None else deterministic)
     mode = run_cfg.dp_reduce
-    group = None if rules is None else _data_parallel(model, run_cfg, rules)
     leaves = ReferenceLeaves(model) if group is not None and \
         mode == "aer_topk" else None
+    split = group is not None and not isinstance(group, RecordingGroup)
 
     def reduce(grads: dict, aer):
         if leaves is None:
@@ -301,7 +330,7 @@ def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
         with _deterministic(det):
             for p in own.values():
                 p.grad = None
-            if group is not None:         # this rank's block of rows
+            if split:                     # this rank's block of rows
                 batch = _split(batch, axis_size(group),
                                "data-parallel ranks")[axis_index(group)]
             _, metrics = _loss_with_accum(model, batch, run_cfg.grad_accum)

@@ -48,7 +48,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.runtime.fault", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointer",
             "repro_torch.launch.train", "repro_torch.parallel.sharding",
-            "repro_torch.launch.mesh"]
+            "repro_torch.launch.mesh", "repro_torch.launch.cost",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.analysis.lint"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\nprint(bad)\n"
@@ -138,9 +140,14 @@ def test_default_device_needs_cuda(monkeypatch):
         interop.mamba_cache_from_reference(
             {"h": np.zeros((1, 4, 2), np.float32),
              "conv": np.zeros((1, 3, 4), np.float32)})
-    # the scan runs on the card or, for CPU tensors, as its plain
-    # version; a tensor anywhere else is refused, not moved
+    # the scan runs on the card, for CPU tensors as its plain version,
+    # and for meta tensors (named by the caller) as shape-only outputs;
+    # the fabric kernels refuse meta, naming the devices they take
     meta = torch.empty((1, 2, 4), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.selective_scan(meta, meta, meta[..., :2], meta[..., :2],
-                           meta[0, :, :2])
+    y, h = ops.selective_scan(meta, meta, meta[..., :2], meta[..., :2],
+                              meta[0, :, :2])
+    assert (y.device.type, tuple(y.shape), tuple(h.shape)) == \
+        ("meta", (1, 2, 4), (1, 4, 2))
+    with pytest.raises(ValueError, match="unsupported device meta; it "
+                                         "takes cuda or cpu"):
+        ops.lif_step(meta[0], meta[0])

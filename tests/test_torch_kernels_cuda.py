@@ -1082,3 +1082,52 @@ def test_lm_on_card_matches_cpu(cuda):
     want, _ = cpu_model.forward({"tokens": toks})
     got, _ = card.forward({"tokens": toks.to(cuda)})
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def _counted(fn):
+    from repro_torch.launch import cost
+    with cost.Counter() as c:
+        out = fn()
+    return out, c.result()["kernels"]
+
+
+def _like(a, b):
+    """Same shapes and dtypes, leaf for leaf."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert (tuple(x.shape), x.dtype) == (tuple(y.shape), y.dtype)
+
+
+@pytest.mark.gpu
+def test_meta_routes_match_the_kernels(cuda):
+    """B5, B6, B7 and B7's backward on meta tensors (the dry-run's
+    route) return the kernels' shapes and dtypes, and the wrappers
+    declare the same bytes on both devices."""
+    spec = aer_specs(card=True)[0]
+    assert spec[1] == "encode" and spec[5] == "float32"
+    xa, taua, budget = aer_arrays(spec)
+    x, tau = (torch.from_numpy(v).to(cuda) for v in (xa, taua))
+    card, meta = ({}, {})
+    for dev, got in ((cuda, card), ("meta", meta)):
+        xd, td = x.to(dev), tau.to(dev)
+        got["enc"], got["k_enc"] = _counted(
+            lambda: ops.aer_encode(xd, td, budget))
+        got["dec"], got["k_dec"] = _counted(
+            lambda: ops.aer_decode(got["enc"][0], got["enc"][1],
+                                   xd.shape[1]))
+    _like(card["enc"], meta["enc"])
+    _like((card["dec"],), (meta["dec"],))
+    assert (card["k_enc"], card["k_dec"]) == (meta["k_enc"], meta["k_dec"])
+    args = [torch.from_numpy(v).to(cuda)
+            for v in scan_arrays(scan_specs(card=True)[0])]
+    for dev, got in ((cuda, card), ("meta", meta)):
+        a = [t.detach().to(dev, copy=True).requires_grad_() for t in args]
+
+        def run():
+            y, h = ops.selective_scan(*a)
+            (y.sum() + h.sum()).backward()
+            return (y, h) + tuple(t.grad for t in a)
+        got["scan"], got["k_scan"] = _counted(run)
+    _like(card["scan"], meta["scan"])
+    assert card["k_scan"] == meta["k_scan"]
+    assert set(meta["k_scan"]) == {"selective_scan", "selective_scan_bwd"}

@@ -90,15 +90,21 @@ def test_scan_edge_specs_sit_on_tile_edges(spec):
 
 def test_scan_routing_by_device():
     """CPU tensors take the plain version (the same tensors); the kernel
-    wrapper refuses them, and an unsupported device is refused."""
+    wrapper refuses them; meta tensors (the dry-run's abstract device)
+    take the shape-only route: the plain version's shapes and dtypes on
+    meta, no kernel launched."""
     args = tuple(map(_t, scan_arrays(SPECS[0])))
     got, want = tops.selective_scan(*args), tref.selective_scan(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="CUDA kernel"):
         ssk.selective_scan(*args)
-    with pytest.raises(ValueError, match="unsupported device"):
-        tops.selective_scan(*(a.to("meta") for a in args))
+    before = ssk.selective_scan.launches
+    meta = tops.selective_scan(*(a.to("meta") for a in args))
+    assert ssk.selective_scan.launches == before
+    for m, w in zip(meta, want):
+        assert m.device.type == "meta"
+        assert (m.shape, m.dtype) == (w.shape, w.dtype)
 
 
 def test_state_carries_information_across_time():
