@@ -343,7 +343,30 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                (the uncounted phase's median step s x 989e12)) beside
                the 6·N·D mfu, and the step's roofline fraction
                (max(flops / 989e12, bytes / 3.35e12) / its time);
-35. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
+35. train_tp_2x2_one_card — training past data parallelism (A.11d):
+               4 processes on cuda:0 over gloo (a FileStore in a
+               temporary directory; 4 ranks time-share the one card, so
+               its times are not multi-card figures), a (2, 2) mesh with
+               FSDP, 3 steps at full width on 2 layers, 4 x 2048 tokens,
+               float32 compute: falcon-mamba-7b under ``psum`` and
+               ``aer_topk``, granite-3-2b under ``psum``; every rank's
+               losses within 1e-4 of the whole run's (the world of one,
+               freed before the spawn; for ``aer_topk`` the (2, 1)
+               data-only mesh of 2 ranks, as the data-axis size changes
+               its result), its gradient norm a step within 1e-4
+               relative (1e-3 under ``aer_topk``), its gathered
+               parameters within 2e-3 (6e-3, 2 lr a step, under
+               ``aer_topk``) with at most a share of 1e-4 (2e-3) of them
+               more than 1e-4 off, the largest gaps printed; two
+               planted faults must fail that parameter check: the
+               initial parameters (a step that updates nothing) and
+               the world of one trained on data rank 0's rows alone (a
+               step with the data reduction skipped); B7 4 and its
+               backward 2 a falcon step on each rank, on 4096 of the
+               8192 channels;
+               B5 and B6 one a reference leaf; ms a step and peak
+               memory a rank;
+36. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
                of ``--all`` (each arch x shape its ``shapes_for``
                lists, full width, the production shapes) on the 16 x 16
                pod mesh, on the ``meta`` device (no card, no weights),
@@ -3930,6 +3953,322 @@ def phase_train_dp_aer():
     return out
 
 
+# --- training past data parallelism (A.11d): a (2, 2) mesh on one card
+
+#: the sharded training cells: (arch, dp_reduce), each 3 steps at full
+#: width, depth cut to TP_LAYERS, 4 x 2048 tokens, float32 compute
+TP_CELLS = (("falcon_mamba_7b", "psum"), ("falcon_mamba_7b", "aer_topk"),
+            ("granite_3_2b", "psum"))
+TP_LAYERS, TP_STEPS, TP_WORLD = 2, 3, 4
+TP_LOSS_TOL = 1e-4
+#: each step's gradient norm, relative to the whole run's: AdamW and the
+#: clip ignore a constant scale on a leaf's gradient, the norm does not
+TP_GNORM_RTOL = {"psum": 1e-4, "aer_topk": 1e-3}
+#: the parameters after 3 steps, largest gap: a gradient near 0 whose
+#: sign the sum order flips moves its parameter by up to 2 lr a step
+#: under AdamW's first steps, and a threshold that flips under
+#: ``aer_topk`` sends it or not (tests/_torch_dp.py::AER_PARAM_TOL);
+#: ``psum`` read 7.1e-4 and 9.8e-4
+TP_PARAM_TOL = {"psum": 2e-3, "aer_topk": 2 * 1e-3 * TP_STEPS}
+#: the share of parameters more than 1e-4 off: ``psum`` read 4.3e-6
+#: (falcon) and 6.2e-6 (granite), ``aer_topk`` 1.7e-4; a step that
+#: updates nothing moves AdamW's every entry by about lr
+TP_OVER_SHARE = {"psum": 1e-4, "aer_topk": 2e-3}
+TP_NOTE = "4 ranks time-share one card; not a multi-card figure"
+
+
+def _tp_cfg(arch):
+    import torch
+    from repro_torch.configs.base import get_config
+    return get_config(arch).with_(n_layers=TP_LAYERS,
+                                  compute_dtype=torch.float32)
+
+
+def _tp_train(arch, mode, rules, rows=None):
+    """``arch`` at full width on TP_LAYERS layers, seed 0, on cuda:0: 3
+    steps of ``make_train_step(..., rules)`` (``None``: one device) on
+    ``_dp_batch``'s global batches (their first ``rows`` rows, if
+    given).  Returns the model, its state, the losses, the gradient
+    norms, ms a step and the launches of each step; the peak memory
+    stats restart once the state is made (the whole model drawn before
+    it is cut to a rank's shards is not counted)."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import train_loop as tl
+    cfg = _tp_cfg(arch)
+    run = RunConfig(dp_reduce=mode, learning_rate=1e-3, warmup_steps=0,
+                    total_steps=TP_STEPS, aer_frac=DP_AER_FRAC,
+                    aer_budget=DP_AER_BUDGET)
+    model = build_model(cfg, seed=0, device=torch.device("cuda", 0))
+    state = tl.init_state(model, run, rules)
+    step = tl.make_train_step(model, run, rules)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, times, counts = [], [], [], []
+    for s in range(TP_STEPS):
+        batch = _dp_batch(cfg, s)
+        if rows is not None:
+            batch = {k: v[:rows] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        _counts_zero()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(_counts())
+    return model, state, losses, gnorms, times, counts
+
+
+def _tp_gaps(pairs) -> tuple:
+    """``(largest gap, entries more than 1e-4 off, entries)`` over the
+    ``(got, want)`` tensor pairs."""
+    gap, over, n = 0.0, 0, 0
+    for got, want in pairs:
+        d = (got - want.to(got.device)).abs()
+        gap = max(gap, float(d.max()))
+        over += int((d > 1e-4).sum())
+        n += d.numel()
+        del d
+    return gap, over, n
+
+
+def _tp_params_fail(mode, gap, over, n) -> list:
+    """What keeps parameters ``gap`` / ``over`` of ``n`` off the whole
+    run's from passing under ``mode`` (empty: they pass)."""
+    out = []
+    if gap > TP_PARAM_TOL[mode]:
+        out.append(f"largest gap {gap} > {TP_PARAM_TOL[mode]}")
+    if over > TP_OVER_SHARE[mode] * n:
+        out.append(f"{over} of {n} entries more than 1e-4 off > share "
+                   f"{TP_OVER_SHARE[mode]}")
+    return out
+
+
+def _tp_save_whole(path, model, losses, gnorms) -> None:
+    import torch
+    torch.save({"losses": losses, "gnorms": gnorms,
+                "params": {k: p.detach().cpu()
+                           for k, p in model.named_parameters()}}, path)
+
+
+def _tp_controls(arch, whole_path) -> dict:
+    """Two planted faults that the parameter check must fail, held
+    against the world of one's ``psum`` run saved at ``whole_path``:
+    ``no_update``, the initial parameters (a step that updates nothing),
+    and ``reduction_skipped``, the world of one trained on data rank 0's
+    rows alone (what a rank of the (2, 2) mesh that skipped the data
+    reduction would step on).  Each one's gaps and what fails it under
+    each mode's limits."""
+    import torch
+    from repro_torch.models.model import build_model
+    want = torch.load(whole_path, mmap=True)["params"]
+    model = build_model(_tp_cfg(arch), seed=0,
+                        device=torch.device("cuda", 0))
+    gaps = {"no_update": _tp_gaps((p.detach(), want[k])
+                                  for k, p in model.named_parameters())}
+    del model
+    _free()
+    model = _tp_train(arch, "psum", None, rows=DP_BATCH // 2)[0]
+    gaps["reduction_skipped"] = _tp_gaps(
+        (p.detach(), want[k]) for k, p in model.named_parameters())
+    del model
+    _free()
+    out = {}
+    for name, (gap, over, n) in gaps.items():
+        fails = {mode: _tp_params_fail(mode, gap, over, n)
+                 for mode in TP_PARAM_TOL}
+        check(all(fails.values()),
+              f"train_tp control {name}: the parameter check passed a "
+              f"planted fault ({gap}, {over} of {n} off): {fails}")
+        out[name] = {"param_gap": gap, "params_over_1e-4": over,
+                     "params": n, "fails": fails}
+    return out
+
+
+def _tp_rank(rank, store, out_dir):
+    """One of the 4 gloo ranks on cuda:0: every TP_CELLS cell on the
+    (2, 2) FSDP mesh, against the whole run saved in ``out_dir`` (the
+    world of one, or for ``aer_topk`` the (2, 1) data-only mesh of ranks
+    0 and 1, run here first: the data-axis size changes ``aer_topk``'s
+    result, the model axis and FSDP do not).  Writes its JSON there."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import pin_precision
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.parallel.tensor_parallel import unshard_param
+    from repro_torch.runtime import train_loop as tl
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    pin_precision()
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_WORLD),
+                            rank=rank, world_size=TP_WORLD)
+    out = {}
+    try:
+        for arch, mode in TP_CELLS:
+            cfg = _tp_cfg(arch)
+            label = f"{arch}_{mode}"
+            whole_path = os.path.join(out_dir, f"{label}.pt")
+            if mode == "aer_topk":
+                mesh = make_host_mesh(data=2, model=1)
+                if rank < mesh.size:
+                    model, _, losses, gnorms, _, _ = _tp_train(
+                        arch, mode, make_rules(mesh, fsdp=False,
+                                               kv_heads=cfg.n_kv_heads,
+                                               d_head=cfg.d_head))
+                    if rank == 0:
+                        _tp_save_whole(whole_path, model, losses, gnorms)
+                    del model
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            mesh = make_host_mesh(data=2, model=2)
+            rules = make_rules(mesh, fsdp=True, kv_heads=cfg.n_kv_heads,
+                               d_head=cfg.d_head)
+            model, state, losses, gnorms, times, counts = _tp_train(
+                arch, mode, rules)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = torch.load(whole_path, mmap=True)
+            par = model.parallel
+            gap, over, n = _tp_gaps(
+                (unshard_param(p.detach(), par.splits[k].sharding,
+                               par.splits[k].full), want["params"][k])
+                for k, p in model.named_parameters())
+            cell = {"losses": losses, "want_losses": want["losses"],
+                    "loss_gap": max(abs(a - b) for a, b in
+                                    zip(losses, want["losses"])),
+                    "gnorms": gnorms, "want_gnorms": want["gnorms"],
+                    "gnorm_rel_gap": max(abs(a - b) / b for a, b in
+                                         zip(gnorms, want["gnorms"])),
+                    "param_gap": gap, "params_over_1e-4": over,
+                    "params": n, "step_ms": times, "launches": counts,
+                    "peak_gb": peak_gb,
+                    "reference_leaves": len(tl.ReferenceLeaves(model)
+                                            .members)}
+            if hasattr(model.stack.blocks[0], "mamba"):
+                cell["scan_channels"] = int(
+                    model.stack.blocks[0].mamba.D_skip.shape[0])
+            out[label] = cell
+            del model, state, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase_train_tp_2x2_one_card():
+    """Training past data parallelism on the card: 4 processes on
+    cuda:0 over gloo (a FileStore in a temporary directory), a (2, 2)
+    mesh with FSDP (``make_host_mesh(2, 2)``, ``make_rules(fsdp=True)``),
+    3 steps of each ``TP_CELLS`` cell at full width on 2 layers, 4 x
+    2048 tokens, float32 compute.  Each rank's losses within 1e-4 of the
+    whole run's (the world of one under ``psum``, run here first and
+    freed before the spawn; the (2, 1) data-only mesh under
+    ``aer_topk``), its gradient norms within ``TP_GNORM_RTOL``, its
+    gathered parameters within ``TP_PARAM_TOL`` with at most a share
+    ``TP_OVER_SHARE`` more than 1e-4 off, a check that two planted
+    faults must fail (``_tp_controls``); B7 4 and its backward 2 a step
+    on each falcon rank, on 4096 of the 8192 channels; B5 and B6 one a
+    reference leaf a step under ``aer_topk``; ms a step and peak memory
+    a rank."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.launch.serve import pin_precision
+    t_phase = time.perf_counter()
+    pin_precision()
+    tmp = tempfile.mkdtemp(prefix="tp_one_card_")
+    try:
+        one = {}
+        for arch, mode in TP_CELLS:
+            if mode != "psum":
+                continue
+            model, _, losses, gnorms, times, _ = _tp_train(arch, mode,
+                                                           None)
+            path = os.path.join(tmp, f"{arch}_{mode}.pt")
+            _tp_save_whole(path, model, losses, gnorms)
+            one[f"{arch}_{mode}"] = {"losses": losses, "step_ms": times}
+            del model
+            _free()
+            if arch == TP_CELLS[0][0]:
+                controls = _tp_controls(arch, path)
+        t_spawn = time.perf_counter()
+        mp.spawn(_tp_rank, args=(os.path.join(tmp, "store"), tmp),
+                 nprocs=TP_WORLD, join=True)
+        spawn_s = time.perf_counter() - t_spawn
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = {}
+    for arch, mode in TP_CELLS:
+        label = f"{arch}_{mode}"
+        per = [r[label] for r in ranks]
+        falcon = arch.startswith("falcon")
+        want = {"selective_scan": 2 * TP_LAYERS if falcon else 0,
+                "selective_scan_bwd": TP_LAYERS if falcon else 0}
+        if mode == "aer_topk":
+            n = per[0]["reference_leaves"]
+            want.update(aer_encode=n, aer_decode=n)
+        for r, c in enumerate(per):
+            check(c["loss_gap"] <= TP_LOSS_TOL,
+                  f"train_tp {label}: rank {r} losses {c['losses']} vs "
+                  f"{c['want_losses']}")
+            check(c["gnorm_rel_gap"] <= TP_GNORM_RTOL[mode],
+                  f"train_tp {label}: rank {r} gradient norms "
+                  f"{c['gnorms']} vs {c['want_gnorms']}")
+            fails = _tp_params_fail(mode, c["param_gap"],
+                                    c["params_over_1e-4"], c["params"])
+            check(not fails, f"train_tp {label}: rank {r} parameters off "
+                             f"the whole run's: {fails}")
+            for i, got in enumerate(c["launches"]):
+                check(all(got.get(k, 0) == want.get(k, 0) for k in got),
+                      f"train_tp {label}: rank {r} step {i + 1} launched "
+                      f"{got}, expected {want}")
+            if falcon:
+                check(c["scan_channels"] == _tp_cfg(arch).mamba.expand *
+                      _tp_cfg(arch).d_model // 2,
+                      f"train_tp {label}: B7 ran on {c['scan_channels']} "
+                      f"channels a rank")
+        cells[label] = {
+            "against": ("world of one" if mode == "psum"
+                        else "(2, 1) data-only mesh, ranks 0-1"),
+            "losses": per[0]["losses"], "want_losses": per[0]["want_losses"],
+            "max_loss_gap": max(c["loss_gap"] for c in per),
+            "max_gnorm_rel_gap": max(c["gnorm_rel_gap"] for c in per),
+            "max_param_gap": max(c["param_gap"] for c in per),
+            "params_over_1e-4": [c["params_over_1e-4"] for c in per],
+            "params": per[0]["params"],
+            "launches_per_rank_step": want,
+            "scan_channels_per_rank": per[0].get("scan_channels"),
+            "step_ms_by_rank": [c["step_ms"] for c in per],
+            "step_ms_median": statistics.median(
+                t for c in per for t in c["step_ms"][1:]),
+            "peak_gb_by_rank": [c["peak_gb"] for c in per],
+            "world_of_one_step_ms": one.get(label, {}).get("step_ms")}
+    emit("train_tp_2x2_one_card", mesh={"data": 2, "model": 2}, fsdp=True,
+         ranks=TP_WORLD, backend="gloo", device="cuda:0 (all ranks)",
+         note=TP_NOTE, layers=TP_LAYERS,
+         reduced={"n_layers": {"falcon_mamba_7b": [64, TP_LAYERS],
+                               "granite_3_2b": [40, TP_LAYERS]}},
+         batch=DP_BATCH, seq=DP_SEQ, steps=TP_STEPS,
+         compute_dtype="float32", loss_tol=TP_LOSS_TOL,
+         gnorm_rtol=TP_GNORM_RTOL, param_tol=TP_PARAM_TOL,
+         over_share=TP_OVER_SHARE, controls=controls, cells=cells,
+         spawn_s=spawn_s,
+         phase_s=time.perf_counter() - t_phase)
+    return cells
+
+
 # --- the pod-scale tools (A.11c): the counter against the card, the pod
 
 #: the dry-run processes that run beside the card phases
@@ -4298,6 +4637,8 @@ def _main_phases(name, smi, t_start, pod) -> int:
     _free()
     phase_dryrun_vs_card(train_out, serve_out)
     _free()
+    tp = phase_train_tp_2x2_one_card()
+    _free()
     phase_dryrun_pod(pod)
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -4376,6 +4717,15 @@ def _main_phases(name, smi, t_start, pod) -> int:
                 "train_falcon_mamba_7b_l16_aer":
                     dp["aer_topk"]["launches_per_step"][kname]},
             train_reduce_ms_per_step=dp["aer_topk"]["reduce_ms_median"])
+    # the (2, 2) FSDP mesh on one card: launches a rank a step
+    for kname in ("aer_encode", "aer_decode"):
+        by_name[kname]["train_tp_2x2_launches_per_rank_step"] = \
+            tp["falcon_mamba_7b_aer_topk"]["launches_per_rank_step"][kname]
+    for kname in ("selective_scan", "selective_scan_bwd"):
+        by_name[kname]["train_tp_2x2_launches_per_rank_step"] = \
+            tp["falcon_mamba_7b_psum"]["launches_per_rank_step"][kname]
+        by_name[kname]["train_tp_2x2_channels_per_rank"] = \
+            tp["falcon_mamba_7b_psum"]["scan_channels_per_rank"]
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],
                        cosim_closed_ms_per_tick=closed_ms,

@@ -30,10 +30,17 @@ only after it is written; ``latest_step`` is rank 0's answer, broadcast,
 so every rank restores the same checkpoint.  ``restore(step, target,
 shardings=)`` takes ``runtime.train_loop.state_shardings``' tree on the
 (possibly new, possibly smaller) mesh: a replicated leaf is loaded
-whole on every rank; a spec that splits a leaf over several ranks waits
-for ROADMAP A.11d and raises ``NotImplementedError``, as the reference
+whole on every rank, and a leaf a spec splits is cut to this rank's
+shard (``parallel.tensor_parallel.shard_param``), as the reference
 writes its shards through ``jax.device_put``
 (``src/repro/checkpoint/checkpointer.py:104-124``).
+
+A sharded state (over a model axis or FSDP) is saved in the reference's
+layout, whole leaves: ``save(step, tree, shardings=)`` gathers each
+split leaf over its groups (every rank of the mesh calls it, so
+``group`` is then the mesh's whole world) and rank 0 writes them.  So a
+checkpoint of a ``(2, 2)`` FSDP run restores on a world of one, and
+back.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.compat import barrier, global_rank, group_device
+from ..parallel.tensor_parallel import (SPLIT_ATTR, shard_param,
+                                        unshard_param, whole_shape)
 
 __all__ = ["Checkpointer"]
 
@@ -95,6 +104,15 @@ def _structure(tree) -> str:
                            for k, v in tree.items()) + "}"
 
 
+def _whole(t: torch.Tensor, sharding) -> torch.Tensor:
+    """A leaf whole: gathered over its groups where its spec splits it
+    (every rank of the mesh calls this together)."""
+    if sharding.shards == 1:
+        return t
+    return unshard_param(t.detach(), sharding,
+                         whole_shape(t.shape, sharding))
+
+
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
@@ -118,13 +136,28 @@ class Checkpointer:
         return self.group is None or dist.get_rank(self.group) == 0
 
     # ------------------------------------------------------------ save --
-    def save(self, step: int, tree, blocking: bool = False):
+    def save(self, step: int, tree, blocking: bool = False,
+             shardings=None):
+        """Write ``tree`` as checkpoint ``step`` (on a thread unless
+        ``blocking``).  ``shardings`` (``state_shardings``' tree): the
+        leaves a spec splits are this rank's shards, gathered whole
+        first; a tree holding a sharded model's split parameters needs
+        it."""
         self.wait()
+        leaves = list(_flatten_with_paths(tree))
+        if shardings is not None:
+            specs = dict(_flatten_with_paths(shardings, leaf=_is_sharding))
+            leaves = [(k, _whole(t, specs[k])) for k, t in leaves]
+        elif any(getattr(t, SPLIT_ATTR, None) is not None and
+                 tuple(t.shape) != getattr(t, SPLIT_ATTR).full
+                 for _, t in leaves):
+            raise ValueError("the tree holds shards of a sharded model; "
+                             "pass shardings=state_shardings(...) so that "
+                             "save writes whole leaves")
         if not self._writer:
             if blocking:
                 barrier(self.group)
             return
-        leaves = list(_flatten_with_paths(tree))
         arrays = {k.rstrip("/"): _host_copy(t) for k, t in leaves}
         dtypes = {k.rstrip("/"): str(t.dtype).removeprefix("torch.")
                   for k, t in leaves}
@@ -197,19 +230,17 @@ class Checkpointer:
         """Write checkpoint ``step`` into ``target_tree``'s tensors (shapes
         checked, values cast to each target's dtype, on its device) and
         return the target.  ``shardings``: a tree of ``NamedSharding``
-        parallel to the target (``state_shardings`` on the new mesh)."""
+        parallel to the target (``state_shardings`` on the new mesh); a
+        leaf it splits is cut to this process's shard (its global rank;
+        rank 0 outside a process group)."""
+        specs = {}
         if shardings is not None:
             specs = dict(_flatten_with_paths(shardings, leaf=_is_sharding))
             for key, _ in _flatten_with_paths(target_tree):
-                sh = specs.get(key)
-                if sh is None:
+                if key not in specs:
                     raise ValueError(f"no sharding for checkpoint leaf "
                                      f"{key.rstrip('/')}")
-                if sh.shards > 1:
-                    raise NotImplementedError(
-                        f"{key.rstrip('/')}: spec {tuple(sh.spec)} splits "
-                        f"it over {sh.shards} ranks; restoring sharded "
-                        f"leaves waits for ROADMAP A.11d")
+        rank = dist.get_rank() if dist.is_initialized() else 0
         self.wait()
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
@@ -217,11 +248,15 @@ class Checkpointer:
         with np.load(os.path.join(path, "arrays.npz")) as data:
             arrays = {k: data[k] for k in data.files}
         with torch.no_grad():
-            for key, leaf in _flatten_with_paths(target_tree):
-                key = key.rstrip("/")
+            for path, leaf in _flatten_with_paths(target_tree):
+                key = path.rstrip("/")
                 arr = torch.from_numpy(arrays[key])
                 if dtypes[key] == "bfloat16":
                     arr = arr.view(torch.bfloat16)
+                sh = specs.get(path)
+                if sh is not None and sh.shards > 1:
+                    arr = shard_param(arr, sh.spec, sh.mesh, rank,
+                                      sh.groups)
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"checkpoint leaf {key}: shape "
                                      f"{tuple(arr.shape)}, the target's "

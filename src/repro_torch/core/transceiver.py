@@ -95,3 +95,9 @@ def settle(state: XcvrState, sw_req, tx_pending, rx_strobe,
     return XcvrState(mode=tx_now.to(_I32), sw_ack=ack.to(_I32),
                      rx_p=rx_p & (is_rx | tx_now),
                      burst=state.burst * (tx_now == is_tx))
+
+
+def note_transmit(state: XcvrState) -> XcvrState:
+    """Record one event sent in the current TX tenure (burst
+    accounting): ``burst`` one higher, the rest as it was."""
+    return state._replace(burst=state.burst + 1)

@@ -13,10 +13,11 @@ Per cell:
                 ``LM.score`` for an encoder;
   decode_*   -> one ``LM.decode_step`` against a ``seq_len``-deep cache.
 
-Per-device numbers.  The port executes data parallelism only (a model
-axis past 1 and FSDP wait for ROADMAP A.11d), so the dry-run does not
-execute the mesh: it traces the global program, as the reference's SPMD
-program is global, and accounts for the mesh as that program does.
+Per-device numbers.  The dry-run does not execute the mesh (the
+trainer runs a model axis and FSDP over process groups of ranks, not
+over an abstract mesh): it traces the global program, as the
+reference's SPMD program is global, and accounts for the mesh as that
+program does.
 
   memory       ``argument_size_in_bytes`` sums each argument's bytes on
                one device (parameters, AdamW's moments, the AER
@@ -32,9 +33,9 @@ program is global, and accounts for the mesh as that program does.
   collectives  only those the port's step issues: the data-parallel
                reduction of ``dp_reduce`` and the metrics' mean, recorded
                by the abstract mesh's ``RecordingGroup``.  The
-               all-gathers, reduce-scatters and activation all-reduces a
-               model axis or FSDP would need are not issued until A.11d:
-               such a cell's record says so in ``collectives_incomplete``.
+               all-gathers, reduce-scatters and activation all-reduces of
+               a model axis or FSDP are not traced (ROADMAP A.11e): such
+               a cell's record says so in ``collectives_incomplete``.
 
 Outputs, one a cell: ``experiments/dryrun_torch/<arch>--<shape>--<mesh>
 [--tag].json`` with the reference's record keys (plus ``counter`` and
@@ -86,7 +87,8 @@ MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
                "temp_size_in_bytes", "generated_code_size_in_bytes")
 #: what a cell with a model axis past 1 or FSDP records of its
 #: collectives
-INCOMPLETE = "model axis and FSDP wait for ROADMAP A.11d"
+INCOMPLETE = ("the model axis's and FSDP's collectives are not traced "
+              "(ROADMAP A.11e)")
 COUNTER = "torch_dispatch_meta"
 
 

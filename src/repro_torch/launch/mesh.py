@@ -5,7 +5,9 @@ touches no process group).
 ``make_host_mesh(data, model)`` lays a ``("data", "model")`` mesh over
 the ranks of the initialised default group (one process a rank, e.g.
 under ``torchrun``), as the reference lays it over however many host
-devices exist.  ``make_production_mesh`` returns the reference's
+devices exist, with this process's data-parallel group
+(``mesh.dp_group``, the ranks of its model coordinate) and model-axis
+group (``mesh.model_group``, the ranks of its data coordinate).  ``make_production_mesh`` returns the reference's
 production meshes (256 and 512 chips) as abstract meshes: shapes and
 names only, no process group, what the dry-run traces against.
 """
@@ -32,7 +34,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_host_mesh(data: int = 1, model: int = 1):
     """A small ``(data, model)`` mesh over the world's first
-    ``data * model`` ranks."""
+    ``data * model`` ranks, with its process groups (every process of
+    the world calls it, as it creates groups)."""
     n = dist.get_world_size()
     assert data * model <= n, (data, model, n)
     return make_mesh((data, model), ("data", "model"))

@@ -10,9 +10,9 @@ Reads ``experiments/dryrun_torch/<arch>--<shape>--<mesh>[--tag].json``
 
 plus MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE) and the useful
 share of the counted flops.  A cell whose record carries
-``collectives_incomplete`` (a model axis past 1, or FSDP: their
-collectives wait for ROADMAP A.11d) prints its collective term as a
-lower bound, ``≥``.
+``collectives_incomplete`` (a model axis past 1, or FSDP: the dry-run
+does not trace their collectives yet, ROADMAP A.11e) prints its
+collective term as a lower bound, ``≥``.
 
 The constants are NVIDIA H100 80GB HBM3 SXM data-sheet figures (dense,
 at the 700 W limit), none measured here and none a TPU's:
@@ -166,7 +166,7 @@ def load_cells(mesh="pod", tag=None, dryrun_dir=DRYRUN_DIR) -> list:
 
 def table(cells) -> str:
     """A markdown table a cell; ``≥`` marks a collective term that
-    lacks the collectives of A.11d."""
+    lacks the model axis's and FSDP's collectives."""
     hdr = ["arch", "shape", "dominant", "t_comp(ms)", "t_mem(ms)",
            "t_coll(ms)", "roofline", "useful"]
     lines = ["| " + " | ".join(hdr) + " |", "|" + "---|" * len(hdr)]

@@ -18,9 +18,23 @@ reference's ``shard_activation`` annotations are kept at its places: a
 no-op unless sharding rules are installed (the dry-run installs them,
 and its counter reads the axes).  Attention is PyTorch ops tile for tile, as the
 reference's jnp; no fused attention library call is on the path.
+
+Under a model axis (``par``, a sharded model's
+``parallel.tensor_parallel.Parallel``; ``None`` on one rank) each rank
+holds its shard of every split parameter and the functions here run the
+collectives GSPMD inserts for the reference: the vocab-parallel
+embedding (out-of-shard ids masked, the rows summed over the model
+group), attention over this rank's query heads (its key/value heads, or
+all of them gathered over the model group when the kv heads do not
+split though their weights do, then the ones its query heads read),
+the column- and row-parallel FFN, and the vocab-parallel head and
+cross-entropy (max and log-sum-exp over the model group; padded ids
+masked by their global id).
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 import torch.nn.functional as F
@@ -124,11 +138,21 @@ def embed_init(p: Embed, generator: torch.Generator) -> None:
     p.table.copy_(_normal(generator, p.table.shape, 0.02, p.table.dtype))
 
 
-def embed(p: Embed, tokens: torch.Tensor,
-          compute_dtype: torch.dtype) -> torch.Tensor:
+def embed(p: Embed, tokens: torch.Tensor, compute_dtype: torch.dtype,
+          par=None) -> torch.Tensor:
+    """Rows of ``p.table`` for ``tokens``; over a model axis (``par``)
+    the table holds this rank's block of ids, the others' rows are
+    zeros, and the rows are summed over the model group."""
+    table = p.table
     # gather, then cast: the values of the reference's cast-then-gather,
     # without a compute-dtype copy of the whole table each call
-    return p.table[tokens.long()].to(compute_dtype)
+    if par is None or par.tp == 1:
+        return table[tokens.long()].to(compute_dtype)
+    n = table.shape[0]
+    ids = tokens.long() - par.tp_rank * n
+    mine = (ids >= 0) & (ids < n)
+    rows = torch.where(mine[..., None], table[ids.clamp(0, n - 1)], 0.0)
+    return par.reduce(rows).to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -331,57 +355,109 @@ def attn_init(p: Attention, cfg, generator: torch.Generator) -> None:
                 scale=(H * dh) ** -0.5 / (2 * cfg.n_layers) ** 0.5)
 
 
+def _kv_weight(par, w: torch.Tensor, K: int, dh: int) -> torch.Tensor:
+    """A key/value weight as a model-axis rank uses it: its shard, or the
+    whole weight through *f* when the rules keep it whole (its gradient
+    from this rank's heads is a part of the whole)."""
+    return par.copy(w) if w.shape[1] == K * dh else w
+
+
+def _local_kv(par, k: torch.Tensor, H: int, K: int) -> torch.Tensor:
+    """This rank's query heads' keys (or values): ``k`` (B, S, K', dh)
+    holds this rank's K / tp heads, or all K of them when K does not
+    split over the model axis; rank r's query heads are r·H/tp ..
+    (r+1)·H/tp - 1, and query head h reads kv head h // (H / K)."""
+    if k.shape[2] != K:                      # this rank's kv heads
+        return k
+    hq, G = H // par.tp, H // K
+    h0 = par.tp_rank * hq
+    if G % hq == 0:                          # all in one kv head
+        return k[:, :, h0 // G:h0 // G + 1]
+    return k[:, :, torch.arange(h0, h0 + hq, device=k.device) // G]
+
+
 def _project_qkv(p: Attention, cfg, x, kv_src, positions,
-                 use_rope: bool = True):
+                 use_rope: bool = True, par=None):
     """q (B, S, H, dh) from ``x``, k and v (B, S, K, dh) from ``kv_src``,
     in the compute dtype, after qk-norm and (``use_rope``, self-attention
-    only) RoPE at ``positions``."""
+    only) RoPE at ``positions``.  Over a model axis (``par``), this
+    rank's H / tp query heads and the key/value heads they read (a
+    query head's group size is then q's heads over k's)."""
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     cd = cfg.compute_dtype
-    q = linear(p.wq.w, x, cd).reshape(B, -1, H, dh)
-    k = linear(p.wk.w, kv_src, cd).reshape(B, -1, K, dh)
-    v = linear(p.wv.w, kv_src, cd).reshape(B, -1, K, dh)
+    tp = par is not None and par.tp > 1
+    wk, wv, qn, kn = p.wk.w, p.wv.w, getattr(p, "qn", None), \
+        getattr(p, "kn", None)
+    if tp:
+        if H % par.tp:
+            raise ValueError(f"{H} query heads do not split over "
+                             f"{par.tp} model-axis ranks")
+        wk, wv = _kv_weight(par, wk, K, dh), _kv_weight(par, wv, K, dh)
+        if cfg.qk_norm:
+            qn = types.SimpleNamespace(scale=par.copy(qn.scale))
+            kn = types.SimpleNamespace(scale=par.copy(kn.scale))
+    q = linear(p.wq.w, x, cd)
+    k, v = linear(wk, kv_src, cd), linear(wv, kv_src, cd)
+    if tp and k.shape[-1] != K * dh and K % par.tp:
+        # weights split, heads not: every rank takes all K heads
+        k, v = par.gather(k, -1), par.gather(v, -1)
+    q = q.reshape(B, -1, q.shape[-1] // dh, dh)
+    k = k.reshape(B, -1, k.shape[-1] // dh, dh)
+    v = v.reshape(B, -1, v.shape[-1] // dh, dh)
     if cfg.qk_norm:
-        q = rmsnorm(p.qn, q, cfg.norm_eps)
-        k = rmsnorm(p.kn, k, cfg.norm_eps)
+        q = rmsnorm(qn, q, cfg.norm_eps)
+        k = rmsnorm(kn, k, cfg.norm_eps)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q = shard(q, ("batch", None, "heads_q", None))
     k = shard(k, ("batch", None, "heads_kv", None))
     v = shard(v, ("batch", None, "heads_kv", None))
+    if tp:
+        k, v = _local_kv(par, k, H, K), _local_kv(par, v, H, K)
     return q, k, v
 
 
-def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None):
+def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
+          par=None):
     """Full-sequence attention: ``(out (B, S, D), k, v)``; prefill
     keeps a self-attention layer's k and v for its cache (the reference
     projects them again).  With ``kv_src`` (B, Skv, D) it is
     cross-attention, as the reference runs it: keys and values from
-    ``kv_src``, no RoPE on q or k, never causal."""
+    ``kv_src``, no RoPE on q or k, never causal.  Over a model axis
+    (``par``) the rank's heads run and ``wo``'s partial products are
+    summed over the model group."""
     B, S, _ = x.shape
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
     causal = cfg.causal if causal is None else causal
     cross = kv_src is not None
+    tp = par is not None and par.tp > 1
+    if tp:
+        x = par.copy(x)
+        kv_src = par.copy(kv_src) if cross else None
     q, k, v = _project_qkv(p, cfg, x, kv_src if cross else x, positions,
-                           use_rope=not cross)
-    q = q.reshape(B, S, K, H // K, dh)
+                           use_rope=not cross, par=par)
+    H = q.shape[2]                   # this rank's query heads
+    q = q.reshape(B, S, k.shape[2], H // k.shape[2], dh)
     qc = cfg.q_chunk or min(1024, S)
     kc = cfg.kv_chunk or min(1024, k.shape[1])
     out = flash_attention(q, k, v, causal=causal and not cross,
                           window=cfg.sliding_window, q_chunk=qc,
                           kv_chunk=kc)
     out = linear(p.wo.w, out.reshape(B, S, H * dh), cfg.compute_dtype)
+    if tp:
+        out = par.reduce(out)
     return shard(out, ("batch", "seq_sp", "embed")), k, v
 
 
 def attn_apply(p: Attention, cfg, x, positions, *, causal=None,
-               kv_src=None) -> torch.Tensor:
+               kv_src=None, par=None) -> torch.Tensor:
     """Full-sequence attention (train / prefill). x: (B, S, D); causal
     ``None`` means ``cfg.causal``; ``kv_src`` (B, Skv, D) makes it
-    cross-attention."""
-    return _attn(p, cfg, x, positions, causal=causal, kv_src=kv_src)[0]
+    cross-attention; ``par`` runs it over a model axis."""
+    return _attn(p, cfg, x, positions, causal=causal, kv_src=kv_src,
+                 par=par)[0]
 
 
 def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None):
@@ -505,13 +581,21 @@ def ffn_init(p: FFN, cfg, generator: torch.Generator) -> None:
                 scale=cfg.d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5)
 
 
-def ffn_apply(p: FFN, cfg, x: torch.Tensor) -> torch.Tensor:
+def ffn_apply(p: FFN, cfg, x: torch.Tensor, par=None) -> torch.Tensor:
+    """The FFN; over a model axis (``par``) ``wi`` / ``wg`` are
+    column-parallel and ``wo`` row-parallel, its partial products
+    summed over the model group."""
     act = _ACTS[cfg.act]
     cd = cfg.compute_dtype
+    if par is not None:
+        x = par.copy(x)
     h = linear(p.wi.w, x, cd)
     h = act(linear(p.wg.w, x, cd)) * h if hasattr(p, "wg") else act(h)
     h = shard(h, ("batch", None, "ff"))
-    return shard(linear(p.wo.w, h, cd), ("batch", "seq_sp", "embed"))
+    out = linear(p.wo.w, h, cd)
+    if par is not None:
+        out = par.reduce(out)
+    return shard(out, ("batch", "seq_sp", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -530,21 +614,41 @@ def head_init(p: Head, cfg, generator: torch.Generator) -> None:
                       p.w.dtype))
 
 
-def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+def mask_padded_vocab(logits: torch.Tensor, vocab: int,
+                      offset: int = 0) -> torch.Tensor:
+    """Padded ids (global id ``offset + i`` at or past ``vocab``) to
+    -1e9; ``offset`` places a vocab-parallel shard of the logits."""
     v_pad = logits.shape[-1]
-    if v_pad == vocab:
+    if offset + v_pad <= vocab:
         return logits
-    live = torch.arange(v_pad, device=logits.device) < vocab
+    live = torch.arange(offset, offset + v_pad, device=logits.device) < vocab
     return logits + torch.where(live, 0.0, -1e9).to(logits.dtype)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask=None) -> torch.Tensor:
-    """Mean token NLL in float32. logits: (B, S, V); labels: (B, S)."""
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
+               par=None) -> torch.Tensor:
+    """Float32 ``logsumexp - gold`` a position; over a model axis the
+    logits are this rank's block of ids, the maximum, the sum of
+    exponentials and the gold logit taken over the model group."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    if par is None or par.tp == 1:
+        logz = torch.logsumexp(logits, -1)
+        return logz - logits.gather(-1, labels.long()[..., None])[..., 0]
+    n = logits.shape[-1]
+    m = par.max(logits.amax(-1))
+    logz = m + torch.log(par.reduce(torch.exp(logits - m[..., None])
+                                    .sum(-1)))
+    ids = labels.long() - par.tp_rank * n
+    mine = (ids >= 0) & (ids < n)
+    gold = logits.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    return logz - par.reduce(torch.where(mine, gold, 0.0))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None, par=None) -> torch.Tensor:
+    """Mean token NLL in float32. logits: (B, S, V), or a model-axis
+    rank's vocab block of them (``par``); labels: (B, S)."""
+    nll = _token_nll(logits, labels, par)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -552,16 +656,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_nll(head_fn, hc: torch.Tensor, lc: torch.Tensor,
-               mc: torch.Tensor):
+               mc: torch.Tensor, par=None):
     """One chunk's ``(Σ masked NLL, Σ mask)``, its logits in float32."""
-    logits = head_fn(hc).float()
-    logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, lc.long()[..., None])[..., 0]
-    return ((logz - gold) * mc).sum(), mc.sum()
+    return (_token_nll(head_fn(hc), lc, par) * mc).sum(), mc.sum()
 
 
 def chunked_cross_entropy(head_fn, h: torch.Tensor, labels: torch.Tensor,
-                          mask=None, chunk: int = 256) -> torch.Tensor:
+                          mask=None, chunk: int = 256,
+                          par=None) -> torch.Tensor:
     """Sequence-chunked NLL, the reference's ``chunked_cross_entropy``:
     per chunk of ``chunk`` positions, project the hidden states to
     logits with ``head_fn``, take the masked NLL sum, and drop the
@@ -572,7 +674,8 @@ def chunked_cross_entropy(head_fn, h: torch.Tensor, labels: torch.Tensor,
     multiple of ``chunk`` with label 0 and mask 0 (no mask given: ones
     over the real positions), and the sums are carried chunk by chunk in
     order, as the reference's scan carries them.  Returns the float32
-    mean over the mask (at least 1)."""
+    mean over the mask (at least 1).  Over a model axis (``par``)
+    ``head_fn`` gives this rank's vocab block of the logits."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -586,7 +689,7 @@ def chunked_cross_entropy(head_fn, h: torch.Tensor, labels: torch.Tensor,
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, h.shape[1], chunk):
         part = (head_fn, h[:, i:i + chunk], labels[:, i:i + chunk],
-                mask[:, i:i + chunk])
+                mask[:, i:i + chunk], par)
         if torch.is_grad_enabled():
             nll_sum, m_sum = checkpoint(_chunk_nll, *part,
                                         use_reentrant=False)

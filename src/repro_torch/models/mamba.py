@@ -9,6 +9,16 @@ its plain time-step loop.  Decode is the O(1) recurrence in plain
 PyTorch (no kernel in the reference either) with a (d_conv-1)-deep
 convolution cache.  The reference's ``shard_activation`` annotations
 are kept at its places (no-ops unless sharding rules are installed).
+
+Over a model axis (``par``) each rank holds its block of the
+``d_inner`` channels (``mamba_inner``): ``in_proj`` is column-parallel
+with the same channels of ``x`` and of ``z`` (``MAMBA_AXES`` names its
+two interleaved groups), the conv, ``dt_proj``, ``dt_bias``, ``A_log``
+and ``D_skip`` are the channels' own, ``x_proj`` is row-parallel (its
+partial products summed over the model group before the dt / B / C
+split, and the gradient of that sum summed back: every rank's channels
+read all of dt_low, B and C), B7 and its backward run on the rank's
+``d_inner / tp`` channels, and ``out_proj`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..parallel.sharding import Axes
 from ..parallel.sharding import shard_activation as shard
 from .layers import _normal, linear, param
 
@@ -56,9 +67,10 @@ class Mamba(nn.Module):
 
 
 #: the logical axes of a ``Mamba``'s parameters (the reference's
-#: ``mamba_init`` axes)
+#: ``mamba_init`` axes); ``in_proj``'s second dimension holds ``x`` and
+#: ``z``, two groups a model-axis shard takes the same channels of
 MAMBA_AXES = {
-    "in_proj": ("embed", "mamba_inner"),
+    "in_proj": Axes(("embed", "mamba_inner"), groups=(1, 2)),
     "conv_w": ("none", "mamba_inner"),
     "conv_b": ("mamba_inner",),
     "x_proj": ("mamba_inner", "none"),
@@ -102,12 +114,15 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
     return v.clamp(min=0) + torch.log1p(torch.exp(-v.abs()))
 
 
-def _ssm_inputs(p: Mamba, cfg, x_conv: torch.Tensor):
+def _ssm_inputs(p: Mamba, cfg, x_conv: torch.Tensor, par=None):
     """x_conv: (..., d_in) -> dt (..., d_in), B/C (..., N), float32 (the
     reference computes these products in float32, not the compute
-    dtype)."""
+    dtype).  Over a model axis ``x_proj``'s partial products are summed
+    over the model group, and so is their gradient."""
     R, N = cfg.dt_rank, cfg.mamba.d_state
     bcd = x_conv.float() @ p.x_proj.float()
+    if par is not None:
+        bcd = par.copy(par.reduce(bcd))
     dt_low, b_ssm, c_ssm = torch.split(bcd, [R, N, N], dim=-1)
     dt = softplus(dt_low @ p.dt_proj.float() + p.dt_bias)
     return dt, b_ssm, c_ssm
@@ -131,16 +146,18 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor):
+def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor, par=None):
     m = cfg.mamba
     cd = cfg.compute_dtype
     S = x.shape[1]
+    if par is not None:
+        x = par.copy(x)
     xz = linear(p.in_proj, x, cd)
     x_part, z = xz.chunk(2, dim=-1)
     x_part = shard(x_part, ("batch", None, "mamba_inner"))
     x_conv = F.silu(_causal_depthwise_conv(
         x_part.float(), p.conv_w.float(), p.conv_b.float()))
-    dt, b_ssm, c_ssm = _ssm_inputs(p, cfg, x_conv)
+    dt, b_ssm, c_ssm = _ssm_inputs(p, cfg, x_conv, par)
     a = -torch.exp(p.A_log)
     # B7 takes contiguous operands; B and C are views into one product
     y, h_final = ops.selective_scan(x_conv, dt, b_ssm.contiguous(),
@@ -148,14 +165,18 @@ def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor):
     y = y + x_conv * p.D_skip
     y = (y * F.silu(z.float())).to(cd)
     y = shard(y, ("batch", None, "mamba_inner"))
-    out = shard(linear(p.out_proj, y, cd), ("batch", "seq_sp", "embed"))
+    out = linear(p.out_proj, y, cd)
+    if par is not None:
+        out = par.reduce(out)
+    out = shard(out, ("batch", "seq_sp", "embed"))
     conv_state = x_part[:, S - (m.d_conv - 1):].float()
     return out, h_final, conv_state
 
 
-def mamba_apply(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence Mamba block. x: (B, S, D) -> (B, S, D)."""
-    return _mamba_fwd(p, cfg, x)[0]
+def mamba_apply(p: Mamba, cfg, x: torch.Tensor, par=None) -> torch.Tensor:
+    """Full-sequence Mamba block. x: (B, S, D) -> (B, S, D); ``par``
+    runs it over a model axis."""
+    return _mamba_fwd(p, cfg, x, par)[0]
 
 
 def mamba_prefill(p: Mamba, cfg, x: torch.Tensor):

@@ -31,6 +31,15 @@ audio frames) plus the MoE losses, through the sequence-chunked
 cross-entropy when the full (B, S, V) logits would be large.  The
 reference's ``shard_activation`` annotations are kept at its places
 (no-ops unless sharding rules are installed).
+
+A model cut to one rank's shards (``parallel.tensor_parallel
+.shard_model``, by the trainer over a ``(data, model)`` mesh) has its
+``parallel`` set; ``loss`` then runs the sharded forward: the
+top-level leaves gathered over the data group where FSDP splits them,
+the vocab-parallel embedding, the stack over the mesh and the
+vocab-parallel head and cross-entropy.  Serving and scoring run whole
+models only: ``forward``, ``prefill`` and ``decode_step`` of a sharded
+model raise (ROADMAP A.11e).
 """
 
 from __future__ import annotations
@@ -61,6 +70,8 @@ class LM(nn.Module):
                              f"embedding, which audio frames do not have")
         dev = resolve_device(device)
         self.cfg = cfg
+        #: the mesh context of a sharded model (``shard_model``)
+        self.parallel = None
         if cfg.modality != "audio_frames":
             self.embed = L.Embed(cfg.vocab, cfg.d_model, cfg.param_dtype,
                                  device=dev)
@@ -118,14 +129,33 @@ class LM(nn.Module):
                                  f"{sorted(set(out) ^ names)}")
         return {n: out[n] for n, _ in self.named_parameters()}
 
-    def _head_raw(self, h: torch.Tensor) -> torch.Tensor:
+    def _leaf(self, p: torch.Tensor) -> torch.Tensor:
+        """A top-level parameter as the forward reads it: gathered over
+        the data group where FSDP splits it."""
+        return p if self.parallel is None else self.parallel.fsdp(p)
+
+    def _head_w(self) -> torch.Tensor:
+        """``head.w``, or ``embed.table.T`` when tied (gathered over the
+        data group under FSDP; over a model axis, this rank's block of
+        vocab ids)."""
+        if self.cfg.tie_embeddings:
+            return self._leaf(self.embed.table).T
+        return self._leaf(self.head.w)
+
+    def _head_raw(self, h: torch.Tensor, w=None) -> torch.Tensor:
         """The head projection WITHOUT the final norm (a pre-normed
-        input): ``h @ head.w``, or ``h @ embed.table.T`` when tied, in
-        the compute dtype, padded vocab ids masked."""
+        input): ``h @ w`` (default ``_head_w()``) in the compute dtype,
+        padded vocab ids masked.  Over a model axis ``h`` enters through
+        *f* and the logits are this rank's vocab block."""
         cfg = self.cfg
-        w = self.embed.table.T if cfg.tie_embeddings else self.head.w
+        par = self.parallel
+        w = self._head_w() if w is None else w
+        offset = 0
+        if par is not None:
+            h = par.copy(h)
+            offset = par.tp_rank * w.shape[1]
         logits = L.mask_padded_vocab(L.linear(w, h, cfg.compute_dtype),
-                                     cfg.vocab)
+                                     cfg.vocab, offset)
         return shard(logits, ("batch", None, "vocab")) \
             if logits.dim() == 3 else logits
 
@@ -139,18 +169,29 @@ class LM(nn.Module):
         cfg = self.cfg
         cd = cfg.compute_dtype
         if cfg.modality == "audio_frames":
-            h = L.linear(self.frontend.w, batch["frames"], cd)
+            h = L.linear(self._leaf(self.frontend.w), batch["frames"], cd)
         else:
-            h = L.embed(self.embed, batch["tokens"], cd)
+            emb = self.embed if self.parallel is None \
+                else self.parallel.view(self.embed)
+            h = L.embed(emb, batch["tokens"], cd, self.parallel)
         img = None
         if cfg.modality == "image+text":
-            img = L.linear(self.frontend.w, batch["img_embed"], cd)
+            img = L.linear(self._leaf(self.frontend.w), batch["img_embed"],
+                           cd)
             img = shard(img, ("batch", None, "embed"))
         B, S = h.shape[:2]
         h = shard(h, ("batch", "seq_sp", "embed"))
         return h, torch.arange(S, device=h.device).expand(B, S), img
 
+    def _whole_only(self) -> None:
+        if self.parallel is not None:
+            raise NotImplementedError(
+                "serving or scoring a sharded model (cut to one rank's "
+                "shards by shard_model) waits for ROADMAP A.11e; the "
+                "sharded model trains through loss()")
+
     def forward(self, batch: dict):
+        self._whole_only()
         h, positions, img = self._embed_inputs(batch)
         h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img)
         return self._head(h), aux
@@ -174,18 +215,22 @@ class LM(nn.Module):
         ``z_loss``, ``drop_frac`` and ``loss`` (the total), float32
         scalars."""
         cfg = self.cfg
+        par = self.parallel
         mask = batch.get("mask")
         labels = batch["labels"]
         chunk = self._loss_chunk(labels.shape[1])
+        h, positions, img = self._embed_inputs(batch)
+        h, aux = T.stack_apply(self.stack, cfg, h, positions, img, par)
+        ln_f = self.ln_f if par is None else par.view(self.ln_f)
+        h = L.rmsnorm(ln_f, h, cfg.norm_eps)
+        # the head weight gathered once, outside the chunks' checkpoints
+        w = self._head_w()
         if chunk:
-            h, positions, img = self._embed_inputs(batch)
-            h, aux = T.stack_apply(self.stack, cfg, h, positions, img)
-            h = L.rmsnorm(self.ln_f, h, cfg.norm_eps)
-            nll = L.chunked_cross_entropy(self._head_raw, h, labels, mask,
-                                          chunk)
+            nll = L.chunked_cross_entropy(
+                lambda hc: self._head_raw(hc, w), h, labels, mask, chunk,
+                par)
         else:
-            logits, aux = self.forward(batch)
-            nll = L.cross_entropy(logits, labels, mask)
+            nll = L.cross_entropy(self._head_raw(h, w), labels, mask, par)
         total = nll + aux["aux_loss"] + aux["z_loss"]
         metrics = {"nll": nll, "aux_loss": aux["aux_loss"],
                    "z_loss": aux["z_loss"], "drop_frac": aux["drop_frac"],
@@ -203,6 +248,7 @@ class LM(nn.Module):
     def prefill(self, batch: dict, max_len=None):
         """Returns (logits for the last position (B, 1, V), decode
         cache)."""
+        self._whole_only()
         h, positions, img = self._embed_inputs(batch)
         h, cache = T.stack_prefill(self.stack, self.cfg, h, positions, img,
                                    max_len=max_len)
@@ -211,6 +257,7 @@ class LM(nn.Module):
     def decode_step(self, cache: list, tokens: torch.Tensor, pos):
         """tokens: (B, 1) int; pos: (B,) absolute positions."""
         cfg = self.cfg
+        self._whole_only()
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only (causal=False): "
                              f"it is scored (LM.score), not decoded")

@@ -12,6 +12,23 @@ gated output is added back to its token.  The reference's expert
 sharding layouts (``cfg.moe.layout``) run the same way on one card; its
 ``shard_activation`` annotations are kept at its places (no-ops unless
 sharding rules are installed).
+
+Over a model axis (``par``) the router, the capacity dispatch and the
+expert buffers are computed whole on every rank, and the buffers enter
+the split part through *f*.  ``layout="tp"`` splits ``ff`` inside
+every expert (each rank's partial expert outputs are summed over the
+model group before the combine); ``layout="ep"`` splits the experts
+(each rank runs and combines its block of experts, their slot gates
+through *f*, and the combined outputs are summed over the model
+group).
+
+On a mesh each rank routes its rows of the batch, and the load-balance
+loss takes each expert's share of the tokens (``f_e``, no gradient)
+over the whole data-parallel batch, as the reference's ``psum`` step
+computes it on the global batch: with each rank's own ``p_e`` the
+ranks' mean loss and gradient are the global batch's.  Every
+``dp_reduce`` mode uses it, so the mode changes only the gradient
+reduction (the reference's manual modes raise for MoE, ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -75,9 +92,10 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: MoE, cfg, x: torch.Tensor):
+def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
     """x: (B, S, D) -> (out, aux) with aux = {aux_loss, z_loss,
-    drop_frac}, float32 scalars."""
+    drop_frac}, float32 scalars; ``par`` runs the experts over a model
+    axis."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -123,6 +141,15 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor):
     buf = torch.where(slot_valid[..., None], buf, 0.0).to(cd)
     ep = m.layout == "ep"
     buf = shard(buf, ("batch", "experts" if ep else None, None, None))
+    tp = par is not None and par.tp > 1
+    if tp:
+        buf = par.copy(buf)
+        if ep:                     # this rank's block of experts
+            slot_gate = par.copy(slot_gate)
+            e0 = par.tp_rank * p.wi.shape[0]
+            cut = slice(e0, e0 + p.wi.shape[0])
+            buf, slot_gate, slot_tok = (buf[:, cut], slot_gate[:, cut],
+                                        slot_tok[:, cut])
 
     # expert FFN (batched products)
     h = torch.einsum("becd,edf->becf", buf, p.wi.to(cd))
@@ -131,6 +158,8 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor):
     h = shard(h, ("batch", "experts" if ep else None, None,
                   None if ep else "ff"))
     y = torch.einsum("becf,efd->becd", h, p.wo.to(cd))     # (B, E, C, D)
+    if tp and not ep:
+        y = par.reduce(y)
     y = shard(y, ("batch", "experts" if ep else None, None, None))
 
     # combine: weight each slot's output by its gate, then add it back to
@@ -140,10 +169,14 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor):
             ).reshape(-1)
     out = torch.zeros((B * S, D), dtype=cd, device=dev).index_add_(
         0, flat, contrib.reshape(-1, D)).reshape(B, S, D)
+    if tp and ep:
+        out = par.reduce(out)
     out = shard(out, ("batch", "seq_sp", "embed"))
 
     # aux losses (Switch-style load balance + router z-loss)
     frac_tok = oh.float().sum(2).mean((0, 1))                # f_e
+    if par is not None and par.dp > 1:
+        frac_tok = par.data_mean(frac_tok)
     frac_prob = probs.mean((0, 1))                           # p_e
     aux = E * torch.sum(frac_tok * frac_prob) * m.aux_loss
     z = torch.mean(torch.logsumexp(logits, -1) ** 2) * m.router_z_loss

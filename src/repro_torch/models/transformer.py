@@ -27,6 +27,14 @@ does, one pattern period (the reference's scan body) at a time:
 matrix products' outputs and recomputes the rest (a selective
 checkpoint whose policy saves ``aten.mm`` and ``aten.bmm``), ``"none"``
 keeps everything; the values are the same under each.
+
+A sharded model's training forward (``stack_apply(..., par=)``, the
+model's ``parallel.tensor_parallel.Parallel``) passes ``par`` to every
+block: each block reads its weights from ``par.view(block)``, which
+gathers its FSDP leaves over the data group inside the checkpointed
+function (the recompute gathers them again, so no gathered weight
+outlives its block), and its mixer and FFN or MoE run over the model
+axis.
 """
 
 from __future__ import annotations
@@ -157,37 +165,42 @@ def _gated(blk: Block, mix: torch.Tensor) -> torch.Tensor:
     return torch.tanh(blk.xgate).to(mix.dtype) * mix
 
 
-def _channel_mix(blk: Block, cfg, x: torch.Tensor):
+def _channel_mix(blk: Block, cfg, x: torch.Tensor, par=None):
     """``x + ffn_or_moe(ln2(x))`` and the MoE's aux dict (None for an
     FFN or a bare ``mamba`` block, which has no channel mix)."""
     if blk.kind == "mamba":
         return x, None
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
     if blk.kind.endswith("_ffn"):
-        return x + L.ffn_apply(blk.ffn, cfg, h), None
-    y, aux = MOE.moe_apply(blk.moe, cfg, h)
+        return x + L.ffn_apply(blk.ffn, cfg, h, par), None
+    y, aux = MOE.moe_apply(blk.moe, cfg, h, par)
     return x + y, aux
 
 
-def _block_apply(blk: Block, cfg, x: torch.Tensor, positions, img):
+def _block_apply(blk: Block, cfg, x: torch.Tensor, positions, img,
+                 par=None):
     """One block's full-sequence forward: ``(x, aux or None)``."""
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
     if blk.kind.startswith("xattn"):
         mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,
-                                       kv_src=img, causal=False))
+                                       kv_src=img, causal=False, par=par))
     elif blk.kind.startswith("attn"):
-        mix = L.attn_apply(blk.attn, cfg, h, positions)
+        mix = L.attn_apply(blk.attn, cfg, h, positions, par=par)
     else:
-        mix = M.mamba_apply(blk.mamba, cfg, h)
-    return _channel_mix(blk, cfg, x + mix)
+        mix = M.mamba_apply(blk.mamba, cfg, h, par)
+    return _channel_mix(blk, cfg, x + mix, par)
 
 
 def _period_apply(blocks, cfg, x: torch.Tensor, aux: dict, positions,
-                  img):
-    """The blocks of one pattern period, the aux sums carried through."""
+                  img, par=None):
+    """The blocks of one pattern period, the aux sums carried through;
+    under ``par`` each block's FSDP leaves are gathered here, inside
+    the period's checkpointed function."""
     x = shard(x, ("batch", "seq_sp", "embed"))
     for blk in blocks:
-        x, aux_b = _block_apply(blk, cfg, x, positions, img)
+        if par is not None:
+            blk = par.view(blk)
+        x, aux_b = _block_apply(blk, cfg, x, positions, img, par)
         if aux_b is not None:
             aux = {k: aux[k] + aux_b[k] for k in AUX_KEYS}
     return x, aux
@@ -203,11 +216,13 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None):
+def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
+                par=None):
     """Full-sequence forward. x: (B, S, D); positions (B, S); img (B,
     n_img, D), the projected image tokens, for cross-attention -> (x,
     aux sums over layers, float32 scalars, summed in layer order).
-    Under autograd each pattern period runs under ``cfg.remat``."""
+    Under autograd each pattern period runs under ``cfg.remat``;
+    ``par`` (a sharded model's) runs it over the model's mesh."""
     if cfg.remat not in REMAT_POLICIES:
         raise ValueError(f"remat {cfg.remat!r}; the reference has "
                          f"{REMAT_POLICIES}")
@@ -216,7 +231,7 @@ def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None):
     blocks = list(stack.blocks)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     for i in range(0, len(blocks), period):
-        args = (blocks[i:i + period], cfg, x, aux, positions, img)
+        args = (blocks[i:i + period], cfg, x, aux, positions, img, par)
         if remat == "none":
             x, aux = _period_apply(*args)
         elif remat == "full":

@@ -24,6 +24,11 @@ which XLA and PyTorch may round an ulp apart.  On the card PyTorch
 divides by a host scalar as a product with its reciprocal, which may
 round an ulp from the division; the result is still the same bits on
 every run.
+
+On a mesh each rank holds its shard of a split leaf: ``global_norm``
+(and ``update``) take ``split_over``, each such leaf's process groups,
+and sum the leaf's squares over them, counting a leaf that no spec
+splits once.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..parallel.compat import all_reduce
 
 __all__ = ["AdamWState", "init", "global_norm", "clip_by_global_norm",
            "update", "warmup_cosine"]
@@ -52,11 +59,29 @@ def init(params: dict) -> AdamWState:
                       mu=zeros(params), nu=zeros(params))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, split_over=None) -> torch.Tensor:
     """``sqrt(Σ_leaves Σ x²)`` in float32, the leaves in the tree's
-    order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    order.  ``split_over`` maps the name of a leaf held in shards to the
+    process groups its shards span: the squares of the leaves that
+    span the same groups are summed, then over those groups (every
+    rank of them calls this together), and the sums added in the order
+    of their first leaves."""
+    if not split_over:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree.values()))
+    sums, groups = {}, {}
+    for k, x in tree.items():
+        gs = tuple(split_over.get(k, ()))
+        key = tuple(map(id, gs))
+        groups[key] = gs
+        sq = torch.sum(torch.square(x.float()))
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = 0.0
+    for key, s in sums.items():
+        for g in groups[key]:
+            all_reduce(s, g)
+        total = total + s
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):
@@ -68,13 +93,14 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 
 def update(grads: dict, state: AdamWState, params: dict, *, lr, b1=0.9,
-           b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+           b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0,
+           split_over=None):
     """One AdamW step, in place.  Returns ``(params, new_state,
     grad_norm)``; ``params``, the moments and (when clipping) the
     gradients are the tensors passed in, overwritten.  ``lr`` is a float
-    or a 0-d tensor."""
+    or a 0-d tensor; ``split_over`` as ``global_norm`` takes it."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, split_over)
         if grad_clip and grad_clip > 0:
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)

@@ -11,14 +11,22 @@ group to the global rank that point-to-point operations address.
 prod(shape) - 1`` in row-major order, as ``jax.make_mesh`` lays it over
 devices, and makes one process group for each slice along the data
 axes (``"pod"`` and ``"data"``): the ranks that share every other
-coordinate.  ``Mesh.dp_group`` is this process's.  A ``Mesh`` built
+coordinate, and one for each slice along the other axes (the model
+axis): the ranks that share every data coordinate.  ``Mesh.dp_group``
+and ``Mesh.model_group`` are this process's.  A ``Mesh`` built
 directly (``groups=None``) is abstract: it has a shape and names, and
 serves sharding rules and specs without any process group; its
-``dp_group`` is a ``RecordingGroup``, the dry-run's stand-in, whose
-collectives (``all_reduce``, ``all_gather``, ``ppermute`` here) report
+``dp_group`` and ``model_group`` are ``RecordingGroup``s, the dry-run's
+stand-in, whose collectives (``all_reduce``, ``all_gather``,
+``all_gather_dim``, ``reduce_scatter``, ``ppermute`` here) report
 themselves to the active ``launch.cost`` counter and move nothing.
 ``set_mesh`` installs a mesh for the current thread, as ``jax.set_mesh``
 does.
+
+Each collective hands the backend its tensors on ``group_device``: a
+CUDA tensor is staged through host memory under gloo (so several ranks
+can share one card, each its own process), and moves no byte under
+NCCL, where the group's device is the card.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from ..launch import cost
 __all__ = ["axis_size", "axis_index", "global_rank", "Mesh", "make_mesh",
            "set_mesh", "current_mesh", "DP_AXES", "group_device",
            "barrier", "RecordingGroup", "all_reduce", "all_gather",
-           "ppermute"]
+           "all_gather_dim", "reduce_scatter", "ppermute"]
 
 #: the mesh axes data parallelism spans
 DP_AXES = ("pod", "data")
@@ -77,12 +85,24 @@ def axis_index(group=None) -> int:
     return dist.get_rank(group)
 
 
-def all_reduce(t: torch.Tensor, group=None) -> None:
-    """The sum of ``t`` over ``group``, in place."""
+def _staged(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` where ``group``'s backend takes it (``group_device``): the
+    same tensor when it lies there, else a copy."""
+    dev = group_device(group)
+    return t if t.device.type == dev.type else t.to(dev)
+
+
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> None:
+    """The sum (``op="max"``: the maximum) of ``t`` over ``group``, in
+    place."""
     if isinstance(group, RecordingGroup):
         return _recorded("all-reduce", t)
     cost.record_collective("all-reduce", t)
-    dist.all_reduce(t, group=group)
+    s = _staged(t, group)
+    dist.all_reduce(s, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    if s is not t:
+        t.copy_(s)
 
 
 def all_gather(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
@@ -91,7 +111,38 @@ def all_gather(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
     if isinstance(group, RecordingGroup):
         return _recorded("all-gather", out)
     cost.record_collective("all-gather", out)
-    dist.all_gather(list(out.unbind(0)), t, group=group)
+    so = _staged(out, group)
+    dist.all_gather(list(so.unbind(0)), _staged(t, group), group=group)
+    if so is not out:
+        out.copy_(so)
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``, in rank order."""
+    n = axis_size(group)
+    out = t.new_empty((n, *t.shape))
+    all_gather(out, t.contiguous(), group)
+    return torch.cat(out.unbind(0), dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, cut into ``axis_size(group)``
+    equal blocks along ``dim``: this rank's block (rank r, the r-th)."""
+    n = axis_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split into {n} blocks")
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    if isinstance(group, RecordingGroup):
+        _recorded("reduce-scatter", out)
+    else:
+        cost.record_collective("reduce-scatter", out)
+        so = _staged(out, group)
+        dist.reduce_scatter_tensor(so, _staged(x, group), group=group)
+        if so is not out:
+            out.copy_(so)
+    return out.movedim(0, dim)
 
 
 def ppermute(t: torch.Tensor, out: torch.Tensor, to: int, frm: int,
@@ -101,11 +152,14 @@ def ppermute(t: torch.Tensor, out: torch.Tensor, to: int, frm: int,
     if isinstance(group, RecordingGroup):
         return _recorded("collective-permute", out)
     cost.record_collective("collective-permute", out)
-    ops = [dist.P2POp(dist.isend, t.contiguous(), global_rank(group, to),
-                      group),
-           dist.P2POp(dist.irecv, out, global_rank(group, frm), group)]
+    so = _staged(out, group)
+    ops = [dist.P2POp(dist.isend, _staged(t, group).contiguous(),
+                      global_rank(group, to), group),
+           dist.P2POp(dist.irecv, so, global_rank(group, frm), group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    if so is not out:
+        out.copy_(so)
 
 
 def global_rank(group, rank: int) -> int:
@@ -136,11 +190,13 @@ def barrier(group=None) -> None:
 class Mesh:
     """A mesh of ranks: ``shape`` maps each axis name to its size, in
     order, as the reference mesh's ``.shape`` does.  ``groups`` maps the
-    coordinates off the data axes to the process group of that slice
-    (``None`` for an abstract mesh).  Global rank r sits at the
+    coordinates off the data axes to the process group of that slice,
+    ``model_groups`` the coordinates on the data axes to the group of
+    theirs (``None`` for an abstract mesh).  Global rank r sits at the
     row-major coordinate r."""
     shape: dict
     groups: dict | None = field(default=None, compare=False)
+    model_groups: dict | None = field(default=None, compare=False)
 
     @property
     def axis_names(self) -> tuple:
@@ -166,36 +222,60 @@ class Mesh:
         return math.prod(n for a, n in self.shape.items() if a in DP_AXES)
 
     @property
+    def model_size(self) -> int:
+        """Ranks along the other axes (the model axis)."""
+        return self.size // self.dp_size
+
+    def _mine(self, groups: dict, on_dp: bool):
+        c = self.coords(dist.get_rank())
+        return groups[tuple(c[a] for a in self.axis_names
+                            if (a in DP_AXES) == on_dp)]
+
+    @property
     def dp_group(self):
         """This process's data-parallel process group; an abstract
         mesh's is its ``RecordingGroup``."""
         if self.groups is None:
             return RecordingGroup(self.dp_size)
-        c = self.coords(dist.get_rank())
-        return self.groups[tuple(c[a] for a in self.axis_names
-                                 if a not in DP_AXES)]
+        return self._mine(self.groups, on_dp=False)
+
+    @property
+    def model_group(self):
+        """This process's model-axis process group (the ranks sharing
+        its data coordinates); an abstract mesh's is a
+        ``RecordingGroup``."""
+        if self.model_groups is None:
+            return RecordingGroup(self.model_size)
+        return self._mine(self.model_groups, on_dp=True)
 
 
-def _dp_slices(shape: dict) -> dict:
-    """For each coordinate off the data axes, the global ranks of its
-    data-parallel slice, in data-axis order."""
+def _slices(shape: dict, along_dp: bool) -> dict:
+    """The global ranks of each slice along the data axes
+    (``along_dp``; keyed by the other coordinates) or along the other
+    axes (keyed by the data coordinates), in the slice's axis order."""
     names = tuple(shape)
-    others = [n for n in names if n not in DP_AXES]
+    fixed = [n for n in names if (n in DP_AXES) != along_dp]
     out = {}
     for rank, coord in enumerate(itertools.product(
             *(range(shape[n]) for n in names))):
         c = dict(zip(names, coord))
-        out.setdefault(tuple(c[n] for n in others), []).append(rank)
+        out.setdefault(tuple(c[n] for n in fixed), []).append(rank)
     return out
+
+
+def _new_groups(slices: dict, world: int) -> dict:
+    return {key: (dist.group.WORLD if len(ranks) == world
+                  else dist.new_group(ranks))
+            for key, ranks in slices.items()}
 
 
 def make_mesh(shape, axes, axis_types=None) -> Mesh:
     """A mesh of ``shape`` named ``axes`` over the first ``prod(shape)``
     global ranks of the initialised default group, with its data-axis
-    process groups.  Every process of the world must call it, in the
-    same order as its other group creations.  ``axis_types`` is taken
-    for the reference's signature and ignored: every axis of the port is
-    an explicit process group."""
+    and model-axis process groups.  Every process of the world must call
+    it, in the same order as its other group creations.  ``axis_types``
+    is taken for the reference's signature and ignored: every axis of
+    the port is an explicit process group."""
     del axis_types
     shape = dict(zip(axes, shape, strict=True))
     n = math.prod(shape.values())
@@ -203,11 +283,10 @@ def make_mesh(shape, axes, axis_types=None) -> Mesh:
     if n > world:
         raise ValueError(f"mesh {shape} needs {n} ranks, the world has "
                          f"{world}")
-    groups = {}
-    for key, ranks in _dp_slices(shape).items():
-        groups[key] = (dist.group.WORLD if len(ranks) == world
-                       else dist.new_group(ranks))
-    return Mesh(shape=shape, groups=groups)
+    return Mesh(shape=shape,
+                groups=_new_groups(_slices(shape, along_dp=True), world),
+                model_groups=_new_groups(_slices(shape, along_dp=False),
+                                         world))
 
 
 def current_mesh() -> Mesh | None:

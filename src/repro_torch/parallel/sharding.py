@@ -22,14 +22,26 @@ span model.  The default tables are the reference's:
                            "model" when K % tp == 0; kv_seq -> "model"
                            when it is not (the decode cache's fallback)
 
-The port runs one process a rank.  On a mesh whose model axis is 1 each
-process already holds only its rows of the batch, so
-``shard_activation`` has nothing to do and hands the tensor back (under
-the dry-run's ``launch.cost`` counter it tags the tensor with the mesh
-axes its names resolve to, which the counter divides by); the
-execution of specs that split a tensor over several ranks (a model axis
-past 1, FSDP over a data axis past 1) waits for ROADMAP A.11d and is
-refused where a step is built (``runtime.train_loop``).
+The port runs one process a rank, and each process holds only its
+part of what a spec splits: its rows of the batch, and its shard of
+each parameter (``parallel.tensor_parallel.shard_model`` cuts them by
+these specs).  The model code runs the collectives that GSPMD inserts
+for the reference: FSDP gathers a parameter over the data group before
+its block runs and reduce-scatters its gradient; the model axis runs
+Megatron's column- and row-parallel products, the vocab-parallel
+embedding and cross-entropy, and the expert split, with the
+model-group all-reduces (``tensor_parallel``).  So ``shard_activation``
+has nothing to do and hands the tensor back (under the dry-run's
+``launch.cost`` counter it tags the tensor with the mesh axes its names
+resolve to, which the counter divides by).  Sequence parallelism
+(``seq_sp``) is refused where a step is built (ROADMAP A.11e).
+
+An axes tuple may be an ``Axes``, which also names interleaved groups
+of a dimension: Mamba's ``in_proj`` holds ``x`` and ``z`` side by side
+on its ``mamba_inner`` dimension, and each rank's shard takes the same
+channels of both (``groups`` 2 there).  Such an ``Axes`` compares equal
+to the plain tuple, so its spec is the reference's; the ``groups`` ride
+on its ``NamedSharding``.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ from dataclasses import dataclass
 
 from ..launch import cost
 
-__all__ = ["PartitionSpec", "NamedSharding", "Rules", "make_rules",
+__all__ = ["PartitionSpec", "NamedSharding", "Axes", "Rules", "make_rules",
            "use_rules", "current_rules", "shard_activation", "partition_params",
            "param_specs", "is_axes", "mesh_axes"]
 
@@ -58,11 +70,24 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
+class Axes(tuple):
+    """Logical axes of a parameter (a plain tuple to compare and to
+    print) that may carry ``groups``: for each dimension, how many
+    interleaved groups it holds (1: none), each split on its own."""
+
+    def __new__(cls, names, groups=None):
+        self = super().__new__(cls, names)
+        self.groups = tuple(groups) if groups else None
+        return self
+
+
 @dataclass(frozen=True)
 class NamedSharding:
-    """A spec over a mesh, as the reference's ``NamedSharding``."""
+    """A spec over a mesh, as the reference's ``NamedSharding``, and the
+    interleaved groups of each dimension (``None``: none)."""
     mesh: object
     spec: PartitionSpec
+    groups: tuple | None = None
 
     @property
     def shards(self) -> int:
@@ -96,7 +121,8 @@ class Rules:
         return self.spec(axes, self.act_map)
 
     def param_sharding(self, axes) -> NamedSharding:
-        return NamedSharding(self.mesh, self.param_spec(axes))
+        return NamedSharding(self.mesh, self.param_spec(axes),
+                             getattr(axes, "groups", None))
 
 
 def make_rules(mesh, *, fsdp: bool = True, seq_parallel: bool = False,

@@ -1,7 +1,8 @@
 """Training step factory, the port's counterpart of the reference's
-``runtime/train_loop.py``: on one device, or data-parallel over the
-ranks of a mesh with a selectable gradient reduction (the paper's
-technique as a knob of the trainer).
+``runtime/train_loop.py``: on one device, or over the ranks of a
+``(data, model)`` mesh -- data-parallel with a selectable gradient
+reduction (the paper's technique as a knob of the trainer), FSDP over
+the data axis, tensor and expert parallelism over the model axis.
 
 ``make_train_step(model, run_cfg, rules=None)`` returns ``step(state,
 batch) -> (state, metrics)``: the loss and its gradients by autograd
@@ -13,20 +14,39 @@ reports the LAST microbatch's metrics, and so does the port.  Without
 rules the reference ignores ``dp_reduce`` and reports ``wire_words`` 0;
 so does the port.
 
-With ``rules`` (a mesh from ``launch.mesh.make_host_mesh``) the step is
-the reference's manual data parallelism, one process a rank where the
-reference runs ``shard_map`` over its data axes in one process: every
-rank takes the global batch and keeps its rows (rank r of N takes rows
-``r·b/N .. (r+1)·b/N``, ``shard_map``'s block split of ``P("data")``),
-computes its gradients, and reduces them over the mesh's data-parallel
-group with ``run_cfg.dp_reduce`` -- ``psum`` (``all_reduce``),
-``ring``, ``bidir_ring`` (``core/halfduplex``) or ``aer_topk`` (the
-event-sparse all-reduce, B5 and B6 once a leaf).  The metrics are
-averaged over the group, as the reference's ``pmean``; ``wire_words``
-is this rank's count of shipped events under ``aer_topk`` (the
-reference's replicated output is its first device's) and 0 otherwise.
-Every rank then applies the same update to the same reduced gradients,
-so the parameters stay replicated bit for bit.
+With ``rules`` (``parallel.sharding.make_rules`` over a mesh from
+``launch.mesh.make_host_mesh``) the model is cut to this rank's shards
+by the rules' specs (``parallel.tensor_parallel.shard_model``; done by
+``init_state(..., rules)`` or here, whichever comes first), one process
+a rank where the reference runs one SPMD program.  Every rank takes the
+global batch and keeps its data coordinate's rows (rank r of N along
+the data axis takes rows ``r·b/N .. (r+1)·b/N``, the block split of
+``P("data")``); the ranks of a model group run the same rows, the
+model axis's collectives inside the forward (``tensor_parallel``).
+The gradients are then reduced over the data group with
+``run_cfg.dp_reduce``:
+
+- ``psum`` is the reference's GSPMD step: an FSDP leaf's gradient
+  comes out of its gather's backward already summed over the data
+  group (a reduce-scatter) and is divided by its size; every other
+  leaf's is all-reduced (``all_reduce``) to the mean;
+- ``ring``, ``bidir_ring`` (``core/halfduplex``) and ``aer_topk`` (the
+  event-sparse all-reduce, B5 and B6 once a reference leaf) follow the
+  reference's manual region, whose state is replicated over the data
+  axes: the FSDP leaves are gathered whole over the data group for the
+  step, the schedule reduces each whole gradient over the data group,
+  and each rank keeps its shard of the result.  ``aer_topk``
+  thresholds a whole reference leaf, as the reference does, so a
+  leaf split over the model axis is gathered over the model group
+  first (a ``(2, 2)`` mesh reduces as ``(2, 1)`` does).
+
+The metrics are averaged over the data group, as the reference's
+``pmean``; ``wire_words`` is this rank's count of shipped events under
+``aer_topk`` (the reference's replicated output is its first device's)
+and 0 otherwise.  AdamW's clipping norm sums a split leaf's squares
+over its shards.  The ranks holding the same shard apply the same
+update to the same reduced gradient, so every shard, and every leaf no
+spec splits, stays the same bit for bit on the ranks that hold it.
 
 ``aer_topk`` tiles each gradient as the reference tiles its leaves: the
 reference stacks a pattern position's parameters over periods
@@ -38,10 +58,9 @@ reduction and hands each layer its slice after, and the AER residuals
 are kept in the stacked layout, keyed ``stack.pos<i>.<path>``
 (top-level leaves keep their parameter's name).
 
-A mesh whose model axis is past 1 (tensor, expert, sequence
-parallelism) and a spec that splits a parameter over several ranks
-(FSDP on a data axis past 1) wait for ROADMAP A.11d and raise
-``NotImplementedError``.
+Sequence parallelism (``make_rules(seq_parallel=True)``), and on a
+sharded mesh the block kinds past ``attn_ffn``, ``attn_moe`` and
+``mamba``, wait for ROADMAP A.11e and raise ``NotImplementedError``.
 
 ``make_recorded_step(model, run_cfg, group)`` is the step the dry-run
 traces over an abstract mesh (``launch.dryrun``): ``group`` is the
@@ -73,12 +92,13 @@ from typing import NamedTuple
 import torch
 
 from ..core import sparse_collectives as sc
-from ..models.transformer import n_periods, pattern_for
+from ..models.transformer import _kinds, n_periods, pattern_for
 from ..optim import adamw
-from ..parallel.compat import (DP_AXES, RecordingGroup, all_reduce,
-                               axis_index, axis_size)
+from ..parallel.compat import RecordingGroup, all_reduce, axis_size
 from ..parallel.sharding import NamedSharding, PartitionSpec, \
     partition_params
+from ..parallel.tensor_parallel import shard_model, shard_param, \
+    unshard_param
 
 # deterministic cuBLAS, read by PyTorch at the process's first product
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -160,28 +180,39 @@ class ReferenceLeaves:
             words.append(w)
         return red, aer, torch.stack(words).sum(dtype=torch.int32)
 
-    def zeros(self, params: dict) -> dict:
-        """A zero ``AerState`` a leaf, shaped and typed as the leaf."""
+    def zeros(self, params: dict, shapes: dict | None = None) -> dict:
+        """A zero ``AerState`` a leaf, shaped and typed as the leaf
+        (``shapes``: each parameter's whole shape, where ``params`` hold
+        shards)."""
         def z(k, names):
-            p = params[k if names is None else names[0]]
-            shape = p.shape if names is None else (len(names), *p.shape)
+            n = k if names is None else names[0]
+            p = params[n]
+            shape = tuple(p.shape if shapes is None else shapes[n])
+            shape = shape if names is None else (len(names), *shape)
             return sc.AerState(residual=torch.zeros(
                 shape, dtype=p.dtype, device=p.device))
         return {k: z(k, names) for k, names in self.members.items()}
 
 
-def init_state(model, run_cfg) -> TrainState:
+def init_state(model, run_cfg, rules=None) -> TrainState:
     """The state of a fresh run around ``model``'s parameters (drawn by
     ``build_model`` from its seed, or loaded): gradients enabled on every
     parameter, zero moments, step 0, and for ``aer_topk`` zero residuals
     a ``ReferenceLeaves`` leaf.  The state's ``params`` ARE the model's
-    parameters, which the step updates in place."""
+    parameters, which the step updates in place.  With ``rules`` the
+    model is first cut to this rank's shards (``shard_model``), so the
+    parameters and moments are shards; the residuals are whole leaves
+    (replicated, as the reference's)."""
+    if rules is not None:
+        _sharded_mesh(model, run_cfg, rules)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     opt = adamw.init(params)
+    par = getattr(model, "parallel", None)
     aer = ReferenceLeaves(model).zeros(
-        {k: p.detach() for k, p in params.items()}) \
-        if run_cfg.dp_reduce == "aer_topk" else None
+        {k: p.detach() for k, p in params.items()},
+        None if par is None else {k: s.full for k, s in par.splits.items()}
+    ) if run_cfg.dp_reduce == "aer_topk" else None
     return TrainState(params=params, opt=opt, aer=aer,
                       step=torch.zeros((), dtype=torch.int32))
 
@@ -232,31 +263,34 @@ def _deterministic(on: bool):
         tud.fill_uninitialized_memory = prev[2]
 
 
-def _data_parallel(model, run_cfg, rules):
-    """The data-parallel group of ``rules.mesh`` for this process, after
-    refusing what the port does not run yet."""
+#: the block kinds a sharded mesh runs (the others wait for A.11e)
+SHARDED_KINDS = ("attn_ffn", "attn_moe", "mamba")
+
+
+def _sharded_mesh(model, run_cfg, rules):
+    """``model`` cut to this rank's shards over ``rules.mesh`` (its
+    ``Parallel``), after refusing what the port does not run yet."""
     mesh = rules.mesh
     if run_cfg.dp_reduce not in DP_MODES:
         raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
                          f"of {DP_MODES}")
-    other = {a: n for a, n in mesh.shape.items()
-             if a not in DP_AXES and n > 1}
-    if other:
+    if rules.act_map.get("seq_sp") is not None:
         raise NotImplementedError(
-            f"mesh axes {other} past 1 (tensor, expert or sequence "
-            f"parallelism) wait for ROADMAP A.11d; the port runs "
-            f"data-only meshes")
-    for name, axes in model.param_axes().items():
-        sh = rules.param_sharding(axes)
-        if sh.shards > 1:
-            raise NotImplementedError(
-                f"{name}: spec {tuple(sh.spec)} splits it over "
-                f"{sh.shards} ranks (FSDP); sharded parameters wait for "
-                f"ROADMAP A.11d, use make_rules(fsdp=False)")
+            "sequence parallelism (make_rules(seq_parallel=True)) waits "
+            "for ROADMAP A.11e")
     if mesh.groups is None:
         raise ValueError("the rules' mesh has no process groups (an "
                          "abstract mesh): build it with make_host_mesh")
-    return mesh.dp_group
+    axes = model.param_axes()
+    if mesh.model_size > 1 or any(rules.param_sharding(a).shards > 1
+                                  for a in axes.values()):
+        other = sorted(set(_kinds(model.cfg)) - set(SHARDED_KINDS))
+        if other:
+            raise NotImplementedError(
+                f"block kinds {other} on a sharded mesh (a model axis or "
+                f"FSDP) wait for ROADMAP A.11e; the port shards "
+                f"{SHARDED_KINDS}")
+    return shard_model(model, rules)
 
 
 def _pmean(metrics: dict, group) -> dict:
@@ -279,11 +313,13 @@ def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
     (``init_state`` and ``Checkpointer.restore`` keep them so).
     ``deterministic`` (default: on for a CUDA model) runs each step under
     PyTorch's deterministic algorithms.  ``rules`` (``parallel.sharding
-    .make_rules`` over a mesh of ranks) makes it a data-parallel step
-    reducing with ``run_cfg.dp_reduce``; every rank of the mesh calls
-    it together."""
-    group = None if rules is None else _data_parallel(model, run_cfg, rules)
-    return _make_step(model, run_cfg, group, deterministic)
+    .make_rules`` over a mesh of ranks) makes it the sharded step
+    reducing with ``run_cfg.dp_reduce`` (the model is cut to this rank's
+    shards first, unless ``init_state`` did it); every rank of the mesh
+    calls it together."""
+    par = None if rules is None else _sharded_mesh(model, run_cfg, rules)
+    return _make_step(model, run_cfg, par, None if par is None else par.data,
+                      deterministic)
 
 
 def make_recorded_step(model, run_cfg, group: RecordingGroup):
@@ -299,10 +335,26 @@ def make_recorded_step(model, run_cfg, group: RecordingGroup):
     if run_cfg.dp_reduce not in DP_MODES:
         raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
                          f"of {DP_MODES}")
-    return _make_step(model, run_cfg, group, False)
+    return _make_step(model, run_cfg, None, group, False)
 
 
-def _make_step(model, run_cfg, group, deterministic):
+def _shape_with(t: torch.Tensor, split, dim) -> tuple:
+    """``t``'s shape with dimension ``dim`` whole (``split.full``)."""
+    shape = list(t.shape)
+    if dim is not None:
+        shape[dim] = split.full[dim]
+    return tuple(shape)
+
+
+def _local(t: torch.Tensor, split, par) -> torch.Tensor:
+    """This rank's shard of ``t`` along the dimensions ``t`` holds whole
+    (``t`` itself where it is already this rank's)."""
+    spec = PartitionSpec(*(e if t.shape[d] == split.full[d] else None
+                           for d, e in enumerate(split.sharding.spec)))
+    return shard_param(t, spec, par.mesh, par.rank, split.sharding.groups)
+
+
+def _make_step(model, run_cfg, par, group, deterministic):
     own = dict(model.named_parameters())
     det = (next(iter(own.values())).device.type == "cuda"
            if deterministic is None else deterministic)
@@ -310,14 +362,42 @@ def _make_step(model, run_cfg, group, deterministic):
     leaves = ReferenceLeaves(model) if group is not None and \
         mode == "aer_topk" else None
     split = group is not None and not isinstance(group, RecordingGroup)
+    splits = {} if par is None else par.splits
+    # FSDP leaves: made whole over the data group for the manual modes'
+    # step, else reduced by their gather's reduce-scatter
+    fsdp = [k for k, sp in splits.items() if sp.dp_dim is not None]
+    manual_whole = fsdp if mode != "psum" else []
+    split_over = {k: tuple(g for g, d in ((par.data, sp.dp_dim),
+                                          (par.model, sp.tp_dim))
+                           if d is not None)
+                  for k, sp in splits.items() if sp.split}
 
     def reduce(grads: dict, aer):
+        if mode == "psum":
+            rest = {k: g for k, g in grads.items() if k not in fsdp}
+            red = {k: grads[k] / par.dp for k in fsdp}
+            words = torch.zeros((), dtype=torch.int32)
+            if rest:
+                out, _, words = sc.reduce_gradients(rest, None, group,
+                                                    mode=mode)
+                red.update(out)
+            return red, aer, words
         if leaves is None:
             red, _, words = sc.reduce_gradients(grads, None, group,
                                                 mode=mode)
-            return red, aer, words
-        return leaves.aer_reduce(grads, aer, group, frac=run_cfg.aer_frac,
-                                 budget=run_cfg.aer_budget)
+        else:
+            # aer_topk thresholds whole reference leaves: gather the
+            # leaves split over the model axis first
+            for k, sp in splits.items():
+                if sp.tp_dim is not None:
+                    grads[k] = unshard_param(
+                        grads[k], sp.sharding,
+                        _shape_with(grads[k], sp, sp.tp_dim))
+            red, aer, words = leaves.aer_reduce(
+                grads, aer, group, frac=run_cfg.aer_frac,
+                budget=run_cfg.aer_budget)
+        return ({k: _local(g, splits[k], par) if k in splits else g
+                 for k, g in red.items()}, aer, words)
 
     def step(state: TrainState, batch: dict):
         if state.params.keys() != own.keys() or any(
@@ -331,13 +411,21 @@ def _make_step(model, run_cfg, group, deterministic):
             for p in own.values():
                 p.grad = None
             if split:                     # this rank's block of rows
-                batch = _split(batch, axis_size(group),
-                               "data-parallel ranks")[axis_index(group)]
+                batch = _split(batch, par.dp,
+                               "data-parallel ranks")[par.dp_rank]
+            held = {}
+            for k in manual_whole:        # the manual region's whole leaves
+                p, sp = own[k], splits[k]
+                held[k] = p.data
+                p.data = unshard_param(p.detach(), sp.sharding,
+                                       _shape_with(p, sp, sp.dp_dim))
             _, metrics = _loss_with_accum(model, batch, run_cfg.grad_accum)
             grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                      for k, p in own.items()}
-            for p in own.values():
+            for k, p in own.items():
                 p.grad = None
+                if k in held:
+                    p.data = held.pop(k)
             if group is not None:
                 red, aer, words = reduce(grads, aer)
                 grads = {k: red[k] for k in own}
@@ -350,7 +438,7 @@ def _make_step(model, run_cfg, group, deterministic):
             params, opt, gnorm = adamw.update(
                 grads, state.opt, state.params, lr=lr,
                 weight_decay=run_cfg.weight_decay,
-                grad_clip=run_cfg.grad_clip)
+                grad_clip=run_cfg.grad_clip, split_over=split_over)
             del grads
         metrics = {k: v.detach().float() for k, v in metrics.items()}
         metrics.update(grad_norm=gnorm, lr=lr, wire_words=wire)

@@ -54,6 +54,21 @@ class TestFsm:
             for f in jx.XcvrOut._fields:
                 _eq(getattr(jo, f), getattr(to, f), f"{f} mb={mb}")
 
+    def test_note_transmit(self):
+        """Burst accounting on every small state, and twice from a
+        reset: the reference's ``note_transmit`` field for field."""
+        grid = np.array(list(itertools.product(
+            (0, 1), (0, 1), (0, 1), (0, 1, 2, 7))), np.int32).T
+        js = jx.note_transmit(jx.XcvrState(*map(jnp.asarray, grid)))
+        ts = tx.note_transmit(tx.XcvrState(*map(_t32, grid)))
+        for f in jx.XcvrState._fields:
+            _eq(getattr(js, f), getattr(ts, f), f)
+        js = jx.note_transmit(jx.note_transmit(jx.reset_state(1)))
+        ts = tx.note_transmit(tx.note_transmit(tx.reset_state(1)))
+        for f in jx.XcvrState._fields:
+            _eq(getattr(js, f), getattr(ts, f), f)
+        assert int(ts.burst) == 2
+
     def test_reset(self):
         for m in (0, 1):
             js, ts = jx.reset_state(m), tx.reset_state(m)

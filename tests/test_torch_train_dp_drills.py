@@ -15,9 +15,14 @@ under this JAX, ROADMAP queue C) and of its launcher's ``--mesh-data``:
   residuals, as the reference does);
 - the launcher under ``torchrun`` (2 processes, ``--mesh-data 2
   --device cpu``), printing from rank 0 only;
-- the refusals: rows that do not split over the ranks, a model axis
-  past 1, a spec that splits a parameter (FSDP), a sharded restore, an
-  abstract mesh, ``--mesh-data`` other than the world's size.
+- the refusals, and what took their place: rows that do not split over
+  the ranks, an abstract mesh, ``--mesh-data`` other than the world's
+  size, sequence parallelism, a block kind past the three the port
+  shards and serving a sharded model (ROADMAP A.11e) are refused; a
+  model axis past 1 and a spec that splits a parameter (FSDP) now
+  train (a step's loss equal to the data-only step's on the same
+  rows), and a whole checkpoint restores onto FSDP shards (each leaf
+  bit-equal to its shard).
 """
 
 import os
@@ -226,9 +231,12 @@ def test_launcher_under_torchrun(tmp_path):
 
 def _refusal_rank(rank, root):
     from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import RunConfig, get_smoke_config
     from repro_torch.launch import train
+    from repro_torch.models.model import build_model
     from repro_torch.parallel.compat import Mesh
     from repro_torch.parallel.sharding import make_rules
+    from repro_torch.parallel.tensor_parallel import shard_param
     from repro_torch.runtime import train_loop as tl
     cfg, run, model = _granite(dict(dp_reduce="psum"))
     said = {}
@@ -247,23 +255,54 @@ def _refusal_rank(rank, root):
     batch = _batches(cfg, 1)(0)
     refused("rows", ValueError, "does not split into 2 data-parallel",
             lambda: step(state, {k: v[:3] for k, v in batch.items()}))
-    _, tp_rules = _rules(cfg, 1, model=2)
-    refused("model_axis", NotImplementedError, "A.11d",
-            lambda: tl.make_train_step(model, run, tp_rules))
-    mesh, fsdp_rules = _rules(cfg, 2, fsdp=True)
-    refused("fsdp", NotImplementedError, "A.11d",
-            lambda: tl.make_train_step(model, run, fsdp_rules))
-    ck = Checkpointer(os.path.join(root, "ck"), group=mesh.dp_group)
+    ck = Checkpointer(os.path.join(root, "ck"), group=_rules(cfg, 2)[0]
+                      .dp_group)
     ck.save(0, state, blocking=True)
-    sharded = tl.state_shardings(state, model.param_axes(), fsdp_rules)
-    refused("restore", NotImplementedError, "A.11d",
-            lambda: ck.restore(0, state, shardings=sharded))
+    saved = {k: p.detach().clone() for k, p in state.params.items()}
+    f32 = cfg.with_(compute_dtype=torch.float32)
+
+    def one_step(rules):
+        """A fresh model's step in float32 compute on ``rules``: its
+        loss, and the model and state (this rank's shards)."""
+        m = build_model(f32, seed=0, device="cpu")
+        st = tl.init_state(m, run, rules)
+        _, met = tl.make_train_step(m, run, rules)(st, batch)
+        return m, st, float(met["loss"])
+
+    base = one_step(_rules(cfg, 2)[1])[2]
+    _, tp_rules = _rules(cfg, 1, model=2)
+    tp_model, _, loss = one_step(tp_rules)
+    said["model_axis"] = np.array(abs(loss - base) < 1e-5 and
+                                  tp_model.head.w.shape[1] == cfg.vocab // 2)
+    refused("serve_sharded", NotImplementedError, "A.11e",
+            lambda: tp_model.forward(batch))
+    mesh, fsdp_rules = _rules(cfg, 2, fsdp=True)
+    fsdp_model, fsdp_state, loss = one_step(fsdp_rules)
+    said["fsdp"] = np.array(abs(loss - base) < 1e-5 and
+                            fsdp_model.head.w.shape[0] == cfg.d_model // 2)
+    sharded = tl.state_shardings(fsdp_state, fsdp_model.param_axes(),
+                                 fsdp_rules)
+    ck.restore(0, fsdp_state, shardings=sharded)
+    said["restore"] = np.array(all(torch.equal(
+        fsdp_state.params[k], shard_param(saved[k], sh.spec, mesh, rank,
+                                          sh.groups))
+        for k, sh in sharded.params.items()))
     abstract = make_rules(Mesh({"data": 2, "model": 1}), fsdp=False)
     refused("abstract", ValueError, "abstract mesh",
             lambda: tl.make_train_step(model, run, abstract))
     refused("mesh_data", ValueError, "needs 3 processes",
             lambda: train.setup(["--arch", "granite_3_2b", "--smoke",
                                  "--device", "cpu", "--mesh-data", "3"]))
+    mesh, _ = _rules(cfg, 1, model=2)
+    refused("seq_parallel", NotImplementedError, "A.11e",
+            lambda: tl.make_train_step(model, run, make_rules(
+                mesh, seq_parallel=True)))
+    jamba = get_smoke_config("jamba_v01_52b")
+    refused("kinds", NotImplementedError, "A.11e",
+            lambda: tl.make_train_step(
+                build_model(jamba, device="cpu"), RunConfig(),
+                make_rules(mesh, kv_heads=jamba.n_kv_heads,
+                           d_head=jamba.d_head)))
     return said
 
 
@@ -271,8 +310,10 @@ def test_refusals(tmp_path):
     ranks = D.spawn(tmp_path, _refusal_rank, str(tmp_path), world=2)
     for got in ranks:
         assert sorted(got) == sorted(["rows", "model_axis", "fsdp",
-                                      "restore", "abstract", "mesh_data"])
-        assert all(bool(v) for v in got.values()), got
+                                      "restore", "abstract", "mesh_data",
+                                      "seq_parallel", "kinds",
+                                      "serve_sharded"])
+        assert all(bool(v) for v in got.values()), {k: bool(v) for k, v in got.items()}
 
 
 @pytest.mark.parametrize("dp", [1, 4])

@@ -166,19 +166,55 @@ def test_state_holds_the_models_parameters():
 
 def test_data_parallel_paths_wait_for_a11c():
     """The data-parallel step, ``state_shardings`` and ``--mesh-data``
-    came with A.11c (``tests/test_torch_train_dp*.py`` run them on gloo
-    ranks); what still waits names ROADMAP A.11d: a model axis past 1
-    and specs that split a parameter over ranks (FSDP)."""
+    came with A.11c, a model axis and FSDP with A.11d
+    (``tests/test_torch_train_dp*.py`` and ``test_torch_train_tp*.py``
+    run them on gloo ranks).  Here, in one process: every rank's shards
+    of a (2, 2) FSDP mesh put back together give each whole leaf, and
+    Mamba's ``in_proj`` shard holds the same channels of ``x`` and ``z``;
+    what still waits names ROADMAP A.11e (sequence parallelism); an
+    abstract mesh and ``--mesh-data`` past the world are refused."""
     from repro_torch.parallel.compat import Mesh
-    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.parallel.sharding import make_rules, mesh_axes
+    from repro_torch.parallel.tensor_parallel import shard_param
     _, pcfg = _f32("granite_3_2b")
     model = build_model(pcfg, seed=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="A.11d"):
+    mesh = Mesh({"data": 2, "model": 2})
+    rules = make_rules(mesh, fsdp=True, kv_heads=pcfg.n_kv_heads,
+                       d_head=pcfg.d_head)
+    split = 0
+    for name, axes in model.param_axes().items():
+        sh = rules.param_sharding(axes)
+        whole = dict(model.named_parameters())[name].detach()
+        parts = {r: shard_param(whole, sh.spec, mesh, r) for r in range(4)}
+        axes_of = [mesh_axes((e,)) for e in sh.spec]
+        # concatenate along each split dimension, model inside data
+        rows = [parts[2 * d + m] for d in range(2) for m in range(2)]
+        dm = next((i for i, a in enumerate(axes_of) if a == {"model"}),
+                  None)
+        dd = next((i for i, a in enumerate(axes_of) if a == {"data"}),
+                  None)
+        if dm is not None:
+            rows = [torch.cat(rows[i:i + 2], dm) for i in (0, 2)]
+        else:
+            rows = rows[::2]
+        back = torch.cat(rows, dd) if dd is not None else rows[0]
+        assert torch.equal(back, whole), name
+        split += sh.shards > 1
+    assert split == len(model.param_axes())      # FSDP splits every leaf
+    _, fcfg = _f32("falcon_mamba_7b")
+    falcon = build_model(fcfg, seed=0, device=CPU)
+    w = falcon.stack.blocks[0].mamba.in_proj.detach()
+    frules = make_rules(Mesh({"data": 1, "model": 2}))
+    sh = frules.param_sharding(falcon.param_axes()[
+        "stack.blocks.0.mamba.in_proj"])
+    d_in = w.shape[1] // 2
+    assert sh.groups == (1, 2)
+    assert torch.equal(shard_param(w, sh.spec, frules.mesh, 1, sh.groups),
+                       torch.cat([w[:, d_in // 2:d_in],
+                                  w[:, d_in + d_in // 2:]], 1))
+    with pytest.raises(NotImplementedError, match="A.11e"):
         tl.make_train_step(model, RunConfig(), rules=make_rules(
-            Mesh({"data": 1, "model": 2}), fsdp=False))
-    with pytest.raises(NotImplementedError, match="A.11d"):
-        tl.make_train_step(model, RunConfig(), rules=make_rules(
-            Mesh({"data": 2, "model": 1}), fsdp=True))
+            Mesh({"data": 1, "model": 2}), seq_parallel=True))
     with pytest.raises(ValueError, match="abstract mesh"):
         tl.make_train_step(model, RunConfig(), rules=make_rules(
             Mesh({"data": 2, "model": 1}), fsdp=False))
@@ -270,11 +306,14 @@ class TestCheckpointer:
         assert ck.all_steps() == [1]
 
     def test_elastic_reshard_restore_waits_for_a11c(self, setup, tmp_path):
-        """``restore(shardings=)`` came with A.11c: replicated leaves
-        load whole; a spec that splits a leaf over ranks waits for
-        A.11d; a leaf without a sharding is refused."""
+        """``restore(shardings=)`` came with A.11c (replicated leaves
+        load whole) and A.11d: a spec that splits a leaf cuts it to this
+        process's shard (rank 0 outside a process group), each restored
+        leaf bit-equal to that shard of the saved one; a leaf without a
+        sharding is refused."""
         from repro_torch.parallel.compat import Mesh
         from repro_torch.parallel.sharding import make_rules
+        from repro_torch.parallel.tensor_parallel import shard_param
         cfg, run_cfg, _ = setup
         state, _ = _fresh(cfg, run_cfg)
         ck = Checkpointer(str(tmp_path))
@@ -289,8 +328,26 @@ class TestCheckpointer:
                    for k, p in state.params.items())
         sharded = tl.state_shardings(other, model.param_axes(),
                                      make_rules(mesh, fsdp=True))
-        with pytest.raises(NotImplementedError, match="A.11d"):
-            ck.restore(1, other, shardings=sharded)
+
+        def cut(t, sh):
+            return shard_param(t.detach(), sh.spec, mesh, 0, sh.groups)
+
+        target = tl.TrainState(
+            params={k: torch.empty_like(cut(p, sharded.params[k]))
+                    for k, p in other.params.items()},
+            opt=adamw.AdamWState(
+                step=torch.zeros((), dtype=torch.int32),
+                mu={k: torch.empty_like(cut(v, sharded.opt.mu[k]))
+                    for k, v in other.opt.mu.items()},
+                nu={k: torch.empty_like(cut(v, sharded.opt.nu[k]))
+                    for k, v in other.opt.nu.items()}),
+            aer=None, step=torch.zeros((), dtype=torch.int32))
+        ck.restore(1, target, shardings=sharded)
+        assert any(sh.shards > 1 for sh in sharded.params.values())
+        for k, p in state.params.items():
+            assert torch.equal(target.params[k], cut(p, sharded.params[k]))
+            assert target.params[k].shape != p.shape or \
+                sharded.params[k].shards == 1, k
         with pytest.raises(ValueError, match="no sharding"):
             ck.restore(1, state, shardings={})
 
