@@ -366,7 +366,23 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                8192 channels;
                B5 and B6 one a reference leaf; ms a step and peak
                memory a rank;
-36. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
+36. serve_tp_2x2_one_card — serving a sharded model (A.11e): 4
+               processes on cuda:0 over gloo (4 ranks time-share the
+               card: not multi-card figures), a (2, 2) mesh without
+               FSDP (two replicas of a model split in two), float32
+               compute with TF32 off, a 4 x 2048 prompt and 16 decode
+               steps: granite-34b (88 layers cut to 2, full width; one
+               kv head, so its decode cache splits over its 2064
+               slots, 1032 a rank) and falcon-mamba-7b (64 cut to 2;
+               its state split over ``d_inner``); each held against
+               the world of one (run first, freed before the spawn):
+               every rank's prefill and teacher-forced decode logits
+               within 1e-4 of max |logit|, greedy tokens equal where
+               the margin allows, B7 2 a rank a falcon prefill on 4096
+               of the 8192 channels; prefill ms, ms a decode step, peak
+               memory and the collectives of a decode step a rank,
+               beside the card's name and power limit;
+37. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
                of ``--all`` (each arch x shape its ``shapes_for``
                lists, full width, the production shapes) on the 16 x 16
                pod mesh, on the ``meta`` device (no card, no weights),
@@ -4087,20 +4103,14 @@ def _tp_controls(arch, whole_path) -> dict:
     return out
 
 
-def _tp_rank(rank, store, out_dir):
-    """One of the 4 gloo ranks on cuda:0: every TP_CELLS cell on the
-    (2, 2) FSDP mesh, against the whole run saved in ``out_dir`` (the
-    world of one, or for ``aer_topk`` the (2, 1) data-only mesh of ranks
-    0 and 1, run here first: the data-axis size changes ``aer_topk``'s
-    result, the model axis and FSDP do not).  Writes its JSON there."""
-    import gc
+def _tp_rank(rank, store, out_dir, kind="train"):
+    """One of the 4 gloo ranks on cuda:0: the training cells
+    (``_tp_train_cells``) or the serving cells (``_tp_serve_cells``) on
+    the (2, 2) mesh, against the whole runs saved in ``out_dir``.
+    Writes its JSON there."""
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import pin_precision
-    from repro_torch.parallel.sharding import make_rules
-    from repro_torch.parallel.tensor_parallel import unshard_param
-    from repro_torch.runtime import train_loop as tl
     torch.set_num_threads(2)
     torch.cuda.set_device(0)
     pin_precision()
@@ -4108,58 +4118,90 @@ def _tp_rank(rank, store, out_dir):
                             rank=rank, world_size=TP_WORLD)
     out = {}
     try:
-        for arch, mode in TP_CELLS:
-            cfg = _tp_cfg(arch)
-            label = f"{arch}_{mode}"
-            whole_path = os.path.join(out_dir, f"{label}.pt")
-            if mode == "aer_topk":
-                mesh = make_host_mesh(data=2, model=1)
-                if rank < mesh.size:
-                    model, _, losses, gnorms, _, _ = _tp_train(
-                        arch, mode, make_rules(mesh, fsdp=False,
-                                               kv_heads=cfg.n_kv_heads,
-                                               d_head=cfg.d_head))
-                    if rank == 0:
-                        _tp_save_whole(whole_path, model, losses, gnorms)
-                    del model
-                    gc.collect()
-                    torch.cuda.empty_cache()
-                dist.barrier()
-            mesh = make_host_mesh(data=2, model=2)
-            rules = make_rules(mesh, fsdp=True, kv_heads=cfg.n_kv_heads,
-                               d_head=cfg.d_head)
-            model, state, losses, gnorms, times, counts = _tp_train(
-                arch, mode, rules)
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            want = torch.load(whole_path, mmap=True)
-            par = model.parallel
-            gap, over, n = _tp_gaps(
-                (unshard_param(p.detach(), par.splits[k].sharding,
-                               par.splits[k].full), want["params"][k])
-                for k, p in model.named_parameters())
-            cell = {"losses": losses, "want_losses": want["losses"],
-                    "loss_gap": max(abs(a - b) for a, b in
-                                    zip(losses, want["losses"])),
-                    "gnorms": gnorms, "want_gnorms": want["gnorms"],
-                    "gnorm_rel_gap": max(abs(a - b) / b for a, b in
-                                         zip(gnorms, want["gnorms"])),
-                    "param_gap": gap, "params_over_1e-4": over,
-                    "params": n, "step_ms": times, "launches": counts,
-                    "peak_gb": peak_gb,
-                    "reference_leaves": len(tl.ReferenceLeaves(model)
-                                            .members)}
-            if hasattr(model.stack.blocks[0], "mamba"):
-                cell["scan_channels"] = int(
-                    model.stack.blocks[0].mamba.D_skip.shape[0])
-            out[label] = cell
-            del model, state, want
-            gc.collect()
-            torch.cuda.empty_cache()
-            dist.barrier()
+        cells = _tp_train_cells if kind == "train" else _tp_serve_cells
+        cells(rank, out_dir, out)
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
+
+
+def _tp_spawn(tmp: str, kind: str) -> tuple:
+    """``_tp_rank`` on ``TP_WORLD`` processes: ``(each rank's JSON,
+    seconds)``."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.spawn(_tp_rank, args=(os.path.join(tmp, f"store_{kind}"), tmp, kind),
+             nprocs=TP_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, spawn_s
+
+
+def _tp_train_cells(rank, out_dir, out):
+    """Every TP_CELLS cell on the (2, 2) FSDP mesh, against the whole
+    run saved in ``out_dir`` (the world of one, or for ``aer_topk`` the
+    (2, 1) data-only mesh of ranks 0 and 1, run here first: the
+    data-axis size changes ``aer_topk``'s result, the model axis and
+    FSDP do not)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.parallel.tensor_parallel import unshard_param
+    from repro_torch.runtime import train_loop as tl
+    for arch, mode in TP_CELLS:
+        cfg = _tp_cfg(arch)
+        label = f"{arch}_{mode}"
+        whole_path = os.path.join(out_dir, f"{label}.pt")
+        if mode == "aer_topk":
+            mesh = make_host_mesh(data=2, model=1)
+            if rank < mesh.size:
+                model, _, losses, gnorms, _, _ = _tp_train(
+                    arch, mode, make_rules(mesh, fsdp=False,
+                                           kv_heads=cfg.n_kv_heads,
+                                           d_head=cfg.d_head))
+                if rank == 0:
+                    _tp_save_whole(whole_path, model, losses, gnorms)
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        mesh = make_host_mesh(data=2, model=2)
+        rules = make_rules(mesh, fsdp=True, kv_heads=cfg.n_kv_heads,
+                           d_head=cfg.d_head)
+        model, state, losses, gnorms, times, counts = _tp_train(
+            arch, mode, rules)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = torch.load(whole_path, mmap=True)
+        par = model.parallel
+        gap, over, n = _tp_gaps(
+            (unshard_param(p.detach(), par.splits[k].sharding,
+                           par.splits[k].full), want["params"][k])
+            for k, p in model.named_parameters())
+        cell = {"losses": losses, "want_losses": want["losses"],
+                "loss_gap": max(abs(a - b) for a, b in
+                                zip(losses, want["losses"])),
+                "gnorms": gnorms, "want_gnorms": want["gnorms"],
+                "gnorm_rel_gap": max(abs(a - b) / b for a, b in
+                                     zip(gnorms, want["gnorms"])),
+                "param_gap": gap, "params_over_1e-4": over,
+                "params": n, "step_ms": times, "launches": counts,
+                "peak_gb": peak_gb,
+                "reference_leaves": len(tl.ReferenceLeaves(model)
+                                        .members)}
+        if hasattr(model.stack.blocks[0], "mamba"):
+            cell["scan_channels"] = int(
+                model.stack.blocks[0].mamba.D_skip.shape[0])
+        out[label] = cell
+        del model, state, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
 
 
 def phase_train_tp_2x2_one_card():
@@ -4179,8 +4221,6 @@ def phase_train_tp_2x2_one_card():
     a rank."""
     import shutil
     import tempfile
-    import torch
-    import torch.multiprocessing as mp
     from repro_torch.launch.serve import pin_precision
     t_phase = time.perf_counter()
     pin_precision()
@@ -4199,14 +4239,7 @@ def phase_train_tp_2x2_one_card():
             _free()
             if arch == TP_CELLS[0][0]:
                 controls = _tp_controls(arch, path)
-        t_spawn = time.perf_counter()
-        mp.spawn(_tp_rank, args=(os.path.join(tmp, "store"), tmp),
-                 nprocs=TP_WORLD, join=True)
-        spawn_s = time.perf_counter() - t_spawn
-        ranks = []
-        for r in range(TP_WORLD):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks, spawn_s = _tp_spawn(tmp, "train")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cells = {}
@@ -4265,6 +4298,221 @@ def phase_train_tp_2x2_one_card():
          gnorm_rtol=TP_GNORM_RTOL, param_tol=TP_PARAM_TOL,
          over_share=TP_OVER_SHARE, controls=controls, cells=cells,
          spawn_s=spawn_s,
+         phase_s=time.perf_counter() - t_phase)
+    return cells
+
+
+# --- serving a sharded model (A.11e): a (2, 2) mesh on one card
+
+#: the sharded serving cells: (arch, published depth), each at full
+#: width on SERVE_TP_LAYERS layers, float32 compute
+SERVE_TP_CELLS = (("granite_34b", 88), ("falcon_mamba_7b", 64))
+SERVE_TP_LAYERS, SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_STEPS = \
+    2, 4, 2048, 16
+#: every rank's logits against the world of one's, relative to the
+#: largest |logit| of the real vocabulary
+SERVE_TP_TOL = 1e-4
+
+
+def _tp_serve_cfg(arch):
+    import torch
+    from repro_torch.configs.base import get_config
+    return get_config(arch).with_(n_layers=SERVE_TP_LAYERS,
+                                  compute_dtype=torch.float32)
+
+
+def _tp_serve(arch, rules=None, forced=None) -> dict:
+    """``arch`` at full width on SERVE_TP_LAYERS layers, seed 0, on
+    cuda:0, cut by ``rules`` (``None``: whole): a warm-up prefill of the
+    ``SyntheticLM`` prompts, a timed one, then SERVE_TP_STEPS decode
+    steps fed ``forced`` (``None``: its own greedy tokens).  Returns the
+    last position's logits of the prefill and of each step (float32 on
+    the host), the tokens fed, prefill ms, ms a decode step, the kernel
+    launches of the timed prefill, the collectives of each step, the
+    peak memory after the model is cut, and the layer-0 cache's
+    shapes."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.compat import CALLS
+    from repro_torch.parallel.tensor_parallel import shard_model
+    cfg = _tp_serve_cfg(arch)
+    dev = torch.device("cuda", 0)
+    model = build_model(cfg, seed=0, device=dev)
+    if rules is not None:
+        shard_model(model, rules)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyntheticLM(cfg.vocab, SERVE_TP_PROMPT, SERVE_TP_BATCH, seed=0)
+    tokens = torch.from_numpy(data.batch(0)["tokens"]).to(dev)
+    B, S = tokens.shape
+    max_len = S + SERVE_TP_STEPS
+    with torch.inference_mode():
+        model.prefill({"tokens": tokens}, max_len=max_len)
+        torch.cuda.synchronize()
+        _counts_zero()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": tokens}, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = _counts()
+        out_logits, fed, step_ms, calls = [logits[:, -1].float().cpu()], \
+            [], [], []
+        for i in range(SERVE_TP_STEPS):
+            tok = (logits[:, -1].argmax(-1)[:, None] if forced is None
+                   else forced[i].to(dev))
+            fed.append(tok.cpu())
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)  # torchlint: disable=TL002 (a fill, no copy)
+            CALLS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            calls.append(dict(CALLS))
+            out_logits.append(logits[:, -1].float().cpu())
+    res = {"logits": torch.stack(out_logits), "fed": torch.stack(fed),
+           "prefill_ms": prefill_ms, "step_ms": step_ms,
+           "launches": launches, "calls": calls,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "cache0": {k: list(t.shape) for k, t in cache[0].items()},
+           "vocab": cfg.vocab}
+    if hasattr(model.stack.blocks[0], "mamba"):
+        res["scan_channels"] = int(model.stack.blocks[0].mamba.D_skip
+                                   .shape[0])
+    del model, cache, logits
+    _free()
+    return res
+
+
+def _tp_serve_gaps(got, want, vocab: int) -> dict:
+    """``got``'s logits against ``want``'s (the world of one's) over the
+    real vocabulary: the largest gap relative to want's largest |logit|,
+    and the greedy tokens where want's top-2 margin allows a verdict
+    (above twice the tolerance's absolute gap)."""
+    g, w = got[..., :vocab], want[..., :vocab]
+    scale = float(w.abs().max())
+    top2 = w.topk(2, -1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * SERVE_TP_TOL * scale
+    same = bool((g.argmax(-1)[sure] == w.argmax(-1)[sure]).all())
+    return {"rel_gap": float((g - w).abs().max()) / scale,
+            "max_abs_logit": scale, "tokens_compared": int(sure.sum()),
+            "tokens_of": int(sure.numel()), "greedy_equal": same}
+
+
+def _tp_serve_cells(rank, out_dir, out):
+    """Every SERVE_TP_CELLS cell on the (2, 2) mesh without FSDP (the
+    model axis splits the weights, the data axis the rows: two
+    replicas), fed the world of one's greedy tokens saved in
+    ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import make_rules
+    for arch, _ in SERVE_TP_CELLS:
+        cfg = _tp_serve_cfg(arch)
+        want = torch.load(os.path.join(out_dir, f"serve_{arch}.pt"))
+        mesh = make_host_mesh(data=2, model=2)
+        rules = make_rules(mesh, fsdp=False, kv_heads=cfg.n_kv_heads,
+                           d_head=cfg.d_head)
+        got = _tp_serve(arch, rules, forced=want["fed"])
+        cell = _tp_serve_gaps(got.pop("logits"), want["logits"],
+                              cfg.vocab)
+        got.pop("fed")
+        cell.update(got, kv_cache=None if "k" not in got["cache0"] else
+                    ("seq" if cfg.n_kv_heads % 2 else "heads"))
+        out[arch] = cell
+        dist.barrier()
+
+
+def phase_serve_tp_2x2_one_card():
+    """Serving a sharded model on the card: 4 processes on cuda:0 over
+    gloo, a (2, 2) mesh without FSDP, each SERVE_TP_CELLS cell at full
+    width on 2 layers in float32 compute (TF32 off), a 4 x 2048 prompt,
+    then 16 decode steps fed the world of one's greedy tokens (the
+    world of one runs here first and is freed before the spawn).
+    granite-34b has one kv head, so its cache splits over the sequence
+    (1032 of 2064 slots a rank); falcon-mamba-7b's state over
+    ``d_inner``.  Every rank's logits within SERVE_TP_TOL of the
+    largest |logit| of the world of one's, its greedy tokens equal where
+    the margin allows, 2 B7 launches a falcon prefill on 4096 of the
+    8192 channels (none for granite); prefill ms, ms a decode step,
+    peak memory and the collectives of a decode step a rank."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.serve import pin_precision
+    t_phase = time.perf_counter()
+    pin_precision()
+    tmp = tempfile.mkdtemp(prefix="serve_tp_one_card_")
+    one = {}
+    try:
+        for arch, _ in SERVE_TP_CELLS:
+            res = _tp_serve(arch)
+            torch.save({"logits": res["logits"], "fed": res["fed"]},
+                       os.path.join(tmp, f"serve_{arch}.pt"))
+            one[arch] = {k: res[k] for k in ("prefill_ms", "step_ms",
+                                             "launches", "peak_gb")}
+        ranks, spawn_s = _tp_spawn(tmp, "serve")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = {}
+    for arch, depth in SERVE_TP_CELLS:
+        per = [r[arch] for r in ranks]
+        falcon = arch.startswith("falcon")
+        want = {"selective_scan": SERVE_TP_LAYERS if falcon else 0}
+        check(one[arch]["launches"].get("selective_scan", 0) ==
+              want["selective_scan"],
+              f"serve_tp {arch}: the world of one's prefill launched "
+              f"{one[arch]['launches']}")
+        for r, c in enumerate(per):
+            check(c["rel_gap"] <= SERVE_TP_TOL,
+                  f"serve_tp {arch}: rank {r} logits {c['rel_gap']} of "
+                  f"max |logit| off the world of one's")
+            check(c["greedy_equal"],
+                  f"serve_tp {arch}: rank {r} greedy tokens differ where "
+                  f"the margin allows a verdict")
+            got = c["launches"]
+            check(all(got.get(k, 0) == want.get(k, 0) for k in got),
+                  f"serve_tp {arch}: rank {r} prefill launched {got}, "
+                  f"expected {want}")
+            if falcon:
+                check(c["scan_channels"] == _tp_serve_cfg(arch).mamba
+                      .expand * _tp_serve_cfg(arch).d_model // 2,
+                      f"serve_tp {arch}: B7 ran on {c['scan_channels']} "
+                      f"channels a rank")
+            steps = {json.dumps(x, sort_keys=True) for x in c["calls"]}
+            check(len(steps) == 1, f"serve_tp {arch}: rank {r} ran "
+                                   f"different collectives a step: {steps}")
+        cells[arch] = {
+            "reduced": {"n_layers": [depth, SERVE_TP_LAYERS]},
+            "kv_cache": per[0]["kv_cache"], "cache0_shape_rank0":
+                per[0]["cache0"],
+            "max_rel_gap": max(c["rel_gap"] for c in per),
+            "max_abs_logit": per[0]["max_abs_logit"],
+            "tokens_compared": [c["tokens_compared"] for c in per],
+            "tokens_of": per[0]["tokens_of"],
+            "launches_per_rank_prefill": want,
+            "scan_channels_per_rank": per[0].get("scan_channels"),
+            "prefill_ms_by_rank": [c["prefill_ms"] for c in per],
+            "decode_ms_per_step_by_rank": [
+                statistics.median(c["step_ms"][1:]) for c in per],
+            "collectives_per_decode_step": per[0]["calls"][0],
+            "peak_gb_by_rank": [c["peak_gb"] for c in per],
+            "world_of_one": {
+                "prefill_ms": one[arch]["prefill_ms"],
+                "decode_ms_per_step": statistics.median(
+                    one[arch]["step_ms"][1:]),
+                "peak_gb": one[arch]["peak_gb"]}}
+    emit("serve_tp_2x2_one_card", mesh={"data": 2, "model": 2},
+         fsdp=False, ranks=TP_WORLD, backend="gloo",
+         device="cuda:0 (all ranks)", note=TP_NOTE, smi=nvidia_smi_line(),
+         layers=SERVE_TP_LAYERS,
+         reduced={"n_layers": {a: [d, SERVE_TP_LAYERS]
+                               for a, d in SERVE_TP_CELLS}},
+         batch=SERVE_TP_BATCH, prompt=SERVE_TP_PROMPT,
+         steps=SERVE_TP_STEPS, compute_dtype="float32", tol=SERVE_TP_TOL,
+         cells=cells, spawn_s=spawn_s,
          phase_s=time.perf_counter() - t_phase)
     return cells
 
@@ -4639,6 +4887,8 @@ def _main_phases(name, smi, t_start, pod) -> int:
     _free()
     tp = phase_train_tp_2x2_one_card()
     _free()
+    serve_tp = phase_serve_tp_2x2_one_card()
+    _free()
     phase_dryrun_pod(pod)
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -4726,6 +4976,12 @@ def _main_phases(name, smi, t_start, pod) -> int:
             tp["falcon_mamba_7b_psum"]["launches_per_rank_step"][kname]
         by_name[kname]["train_tp_2x2_channels_per_rank"] = \
             tp["falcon_mamba_7b_psum"]["scan_channels_per_rank"]
+    # the (2, 2) serving mesh on one card: launches a rank a prefill
+    by_name["selective_scan"].update(
+        serve_tp_2x2_launches_per_rank_prefill=serve_tp["falcon_mamba_7b"][
+            "launches_per_rank_prefill"]["selective_scan"],
+        serve_tp_2x2_channels_per_rank=serve_tp["falcon_mamba_7b"][
+            "scan_channels_per_rank"])
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],
                        cosim_closed_ms_per_tick=closed_ms,

@@ -14,10 +14,10 @@ Per cell:
   decode_*   -> one ``LM.decode_step`` against a ``seq_len``-deep cache.
 
 Per-device numbers.  The dry-run does not execute the mesh (the
-trainer runs a model axis and FSDP over process groups of ranks, not
-over an abstract mesh): it traces the global program, as the
-reference's SPMD program is global, and accounts for the mesh as that
-program does.
+trainer, prefill, decode and scoring run a model axis and FSDP over
+process groups of ranks, not over an abstract mesh): it traces the
+global program, as the reference's SPMD program is global, and
+accounts for the mesh as that program does.
 
   memory       ``argument_size_in_bytes`` sums each argument's bytes on
                one device (parameters, AdamW's moments, the AER
@@ -33,9 +33,11 @@ program does.
   collectives  only those the port's step issues: the data-parallel
                reduction of ``dp_reduce`` and the metrics' mean, recorded
                by the abstract mesh's ``RecordingGroup``.  The
-               all-gathers, reduce-scatters and activation all-reduces of
-               a model axis or FSDP are not traced (ROADMAP A.11e): such
-               a cell's record says so in ``collectives_incomplete``.
+               all-gathers, reduce-scatters and activation all-reduces
+               that a model axis or FSDP runs in training, prefill,
+               decode and scoring (and a sequence-split cache's softmax
+               combine) are not traced (ROADMAP A.11e): such a cell's
+               record says so in ``collectives_incomplete``.
 
 Outputs, one a cell: ``experiments/dryrun_torch/<arch>--<shape>--<mesh>
 [--tag].json`` with the reference's record keys (plus ``counter`` and

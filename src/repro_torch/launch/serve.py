@@ -18,7 +18,10 @@ reference has no TPU kernel for them either).  ``--layers`` cuts the
 depth (the published widths kept) for a model that one card cannot
 hold: mixtral-8x22b's 56 layers are about 564 GB of float32 weights,
 two of them about 22 GB; one 8-layer period of jamba-v0.1-52b is about
-53 GB of its ~206.
+53 GB of its ~206.  A model too large for one card is cut over a
+``(data, model)`` mesh of ranks by ``shard_model`` and served through
+``generate`` on every rank (the reference's serve has no mesh flag, and
+neither has this one).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --batch 4 --prompt-len 2048 --gen 32
@@ -116,7 +119,11 @@ def generate(model: LM, batch: dict, gen: int) -> Generation:
     ``"img_embed"``), then ``gen - 1`` greedy decode steps: ``gen`` new
     tokens, each the first argmax of its logits.  It runs under
     ``torch.inference_mode()``, so a model that was just trained (whose
-    parameters need gradients) builds no autograd graph."""
+    parameters need gradients) builds no autograd graph.  A model cut
+    by ``parallel.tensor_parallel.shard_model`` is served the same way,
+    every rank of its mesh calling this with the global batch: the
+    logits come back whole on every rank, so every rank picks the same
+    tokens."""
     bsz, s = batch["tokens"].shape
     dev = model.device
     t0 = time.perf_counter()

@@ -30,6 +30,30 @@ split though their weights do, then the ones its query heads read),
 the column- and row-parallel FFN, and the vocab-parallel head and
 cross-entropy (max and log-sum-exp over the model group; padded ids
 masked by their global id).
+
+A decode step under a model axis reads this rank's part of the cache,
+laid out as ``par.kv_cache`` says (the reference's ``_cache_shardings``):
+
+- ``"heads"`` (``K % tp == 0``): the rank's K / tp key/value heads over
+  every slot; its query heads attend over them as in training.
+- ``"seq"`` (``K % tp != 0``, e.g. an MQA model): all K heads over the
+  rank's contiguous block of ``ceil(slots / tp)`` slots (the last block
+  padded; a padded slot is never valid).  The new token's key and value
+  are written only by the rank whose block holds its slot.  The query
+  heads are gathered over the model group, each rank scores its slots,
+  and the softmax is combined over the model group in float32: the
+  maximum (a block with no valid slot then weighs nothing), the sum,
+  and the weighted values reduce-scattered to each rank's query heads
+  before the row-parallel ``wo``.  A full cache's slots are ``max_len``
+  rounded up to a multiple of tp, so a position at or past ``max_len``
+  is written to a padded slot where the reference clamps it to its last
+  one: decode within ``max_len``, as ``launch.serve.generate`` does.  A
+  ring cache's ``slot_pos`` stays whole on every rank, as the
+  reference's ``(batch, None)`` spec keeps it.
+- ``None``: the whole cache on every rank.
+
+A cross-attention cache (the image tokens' keys and values) splits by
+kv heads under ``"heads"`` and is whole on every rank otherwise.
 """
 
 from __future__ import annotations
@@ -47,7 +71,8 @@ __all__ = ["_normal", "param", "Linear", "linear_init", "linear", "RMSNorm",
            "rmsnorm", "NORM_AXES", "EMBED_AXES", "HEAD_AXES",
            "FRONTEND_AXES", "padded_vocab", "Embed", "embed_init", "embed",
            "rope", "_chunk_mask", "flash_attention", "decode_attention",
-           "Attention", "attn_axes", "attn_init", "_project_qkv", "attn_apply",
+           "Attention", "attn_axes", "attn_init", "_project_kv",
+           "_project_qkv", "cache_kv_heads", "slot_block", "attn_apply",
            "attn_decode", "init_attn_cache", "_ACTS", "FFN", "ffn_axes", "ffn_init",
            "ffn_apply", "Head", "head_init", "mask_padded_vocab",
            "cross_entropy", "chunked_cross_entropy"]
@@ -376,35 +401,71 @@ def _local_kv(par, k: torch.Tensor, H: int, K: int) -> torch.Tensor:
     return k[:, :, torch.arange(h0, h0 + hq, device=k.device) // G]
 
 
+def _project_kv(p: Attention, cfg, src, par=None):
+    """k and v (B, S, K', dh) in the compute dtype from ``src`` (no
+    qk-norm, no RoPE).  Over a model axis (``par``) K' is this rank's
+    K / tp heads when the kv heads split, else all K of them (gathered
+    over the model group when their weights split)."""
+    B = src.shape[0]
+    K, dh, cd = cfg.n_kv_heads, cfg.d_head, cfg.compute_dtype
+    tp = par is not None and par.tp > 1
+    wk, wv = p.wk.w, p.wv.w
+    if tp:
+        wk, wv = _kv_weight(par, wk, K, dh), _kv_weight(par, wv, K, dh)
+    k, v = linear(wk, src, cd), linear(wv, src, cd)
+    if tp and k.shape[-1] != K * dh and K % par.tp:
+        # weights split, heads not: every rank takes all K heads
+        k, v = par.gather(k, -1), par.gather(v, -1)
+    return (k.reshape(B, -1, k.shape[-1] // dh, dh),
+            v.reshape(B, -1, v.shape[-1] // dh, dh))
+
+
+def cache_kv_heads(par, k: torch.Tensor, K: int) -> torch.Tensor:
+    """``k`` (B, S, K', dh) with the kv heads a rank's decode cache
+    holds: as projected on one rank or where the cache splits by kv
+    heads, else all K (gathered over the model group when ``k`` holds
+    this rank's K / tp)."""
+    if par is None or par.tp == 1 or par.kv_cache == "heads" \
+            or k.shape[2] == K:
+        return k
+    return par.gather(k, 2)
+
+
+def slot_block(par, t: torch.Tensor, fill=0) -> torch.Tensor:
+    """This rank's contiguous block of ``ceil(n / tp)`` of ``t``'s ``n``
+    slots (dimension 1), the last block padded with ``fill``."""
+    n = t.shape[1]
+    c = -(-n // par.tp)
+    pad = c * par.tp - n
+    if pad:
+        t = torch.cat([t, t.new_full((t.shape[0], pad, *t.shape[2:]),
+                                     fill)], 1)
+    return t[:, par.tp_rank * c:(par.tp_rank + 1) * c].contiguous()
+
+
 def _project_qkv(p: Attention, cfg, x, kv_src, positions,
                  use_rope: bool = True, par=None):
     """q (B, S, H, dh) from ``x``, k and v (B, S, K, dh) from ``kv_src``,
     in the compute dtype, after qk-norm and (``use_rope``, self-attention
     only) RoPE at ``positions``.  Over a model axis (``par``), this
-    rank's H / tp query heads and the key/value heads they read (a
-    query head's group size is then q's heads over k's)."""
+    rank's H / tp query heads, and k and v as ``_project_kv`` gives them
+    (this rank's kv heads, or all K: ``_local_kv`` picks the ones its
+    query heads read)."""
     B = x.shape[0]
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, dh = cfg.n_heads, cfg.d_head
     cd = cfg.compute_dtype
     tp = par is not None and par.tp > 1
-    wk, wv, qn, kn = p.wk.w, p.wv.w, getattr(p, "qn", None), \
-        getattr(p, "kn", None)
+    qn, kn = getattr(p, "qn", None), getattr(p, "kn", None)
     if tp:
         if H % par.tp:
             raise ValueError(f"{H} query heads do not split over "
                              f"{par.tp} model-axis ranks")
-        wk, wv = _kv_weight(par, wk, K, dh), _kv_weight(par, wv, K, dh)
         if cfg.qk_norm:
             qn = types.SimpleNamespace(scale=par.copy(qn.scale))
             kn = types.SimpleNamespace(scale=par.copy(kn.scale))
     q = linear(p.wq.w, x, cd)
-    k, v = linear(wk, kv_src, cd), linear(wv, kv_src, cd)
-    if tp and k.shape[-1] != K * dh and K % par.tp:
-        # weights split, heads not: every rank takes all K heads
-        k, v = par.gather(k, -1), par.gather(v, -1)
     q = q.reshape(B, -1, q.shape[-1] // dh, dh)
-    k = k.reshape(B, -1, k.shape[-1] // dh, dh)
-    v = v.reshape(B, -1, v.shape[-1] // dh, dh)
+    k, v = _project_kv(p, cfg, kv_src, par)
     if cfg.qk_norm:
         q = rmsnorm(qn, q, cfg.norm_eps)
         k = rmsnorm(kn, k, cfg.norm_eps)
@@ -414,8 +475,6 @@ def _project_qkv(p: Attention, cfg, x, kv_src, positions,
     q = shard(q, ("batch", None, "heads_q", None))
     k = shard(k, ("batch", None, "heads_kv", None))
     v = shard(v, ("batch", None, "heads_kv", None))
-    if tp:
-        k, v = _local_kv(par, k, H, K), _local_kv(par, v, H, K)
     return q, k, v
 
 
@@ -426,10 +485,11 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
     projects them again).  With ``kv_src`` (B, Skv, D) it is
     cross-attention, as the reference runs it: keys and values from
     ``kv_src``, no RoPE on q or k, never causal.  Over a model axis
-    (``par``) the rank's heads run and ``wo``'s partial products are
-    summed over the model group."""
+    (``par``) the rank's heads run, ``wo``'s partial products are
+    summed over the model group, and k and v are ``_project_kv``'s
+    heads."""
     B, S, _ = x.shape
-    dh = cfg.d_head
+    dh, H, K = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     causal = cfg.causal if causal is None else causal
     cross = kv_src is not None
     tp = par is not None and par.tp > 1
@@ -438,14 +498,16 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
         kv_src = par.copy(kv_src) if cross else None
     q, k, v = _project_qkv(p, cfg, x, kv_src if cross else x, positions,
                            use_rope=not cross, par=par)
-    H = q.shape[2]                   # this rank's query heads
-    q = q.reshape(B, S, k.shape[2], H // k.shape[2], dh)
+    kq, vq = (_local_kv(par, k, H, K), _local_kv(par, v, H, K)) if tp \
+        else (k, v)
+    Hl = q.shape[2]                  # this rank's query heads
+    q = q.reshape(B, S, kq.shape[2], Hl // kq.shape[2], dh)
     qc = cfg.q_chunk or min(1024, S)
-    kc = cfg.kv_chunk or min(1024, k.shape[1])
-    out = flash_attention(q, k, v, causal=causal and not cross,
+    kc = cfg.kv_chunk or min(1024, kq.shape[1])
+    out = flash_attention(q, kq, vq, causal=causal and not cross,
                           window=cfg.sliding_window, q_chunk=qc,
                           kv_chunk=kc)
-    out = linear(p.wo.w, out.reshape(B, S, H * dh), cfg.compute_dtype)
+    out = linear(p.wo.w, out.reshape(B, S, Hl * dh), cfg.compute_dtype)
     if tp:
         out = par.reduce(out)
     return shard(out, ("batch", "seq_sp", "embed")), k, v
@@ -460,7 +522,48 @@ def attn_apply(p: Attention, cfg, x, positions, *, causal=None,
                  par=par)[0]
 
 
-def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None):
+def _decode_attention_seq(par, q, k_cache, v_cache, valid):
+    """``decode_attention`` over a sequence-split cache: q (B, 1, H /
+    tp, dh) this rank's query heads; k, v (B, c, K, dh) this rank's
+    block of slots; ``valid`` (B, c).  The scores of every query head
+    over the rank's slots, then the softmax combined over the model
+    group in float32 (maximum, sum, weighted values), each rank left
+    with its own query heads' output (B, 1, H / tp, dh)."""
+    B, _, _, dh = q.shape
+    K = k_cache.shape[2]
+    qa = par.gather(q, 2)                               # (B, 1, H, dh)
+    H = qa.shape[2]
+    s = torch.einsum("bokgd,bskd->bkgos",
+                     _scaled(qa).reshape(B, 1, K, H // K, dh).float(),
+                     k_cache.float())
+    s = torch.where(valid[:, None, None, None], s, -torch.inf)
+    m = par.max(s.amax(-1, keepdim=True))
+    # a block with no valid slot scores -inf everywhere: weight 0
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    p = p / par.total(p.sum(-1, keepdim=True)).clamp(min=1e-30)
+    out = torch.einsum("bkgos,bskd->bokgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return par.scatter(out.reshape(B, 1, H, dh), 2).to(q.dtype)
+
+
+def _write_slot(par, c: torch.Tensor, slot, new: torch.Tensor,
+                seq: bool) -> torch.Tensor:
+    """``c`` (B, n, ...) with row b's slot ``slot[b]`` set to
+    ``new[b]``; under a sequence split (``seq``) ``slot`` is global and
+    only the rank whose block holds it writes."""
+    rows = torch.arange(c.shape[0], device=c.device)
+    if not seq:
+        return c.index_put((rows, slot), new)
+    n = c.shape[1]
+    local = slot - par.tp_rank * n
+    mine = (local >= 0) & (local < n)
+    at = (rows, local.clamp(0, n - 1))
+    keep = mine.view(-1, *(1,) * (new.dim() - 1))
+    return c.index_put(at, torch.where(keep, new, c[at]))
+
+
+def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None,
+                par=None):
     """One-token decode. x: (B, 1, D); pos: (B,) absolute position of the
     new token.  Two cache layouts:
 
@@ -473,60 +576,99 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None):
     precomputed image cache {"k","v"} (B, n_img, K, dh) with every slot
     valid, ropes nothing and writes nothing: the cache it returns is
     the one it was given.  Returns ``(out, new_cache)``; the input cache
-    is left as it was.
+    is left as it was.  Over a model axis (``par``) the cache is this
+    rank's part of it (``par.kv_cache``; see the module's docstring).
     """
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    cd = cfg.compute_dtype
+    tp = par is not None and par.tp > 1
+    layout = par.kv_cache if tp else None
+    if tp:
+        x = par.copy(x)
     if kv_src is not None:
         k, v = cache["k"], cache["v"]
-        q = linear(p.wq.w, x, cfg.compute_dtype).reshape(B, 1, H, dh)
+        qn = getattr(p, "qn", None)
+        q = linear(p.wq.w, x, cd)
+        q = q.reshape(B, 1, q.shape[-1] // dh, dh)
         if cfg.qk_norm:
-            q = rmsnorm(p.qn, q, cfg.norm_eps)
+            if tp:
+                qn = types.SimpleNamespace(scale=par.copy(qn.scale))
+            q = rmsnorm(qn, q, cfg.norm_eps)
         valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
                            device=x.device)
         new_cache = cache
+        seq = False
     else:
         pos = torch.as_tensor(pos, device=x.device).long()  # torchlint: disable=TL002 (pos is a device tensor)
-        q, kn, vn = _project_qkv(p, cfg, x, x, pos[:, None])
+        q, kn, vn = _project_qkv(p, cfg, x, x, pos[:, None], par=par)
+        seq = layout == "seq"
+        kn, vn = cache_kv_heads(par, kn, K), cache_kv_heads(par, vn, K)
         ring = "slot_pos" in cache
-        Smax = cache["k"].shape[1]
+        c = cache["k"].shape[1]
+        if ring:
+            Smax = cache["slot_pos"].shape[1]
+        else:
+            Smax = c * par.tp if seq else c
         # a full cache's slot is clamped into range, as
         # dynamic_update_slice clamps the reference's
         slot = pos % Smax if ring else pos.clamp(0, Smax - 1)
-        rows = torch.arange(B, device=x.device)
-        k = cache["k"].index_put((rows, slot), kn[:, 0])
-        v = cache["v"].index_put((rows, slot), vn[:, 0])
+        k = _write_slot(par, cache["k"], slot, kn[:, 0], seq)
+        v = _write_slot(par, cache["v"], slot, vn[:, 0], seq)
         new_cache = {"k": k, "v": v}
         if ring:
             slot_pos = cache["slot_pos"].index_put(
-                (rows, slot), pos.to(cache["slot_pos"].dtype))
+                (torch.arange(B, device=x.device), slot),
+                pos.to(cache["slot_pos"].dtype))
             new_cache["slot_pos"] = slot_pos
-            valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+            sp = slot_block(par, slot_pos, -1) if seq else slot_pos
+            valid = (sp >= 0) & (sp <= pos[:, None])
             if cfg.sliding_window > 0:
-                valid &= (pos[:, None] - slot_pos) < cfg.sliding_window
+                valid &= (pos[:, None] - sp) < cfg.sliding_window
         else:
-            idx = torch.arange(Smax, device=x.device)
+            idx = torch.arange(c, device=x.device)
+            if seq:
+                idx = idx + par.tp_rank * c
             valid = idx[None, :] <= pos[:, None]
             if cfg.sliding_window > 0:
                 valid &= (pos[:, None] - idx[None, :]) < cfg.sliding_window
         k = shard(k, ("batch", "kv_seq", "heads_kv", None))
         v = shard(v, ("batch", "kv_seq", "heads_kv", None))
-    out = decode_attention(q.reshape(B, 1, K, H // K, dh), k, v, valid)
-    out = linear(p.wo.w, out.reshape(B, 1, H * dh), cfg.compute_dtype)
+    if seq:
+        out = _decode_attention_seq(par, q, k, v, valid)
+    else:
+        if tp:
+            k, v = _local_kv(par, k, H, K), _local_kv(par, v, H, K)
+        Hl = q.shape[2]
+        out = decode_attention(q.reshape(B, 1, k.shape[2], Hl // k.shape[2],
+                                         dh), k, v, valid)
+    out = linear(p.wo.w, out.reshape(B, 1, -1), cd)
+    if tp:
+        out = par.reduce(out)
     return out, new_cache
 
 
-def init_attn_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
+def init_attn_cache(cfg, batch: int, max_len: int, *, device=None,
+                    par=None) -> dict:
     """One layer's self-attention cache in the compute dtype: a ring
     (``slot_pos`` −1) when the sliding window is shorter than
-    ``max_len``, else full depth."""
+    ``max_len``, else full depth.  Over a model axis (``par``) this
+    rank's part of it (``par.kv_cache``): its kv heads, or its block of
+    ``ceil(slots / tp)`` slots (``slot_pos`` whole); ``batch`` is the
+    rows this rank holds."""
     dtype = cfg.compute_dtype
     K, dh = cfg.n_kv_heads, cfg.d_head
     w = cfg.sliding_window
     depth = w if w and w < max_len else max_len
-    cache = {"k": torch.zeros((batch, depth, K, dh), dtype=dtype,
+    slots = depth
+    layout = par.kv_cache if par is not None and par.tp > 1 else None
+    if layout == "heads":
+        K //= par.tp
+    elif layout == "seq":
+        slots = -(-depth // par.tp)
+    cache = {"k": torch.zeros((batch, slots, K, dh), dtype=dtype,
                               device=device),
-             "v": torch.zeros((batch, depth, K, dh), dtype=dtype,
+             "v": torch.zeros((batch, slots, K, dh), dtype=dtype,
                               device=device)}
     if depth != max_len:
         cache["slot_pos"] = torch.full((batch, depth), -1,

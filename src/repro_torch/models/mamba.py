@@ -18,7 +18,10 @@ and ``D_skip`` are the channels' own, ``x_proj`` is row-parallel (its
 partial products summed over the model group before the dt / B / C
 split, and the gradient of that sum summed back: every rank's channels
 read all of dt_low, B and C), B7 and its backward run on the rank's
-``d_inner / tp`` channels, and ``out_proj`` is row-parallel.
+``d_inner / tp`` channels, and ``out_proj`` is row-parallel.  Prefill
+and decode run the same way, and the decode state is the rank's
+channels of it: ``h`` (B, d_inner / tp, N) and ``conv`` (B, d_conv - 1,
+d_inner / tp), as the reference's ``_cache_shardings`` split them.
 """
 
 from __future__ import annotations
@@ -179,8 +182,9 @@ def mamba_apply(p: Mamba, cfg, x: torch.Tensor, par=None) -> torch.Tensor:
     return _mamba_fwd(p, cfg, x, par)[0]
 
 
-def mamba_prefill(p: Mamba, cfg, x: torch.Tensor):
-    """Forward + decode state: returns ``(out, {"h", "conv"})``.
+def mamba_prefill(p: Mamba, cfg, x: torch.Tensor, par=None):
+    """Forward + decode state: returns ``(out, {"h", "conv"})``; ``par``
+    runs it over a model axis, the state this rank's channels.
 
     The conv cache holds the last d_conv-1 inputs, so a prompt must have
     at least that many tokens: the reference keeps a shorter cache that
@@ -190,29 +194,35 @@ def mamba_prefill(p: Mamba, cfg, x: torch.Tensor):
         raise ValueError(f"mamba_prefill: a prompt of {x.shape[1]} tokens "
                          f"is shorter than d_conv - 1 = {k1}, the depth "
                          f"of the decode cache")
-    out, h, conv = _mamba_fwd(p, cfg, x)
+    out, h, conv = _mamba_fwd(p, cfg, x, par)
     return out, {"h": h, "conv": conv}
 
 
-def init_mamba_cache(cfg, batch: int, *, device=None) -> dict:
+def init_mamba_cache(cfg, batch: int, *, device=None, par=None) -> dict:
+    """Zeros; over a model axis (``par``) this rank's channels."""
     m = cfg.mamba
     d_in = m.expand * cfg.d_model
+    if par is not None:
+        d_in //= par.pieces("mamba_inner")
     return {"h": torch.zeros((batch, d_in, m.d_state), device=device),
             "conv": torch.zeros((batch, m.d_conv - 1, d_in),
                                 device=device)}
 
 
-def mamba_decode(p: Mamba, cfg, x: torch.Tensor, cache: dict):
+def mamba_decode(p: Mamba, cfg, x: torch.Tensor, cache: dict, par=None):
     """One-token recurrence. x: (B, 1, D); cache: {"h", "conv"}.
-    Returns ``(out (B, 1, D), new cache)``."""
+    Returns ``(out (B, 1, D), new cache)``; ``par`` runs it over a
+    model axis on this rank's channels."""
     cd = cfg.compute_dtype
+    if par is not None:
+        x = par.copy(x)
     xz = linear(p.in_proj, x, cd)                       # (B, 1, 2·d_in)
     x_part, z = xz.chunk(2, dim=-1)
     x1 = x_part[:, 0].float()                           # (B, d_in)
     window = torch.cat([cache["conv"], x1[:, None, :]], dim=1)
     # the last row of the prefill conv: Σ_j window[j]·w[j] + b
     x_conv = F.silu((window * p.conv_w.float()).sum(1) + p.conv_b.float())
-    dt, b_ssm, c_ssm = _ssm_inputs(p, cfg, x_conv)      # (B,d_in),(B,N),(B,N)
+    dt, b_ssm, c_ssm = _ssm_inputs(p, cfg, x_conv, par)  # (B,d_in),(B,N)
     a = -torch.exp(p.A_log)
     abar = torch.exp(dt[..., None] * a)                 # (B, d_in, N)
     bx = (dt * x_conv)[..., None] * b_ssm[:, None, :]
@@ -220,4 +230,6 @@ def mamba_decode(p: Mamba, cfg, x: torch.Tensor, cache: dict):
     y = (h * c_ssm[:, None, :]).sum(-1) + x_conv * p.D_skip
     y = (y * F.silu(z[:, 0].float())).to(cd)
     out = linear(p.out_proj, y, cd)[:, None, :]
+    if par is not None:
+        out = par.reduce(out)
     return out, {"h": h, "conv": window[:, 1:]}

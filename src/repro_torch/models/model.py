@@ -33,13 +33,21 @@ reference's ``shard_activation`` annotations are kept at its places
 (no-ops unless sharding rules are installed).
 
 A model cut to one rank's shards (``parallel.tensor_parallel
-.shard_model``, by the trainer over a ``(data, model)`` mesh) has its
-``parallel`` set; ``loss`` then runs the sharded forward: the
-top-level leaves gathered over the data group where FSDP splits them,
-the vocab-parallel embedding, the stack over the mesh and the
-vocab-parallel head and cross-entropy.  Serving and scoring run whole
-models only: ``forward``, ``prefill`` and ``decode_step`` of a sharded
-model raise (ROADMAP A.11e).
+.shard_model`` over a ``(data, model)`` mesh) has its ``parallel`` set;
+every method then runs the sharded forward: the top-level leaves
+gathered over the data group where FSDP splits them, the vocab-parallel
+embedding, the stack over the mesh and the vocab-parallel head (and
+cross-entropy).  ``loss`` takes this rank's rows (the trainer splits
+the batch).  ``forward``, ``score``, ``prefill`` and ``decode_step``
+take the global batch, as the reference's jitted functions do, and
+each rank keeps its rows of it where the data group divides them (the
+reference's ``_batch_axis``); the logits come back whole on every rank
+(each rank's vocabulary block gathered over the model group, its rows
+over the data group), so a greedy argmax picks the same first maximum
+everywhere.  The decode cache is this rank's part of the reference's
+``_cache_shardings`` (``init_cache`` builds it, ``prefill`` fills it;
+``models.layers``' docstring has the layouts).  Every rank of the mesh
+calls these methods together.
 """
 
 from __future__ import annotations
@@ -160,7 +168,26 @@ class LM(nn.Module):
             if logits.dim() == 3 else logits
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
-        return self._head_raw(L.rmsnorm(self.ln_f, h, self.cfg.norm_eps))
+        ln_f = self.ln_f if self.parallel is None \
+            else self.parallel.view(self.ln_f)
+        return self._head_raw(L.rmsnorm(ln_f, h, self.cfg.norm_eps))
+
+    def _rows(self, batch: dict) -> dict:
+        """This rank's rows of a global ``batch`` (all of it on one
+        device)."""
+        par = self.parallel
+        if par is None:
+            return batch
+        n = next(iter(batch.values())).shape[0]
+        return {k: v[par.rows(n)] for k, v in batch.items()}
+
+    def _whole_logits(self, logits: torch.Tensor, n: int) -> torch.Tensor:
+        """The global batch's logits (``n`` rows, every vocab id) from
+        this rank's block of them."""
+        par = self.parallel
+        if par is None:
+            return logits
+        return par.whole_rows(par.gather(logits, -1), n)
 
     def _embed_inputs(self, batch: dict):
         """``(h (B, S, D), positions 0..S-1 of every row (B, S), img)``:
@@ -183,18 +210,19 @@ class LM(nn.Module):
         h = shard(h, ("batch", "seq_sp", "embed"))
         return h, torch.arange(S, device=h.device).expand(B, S), img
 
-    def _whole_only(self) -> None:
-        if self.parallel is not None:
-            raise NotImplementedError(
-                "serving or scoring a sharded model (cut to one rank's "
-                "shards by shard_model) waits for ROADMAP A.11e; the "
-                "sharded model trains through loss()")
-
     def forward(self, batch: dict):
-        self._whole_only()
-        h, positions, img = self._embed_inputs(batch)
-        h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img)
-        return self._head(h), aux
+        """``(logits (B, S, V), aux)``; on a sharded model the aux sums
+        are averaged over the data group where the rows split (the
+        global batch's)."""
+        par = self.parallel
+        n = next(iter(batch.values())).shape[0]
+        h, positions, img = self._embed_inputs(self._rows(batch))
+        h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img,
+                               par)
+        logits = self._whole_logits(self._head(h), n)
+        if par is not None and h.shape[0] != n:
+            aux = {k: par.data_mean(v) for k, v in aux.items()}
+        return logits, aux
 
     def _loss_chunk(self, S: int) -> int:
         """Positions a cross-entropy chunk (0: no chunking):
@@ -242,29 +270,42 @@ class LM(nn.Module):
         return self.forward(batch)[0]
 
     def init_cache(self, batch_size: int, max_len: int) -> list:
+        """Zeros for ``batch_size`` rows and ``max_len`` positions; on
+        a sharded model this rank's part (its rows, its heads, slots or
+        channels)."""
+        par = self.parallel
+        if par is not None:
+            rows = par.rows(batch_size)
+            batch_size = rows.stop - rows.start
         return T.init_cache(self.cfg, batch_size, max_len,
-                            device=self.device)
+                            device=self.device, par=par)
 
     def prefill(self, batch: dict, max_len=None):
         """Returns (logits for the last position (B, 1, V), decode
         cache)."""
-        self._whole_only()
-        h, positions, img = self._embed_inputs(batch)
+        n = next(iter(batch.values())).shape[0]
+        h, positions, img = self._embed_inputs(self._rows(batch))
         h, cache = T.stack_prefill(self.stack, self.cfg, h, positions, img,
-                                   max_len=max_len)
-        return self._head(h[:, -1:]), cache
+                                   max_len=max_len, par=self.parallel)
+        return self._whole_logits(self._head(h[:, -1:]), n), cache
 
     def decode_step(self, cache: list, tokens: torch.Tensor, pos):
         """tokens: (B, 1) int; pos: (B,) absolute positions."""
         cfg = self.cfg
-        self._whole_only()
+        par = self.parallel
         if not cfg.causal:
             raise ValueError(f"{cfg.name} is encoder-only (causal=False): "
                              f"it is scored (LM.score), not decoded")
-        h = shard(L.embed(self.embed, tokens, cfg.compute_dtype),
+        n = tokens.shape[0]
+        if par is not None:
+            rows = par.rows(n)
+            tokens = tokens[rows]
+            pos = torch.as_tensor(pos, device=tokens.device)[rows]  # torchlint: disable=TL002 (pos is a device tensor)
+        emb = self.embed if par is None else par.view(self.embed)
+        h = shard(L.embed(emb, tokens, cfg.compute_dtype, par),
                   ("batch", None, "embed"))
-        h, cache = T.stack_decode(self.stack, cfg, h, pos, cache)
-        return self._head(h), cache
+        h, cache = T.stack_decode(self.stack, cfg, h, pos, cache, par)
+        return self._whole_logits(self._head(h), n), cache
 
 
 def build_model(cfg, *, seed: int = 0, device=None) -> LM:

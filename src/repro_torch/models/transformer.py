@@ -34,7 +34,13 @@ block: each block reads its weights from ``par.view(block)``, which
 gathers its FSDP leaves over the data group inside the checkpointed
 function (the recompute gathers them again, so no gathered weight
 outlives its block), and its mixer and FFN or MoE run over the model
-axis.
+axis.  ``stack_prefill`` and ``stack_decode`` take ``par`` the same way,
+each block viewed through ``par.view``, and keep each layer's cache as
+this rank's part of the reference's ``_cache_shardings``
+(``layers``' docstring): an attention layer's by kv heads or by slots,
+a cross-attention layer's by kv heads (whole when they do not split),
+a Mamba layer's state by its channels.  ``init_cache`` and
+``precompute_cross_cache`` build the same parts.
 """
 
 from __future__ import annotations
@@ -244,45 +250,58 @@ def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
     return x, aux
 
 
-def _cross_cache(cfg, batch: int, *, device=None) -> dict:
-    shape = (batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.d_head)
+def _cross_cache(cfg, batch: int, *, device=None, par=None) -> dict:
+    K = cfg.n_kv_heads
+    if par is not None and par.tp > 1 and par.kv_cache == "heads":
+        K //= par.tp
+    shape = (batch, cfg.n_img_tokens, K, cfg.d_head)
     return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
             for name in ("k", "v")}
 
 
-def init_cache(cfg, batch: int, max_len: int, *, device=None) -> list:
+def init_cache(cfg, batch: int, max_len: int, *, device=None,
+               par=None) -> list:
     """One cache a layer, zeros: ``{"h", "conv"}`` for a Mamba block, the
     image tokens' ``{"k", "v"}`` (B, n_img_tokens, K, dh) for
     cross-attention, an attention cache (a ring's ``slot_pos`` −1)
-    otherwise."""
+    otherwise.  Over a model axis (``par``) each is this rank's part of
+    it, ``batch`` the rows this rank holds."""
     def one(kind):
         if kind.startswith("xattn"):
-            return _cross_cache(cfg, batch, device=device)
+            return _cross_cache(cfg, batch, device=device, par=par)
         if kind.startswith("attn"):
-            return L.init_attn_cache(cfg, batch, max_len, device=device)
-        return M.init_mamba_cache(cfg, batch, device=device)
+            return L.init_attn_cache(cfg, batch, max_len, device=device,
+                                     par=par)
+        return M.init_mamba_cache(cfg, batch, device=device, par=par)
 
     return [one(kind) for kind in _kinds(cfg)]
 
 
-def _cross_kv(attn: L.Attention, cfg, img: torch.Tensor) -> dict:
+def _cross_kv(attn: L.Attention, cfg, img: torch.Tensor, par=None) -> dict:
     """A cross-attention layer's cache from the projected image tokens:
     ``img @ wk`` and ``img @ wv`` in the compute dtype, (B, n_img, K,
     dh).  As in the reference, no ``kn`` qk-norm is applied here, though
-    ``attn_apply``'s keys get it (ROADMAP queue C)."""
-    B = img.shape[0]
-    K, dh, cd = cfg.n_kv_heads, cfg.d_head, cfg.compute_dtype
-    return {"k": L.linear(attn.wk.w, img, cd).reshape(B, -1, K, dh),
-            "v": L.linear(attn.wv.w, img, cd).reshape(B, -1, K, dh)}
+    ``attn_apply``'s keys get it (ROADMAP queue C).  Over a model axis
+    (``par``) this rank's kv heads when they split, else all of them."""
+    k, v = L._project_kv(attn, cfg, img, par)
+    K = cfg.n_kv_heads
+    return {"k": L.cache_kv_heads(par, k, K),
+            "v": L.cache_kv_heads(par, v, K)}
 
 
 def precompute_cross_cache(stack: Stack, cfg, cache: list,
-                           img: torch.Tensor) -> list:
+                           img: torch.Tensor, par=None) -> list:
     """``cache`` with every cross-attention layer's entry filled from the
     projected image tokens ``img`` (B, n_img, D); the other layers'
-    entries are the same objects."""
-    return [_cross_kv(blk.attn, cfg, img) if blk.kind.startswith("xattn")
-            else c for blk, c in zip(stack.blocks, cache, strict=True)]
+    entries are the same objects.  ``par``: a sharded model's, its
+    rank's heads."""
+    return [_cross_kv(_view(blk, par).attn, cfg, img, par)
+            if blk.kind.startswith("xattn") else c
+            for blk, c in zip(stack.blocks, cache, strict=True)]
+
+
+def _view(blk: Block, par):
+    return blk if par is None else par.view(blk)
 
 
 def _ring_positions(S: int, W: int, B: int, device=None) -> torch.Tensor:
@@ -295,35 +314,48 @@ def _ring_positions(S: int, W: int, B: int, device=None) -> torch.Tensor:
 
 
 def _attn_cache(k: torch.Tensor, v: torch.Tensor, max_len: int,
-                W: int) -> dict:
+                W: int, cfg, par=None) -> dict:
     """The decode cache of one attention layer from its prefill k, v
-    (B, S, K, dh): the last W positions rolled into ring order with
+    (B, S, K', dh): the last W positions rolled into ring order with
     their ``slot_pos`` when ``W``, else the whole prompt grown to
-    ``max_len`` slots."""
+    ``max_len`` slots.  Over a model axis (``par``) this rank's part:
+    its kv heads, or all of them cut to its block of slots (``max_len``
+    first rounded up to a multiple of tp)."""
+    seq = par is not None and par.tp > 1 and par.kv_cache == "seq"
+    k = L.cache_kv_heads(par, k, cfg.n_kv_heads)
+    v = L.cache_kv_heads(par, v, cfg.n_kv_heads)
     B, S = k.shape[:2]
     if not W:
+        if seq:
+            max_len = -(-max_len // par.tp) * par.tp
         pad = (0, 0, 0, 0, 0, max_len - S)
-        return {"k": torch.nn.functional.pad(k, pad),
-                "v": torch.nn.functional.pad(v, pad)}
-    if S >= W:
+        cache = {"k": torch.nn.functional.pad(k, pad),
+                 "v": torch.nn.functional.pad(v, pad)}
+    elif S >= W:
         # ring invariant: slot j holds position p, p % W == j
-        return {"k": torch.roll(k[:, -W:], S % W, 1),
-                "v": torch.roll(v[:, -W:], S % W, 1),
-                "slot_pos": _ring_positions(S, W, B, k.device)}
-    pad = (0, 0, 0, 0, 0, W - S)
-    sp = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
-    sp[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
-    return {"k": torch.nn.functional.pad(k, pad),
-            "v": torch.nn.functional.pad(v, pad), "slot_pos": sp}
+        cache = {"k": torch.roll(k[:, -W:], S % W, 1),
+                 "v": torch.roll(v[:, -W:], S % W, 1),
+                 "slot_pos": _ring_positions(S, W, B, k.device)}
+    else:
+        pad = (0, 0, 0, 0, 0, W - S)
+        sp = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
+        sp[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
+        cache = {"k": torch.nn.functional.pad(k, pad),
+                 "v": torch.nn.functional.pad(v, pad), "slot_pos": sp}
+    if seq:
+        cache["k"] = L.slot_block(par, cache["k"])
+        cache["v"] = L.slot_block(par, cache["v"])
+    return cache
 
 
 def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
-                  max_len=None):
+                  max_len=None, par=None):
     """Forward that also returns the decode cache: ``(hidden, [cache of
     each layer])``.  Attention layers keep their K/V with room for
     ``max_len`` positions (a ring of the window when it is shorter);
     cross-attention layers the image tokens' K/V; Mamba layers the
-    final recurrent and conv state."""
+    final recurrent and conv state.  ``par`` (a sharded model's) runs
+    it over the model's mesh, each cache this rank's part."""
     S = x.shape[1]
     max_len = max(max_len or 0, S)
     W = cfg.sliding_window if (cfg.sliding_window and
@@ -333,37 +365,43 @@ def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
     for i, blk in enumerate(stack.blocks):
         if i % period == 0:
             x = shard(x, ("batch", "seq_sp", "embed"))
+        blk = _view(blk, par)
         h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
         if blk.kind.startswith("xattn"):
             mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,
-                                           kv_src=img, causal=False))
-            caches.append(_cross_kv(blk.attn, cfg, img))
+                                           kv_src=img, causal=False,
+                                           par=par))
+            caches.append(_cross_kv(blk.attn, cfg, img, par))
         elif blk.kind.startswith("attn"):
-            mix, k, v = L._attn(blk.attn, cfg, h, positions)
-            caches.append(_attn_cache(k, v, max_len, W))
+            mix, k, v = L._attn(blk.attn, cfg, h, positions, par=par)
+            caches.append(_attn_cache(k, v, max_len, W, cfg, par))
         else:
-            mix, st = M.mamba_prefill(blk.mamba, cfg, h)
+            mix, st = M.mamba_prefill(blk.mamba, cfg, h, par)
             caches.append(st)
-        x, _ = _channel_mix(blk, cfg, x + mix)
+        x, _ = _channel_mix(blk, cfg, x + mix, par)
     return x, caches
 
 
-def stack_decode(stack: Stack, cfg, x: torch.Tensor, pos, cache: list):
+def stack_decode(stack: Stack, cfg, x: torch.Tensor, pos, cache: list,
+                 par=None):
     """One-token decode. x: (B, 1, D); ``pos`` (B,) the new token's
     absolute position (Mamba and cross-attention blocks do not read
     it).  Returns ``(x, new cache)``; the input cache is left as it was,
-    and a cross-attention layer's entry is passed on as it is."""
+    and a cross-attention layer's entry is passed on as it is.  ``par``
+    (a sharded model's) runs it over the model's mesh on this rank's
+    part of each cache."""
     new_cache = []
     for blk, c in zip(stack.blocks, cache, strict=True):
+        blk = _view(blk, par)
         h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
         if blk.kind.startswith("xattn"):
             mix, nc = L.attn_decode(blk.attn, cfg, h, c, pos,
-                                    kv_src="static")
+                                    kv_src="static", par=par)
             mix = _gated(blk, mix)
         elif blk.kind.startswith("attn"):
-            mix, nc = L.attn_decode(blk.attn, cfg, h, c, pos)
+            mix, nc = L.attn_decode(blk.attn, cfg, h, c, pos, par=par)
         else:
-            mix, nc = M.mamba_decode(blk.mamba, cfg, h, c)
+            mix, nc = M.mamba_decode(blk.mamba, cfg, h, c, par)
         new_cache.append(nc)
-        x, _ = _channel_mix(blk, cfg, x + mix)
+        x, _ = _channel_mix(blk, cfg, x + mix, par)
     return x, new_cache

@@ -26,11 +26,16 @@ does.
 Each collective hands the backend its tensors on ``group_device``: a
 CUDA tensor is staged through host memory under gloo (so several ranks
 can share one card, each its own process), and moves no byte under
-NCCL, where the group's device is the card.
+NCCL, where the group's device is the card.  ``CALLS`` counts the
+collectives this process has run, by kind (``"all-reduce"``,
+``"all-gather"``, ``"reduce-scatter"``, ``"collective-permute"``; a
+recorded one is not run, so not counted): a caller zeroes it with
+``CALLS.clear()`` and reads it after the work it counts.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import math
@@ -45,12 +50,15 @@ from ..launch import cost
 __all__ = ["axis_size", "axis_index", "global_rank", "Mesh", "make_mesh",
            "set_mesh", "current_mesh", "DP_AXES", "group_device",
            "barrier", "RecordingGroup", "all_reduce", "all_gather",
-           "all_gather_dim", "reduce_scatter", "ppermute"]
+           "all_gather_dim", "reduce_scatter", "ppermute", "CALLS"]
 
 #: the mesh axes data parallelism spans
 DP_AXES = ("pod", "data")
 
 _state = threading.local()
+
+#: the collectives run by this process, by kind
+CALLS: collections.Counter = collections.Counter()
 
 
 @dataclass(frozen=True)
@@ -98,6 +106,7 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> None:
     if isinstance(group, RecordingGroup):
         return _recorded("all-reduce", t)
     cost.record_collective("all-reduce", t)
+    CALLS["all-reduce"] += 1
     s = _staged(t, group)
     dist.all_reduce(s, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
@@ -111,6 +120,7 @@ def all_gather(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
     if isinstance(group, RecordingGroup):
         return _recorded("all-gather", out)
     cost.record_collective("all-gather", out)
+    CALLS["all-gather"] += 1
     so = _staged(out, group)
     dist.all_gather(list(so.unbind(0)), _staged(t, group), group=group)
     if so is not out:
@@ -138,6 +148,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
         _recorded("reduce-scatter", out)
     else:
         cost.record_collective("reduce-scatter", out)
+        CALLS["reduce-scatter"] += 1
         so = _staged(out, group)
         dist.reduce_scatter_tensor(so, _staged(x, group), group=group)
         if so is not out:
@@ -152,6 +163,7 @@ def ppermute(t: torch.Tensor, out: torch.Tensor, to: int, frm: int,
     if isinstance(group, RecordingGroup):
         return _recorded("collective-permute", out)
     cost.record_collective("collective-permute", out)
+    CALLS["collective-permute"] += 1
     so = _staged(out, group)
     ops = [dist.P2POp(dist.isend, _staged(t, group).contiguous(),
                       global_rank(group, to), group),

@@ -31,6 +31,21 @@ the same block of ``z``'s.  ``shard_param`` and ``unshard_param`` cut and
 rebuild a whole leaf in the reference's layout either way, so
 checkpoints and the interop hold whole leaves.
 
+Serving and scoring run on the same shards (``models.model.LM``'s
+``prefill``, ``decode_step`` and ``score``): the batch's rows split over
+the data group as the reference's ``_batch_axis`` splits them (when the
+data group divides the rows), and each rank's decode cache is its part
+of the reference's ``_cache_shardings``: the key/value heads over the
+model group (``heads_kv``), or, when they do not split, the cache's
+slots (``kv_seq``: a contiguous block of ``ceil(slots / tp)`` a rank,
+the last one padded), and a Mamba layer's state over its channels.
+Over a sequence-split cache a decode step combines each rank's partial
+softmax over the model group in float32 (``Parallel.max``,
+``Parallel.total`` and ``Parallel.scatter``: a maximum, a sum, then a
+reduce-scatter of the weighted values to each rank's query heads).
+``Parallel.kv_cache`` names the layout; ``Parallel.rows`` and
+``Parallel.whole_rows`` cut and rejoin the batch's rows.
+
 A collective over a group of one rank is skipped: a mesh whose model
 axis is 1 and whose parameters no spec splits runs the data-parallel
 step exactly as it ran before.
@@ -222,18 +237,61 @@ class _Gather(torch.autograd.Function):
 
 # --- the context a sharded model runs under --------------------------------
 
+def _on_model(entry, mesh: Mesh) -> bool:
+    """Whether an activation rule's entry splits over the model axis."""
+    return any(a not in DP_AXES and mesh.shape.get(a, 1) > 1
+               for a in _names(entry))
+
+
 class Parallel:
     """A sharded model's place on its mesh: the model-axis group
     (``model``, ``tp`` ranks, this one ``tp_rank``), the data-parallel
-    group (``data``, ``dp``, ``dp_rank``) and each parameter's
-    ``Split`` by name.  Its methods are the model code's collectives;
-    over a group of one rank they hand their input back."""
+    group (``data``, ``dp``, ``dp_rank``), each parameter's ``Split`` by
+    name, and what the rules' activation table (``act_map``) says of
+    serving: whether the batch's rows split over the data group
+    (``rows_split``) and how a decode cache lies over the model group
+    (``kv_cache``: ``"heads"``, its key/value heads split; ``"seq"``,
+    its slots split; ``None``, whole).  Its methods are the model code's
+    collectives; over a group of one rank they hand their input
+    back."""
 
-    def __init__(self, mesh: Mesh, rank: int, splits: dict):
+    def __init__(self, mesh: Mesh, rank: int, splits: dict,
+                 act_map: dict):
         self.mesh, self.rank, self.splits = mesh, rank, splits
         self.model, self.data = mesh.model_group, mesh.dp_group
         self.tp, self.tp_rank = axis_size(self.model), axis_index(self.model)
         self.dp, self.dp_rank = axis_size(self.data), axis_index(self.data)
+        self.act_map = dict(act_map)
+        self.rows_split = self.dp > 1 and act_map.get("batch") is not None
+        heads, seq = (_on_model(act_map.get(n), mesh)
+                      for n in ("heads_kv", "kv_seq"))
+        if heads and seq:
+            raise ValueError("the rules split the decode cache over its "
+                             "kv heads and its slots at once")
+        self.kv_cache = "heads" if heads else "seq" if seq else None
+
+    def pieces(self, name: str) -> int:
+        """The model-axis pieces the activation axis ``name`` splits
+        into (1: whole on every rank)."""
+        return self.tp if _on_model(self.act_map.get(name), self.mesh) \
+            else 1
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``: its data
+        coordinate's block when the data group divides ``n`` (the
+        reference's ``_batch_axis``), else all of them."""
+        if not self.rows_split or n % self.dp:
+            return slice(0, n)
+        m = n // self.dp
+        return slice(self.dp_rank * m, (self.dp_rank + 1) * m)
+
+    def whole_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The global batch of ``n`` rows from this rank's ``x`` (rows
+        along dimension 0; no gradient): gathered over the data group
+        where ``rows`` split them."""
+        if x.shape[0] == n:
+            return x
+        return all_gather_dim(x.detach(), 0, self.data)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return _Copy.apply(x, self.model) if self.tp > 1 else x
@@ -251,6 +309,19 @@ class Parallel:
         out = x.detach().clone()
         all_reduce(out, self.model, op="max")
         return out
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model group (no gradient), in ``x``'s
+        dtype."""
+        return x.detach() if self.tp == 1 else _sum_over(x.detach(),
+                                                         self.model)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the model group, cut into ``tp`` blocks along
+        ``dim``: this rank's block (no gradient)."""
+        if self.tp == 1:
+            return x.detach()
+        return reduce_scatter(x.detach(), dim, self.model)
 
     def data_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the data group (no gradient)."""
@@ -328,7 +399,7 @@ def shard_model(model: nn.Module, rules):
                 setattr(mod, attr, p)
             setattr(p, SPLIT_ATTR, split)
             splits[name] = split
-    model.parallel = Parallel(mesh, rank, splits)
+    model.parallel = Parallel(mesh, rank, splits, rules.act_map)
     return model.parallel
 
 

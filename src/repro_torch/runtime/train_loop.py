@@ -58,9 +58,10 @@ reduction and hands each layer its slice after, and the AER residuals
 are kept in the stacked layout, keyed ``stack.pos<i>.<path>``
 (top-level leaves keep their parameter's name).
 
-Sequence parallelism (``make_rules(seq_parallel=True)``), and on a
-sharded mesh the block kinds past ``attn_ffn``, ``attn_moe`` and
-``mamba``, wait for ROADMAP A.11e and raise ``NotImplementedError``.
+Every block kind trains on a sharded mesh (``SHARDED_KINDS``: the
+dense, MoE, Mamba, hybrid and cross-attention blocks).  Sequence
+parallelism (``make_rules(seq_parallel=True)``) waits for ROADMAP
+A.11e and raises ``NotImplementedError``.
 
 ``make_recorded_step(model, run_cfg, group)`` is the step the dry-run
 traces over an abstract mesh (``launch.dryrun``): ``group`` is the
@@ -92,7 +93,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import sparse_collectives as sc
-from ..models.transformer import _kinds, n_periods, pattern_for
+from ..models.transformer import KINDS, n_periods, pattern_for
 from ..optim import adamw
 from ..parallel.compat import RecordingGroup, all_reduce, axis_size
 from ..parallel.sharding import NamedSharding, PartitionSpec, \
@@ -263,8 +264,8 @@ def _deterministic(on: bool):
         tud.fill_uninitialized_memory = prev[2]
 
 
-#: the block kinds a sharded mesh runs (the others wait for A.11e)
-SHARDED_KINDS = ("attn_ffn", "attn_moe", "mamba")
+#: the block kinds a sharded mesh runs: all of the reference's
+SHARDED_KINDS = KINDS
 
 
 def _sharded_mesh(model, run_cfg, rules):
@@ -281,15 +282,6 @@ def _sharded_mesh(model, run_cfg, rules):
     if mesh.groups is None:
         raise ValueError("the rules' mesh has no process groups (an "
                          "abstract mesh): build it with make_host_mesh")
-    axes = model.param_axes()
-    if mesh.model_size > 1 or any(rules.param_sharding(a).shards > 1
-                                  for a in axes.values()):
-        other = sorted(set(_kinds(model.cfg)) - set(SHARDED_KINDS))
-        if other:
-            raise NotImplementedError(
-                f"block kinds {other} on a sharded mesh (a model axis or "
-                f"FSDP) wait for ROADMAP A.11e; the port shards "
-                f"{SHARDED_KINDS}")
     return shard_model(model, rules)
 
 

@@ -14,7 +14,10 @@ reference's initial parameters.  The reference builds its mesh as
 axes).  Its manual modes (``ring``, ``bidir_ring``, ``aer_topk``) raise
 for both MoE layouts under this JAX (ROADMAP queue C), so the MoE
 modules hold those against the reference's ``psum`` (``ring``) and the
-port's own ``(2, 1)`` mesh (``aer_topk``).
+port's own ``(2, 1)`` mesh (``aer_topk``).  Each batch carries the
+arch's modality (audio frames, image embeddings), and every
+cross-attention ``xgate`` starts at ``XGATE`` on both sides (the
+reference's 0 would shut the image out).
 
 Each port rank returns, for every case: its losses and wire words a
 step, the parameters after the last step gathered whole
@@ -46,6 +49,8 @@ PARAM_TOL = 1e-4
 #: wrong count leaves losses and parameters where they were), the norm
 #: does not; every case reads within 9e-7
 GNORM_RTOL = 1e-5
+#: every cross-attention gate's initial value, on both sides
+XGATE = 0.7
 
 REF = r"""
 import jax, jax.numpy as jnp, numpy as np
@@ -53,11 +58,39 @@ from repro.configs.base import RunConfig, get_smoke_config
 from repro.data import SyntheticLM
 from repro.models.model import build_model
 from repro.parallel.compat import AXIS_TYPE_AUTO, make_mesh
-from repro.parallel.sharding import make_rules
-from repro.runtime.train_loop import init_state, make_train_step
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.parallel.sharding import make_rules, partition_params
+from repro.core import sparse_collectives as sc
+from repro.optim import adamw
+from repro.runtime.train_loop import TrainState, make_train_step
 
 CASES, STEPS, RUN = {cases!r}, {steps!r}, {run!r}
+INIT = dict(np.load({init!r}))
 out = {{}}
+
+def initial(model, arch, rules, mode):
+    # the first child's initial parameters (the port's too), in a state
+    # placed by the parameter specs as the dry-run's lower_cell places
+    # it: the step's outputs keep that placement, so it compiles once
+    box = {{}}
+
+    def init(k):
+        p, box["axes"] = model.init(k)
+        return p
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, _: jnp.asarray(INIT[arch + "/init/" + "/".join(
+            str(getattr(q, "key", getattr(q, "idx", q))) for q in path)]),
+        shapes)
+    psh = partition_params(box["axes"], rules)
+    rep = NamedSharding(rules.mesh, P())
+    aer = sc.init_aer_states(params) if mode == "aer_topk" else None
+    state = TrainState(params=params, opt=adamw.init(params), aer=aer,
+                       step=jnp.zeros((), jnp.int32))
+    return jax.device_put(state, TrainState(
+        params=psh, opt=adamw.AdamWState(step=rep, mu=psh, nu=psh),
+        aer=None if aer is None else jax.tree.map(lambda _: rep, aer),
+        step=rep))
 
 def flat(tree, prefix):
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
@@ -72,11 +105,11 @@ for arch, d, m, fsdp, mode in CASES:
                      axis_types=(AXIS_TYPE_AUTO,) * 2)
     rules = make_rules(mesh, fsdp=fsdp, kv_heads=cfg.n_kv_heads,
                        d_head=cfg.d_head)
-    data = SyntheticLM(cfg.vocab, {seq!r}, {batch!r}, seed={seed!r})
+    data = SyntheticLM(cfg.vocab, {seq!r}, {batch!r}, seed={seed!r},
+                       modality=cfg.modality, d_frontend=cfg.d_frontend,
+                       n_img_tokens=cfg.n_img_tokens)
     run = RunConfig(dp_reduce=mode, **RUN)
-    state = init_state(model, jax.random.PRNGKey(0), run)
-    if arch + "/init/" not in {{k[:len(arch) + 6] for k in out}}:
-        flat(state.params, arch + "/init/")
+    state = initial(model, arch, rules, mode)
     step = make_train_step(model, run, rules)
     key = f"{{arch}}/{{d}}x{{m}}/{{int(fsdp)}}/{{mode}}"
     losses, words, gnorms = [], [], []
@@ -100,10 +133,11 @@ def key(case) -> str:
     return f"{arch}/{d}x{m}/{int(fsdp)}/{mode}"
 
 
-def _reference(cases, path) -> dict:
+def _reference(cases, init, path) -> dict:
     out = run_with_devices(REF.format(
-        cases=list(cases), steps=STEPS, run=RUN, seq=D.SEQ, batch=D.BATCH,
-        seed=D.SEED, path=str(path)), D.WORLD, timeout=900)
+        cases=list(cases), steps=STEPS, run=RUN, init=str(init),
+        seq=D.SEQ, batch=D.BATCH, seed=D.SEED, path=str(path)), D.WORLD,
+        timeout=900)
     assert "REF-TP-OK" in out, out
     return dict(np.load(path))
 
@@ -112,14 +146,14 @@ def runs(tmp, ref_cases, port_cases, *, ckpt: str | None = None) -> tuple:
     """``(reference results, one dict a port rank)``: the reference's
     child runs ``ref_cases`` while the port's 4 ranks run ``port_cases``
     (and the checkpoint round trip after the case keyed ``ckpt``), from
-    the reference's initial parameters, which a first child writes (a
-    smoke model's init takes a second)."""
+    the reference's initial parameters, which a first child writes (its
+    init jitted: op by op, jamba's is slow) and both sides load."""
     init = tmp / "init.npz"
-    archs = sorted({c[0] for c in port_cases})
-    run_with_devices(_INIT.format(archs=archs, path=str(init)), 1,
-                     timeout=300)
+    archs = sorted({c[0] for c in port_cases} | {c[0] for c in ref_cases})
+    run_with_devices(_INIT.format(archs=archs, xgate=XGATE,
+                                  path=str(init)), 1, timeout=300)
     with ThreadPoolExecutor(1) as pool:
-        ref = pool.submit(_reference, ref_cases, tmp / "ref.npz")
+        ref = pool.submit(_reference, ref_cases, init, tmp / "ref.npz")
         ranks = D.spawn(tmp, port_rank, list(port_cases), str(init), ckpt,
                         str(tmp / "ckpt"))
         return ref.result(), ranks
@@ -132,7 +166,11 @@ from repro.models.model import build_model
 out = {{}}
 for arch in {archs!r}:
     cfg = get_smoke_config(arch).with_(compute_dtype=jnp.float32)
-    params, _ = build_model(cfg).init(jax.random.PRNGKey(0))
+    model = build_model(cfg)
+    params = jax.jit(lambda k: model.init(k)[0])(jax.random.PRNGKey(0))
+    for blk in params["stack"].values():
+        if "xgate" in blk:
+            blk["xgate"] = jnp.full_like(blk["xgate"], {xgate!r})
     for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
         k = "/".join(str(getattr(q, "key", getattr(q, "idx", q)))
                      for q in path)
@@ -184,7 +222,9 @@ def port_rank(rank, cases, init_path, ckpt=None, ckpt_dir=None):
         if built is None:
             continue
         cfg, rules, model, state, step = built
-        data = SyntheticLM(cfg.vocab, D.SEQ, D.BATCH, seed=D.SEED)
+        data = SyntheticLM(cfg.vocab, D.SEQ, D.BATCH, seed=D.SEED,
+                           modality=cfg.modality, d_frontend=cfg.d_frontend,
+                           n_img_tokens=cfg.n_img_tokens)
         losses, words, gnorms = [], [], []
         for s in range(STEPS):
             b = {k: torch.from_numpy(v) for k, v in data.batch(s).items()}

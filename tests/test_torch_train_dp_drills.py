@@ -17,12 +17,13 @@ under this JAX, ROADMAP queue C) and of its launcher's ``--mesh-data``:
   --device cpu``), printing from rank 0 only;
 - the refusals, and what took their place: rows that do not split over
   the ranks, an abstract mesh, ``--mesh-data`` other than the world's
-  size, sequence parallelism, a block kind past the three the port
-  shards and serving a sharded model (ROADMAP A.11e) are refused; a
-  model axis past 1 and a spec that splits a parameter (FSDP) now
-  train (a step's loss equal to the data-only step's on the same
-  rows), and a whole checkpoint restores onto FSDP shards (each leaf
-  bit-equal to its shard).
+  size and sequence parallelism (ROADMAP A.11e) are refused; a model
+  axis past 1 and a spec that splits a parameter (FSDP) now train (a
+  step's loss equal to the data-only step's on the same rows), a whole
+  checkpoint restores onto FSDP shards (each leaf bit-equal to its
+  shard), jamba's hybrid block kinds build a step on a model axis, and
+  a sharded model scores (its logits within 1e-5 of the whole
+  model's).
 """
 
 import os
@@ -274,8 +275,14 @@ def _refusal_rank(rank, root):
     tp_model, _, loss = one_step(tp_rules)
     said["model_axis"] = np.array(abs(loss - base) < 1e-5 and
                                   tp_model.head.w.shape[1] == cfg.vocab // 2)
-    refused("serve_sharded", NotImplementedError, "A.11e",
-            lambda: tp_model.forward(batch))
+    sharded = build_model(f32, seed=0, device="cpu")
+    tl.make_train_step(sharded, run, tp_rules)
+    with torch.no_grad():
+        got = sharded.forward(batch)[0]
+        want = build_model(f32, seed=0, device="cpu").forward(batch)[0]
+    said["serve_sharded"] = np.array(
+        got.shape == want.shape and
+        float((got - want).abs().max()) < 1e-5)
     mesh, fsdp_rules = _rules(cfg, 2, fsdp=True)
     fsdp_model, fsdp_state, loss = one_step(fsdp_rules)
     said["fsdp"] = np.array(abs(loss - base) < 1e-5 and
@@ -298,11 +305,12 @@ def _refusal_rank(rank, root):
             lambda: tl.make_train_step(model, run, make_rules(
                 mesh, seq_parallel=True)))
     jamba = get_smoke_config("jamba_v01_52b")
-    refused("kinds", NotImplementedError, "A.11e",
-            lambda: tl.make_train_step(
-                build_model(jamba, device="cpu"), RunConfig(),
-                make_rules(mesh, kv_heads=jamba.n_kv_heads,
-                           d_head=jamba.d_head)))
+    hybrid = build_model(jamba, device="cpu")
+    tl.make_train_step(hybrid, RunConfig(), make_rules(
+        mesh, kv_heads=jamba.n_kv_heads, d_head=jamba.d_head))
+    said["kinds"] = np.array(hybrid.parallel.tp == 2 and
+                             hybrid.stack.blocks[0].mamba.D_skip.shape[0]
+                             == jamba.mamba.expand * jamba.d_model // 2)
     return said
 
 
