@@ -364,8 +364,15 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                step with the data reduction skipped); B7 4 and its
                backward 2 a falcon step on each rank, on 4096 of the
                8192 channels;
-               B5 and B6 one a reference leaf; ms a step and peak
-               memory a rank;
+               B5 and B6 one a reference leaf; ms a step, peak memory
+               and collectives a step a rank; then granite-3-2b and
+               falcon-mamba-7b under ``psum`` with sequence parallelism
+               (A.11e item 1: ``make_rules(seq_parallel=True)``, the
+               residual stream between blocks each rank's 1024 of the
+               2048 positions, checked), held against the same whole
+               runs under the same limits, B7 still 4 and its backward
+               2 a falcon rank a step, their ms, peak and collectives
+               printed beside the plain cell's;
 36. serve_tp_2x2_one_card — serving a sharded model (A.11e): 4
                processes on cuda:0 over gloo (4 ranks time-share the
                card: not multi-card figures), a (2, 2) mesh without
@@ -380,8 +387,14 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                within 1e-4 of max |logit|, greedy tokens equal where
                the margin allows, B7 2 a rank a falcon prefill on 4096
                of the 8192 channels; prefill ms, ms a decode step, peak
-               memory and the collectives of a decode step a rank,
-               beside the card's name and power limit;
+               memory and the collectives of a prefill and a decode
+               step a rank, beside the card's name and power limit;
+               then granite-34b again with sequence parallelism (A.11e
+               item 1): each prefill block's residual stream 1024 of
+               the 2048 positions a rank, checked, its decode steps
+               whole on every rank with the plain cell's collectives,
+               held against the same world of one and printed beside
+               the plain cell;
 37. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
                of ``--all`` (each arch x shape its ``shapes_for``
                lists, full width, the production shapes) on the 16 x 16
@@ -3975,6 +3988,10 @@ def phase_train_dp_aer():
 #: width, depth cut to TP_LAYERS, 4 x 2048 tokens, float32 compute
 TP_CELLS = (("falcon_mamba_7b", "psum"), ("falcon_mamba_7b", "aer_topk"),
             ("granite_3_2b", "psum"))
+#: the same cells with sequence parallelism (``make_rules(...,
+#: seq_parallel=True)``: the residual stream a rank's block of 1024 of
+#: the 2048 positions), held against the same whole runs
+TP_SP_CELLS = (("granite_3_2b", "psum"), ("falcon_mamba_7b", "psum"))
 TP_LAYERS, TP_STEPS, TP_WORLD = 2, 3, 4
 TP_LOSS_TOL = 1e-4
 #: each step's gradient norm, relative to the whole run's: AdamW and the
@@ -4005,12 +4022,15 @@ def _tp_train(arch, mode, rules, rows=None):
     steps of ``make_train_step(..., rules)`` (``None``: one device) on
     ``_dp_batch``'s global batches (their first ``rows`` rows, if
     given).  Returns the model, its state, the losses, the gradient
-    norms, ms a step and the launches of each step; the peak memory
-    stats restart once the state is made (the whole model drawn before
-    it is cut to a rank's shards is not counted)."""
+    norms, ms a step, the launches of each step and its collectives by
+    kind, and the lengths of the residual stream the blocks took
+    (``_resid_lengths``); the peak memory stats restart once the state
+    is made (the whole model drawn before it is cut to a rank's shards
+    is not counted)."""
     import torch
     from repro_torch.configs.base import RunConfig
     from repro_torch.models.model import build_model
+    from repro_torch.parallel.compat import CALLS
     from repro_torch.runtime import train_loop as tl
     cfg = _tp_cfg(arch)
     run = RunConfig(dp_reduce=mode, learning_rate=1e-3, warmup_steps=0,
@@ -4020,21 +4040,50 @@ def _tp_train(arch, mode, rules, rows=None):
     state = tl.init_state(model, run, rules)
     step = tl.make_train_step(model, run, rules)
     torch.cuda.reset_peak_memory_stats()
-    losses, gnorms, times, counts = [], [], [], []
-    for s in range(TP_STEPS):
-        batch = _dp_batch(cfg, s)
-        if rows is not None:
-            batch = {k: v[:rows] for k, v in batch.items()}
-        torch.cuda.synchronize()
-        _counts_zero()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        counts.append(_counts())
-    return model, state, losses, gnorms, times, counts
+    losses, gnorms, times, counts, calls = [], [], [], [], []
+    with _resid_lengths() as lengths:
+        for s in range(TP_STEPS):
+            batch = _dp_batch(cfg, s)
+            if rows is not None:
+                batch = {k: v[:rows] for k, v in batch.items()}
+            torch.cuda.synchronize()
+            _counts_zero()
+            CALLS.clear()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts.append(_counts())
+            calls.append(dict(CALLS))
+    return (model, state, losses, gnorms, times, counts, calls,
+            sorted(lengths))
+
+
+@contextlib.contextmanager
+def _resid_lengths():
+    """The lengths (dimension 1) of the residual stream every block's
+    channel mix took while the ``with`` body ran: the whole sequence,
+    or a rank's block of it under sequence parallelism."""
+    from repro_torch.models import transformer as T
+    seen, mix = set(), T._channel_mix
+
+    def spy(blk, cfg, x, par=None):
+        seen.add(int(x.shape[1]))
+        return mix(blk, cfg, x, par)
+    T._channel_mix = spy
+    try:
+        yield seen
+    finally:
+        T._channel_mix = mix
+
+
+def _tp_cells() -> list:
+    """``(arch, mode, sp, label)`` of every training cell on the mesh:
+    TP_CELLS, then TP_SP_CELLS with sequence parallelism."""
+    return [(a, m, False, f"{a}_{m}") for a, m in TP_CELLS] + \
+        [(a, m, True, f"{a}_{m}_sp") for a, m in TP_SP_CELLS]
 
 
 def _tp_gaps(pairs) -> tuple:
@@ -4154,14 +4203,13 @@ def _tp_train_cells(rank, out_dir, out):
     from repro_torch.parallel.sharding import make_rules
     from repro_torch.parallel.tensor_parallel import unshard_param
     from repro_torch.runtime import train_loop as tl
-    for arch, mode in TP_CELLS:
+    for arch, mode, sp, label in _tp_cells():
         cfg = _tp_cfg(arch)
-        label = f"{arch}_{mode}"
-        whole_path = os.path.join(out_dir, f"{label}.pt")
+        whole_path = os.path.join(out_dir, f"{arch}_{mode}.pt")
         if mode == "aer_topk":
             mesh = make_host_mesh(data=2, model=1)
             if rank < mesh.size:
-                model, _, losses, gnorms, _, _ = _tp_train(
+                model, _, losses, gnorms, *_ = _tp_train(
                     arch, mode, make_rules(mesh, fsdp=False,
                                            kv_heads=cfg.n_kv_heads,
                                            d_head=cfg.d_head))
@@ -4172,10 +4220,10 @@ def _tp_train_cells(rank, out_dir, out):
                 torch.cuda.empty_cache()
             dist.barrier()
         mesh = make_host_mesh(data=2, model=2)
-        rules = make_rules(mesh, fsdp=True, kv_heads=cfg.n_kv_heads,
-                           d_head=cfg.d_head)
-        model, state, losses, gnorms, times, counts = _tp_train(
-            arch, mode, rules)
+        rules = make_rules(mesh, fsdp=True, seq_parallel=sp,
+                           kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
+        model, state, losses, gnorms, times, counts, calls, resid = \
+            _tp_train(arch, mode, rules)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = torch.load(whole_path, mmap=True)
         par = model.parallel
@@ -4191,6 +4239,7 @@ def _tp_train_cells(rank, out_dir, out):
                                      zip(gnorms, want["gnorms"])),
                 "param_gap": gap, "params_over_1e-4": over,
                 "params": n, "step_ms": times, "launches": counts,
+                "collectives": calls, "resid": resid,
                 "peak_gb": peak_gb,
                 "reference_leaves": len(tl.ReferenceLeaves(model)
                                         .members)}
@@ -4217,8 +4266,12 @@ def phase_train_tp_2x2_one_card():
     ``TP_OVER_SHARE`` more than 1e-4 off, a check that two planted
     faults must fail (``_tp_controls``); B7 4 and its backward 2 a step
     on each falcon rank, on 4096 of the 8192 channels; B5 and B6 one a
-    reference leaf a step under ``aer_topk``; ms a step and peak memory
-    a rank."""
+    reference leaf a step under ``aer_topk``; ms a step, peak memory
+    and collectives a step a rank.  The ``TP_SP_CELLS`` run the same
+    with sequence parallelism, held against the same whole runs under
+    the same limits, each block's residual stream 1024 positions a
+    rank, their ms, peak and collectives printed beside the plain
+    cell's."""
     import shutil
     import tempfile
     from repro_torch.launch.serve import pin_precision
@@ -4230,8 +4283,8 @@ def phase_train_tp_2x2_one_card():
         for arch, mode in TP_CELLS:
             if mode != "psum":
                 continue
-            model, _, losses, gnorms, times, _ = _tp_train(arch, mode,
-                                                           None)
+            model, _, losses, gnorms, times, *_ = _tp_train(arch, mode,
+                                                            None)
             path = os.path.join(tmp, f"{arch}_{mode}.pt")
             _tp_save_whole(path, model, losses, gnorms)
             one[f"{arch}_{mode}"] = {"losses": losses, "step_ms": times}
@@ -4243,8 +4296,7 @@ def phase_train_tp_2x2_one_card():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cells = {}
-    for arch, mode in TP_CELLS:
-        label = f"{arch}_{mode}"
+    for arch, mode, sp, label in _tp_cells():
         per = [r[label] for r in ranks]
         falcon = arch.startswith("falcon")
         want = {"selective_scan": 2 * TP_LAYERS if falcon else 0,
@@ -4272,7 +4324,14 @@ def phase_train_tp_2x2_one_card():
                       _tp_cfg(arch).d_model // 2,
                       f"train_tp {label}: B7 ran on {c['scan_channels']} "
                       f"channels a rank")
+            resid = [DP_SEQ // 2] if sp else [DP_SEQ]
+            check(c["resid"] == resid,
+                  f"train_tp {label}: rank {r}'s blocks took residual "
+                  f"streams of {c['resid']} positions, expected {resid}")
         cells[label] = {
+            "seq_parallel": sp,
+            "residual_positions_per_rank": per[0]["resid"],
+            "collectives_per_step_rank0": per[0]["collectives"][-1],
             "against": ("world of one" if mode == "psum"
                         else "(2, 1) data-only mesh, ranks 0-1"),
             "losses": per[0]["losses"], "want_losses": per[0]["want_losses"],
@@ -4287,10 +4346,17 @@ def phase_train_tp_2x2_one_card():
             "step_ms_median": statistics.median(
                 t for c in per for t in c["step_ms"][1:]),
             "peak_gb_by_rank": [c["peak_gb"] for c in per],
-            "world_of_one_step_ms": one.get(label, {}).get("step_ms")}
+            "world_of_one_step_ms": one.get(f"{arch}_{mode}",
+                                            {}).get("step_ms")}
+        if sp:
+            plain = cells[f"{arch}_{mode}"]
+            cells[label]["beside_plain"] = {
+                k: {"sp": cells[label][k], "plain": plain[k]} for k in
+                ("step_ms_median", "peak_gb_by_rank",
+                 "collectives_per_step_rank0")}
     emit("train_tp_2x2_one_card", mesh={"data": 2, "model": 2}, fsdp=True,
          ranks=TP_WORLD, backend="gloo", device="cuda:0 (all ranks)",
-         note=TP_NOTE, layers=TP_LAYERS,
+         note=TP_NOTE, smi=nvidia_smi_line(), layers=TP_LAYERS,
          reduced={"n_layers": {"falcon_mamba_7b": [64, TP_LAYERS],
                                "granite_3_2b": [40, TP_LAYERS]}},
          batch=DP_BATCH, seq=DP_SEQ, steps=TP_STEPS,
@@ -4307,6 +4373,9 @@ def phase_train_tp_2x2_one_card():
 #: the sharded serving cells: (arch, published depth), each at full
 #: width on SERVE_TP_LAYERS layers, float32 compute
 SERVE_TP_CELLS = (("granite_34b", 88), ("falcon_mamba_7b", 64))
+#: the cells also served with sequence parallelism (a prefill's residual
+#: stream a rank's block of the prompt), against the same world of one
+SERVE_TP_SP_CELLS = (("granite_34b", 88),)
 SERVE_TP_LAYERS, SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_STEPS = \
     2, 4, 2048, 16
 #: every rank's logits against the world of one's, relative to the
@@ -4328,9 +4397,10 @@ def _tp_serve(arch, rules=None, forced=None) -> dict:
     steps fed ``forced`` (``None``: its own greedy tokens).  Returns the
     last position's logits of the prefill and of each step (float32 on
     the host), the tokens fed, prefill ms, ms a decode step, the kernel
-    launches of the timed prefill, the collectives of each step, the
-    peak memory after the model is cut, and the layer-0 cache's
-    shapes."""
+    launches of the timed prefill, the collectives of the prefill and
+    of each step, the lengths of the residual stream the prefill's
+    blocks took, the peak memory after the model is cut, and the
+    layer-0 cache's shapes."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.models.model import build_model
@@ -4351,11 +4421,15 @@ def _tp_serve(arch, rules=None, forced=None) -> dict:
         model.prefill({"tokens": tokens}, max_len=max_len)
         torch.cuda.synchronize()
         _counts_zero()
+        CALLS.clear()
         t0 = time.perf_counter()
-        logits, cache = model.prefill({"tokens": tokens}, max_len=max_len)
+        with _resid_lengths() as resid:
+            logits, cache = model.prefill({"tokens": tokens},
+                                          max_len=max_len)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         launches = _counts()
+        prefill_calls = dict(CALLS)
         out_logits, fed, step_ms, calls = [logits[:, -1].float().cpu()], \
             [], [], []
         for i in range(SERVE_TP_STEPS):
@@ -4374,6 +4448,7 @@ def _tp_serve(arch, rules=None, forced=None) -> dict:
     res = {"logits": torch.stack(out_logits), "fed": torch.stack(fed),
            "prefill_ms": prefill_ms, "step_ms": step_ms,
            "launches": launches, "calls": calls,
+           "prefill_calls": prefill_calls, "resid": sorted(resid),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "cache0": {k: list(t.shape) for k, t in cache[0].items()},
            "vocab": cfg.vocab}
@@ -4409,20 +4484,28 @@ def _tp_serve_cells(rank, out_dir, out):
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import make_rules
-    for arch, _ in SERVE_TP_CELLS:
+    for arch, sp, label in _tp_serve_labels():
         cfg = _tp_serve_cfg(arch)
         want = torch.load(os.path.join(out_dir, f"serve_{arch}.pt"))
         mesh = make_host_mesh(data=2, model=2)
-        rules = make_rules(mesh, fsdp=False, kv_heads=cfg.n_kv_heads,
-                           d_head=cfg.d_head)
+        rules = make_rules(mesh, fsdp=False, seq_parallel=sp,
+                           kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
         got = _tp_serve(arch, rules, forced=want["fed"])
         cell = _tp_serve_gaps(got.pop("logits"), want["logits"],
                               cfg.vocab)
         got.pop("fed")
         cell.update(got, kv_cache=None if "k" not in got["cache0"] else
                     ("seq" if cfg.n_kv_heads % 2 else "heads"))
-        out[arch] = cell
+        out[label] = cell
         dist.barrier()
+
+
+def _tp_serve_labels() -> list:
+    """``(arch, sp, label)`` of every serving cell on the mesh:
+    SERVE_TP_CELLS, then SERVE_TP_SP_CELLS with sequence
+    parallelism."""
+    return [(a, False, a) for a, _ in SERVE_TP_CELLS] + \
+        [(a, True, f"{a}_sp") for a, _ in SERVE_TP_SP_CELLS]
 
 
 def phase_serve_tp_2x2_one_card():
@@ -4437,7 +4520,11 @@ def phase_serve_tp_2x2_one_card():
     largest |logit| of the world of one's, its greedy tokens equal where
     the margin allows, 2 B7 launches a falcon prefill on 4096 of the
     8192 channels (none for granite); prefill ms, ms a decode step,
-    peak memory and the collectives of a decode step a rank."""
+    peak memory and the collectives of a prefill and of a decode step a
+    rank.  The ``SERVE_TP_SP_CELLS`` run the same with sequence
+    parallelism (each prefill block's residual stream 1024 positions a
+    rank, checked; a decode step runs the plain cell's collectives),
+    against the same world of one, printed beside the plain cell."""
     import shutil
     import tempfile
     import torch
@@ -4457,8 +4544,10 @@ def phase_serve_tp_2x2_one_card():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cells = {}
-    for arch, depth in SERVE_TP_CELLS:
-        per = [r[arch] for r in ranks]
+    depths = dict(SERVE_TP_CELLS)
+    for arch, sp, label in _tp_serve_labels():
+        depth = depths[arch]
+        per = [r[label] for r in ranks]
         falcon = arch.startswith("falcon")
         want = {"selective_scan": SERVE_TP_LAYERS if falcon else 0}
         check(one[arch]["launches"].get("selective_scan", 0) ==
@@ -4467,24 +4556,32 @@ def phase_serve_tp_2x2_one_card():
               f"{one[arch]['launches']}")
         for r, c in enumerate(per):
             check(c["rel_gap"] <= SERVE_TP_TOL,
-                  f"serve_tp {arch}: rank {r} logits {c['rel_gap']} of "
+                  f"serve_tp {label}: rank {r} logits {c['rel_gap']} of "
                   f"max |logit| off the world of one's")
             check(c["greedy_equal"],
-                  f"serve_tp {arch}: rank {r} greedy tokens differ where "
+                  f"serve_tp {label}: rank {r} greedy tokens differ where "
                   f"the margin allows a verdict")
             got = c["launches"]
             check(all(got.get(k, 0) == want.get(k, 0) for k in got),
-                  f"serve_tp {arch}: rank {r} prefill launched {got}, "
+                  f"serve_tp {label}: rank {r} prefill launched {got}, "
                   f"expected {want}")
             if falcon:
                 check(c["scan_channels"] == _tp_serve_cfg(arch).mamba
                       .expand * _tp_serve_cfg(arch).d_model // 2,
-                      f"serve_tp {arch}: B7 ran on {c['scan_channels']} "
+                      f"serve_tp {label}: B7 ran on {c['scan_channels']} "
                       f"channels a rank")
             steps = {json.dumps(x, sort_keys=True) for x in c["calls"]}
-            check(len(steps) == 1, f"serve_tp {arch}: rank {r} ran "
+            check(len(steps) == 1, f"serve_tp {label}: rank {r} ran "
                                    f"different collectives a step: {steps}")
-        cells[arch] = {
+            resid = [-(-SERVE_TP_PROMPT // 2)] if sp else [SERVE_TP_PROMPT]
+            check(c["resid"] == resid,
+                  f"serve_tp {label}: rank {r}'s prefill blocks took "
+                  f"residual streams of {c['resid']} positions, expected "
+                  f"{resid}")
+        cells[label] = {
+            "seq_parallel": sp,
+            "residual_positions_per_rank": per[0]["resid"],
+            "collectives_per_prefill": per[0]["prefill_calls"],
             "reduced": {"n_layers": [depth, SERVE_TP_LAYERS]},
             "kv_cache": per[0]["kv_cache"], "cache0_shape_rank0":
                 per[0]["cache0"],
@@ -4504,6 +4601,16 @@ def phase_serve_tp_2x2_one_card():
                 "decode_ms_per_step": statistics.median(
                     one[arch]["step_ms"][1:]),
                 "peak_gb": one[arch]["peak_gb"]}}
+        if sp:
+            plain = cells[arch]
+            check(per[0]["calls"][0] == plain["collectives_per_decode_step"],
+                  f"serve_tp {label}: a decode step after the "
+                  f"sequence-split prefill ran {per[0]['calls'][0]}, the "
+                  f"plain one {plain['collectives_per_decode_step']}")
+            cells[label]["beside_plain"] = {
+                k: {"sp": cells[label][k], "plain": plain[k]} for k in
+                ("prefill_ms_by_rank", "decode_ms_per_step_by_rank",
+                 "peak_gb_by_rank", "collectives_per_prefill")}
     emit("serve_tp_2x2_one_card", mesh={"data": 2, "model": 2},
          fsdp=False, ranks=TP_WORLD, backend="gloo",
          device="cuda:0 (all ranks)", note=TP_NOTE, smi=nvidia_smi_line(),

@@ -36,8 +36,10 @@ accounts for the mesh as that program does.
                all-gathers, reduce-scatters and activation all-reduces
                that a model axis or FSDP runs in training, prefill,
                decode and scoring (and a sequence-split cache's softmax
-               combine) are not traced (ROADMAP A.11e): such a cell's
-               record says so in ``collectives_incomplete``.
+               combine, and under ``--sp`` the residual stream's
+               sequence gathers and reduce-scatters) are not traced
+               (ROADMAP A.11e): such a cell's record says so in
+               ``collectives_incomplete``.
 
 Outputs, one a cell: ``experiments/dryrun_torch/<arch>--<shape>--<mesh>
 [--tag].json`` with the reference's record keys (plus ``counter`` and

@@ -31,6 +31,17 @@ the column- and row-parallel FFN, and the vocab-parallel head and
 cross-entropy (max and log-sum-exp over the model group; padded ids
 masked by their global id).
 
+Under sequence parallelism (``par.sp``: the residual stream is this
+rank's block of positions, ``parallel.tensor_parallel``) the entry *f*
+of attention and the FFN becomes ``par.seq_enter`` (the whole sequence
+gathered) and the exit *g* ``par.seq_exit`` (the partial sums
+reduce-scattered to each rank's block); the embedding's sum over the
+model group is a reduce-scatter of the positions too.  Attention, its
+keys and values (a prefill's cache) and the FFN see the whole
+sequence, so their results are the plain tensor-parallel ones; the
+image tokens of cross-attention are whole on every rank and keep *f*.
+``norm`` applies a norm to the block with its scale through *f*.
+
 A decode step under a model axis reads this rank's part of the cache,
 laid out as ``par.kv_cache`` says (the reference's ``_cache_shardings``):
 
@@ -68,7 +79,7 @@ from torch.utils.checkpoint import checkpoint
 from ..parallel.sharding import shard_activation as shard
 
 __all__ = ["_normal", "param", "Linear", "linear_init", "linear", "RMSNorm",
-           "rmsnorm", "NORM_AXES", "EMBED_AXES", "HEAD_AXES",
+           "rmsnorm", "norm", "NORM_AXES", "EMBED_AXES", "HEAD_AXES",
            "FRONTEND_AXES", "padded_vocab", "Embed", "embed_init", "embed",
            "rope", "_chunk_mask", "flash_attention", "decode_attention",
            "Attention", "attn_axes", "attn_init", "_project_kv",
@@ -138,6 +149,15 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * p.scale.float()).to(x.dtype)
 
 
+def norm(p: RMSNorm, x: torch.Tensor, eps: float, par=None) -> torch.Tensor:
+    """``rmsnorm`` of a residual stream: under sequence parallelism
+    (``par.sp``) ``x`` is this rank's block of positions, and the whole
+    scale goes through *f*, so its gradient sums every rank's part."""
+    if par is not None and par.sp:
+        p = types.SimpleNamespace(scale=par.copy(p.scale))
+    return rmsnorm(p, x, eps)
+
+
 #: the logical axes of the top-level parameters (the reference's
 #: ``rmsnorm_init``, ``embed_init``, ``head_init`` and frontend axes)
 NORM_AXES = {"scale": ("embed",)}
@@ -167,7 +187,8 @@ def embed(p: Embed, tokens: torch.Tensor, compute_dtype: torch.dtype,
           par=None) -> torch.Tensor:
     """Rows of ``p.table`` for ``tokens``; over a model axis (``par``)
     the table holds this rank's block of ids, the others' rows are
-    zeros, and the rows are summed over the model group."""
+    zeros, and the rows are summed over the model group (under sequence
+    parallelism, reduce-scattered: this rank's block of positions)."""
     table = p.table
     # gather, then cast: the values of the reference's cast-then-gather,
     # without a compute-dtype copy of the whole table each call
@@ -177,7 +198,8 @@ def embed(p: Embed, tokens: torch.Tensor, compute_dtype: torch.dtype,
     ids = tokens.long() - par.tp_rank * n
     mine = (ids >= 0) & (ids < n)
     rows = torch.where(mine[..., None], table[ids.clamp(0, n - 1)], 0.0)
-    return par.reduce(rows).to(compute_dtype)
+    rows = par.seq_exit(rows) if par.sp else par.reduce(rows)
+    return rows.to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -487,15 +509,16 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
     ``kv_src``, no RoPE on q or k, never causal.  Over a model axis
     (``par``) the rank's heads run, ``wo``'s partial products are
     summed over the model group, and k and v are ``_project_kv``'s
-    heads."""
-    B, S, _ = x.shape
+    heads.  Under sequence parallelism (``par.sp``) ``x`` and the output
+    are this rank's block of positions, k and v the whole sequence's."""
     dh, H, K = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     causal = cfg.causal if causal is None else causal
     cross = kv_src is not None
     tp = par is not None and par.tp > 1
     if tp:
-        x = par.copy(x)
+        x = par.seq_enter(x) if par.sp else par.copy(x)
         kv_src = par.copy(kv_src) if cross else None
+    B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_src if cross else x, positions,
                            use_rope=not cross, par=par)
     kq, vq = (_local_kv(par, k, H, K), _local_kv(par, v, H, K)) if tp \
@@ -509,7 +532,7 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
                           kv_chunk=kc)
     out = linear(p.wo.w, out.reshape(B, S, Hl * dh), cfg.compute_dtype)
     if tp:
-        out = par.reduce(out)
+        out = par.seq_exit(out) if par.sp else par.reduce(out)
     return shard(out, ("batch", "seq_sp", "embed")), k, v
 
 
@@ -726,17 +749,20 @@ def ffn_init(p: FFN, cfg, generator: torch.Generator) -> None:
 def ffn_apply(p: FFN, cfg, x: torch.Tensor, par=None) -> torch.Tensor:
     """The FFN; over a model axis (``par``) ``wi`` / ``wg`` are
     column-parallel and ``wo`` row-parallel, its partial products
-    summed over the model group."""
+    summed over the model group (under sequence parallelism ``x`` and
+    the output are this rank's block of positions: the sequence
+    gathered on entry, the sums reduce-scattered on exit)."""
     act = _ACTS[cfg.act]
     cd = cfg.compute_dtype
+    sp = par is not None and par.sp
     if par is not None:
-        x = par.copy(x)
+        x = par.seq_enter(x) if sp else par.copy(x)
     h = linear(p.wi.w, x, cd)
     h = act(linear(p.wg.w, x, cd)) * h if hasattr(p, "wg") else act(h)
     h = shard(h, ("batch", None, "ff"))
     out = linear(p.wo.w, h, cd)
     if par is not None:
-        out = par.reduce(out)
+        out = par.seq_exit(out) if sp else par.reduce(out)
     return shard(out, ("batch", "seq_sp", "embed"))
 
 

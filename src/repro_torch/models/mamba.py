@@ -22,6 +22,11 @@ read all of dt_low, B and C), B7 and its backward run on the rank's
 and decode run the same way, and the decode state is the rank's
 channels of it: ``h`` (B, d_inner / tp, N) and ``conv`` (B, d_conv - 1,
 d_inner / tp), as the reference's ``_cache_shardings`` split them.
+Under sequence parallelism (``par.sp``) the block's input and output
+are this rank's block of positions: the sequence is gathered on entry
+(``par.seq_enter``), so the conv and B7 see every position on the
+rank's channels, and ``out_proj``'s partial sums are reduce-scattered
+to the block on exit (``par.seq_exit``).
 """
 
 from __future__ import annotations
@@ -152,9 +157,10 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
 def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor, par=None):
     m = cfg.mamba
     cd = cfg.compute_dtype
-    S = x.shape[1]
+    sp = par is not None and par.sp
     if par is not None:
-        x = par.copy(x)
+        x = par.seq_enter(x) if sp else par.copy(x)
+    S = x.shape[1]
     xz = linear(p.in_proj, x, cd)
     x_part, z = xz.chunk(2, dim=-1)
     x_part = shard(x_part, ("batch", None, "mamba_inner"))
@@ -170,7 +176,7 @@ def _mamba_fwd(p: Mamba, cfg, x: torch.Tensor, par=None):
     y = shard(y, ("batch", None, "mamba_inner"))
     out = linear(p.out_proj, y, cd)
     if par is not None:
-        out = par.reduce(out)
+        out = par.seq_exit(out) if sp else par.reduce(out)
     out = shard(out, ("batch", "seq_sp", "embed"))
     conv_state = x_part[:, S - (m.d_conv - 1):].float()
     return out, h_final, conv_state
@@ -190,8 +196,9 @@ def mamba_prefill(p: Mamba, cfg, x: torch.Tensor, par=None):
     at least that many tokens: the reference keeps a shorter cache that
     its decode step cannot take; the port refuses it here."""
     k1 = cfg.mamba.d_conv - 1
-    if x.shape[1] < k1:
-        raise ValueError(f"mamba_prefill: a prompt of {x.shape[1]} tokens "
+    S = par.seq_len if par is not None and par.sp else x.shape[1]
+    if S < k1:
+        raise ValueError(f"mamba_prefill: a prompt of {S} tokens "
                          f"is shorter than d_conv - 1 = {k1}, the depth "
                          f"of the decode cache")
     out, h, conv = _mamba_fwd(p, cfg, x, par)

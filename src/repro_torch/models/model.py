@@ -48,6 +48,18 @@ everywhere.  The decode cache is this rank's part of the reference's
 ``_cache_shardings`` (``init_cache`` builds it, ``prefill`` fills it;
 ``models.layers``' docstring has the layouts).  Every rank of the mesh
 calls these methods together.
+
+Under sequence parallelism (rules from ``make_rules(...,
+seq_parallel=True)``) ``forward``, ``loss``, ``score`` and ``prefill``
+run the stack on this rank's block of positions
+(``Parallel.for_sequence``): the token embedding is reduce-scattered to
+the block, audio frames are projected whole and cut to it
+(``seq_block``), and the positions stay whole (attention runs on the
+gathered sequence).  The final norm runs on the block; ``loss``,
+``forward`` and ``score`` then gather the sequence for the head
+(``seq_enter``, in place of the head's *f*), and ``prefill`` takes its
+last position from the rank that holds it (``seq_at``).  A decode
+step's one position runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -150,27 +162,47 @@ class LM(nn.Module):
             return self._leaf(self.embed.table).T
         return self._leaf(self.head.w)
 
-    def _head_raw(self, h: torch.Tensor, w=None) -> torch.Tensor:
+    def _head_raw(self, h: torch.Tensor, w=None, par=None) -> torch.Tensor:
         """The head projection WITHOUT the final norm (a pre-normed
         input): ``h @ w`` (default ``_head_w()``) in the compute dtype,
-        padded vocab ids masked.  Over a model axis ``h`` enters through
-        *f* and the logits are this rank's vocab block."""
+        padded vocab ids masked.  Over a model axis (``par``, default
+        the model's) ``h`` enters through *f* (under sequence
+        parallelism ``h`` is the sequence ``seq_enter`` gathered, which
+        is that entry) and the logits are this rank's vocab block."""
         cfg = self.cfg
-        par = self.parallel
+        par = self.parallel if par is None else par
         w = self._head_w() if w is None else w
         offset = 0
         if par is not None:
-            h = par.copy(h)
+            if not par.sp:
+                h = par.copy(h)
             offset = par.tp_rank * w.shape[1]
         logits = L.mask_padded_vocab(L.linear(w, h, cfg.compute_dtype),
                                      cfg.vocab, offset)
         return shard(logits, ("batch", None, "vocab")) \
             if logits.dim() == 3 else logits
 
-    def _head(self, h: torch.Tensor) -> torch.Tensor:
-        ln_f = self.ln_f if self.parallel is None \
-            else self.parallel.view(self.ln_f)
-        return self._head_raw(L.rmsnorm(ln_f, h, self.cfg.norm_eps))
+    def _final(self, h: torch.Tensor, par) -> torch.Tensor:
+        """The final norm of the stack's output ``h``, as the head reads
+        it: under sequence parallelism normed on this rank's block, then
+        the whole sequence gathered (``seq_enter``)."""
+        ln_f = self.ln_f if par is None else par.view(self.ln_f)
+        h = L.norm(ln_f, h, self.cfg.norm_eps, par)
+        return par.seq_enter(h) if par is not None and par.sp else h
+
+    def _head(self, h: torch.Tensor, par=None) -> torch.Tensor:
+        par = self.parallel if par is None else par
+        return self._head_raw(self._final(h, par), par=par)
+
+    def _seq_par(self, batch: dict):
+        """The context the stack runs a full-sequence ``batch`` under:
+        the model's ``Parallel`` for its sequence length
+        (``for_sequence``), or None on one device."""
+        if self.parallel is None:
+            return None
+        x = batch["frames" if self.cfg.modality == "audio_frames"
+                  else "tokens"]
+        return self.parallel.for_sequence(x.shape[1])
 
     def _rows(self, batch: dict) -> dict:
         """This rank's rows of a global ``batch`` (all of it on one
@@ -189,24 +221,30 @@ class LM(nn.Module):
             return logits
         return par.whole_rows(par.gather(logits, -1), n)
 
-    def _embed_inputs(self, batch: dict):
+    def _embed_inputs(self, batch: dict, par=None):
         """``(h (B, S, D), positions 0..S-1 of every row (B, S), img)``:
         token embeddings or projected frames, and the projected image
-        tokens (B, n_img, D) for ``"image+text"`` (else None)."""
+        tokens (B, n_img, D) for ``"image+text"`` (else None).  Under
+        ``par`` (default the model's) with sequence parallelism ``h`` is
+        this rank's block of positions, the positions whole."""
         cfg = self.cfg
         cd = cfg.compute_dtype
+        par = self.parallel if par is None else par
         if cfg.modality == "audio_frames":
-            h = L.linear(self._leaf(self.frontend.w), batch["frames"], cd)
+            x = batch["frames"]
+            h = L.linear(self._leaf(self.frontend.w), x, cd)
+            if par is not None and par.sp:
+                h = par.seq_block(h)
         else:
-            emb = self.embed if self.parallel is None \
-                else self.parallel.view(self.embed)
-            h = L.embed(emb, batch["tokens"], cd, self.parallel)
+            x = batch["tokens"]
+            emb = self.embed if par is None else par.view(self.embed)
+            h = L.embed(emb, x, cd, par)
         img = None
         if cfg.modality == "image+text":
             img = L.linear(self._leaf(self.frontend.w), batch["img_embed"],
                            cd)
             img = shard(img, ("batch", None, "embed"))
-        B, S = h.shape[:2]
+        B, S = x.shape[:2]
         h = shard(h, ("batch", "seq_sp", "embed"))
         return h, torch.arange(S, device=h.device).expand(B, S), img
 
@@ -214,12 +252,12 @@ class LM(nn.Module):
         """``(logits (B, S, V), aux)``; on a sharded model the aux sums
         are averaged over the data group where the rows split (the
         global batch's)."""
-        par = self.parallel
         n = next(iter(batch.values())).shape[0]
-        h, positions, img = self._embed_inputs(self._rows(batch))
-        h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img,
-                               par)
-        logits = self._whole_logits(self._head(h), n)
+        rows = self._rows(batch)
+        par = self._seq_par(rows)
+        h, positions, img = self._embed_inputs(rows, par)
+        h, aux = T.stack_apply(self.stack, self.cfg, h, positions, img, par)
+        logits = self._whole_logits(self._head(h, par), n)
         if par is not None and h.shape[0] != n:
             aux = {k: par.data_mean(v) for k, v in aux.items()}
         return logits, aux
@@ -243,22 +281,22 @@ class LM(nn.Module):
         ``z_loss``, ``drop_frac`` and ``loss`` (the total), float32
         scalars."""
         cfg = self.cfg
-        par = self.parallel
+        par = self._seq_par(batch)
         mask = batch.get("mask")
         labels = batch["labels"]
         chunk = self._loss_chunk(labels.shape[1])
-        h, positions, img = self._embed_inputs(batch)
+        h, positions, img = self._embed_inputs(batch, par)
         h, aux = T.stack_apply(self.stack, cfg, h, positions, img, par)
-        ln_f = self.ln_f if par is None else par.view(self.ln_f)
-        h = L.rmsnorm(ln_f, h, cfg.norm_eps)
+        h = self._final(h, par)
         # the head weight gathered once, outside the chunks' checkpoints
         w = self._head_w()
         if chunk:
             nll = L.chunked_cross_entropy(
-                lambda hc: self._head_raw(hc, w), h, labels, mask, chunk,
-                par)
+                lambda hc: self._head_raw(hc, w, par), h, labels, mask,
+                chunk, par)
         else:
-            nll = L.cross_entropy(self._head_raw(h, w), labels, mask, par)
+            nll = L.cross_entropy(self._head_raw(h, w, par), labels, mask,
+                                  par)
         total = nll + aux["aux_loss"] + aux["z_loss"]
         metrics = {"nll": nll, "aux_loss": aux["aux_loss"],
                    "z_loss": aux["z_loss"], "drop_frac": aux["drop_frac"],
@@ -284,10 +322,14 @@ class LM(nn.Module):
         """Returns (logits for the last position (B, 1, V), decode
         cache)."""
         n = next(iter(batch.values())).shape[0]
-        h, positions, img = self._embed_inputs(self._rows(batch))
+        rows = self._rows(batch)
+        par = self._seq_par(rows)
+        h, positions, img = self._embed_inputs(rows, par)
         h, cache = T.stack_prefill(self.stack, self.cfg, h, positions, img,
-                                   max_len=max_len, par=self.parallel)
-        return self._whole_logits(self._head(h[:, -1:]), n), cache
+                                   max_len=max_len, par=par)
+        last = par.seq_at(h, par.seq_len - 1) if par is not None and par.sp \
+            else h[:, -1:]
+        return self._whole_logits(self._head(last), n), cache
 
     def decode_step(self, cache: list, tokens: torch.Tensor, pos):
         """tokens: (B, 1) int; pos: (B,) absolute positions."""

@@ -22,6 +22,14 @@ model group before the combine); ``layout="ep"`` splits the experts
 through *f*, and the combined outputs are summed over the model
 group).
 
+Under sequence parallelism (``par.sp``) the input is this rank's block
+of positions: it is gathered whole first (``par.seq_whole``), because
+the router and the capacity count run on every real token of a row, as
+in the reference's global program.  Both layouts then combine each
+rank's partial outputs (the slot gates through *f*) and
+reduce-scatter the sum to the rank's block of positions
+(``par.seq_exit``).
+
 On a mesh each rank routes its rows of the batch, and the load-balance
 loss takes each expert's share of the tokens (``f_e``, no gradient)
 over the whole data-parallel batch, as the reference's ``psum`` step
@@ -97,6 +105,9 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
     drop_frac}, float32 scalars; ``par`` runs the experts over a model
     axis."""
     m = cfg.moe
+    sp = par is not None and par.sp
+    if sp:
+        x = par.seq_whole(x)
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     C = _capacity(cfg, S)
@@ -144,8 +155,9 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
     tp = par is not None and par.tp > 1
     if tp:
         buf = par.copy(buf)
-        if ep:                     # this rank's block of experts
+        if ep or sp:               # combined from partial outputs
             slot_gate = par.copy(slot_gate)
+        if ep:                     # this rank's block of experts
             e0 = par.tp_rank * p.wi.shape[0]
             cut = slice(e0, e0 + p.wi.shape[0])
             buf, slot_gate, slot_tok = (buf[:, cut], slot_gate[:, cut],
@@ -158,7 +170,7 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
     h = shard(h, ("batch", "experts" if ep else None, None,
                   None if ep else "ff"))
     y = torch.einsum("becf,efd->becd", h, p.wo.to(cd))     # (B, E, C, D)
-    if tp and not ep:
+    if tp and not ep and not sp:
         y = par.reduce(y)
     y = shard(y, ("batch", "experts" if ep else None, None, None))
 
@@ -169,7 +181,9 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
             ).reshape(-1)
     out = torch.zeros((B * S, D), dtype=cd, device=dev).index_add_(
         0, flat, contrib.reshape(-1, D)).reshape(B, S, D)
-    if tp and ep:
+    if sp:
+        out = par.seq_exit(out)
+    elif tp and ep:
         out = par.reduce(out)
     out = shard(out, ("batch", "seq_sp", "embed"))
 

@@ -41,6 +41,16 @@ this rank's part of the reference's ``_cache_shardings``
 a cross-attention layer's by kv heads (whole when they do not split),
 a Mamba layer's state by its channels.  ``init_cache`` and
 ``precompute_cross_cache`` build the same parts.
+
+Under sequence parallelism (``par.sp``, a ``Parallel.for_sequence``
+copy) ``x`` between the blocks is this rank's block of positions: the
+norms (their scales through *f*), the ``xgate`` (through *f* too) and
+the residual adds run on the block, each mixer and FFN or MoE gathers
+the sequence where it starts and reduce-scatters its sums where it
+ends, and under ``cfg.remat`` the block is what a checkpointed period
+keeps.  ``stack_prefill`` builds each cache from the gathered
+sequence, so the caches are the plain tensor-parallel ones;
+``stack_decode``'s one position runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -165,10 +175,13 @@ def stack_init(stack: Stack, cfg, generator: torch.Generator) -> None:
             MOE.moe_init(blk.moe, cfg, generator)
 
 
-def _gated(blk: Block, mix: torch.Tensor) -> torch.Tensor:
+def _gated(blk: Block, mix: torch.Tensor, par=None) -> torch.Tensor:
     """``tanh(xgate)`` in float32, cast to the mix's dtype, times the
-    mix in that dtype, as the reference gates cross-attention."""
-    return torch.tanh(blk.xgate).to(mix.dtype) * mix
+    mix in that dtype, as the reference gates cross-attention (under
+    sequence parallelism the mix is this rank's block, and the gate
+    goes through *f*)."""
+    gate = par.copy(blk.xgate) if par is not None and par.sp else blk.xgate
+    return torch.tanh(gate).to(mix.dtype) * mix
 
 
 def _channel_mix(blk: Block, cfg, x: torch.Tensor, par=None):
@@ -176,7 +189,7 @@ def _channel_mix(blk: Block, cfg, x: torch.Tensor, par=None):
     FFN or a bare ``mamba`` block, which has no channel mix)."""
     if blk.kind == "mamba":
         return x, None
-    h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
+    h = L.norm(blk.ln2, x, cfg.norm_eps, par)
     if blk.kind.endswith("_ffn"):
         return x + L.ffn_apply(blk.ffn, cfg, h, par), None
     y, aux = MOE.moe_apply(blk.moe, cfg, h, par)
@@ -186,10 +199,11 @@ def _channel_mix(blk: Block, cfg, x: torch.Tensor, par=None):
 def _block_apply(blk: Block, cfg, x: torch.Tensor, positions, img,
                  par=None):
     """One block's full-sequence forward: ``(x, aux or None)``."""
-    h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
+    h = L.norm(blk.ln1, x, cfg.norm_eps, par)
     if blk.kind.startswith("xattn"):
         mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,
-                                       kv_src=img, causal=False, par=par))
+                                       kv_src=img, causal=False, par=par),
+                     par)
     elif blk.kind.startswith("attn"):
         mix = L.attn_apply(blk.attn, cfg, h, positions, par=par)
     else:
@@ -228,7 +242,8 @@ def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
     n_img, D), the projected image tokens, for cross-attention -> (x,
     aux sums over layers, float32 scalars, summed in layer order).
     Under autograd each pattern period runs under ``cfg.remat``;
-    ``par`` (a sharded model's) runs it over the model's mesh."""
+    ``par`` (a sharded model's) runs it over the model's mesh, ``x``
+    this rank's block of positions under sequence parallelism."""
     if cfg.remat not in REMAT_POLICIES:
         raise ValueError(f"remat {cfg.remat!r}; the reference has "
                          f"{REMAT_POLICIES}")
@@ -355,8 +370,11 @@ def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
     ``max_len`` positions (a ring of the window when it is shorter);
     cross-attention layers the image tokens' K/V; Mamba layers the
     final recurrent and conv state.  ``par`` (a sharded model's) runs
-    it over the model's mesh, each cache this rank's part."""
-    S = x.shape[1]
+    it over the model's mesh, each cache this rank's part (``x`` and
+    the hidden state returned this rank's block of positions under
+    sequence parallelism, the caches built from the whole
+    sequence)."""
+    S = par.seq_len if par is not None and par.sp else x.shape[1]
     max_len = max(max_len or 0, S)
     W = cfg.sliding_window if (cfg.sliding_window and
                                cfg.sliding_window < max_len) else 0
@@ -366,11 +384,11 @@ def stack_prefill(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
         if i % period == 0:
             x = shard(x, ("batch", "seq_sp", "embed"))
         blk = _view(blk, par)
-        h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
+        h = L.norm(blk.ln1, x, cfg.norm_eps, par)
         if blk.kind.startswith("xattn"):
             mix = _gated(blk, L.attn_apply(blk.attn, cfg, h, positions,
                                            kv_src=img, causal=False,
-                                           par=par))
+                                           par=par), par)
             caches.append(_cross_kv(blk.attn, cfg, img, par))
         elif blk.kind.startswith("attn"):
             mix, k, v = L._attn(blk.attn, cfg, h, positions, par=par)

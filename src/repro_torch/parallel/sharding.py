@@ -30,11 +30,12 @@ for the reference: FSDP gathers a parameter over the data group before
 its block runs and reduce-scatters its gradient; the model axis runs
 Megatron's column- and row-parallel products, the vocab-parallel
 embedding and cross-entropy, and the expert split, with the
-model-group all-reduces (``tensor_parallel``).  So ``shard_activation``
-has nothing to do and hands the tensor back (under the dry-run's
-``launch.cost`` counter it tags the tensor with the mesh axes its names
-resolve to, which the counter divides by).  Sequence parallelism
-(``seq_sp``) is refused where a step is built (ROADMAP A.11e).
+model-group all-reduces, and, with sequence parallelism (``seq_sp``),
+the residual stream split by positions over the model group with its
+all-gathers and reduce-scatters (``tensor_parallel``).  So
+``shard_activation`` has nothing to do and hands the tensor back (under
+the dry-run's ``launch.cost`` counter it tags the tensor with the mesh
+axes its names resolve to, which the counter divides by).
 
 An axes tuple may be an ``Axes``, which also names interleaved groups
 of a dimension: Mamba's ``in_proj`` holds ``x`` and ``z`` side by side

@@ -46,6 +46,26 @@ reduce-scatter of the weighted values to each rank's query heads).
 ``Parallel.kv_cache`` names the layout; ``Parallel.rows`` and
 ``Parallel.whole_rows`` cut and rejoin the batch's rows.
 
+**Sequence parallelism** (``make_rules(seq_parallel=True)``: the rules
+map the activation axis ``seq_sp`` to the model axis) is Megatron's:
+between the blocks each rank of a model group holds its block of the
+residual stream's positions, ``ceil(S / tp)`` of them (the last block
+padded with zero rows, which no attention, conv, scan, router or loss
+reads).  The model's entry points hand the stack a ``Parallel`` that
+knows S (``for_sequence``); the norms and residual adds run on the
+block, a whole parameter applied to it (a norm scale, ``xgate``) goes
+through *f*, and the pair *f* / *g* of a split computation becomes
+``seq_enter`` (all-gather of the positions forward, reduce-scatter of
+the gradient backward) / ``seq_exit`` (reduce-scatter of the partial
+sums to each rank's block forward, all-gather of the gradient
+backward).  ``seq_block`` keeps this rank's block of a tensor every
+rank computed whole (the audio frontend's output; its gradient
+all-gathered backward), and ``seq_whole`` gathers the blocks for a
+computation every rank runs whole (the MoE router and dispatch; the
+gradient, whole on every rank, cut back to the block).  A decode step
+has one position and runs whole on every rank, with the collectives of
+the plain tensor-parallel step.
+
 A collective over a group of one rank is skipped: a mesh whose model
 axis is 1 and whose parameters no spec splits runs the data-parallel
 step exactly as it ran before.
@@ -53,12 +73,14 @@ step exactly as it ran before.
 
 from __future__ import annotations
 
+import copy
 import math
 import types
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from .compat import (DP_AXES, Mesh, all_gather_dim, all_reduce, axis_index,
@@ -235,6 +257,50 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter (sum) along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _Block(torch.autograd.Function):
+    """This rank's block of ``axis_size(group)`` along ``dim`` forward,
+    all-gather backward (the gradient of every rank's block)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        c = x.shape[dim] // axis_size(group)
+        return x.narrow(dim, axis_index(group) * c, c).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _Whole(torch.autograd.Function):
+    """All-gather along ``dim`` forward, this rank's block of the
+    gradient backward (the gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.c = dim, group, x.shape[dim]
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, axis_index(ctx.group) * ctx.c,
+                        ctx.c).contiguous(), None, None
+
+
 # --- the context a sharded model runs under --------------------------------
 
 def _on_model(entry, mesh: Mesh) -> bool:
@@ -251,9 +317,12 @@ class Parallel:
     serving: whether the batch's rows split over the data group
     (``rows_split``) and how a decode cache lies over the model group
     (``kv_cache``: ``"heads"``, its key/value heads split; ``"seq"``,
-    its slots split; ``None``, whole).  Its methods are the model code's
-    collectives; over a group of one rank they hand their input
-    back."""
+    its slots split; ``None``, whole), and whether the residual stream
+    splits over the model group by its positions (``seq_split``, the
+    rules' ``seq_sp``; ``seq_len`` is the whole sequence's length in a
+    ``for_sequence`` copy, ``None`` where the stream is whole).  Its
+    methods are the model code's collectives; over a group of one rank
+    they hand their input back."""
 
     def __init__(self, mesh: Mesh, rank: int, splits: dict,
                  act_map: dict):
@@ -269,6 +338,78 @@ class Parallel:
             raise ValueError("the rules split the decode cache over its "
                              "kv heads and its slots at once")
         self.kv_cache = "heads" if heads else "seq" if seq else None
+        self.seq_split = self.pieces("seq_sp") > 1
+        self.seq_len = None
+
+    def for_sequence(self, S: int) -> "Parallel":
+        """The context a full-sequence call of ``S`` positions runs
+        under: a copy holding ``seq_len`` S when the rules split the
+        residual stream (its blocks of ``block_len(S)`` positions), else
+        this one."""
+        if not self.seq_split:
+            return self
+        out = copy.copy(self)
+        out.seq_len = S
+        return out
+
+    @property
+    def sp(self) -> bool:
+        """Whether the residual stream is this rank's block of
+        positions (a ``for_sequence`` copy under sequence-split
+        rules)."""
+        return self.seq_len is not None
+
+    def block_len(self, S: int) -> int:
+        """Positions in each rank's block of a sequence of ``S``:
+        ``ceil(S / tp)`` (the last block padded)."""
+        return -(-S // self.tp)
+
+    def block(self, S: int) -> slice:
+        """This rank's positions of a sequence of ``S`` (the real ones:
+        the last block's padding lies past S)."""
+        c = self.block_len(S)
+        return slice(min(self.tp_rank * c, S), min((self.tp_rank + 1) * c,
+                                                   S))
+
+    def _pad_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, S, ...) with zero rows up to ``tp`` blocks."""
+        pad = self.block_len(self.seq_len) * self.tp - x.shape[1]
+        if not pad:
+            return x
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+
+    def seq_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence (B, S, ...) from this rank's block, where
+        it enters a computation split over the model group: all-gather
+        forward, reduce-scatter of the gradient backward (each rank's
+        gradient is its part of the whole)."""
+        return _Gather.apply(x, 1, self.model)[:, :self.seq_len]
+
+    def seq_exit(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sum over the model group of ``x``
+        (B, S, ...), a split computation's partial sums: reduce-scatter
+        forward, all-gather of the gradient backward."""
+        return _Scatter.apply(self._pad_seq(x), 1, self.model)
+
+    def seq_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x`` (B, S, ...), computed whole and
+        the same on every rank: its gradient all-gathered backward."""
+        return _Block.apply(self._pad_seq(x), 1, self.model)
+
+    def seq_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence from this rank's block, for a computation
+        every rank runs whole: all-gather forward, the gradient (the
+        same on every rank) cut to this rank's block backward."""
+        return _Whole.apply(x, 1, self.model)[:, :self.seq_len]
+
+    def seq_at(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Position ``i`` of the whole sequence (B, 1, ...) from this
+        rank's block ``x``, on every rank (no gradient): the rank
+        holding it adds it, the others zeros."""
+        c = x.shape[1]
+        j = i - self.tp_rank * c
+        row = x[:, j:j + 1] if 0 <= j < c else torch.zeros_like(x[:, :1])
+        return self.total(row)
 
     def pieces(self, name: str) -> int:
         """The model-axis pieces the activation axis ``name`` splits

@@ -59,9 +59,11 @@ are kept in the stacked layout, keyed ``stack.pos<i>.<path>``
 (top-level leaves keep their parameter's name).
 
 Every block kind trains on a sharded mesh (``SHARDED_KINDS``: the
-dense, MoE, Mamba, hybrid and cross-attention blocks).  Sequence
-parallelism (``make_rules(seq_parallel=True)``) waits for ROADMAP
-A.11e and raises ``NotImplementedError``.
+dense, MoE, Mamba, hybrid and cross-attention blocks), with or without
+sequence parallelism (``make_rules(seq_parallel=True)``: the residual
+stream between the blocks is each model-group rank's block of
+positions, ``parallel.tensor_parallel``), under FSDP or not and under
+every ``dp_reduce`` mode.
 
 ``make_recorded_step(model, run_cfg, group)`` is the step the dry-run
 traces over an abstract mesh (``launch.dryrun``): ``group`` is the
@@ -270,15 +272,12 @@ SHARDED_KINDS = KINDS
 
 def _sharded_mesh(model, run_cfg, rules):
     """``model`` cut to this rank's shards over ``rules.mesh`` (its
-    ``Parallel``), after refusing what the port does not run yet."""
+    ``Parallel``), after refusing an unknown mode or an abstract
+    mesh."""
     mesh = rules.mesh
     if run_cfg.dp_reduce not in DP_MODES:
         raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
                          f"of {DP_MODES}")
-    if rules.act_map.get("seq_sp") is not None:
-        raise NotImplementedError(
-            "sequence parallelism (make_rules(seq_parallel=True)) waits "
-            "for ROADMAP A.11e")
     if mesh.groups is None:
         raise ValueError("the rules' mesh has no process groups (an "
                          "abstract mesh): build it with make_host_mesh")

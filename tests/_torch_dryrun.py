@@ -28,6 +28,9 @@ SHAPES = (("train_s", 64, 8, "train"), ("prefill_s", 128, 4, "prefill"),
           ("decode_s", 128, 8, "decode"))
 #: the meshes each cell is lowered on
 MESHES = {"1x1": (1, 1), "2x2": (2, 2)}
+#: cells also lowered with sequence parallelism
+#: (``RunConfig(seq_parallel=True)``), by architecture: ``(shape, mesh)``
+SP_CELLS = {"granite_3_2b": (("train_s", "2x2"),)}
 
 REF = r"""
 import dataclasses, json, sys
@@ -37,7 +40,7 @@ from repro.configs.base import RunConfig, get_config, get_smoke_config
 from repro.launch import hlo_cost
 from repro.parallel.compat import AXIS_TYPE_AUTO, make_mesh
 
-arch, SHAPES, MESHES = {arch!r}, {shapes!r}, {meshes!r}
+arch, SHAPES, MESHES, SP = {arch!r}, {shapes!r}, {meshes!r}, {sp!r}
 smoke = get_smoke_config(arch)
 over = {{f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)}}
 new = [B.ShapeConfig(*s) for s in SHAPES]
@@ -46,27 +49,31 @@ for s in new:
     D.ALL_SHAPES[s.name] = s
 D.shapes_for = lambda cfg, _f=B.shapes_for: _f(cfg) + new
 out = {{}}
-for mname, shape in MESHES.items():
-    mesh = make_mesh(tuple(shape), ("data", "model"),
+cells = [(s.name, mname, False) for mname in MESHES for s in new] + \
+    [(s, mname, True) for s, mname in SP]
+for sname, mname, sp in cells:
+    mesh = make_mesh(tuple(MESHES[mname]), ("data", "model"),
                      axis_types=(AXIS_TYPE_AUTO,) * 2)
-    for s in new:
-        lowered, meta = D.lower_cell(arch, s.name, mesh, RunConfig(), over)
-        compiled = lowered.compile()
-        cost = hlo_cost.analyze(compiled.as_text())
-        mem = compiled.memory_analysis()
-        out[f"{{s.name}}/{{mname}}"] = {{
-            "flops": cost["flops"], "bytes_accessed": cost["bytes_accessed"],
-            "collectives": cost["collectives"],
-            "argument_size_in_bytes": mem.argument_size_in_bytes}}
+    lowered, meta = D.lower_cell(arch, sname, mesh,
+                                 RunConfig(seq_parallel=sp), over)
+    compiled = lowered.compile()
+    cost = hlo_cost.analyze(compiled.as_text())
+    mem = compiled.memory_analysis()
+    out[f"{{sname}}/{{mname}}" + ("/sp" if sp else "")] = {{
+        "flops": cost["flops"], "bytes_accessed": cost["bytes_accessed"],
+        "collectives": cost["collectives"],
+        "argument_size_in_bytes": mem.argument_size_in_bytes}}
 print("REF-JSON" + json.dumps(out))
 """
 
 
 @functools.cache
 def reference(arch: str) -> dict:
-    """The reference's numbers a cell, ``"<shape>/<mesh>"``."""
+    """The reference's numbers a cell, ``"<shape>/<mesh>"`` (and
+    ``"<shape>/<mesh>/sp"`` for the ``SP_CELLS`` of ``arch``)."""
     code = REF.format(arch=arch, shapes=SHAPES,
-                      meshes={k: list(v) for k, v in MESHES.items()})
+                      meshes={k: list(v) for k, v in MESHES.items()},
+                      sp=list(SP_CELLS.get(arch, ())))
     out = run_with_devices(code, n_devices=512, timeout=600)
     line = [ln for ln in out.splitlines() if ln.startswith("REF-JSON")][-1]
     return json.loads(line[len("REF-JSON"):])

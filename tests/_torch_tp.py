@@ -5,11 +5,13 @@ a child process, and the port's on 4 gloo processes (``mp.spawn``, as
 ``tests/_torch_dp.py`` starts them), each side running all of the
 module's cases.
 
-A case is ``(arch, data, model, fsdp, mode)``: the smoke config of
-``arch`` in float32 compute, the mesh ``make_host_mesh(data, model)``,
-``make_rules(mesh, fsdp=fsdp)`` and ``RunConfig(dp_reduce=mode)``, 3
-steps of ``_torch_dp``'s run on its ``SyntheticLM`` batches from the
-reference's initial parameters.  The reference builds its mesh as
+A case is ``(arch, data, model, fsdp, mode[, sp[, seq]])``: the smoke
+config of ``arch`` in float32 compute, the mesh ``make_host_mesh(data,
+model)``, ``make_rules(mesh, fsdp=fsdp, seq_parallel=sp)`` and
+``RunConfig(dp_reduce=mode)``, 3 steps of ``_torch_dp``'s run on its
+``SyntheticLM`` batches of ``seq`` positions (default ``_torch_dp.SEQ``)
+from the reference's initial parameters.  ``sp`` defaults to off, and a
+case without it keeps its key.  The reference builds its mesh as
 ``_torch_dp.REF`` does (``repro.parallel.compat.make_mesh`` with Auto
 axes).  Its manual modes (``ring``, ``bidir_ring``, ``aer_topk``) raise
 for both MoE layouts under this JAX (ROADMAP queue C), so the MoE
@@ -21,7 +23,8 @@ reference's 0 would shut the image out).
 
 Each port rank returns, for every case: its losses and wire words a
 step, the parameters after the last step gathered whole
-(``tensor_parallel.unshard_params``), and its own copies (or FSDP
+(``tensor_parallel.unshard_params``), the lengths of the residual
+stream its blocks took (``residual_lengths``), and its own copies (or FSDP
 shards) of the parameters no spec splits over the model axis (the norm
 scales, the router, the embedding where the vocabulary does not
 split), which must be bit-equal across the ranks of a model group: a
@@ -32,6 +35,7 @@ Imported as ``_torch_tp`` (the tests directory is on the path).
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -98,20 +102,19 @@ def flat(tree, prefix):
                        for q in path)
         out[prefix + key] = np.asarray(leaf)
 
-for arch, d, m, fsdp, mode in CASES:
+for key, arch, d, m, fsdp, mode, sp, seq in CASES:
     cfg = get_smoke_config(arch).with_(compute_dtype=jnp.float32)
     model = build_model(cfg)
     mesh = make_mesh((d, m), ("data", "model"),
                      axis_types=(AXIS_TYPE_AUTO,) * 2)
-    rules = make_rules(mesh, fsdp=fsdp, kv_heads=cfg.n_kv_heads,
-                       d_head=cfg.d_head)
-    data = SyntheticLM(cfg.vocab, {seq!r}, {batch!r}, seed={seed!r},
+    rules = make_rules(mesh, fsdp=fsdp, seq_parallel=sp,
+                       kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
+    data = SyntheticLM(cfg.vocab, seq, {batch!r}, seed={seed!r},
                        modality=cfg.modality, d_frontend=cfg.d_frontend,
                        n_img_tokens=cfg.n_img_tokens)
     run = RunConfig(dp_reduce=mode, **RUN)
     state = initial(model, arch, rules, mode)
     step = make_train_step(model, run, rules)
-    key = f"{{arch}}/{{d}}x{{m}}/{{int(fsdp)}}/{{mode}}"
     losses, words, gnorms = [], [], []
     for s in range(STEPS):
         b = {{k: jnp.asarray(v) for k, v in data.batch(s).items()}}
@@ -128,16 +131,25 @@ print("REF-TP-OK")
 """
 
 
+def parts(case) -> tuple:
+    """``(arch, d, m, fsdp, mode, sp, seq)`` of a case, the defaults
+    filled in."""
+    arch, d, m, fsdp, mode, *rest = case
+    sp, seq = (*rest, *(False, D.SEQ)[len(rest):])
+    return arch, d, m, fsdp, mode, sp, seq
+
+
 def key(case) -> str:
-    arch, d, m, fsdp, mode = case
-    return f"{arch}/{d}x{m}/{int(fsdp)}/{mode}"
+    arch, d, m, fsdp, mode, sp, seq = parts(case)
+    return f"{arch}/{d}x{m}/{int(fsdp)}/{mode}" + ("/sp" if sp else "") \
+        + (f"/s{seq}" if seq != D.SEQ else "")
 
 
 def _reference(cases, init, path) -> dict:
     out = run_with_devices(REF.format(
-        cases=list(cases), steps=STEPS, run=RUN, init=str(init),
-        seq=D.SEQ, batch=D.BATCH, seed=D.SEED, path=str(path)), D.WORLD,
-        timeout=900)
+        cases=[(key(c), *parts(c)) for c in cases], steps=STEPS, run=RUN,
+        init=str(init), batch=D.BATCH, seed=D.SEED, path=str(path)),
+        D.WORLD, timeout=900)
     assert "REF-TP-OK" in out, out
     return dict(np.load(path))
 
@@ -188,10 +200,11 @@ def _whole(model) -> set:
     return {k for k, s in par.splits.items() if s.tp_dim is None}
 
 
-def _setup(arch, d, m, fsdp, mode, init, rules=True):
+def _setup(arch, d, m, fsdp, mode, sp, init, rules=True):
     """A model from the reference's initial parameters, its state and
     step on ``make_host_mesh(d, m)`` (every rank creates the mesh's
-    groups; ``(None, mesh)`` on a rank off the mesh)."""
+    groups; ``(None, mesh)`` on a rank off the mesh), sequence-parallel
+    where ``sp``."""
     from repro_torch import interop
     from repro_torch.configs.base import RunConfig, get_smoke_config
     from repro_torch.launch.mesh import make_host_mesh
@@ -201,13 +214,33 @@ def _setup(arch, d, m, fsdp, mode, init, rules=True):
     mesh = make_host_mesh(data=d, model=m)
     if torch.distributed.get_rank() >= mesh.size:
         return None, mesh
-    r = make_rules(mesh, fsdp=fsdp, kv_heads=cfg.n_kv_heads,
-                   d_head=cfg.d_head) if rules else None
+    r = make_rules(mesh, fsdp=fsdp, seq_parallel=sp,
+                   kv_heads=cfg.n_kv_heads, d_head=cfg.d_head) \
+        if rules else None
     model = interop.lm_params_from_reference(
         D.nest(init, f"{arch}/init/"), cfg, device="cpu")
     run = RunConfig(dp_reduce=mode, **RUN)
     state = tl.init_state(model, run, r)
     return (cfg, r, model, state, tl.make_train_step(model, run, r)), mesh
+
+
+@contextlib.contextmanager
+def residual_lengths():
+    """The set of lengths (dimension 1) of the residual stream each
+    block's channel mix takes, filled while the ``with`` body runs:
+    the whole sequence, or a rank's block of it under sequence
+    parallelism."""
+    from repro_torch.models import transformer as T
+    seen, mix = set(), T._channel_mix
+
+    def spy(blk, cfg, x, par=None):
+        seen.add(x.shape[1])
+        return mix(blk, cfg, x, par)
+    T._channel_mix = spy
+    try:
+        yield seen
+    finally:
+        T._channel_mix = mix
 
 
 def port_rank(rank, cases, init_path, ckpt=None, ckpt_dir=None):
@@ -218,21 +251,25 @@ def port_rank(rank, cases, init_path, ckpt=None, ckpt_dir=None):
     init = dict(np.load(init_path))
     out = {}
     for case in cases:
-        built, _ = _setup(*case, init)
+        *setup, seq = parts(case)
+        built, _ = _setup(*setup, init)
         if built is None:
             continue
         cfg, rules, model, state, step = built
-        data = SyntheticLM(cfg.vocab, D.SEQ, D.BATCH, seed=D.SEED,
+        data = SyntheticLM(cfg.vocab, seq, D.BATCH, seed=D.SEED,
                            modality=cfg.modality, d_frontend=cfg.d_frontend,
                            n_img_tokens=cfg.n_img_tokens)
         losses, words, gnorms = [], [], []
-        for s in range(STEPS):
-            b = {k: torch.from_numpy(v) for k, v in data.batch(s).items()}
-            state, met = step(state, b)
-            losses.append(float(met["loss"]))
-            words.append(float(met["wire_words"]))
-            gnorms.append(float(met["grad_norm"]))
+        with residual_lengths() as lengths:
+            for s in range(STEPS):
+                b = {k: torch.from_numpy(v)
+                     for k, v in data.batch(s).items()}
+                state, met = step(state, b)
+                losses.append(float(met["loss"]))
+                words.append(float(met["wire_words"]))
+                gnorms.append(float(met["grad_norm"]))
         k = key(case)
+        out[f"{k}/resid"] = np.array(sorted(lengths))
         out[f"{k}/loss"] = np.array(losses)
         out[f"{k}/words"] = np.array(words)
         out[f"{k}/gnorm"] = np.array(gnorms)
@@ -262,7 +299,7 @@ def _round_trip(rank, case, model, rules, state, init, root) -> dict:
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.parallel import tensor_parallel as tpar
     from repro_torch.runtime import train_loop as tl
-    arch, d, m, fsdp, mode = case
+    arch, d, m, fsdp, mode, sp, _ = parts(case)
     sh = tl.state_shardings(state, model.param_axes(), rules)
     first, again = os.path.join(root, "mesh"), os.path.join(root, "one")
     Checkpointer(first, group=dist.group.WORLD).save(
@@ -273,7 +310,7 @@ def _round_trip(rank, case, model, rules, state, init, root) -> dict:
         t.shape, specs[k])) for k, t in saved.items()}
 
     def restored_on_mesh(directory):
-        (_, r, m2, s2, _), _ = _setup(*case, init)
+        (_, r, m2, s2, _), _ = _setup(arch, d, m, fsdp, mode, sp, init)
         Checkpointer(directory, group=dist.group.WORLD).restore(
             STEPS, s2, shardings=tl.state_shardings(s2, m2.param_axes(), r))
         got = _leaves(s2)
@@ -287,7 +324,7 @@ def _round_trip(rank, case, model, rules, state, init, root) -> dict:
         out["ckpt/refused"] = np.array(False)
     except ValueError as e:
         out["ckpt/refused"] = np.array("shardings=" in str(e))
-    built, mesh1 = _setup(arch, 1, 1, fsdp, mode, init, rules=False)
+    built, mesh1 = _setup(arch, 1, 1, fsdp, mode, sp, init, rules=False)
     if built is not None:                   # rank 0: a world of one
         from repro_torch.parallel.sharding import make_rules
         _, _, m1, s1, _ = built
@@ -340,7 +377,7 @@ def check_case(want: dict, ranks: list, case, *, loss_tol=LOSS_TOL,
     ``param_tol`` (``aer_topk``: ``_torch_dp.AER_PARAM_TOL``), rank 0's wire words within 1e-3, and
     the parameters no spec splits over the model axis bit-equal across
     the ranks of each model group."""
-    arch, d, m, fsdp, mode = case
+    arch, d, m, fsdp, mode, _, _ = parts(case)
     k = key(case)
     on = [r for r in ranks if f"{k}/loss" in r]
     assert len(on) == d * m, (case, len(on))

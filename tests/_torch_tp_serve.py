@@ -7,11 +7,12 @@ a child process; then the port's on 4 gloo processes (``mp.spawn``, as
 ``tests/_torch_dp.py`` starts them), each side running all of the
 module's cases.
 
-A case is ``(arch, data, model, prompt, max_len)``: the smoke config of
-``arch`` in float32 compute from the reference's initial parameters
-(every cross-attention ``xgate`` set to ``XGATE`` on both sides: at the
-reference's 0 the image adds nothing), ``make_rules(mesh, fsdp=True)``
-over the mesh, a ``SyntheticLM`` batch of ``BATCH`` prompts of
+A case is ``(arch, data, model, prompt, max_len[, sp])``: the smoke
+config of ``arch`` in float32 compute from the reference's initial
+parameters (every cross-attention ``xgate`` set to ``XGATE`` on both
+sides: at the reference's 0 the image adds nothing),
+``make_rules(mesh, fsdp=True, seq_parallel=sp)`` over the mesh (``sp``
+off by default, and a case without it keeps its key), a ``SyntheticLM`` batch of ``BATCH`` prompts of
 ``prompt`` tokens, a cache of ``max_len`` positions.  The reference
 places its parameters by their specs, the batch by ``_batch_axis`` and
 the prefilled cache by ``_cache_shardings``, then decodes ``STEPS``
@@ -25,7 +26,8 @@ cannot cascade), and rank 0 runs the same on the whole model (the world
 of one).
 
 Each port rank returns, per case: its logits (gathered, the global
-batch's), the world of one's on rank 0, its cache shards after the
+batch's), the lengths of the residual stream its blocks took in the
+prefill or the score (``_torch_tp.residual_lengths``), the world of one's on rank 0, its cache shards after the
 prefill and after the last step with their bytes beside
 ``launch.dryrun.device_bytes`` under ``_cache_spec`` of the whole
 leaf, the collectives a decode step ran, the tokens of
@@ -80,8 +82,7 @@ def flat(tree, prefix):
                        for q in path)
         out[prefix + key] = np.asarray(leaf)
 
-for arch, d, m, S, max_len in CASES:
-    key = f"{{arch}}/{{d}}x{{m}}/{{S}}/{{max_len}}"
+for key, arch, d, m, S, max_len, sp in CASES:
     cfg = get_smoke_config(arch).with_(compute_dtype=jnp.float32)
     model = build_model(cfg)
     box = {{}}
@@ -98,8 +99,8 @@ for arch, d, m, S, max_len in CASES:
         flat(params, arch + "/init/")
     mesh = make_mesh((d, m), ("data", "model"),
                      axis_types=(AXIS_TYPE_AUTO,) * 2)
-    rules = make_rules(mesh, fsdp=True, kv_heads=cfg.n_kv_heads,
-                       d_head=cfg.d_head)
+    rules = make_rules(mesh, fsdp=True, seq_parallel=sp,
+                       kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
     data = SyntheticLM(cfg.vocab, S, B, seed=SEED, modality=cfg.modality,
                        d_frontend=cfg.d_frontend,
                        n_img_tokens=cfg.n_img_tokens)
@@ -154,9 +155,14 @@ def _atol(want: np.ndarray) -> float:
     return TOL * max(1.0, float(np.abs(want).max()))
 
 
+def parts(case) -> tuple:
+    """``(arch, d, m, prompt, max_len, sp)`` of a case."""
+    return (*case, False)[:6]
+
+
 def key(case) -> str:
-    arch, d, m, s, max_len = case
-    return f"{arch}/{d}x{m}/{s}/{max_len}"
+    arch, d, m, s, max_len, sp = parts(case)
+    return f"{arch}/{d}x{m}/{s}/{max_len}" + ("/sp" if sp else "")
 
 
 def runs(tmp, cases) -> tuple:
@@ -165,7 +171,7 @@ def runs(tmp, cases) -> tuple:
     the port's 4 ranks."""
     path = tmp / "ref.npz"
     out = run_with_devices(REF.format(
-        cases=list(cases), steps=STEPS, batch=BATCH, seed=SEED,
+        cases=[(key(c), *parts(c)) for c in cases], steps=STEPS, batch=BATCH, seed=SEED,
         xgate=XGATE, inputs=INPUTS, path=str(path)), D.WORLD, timeout=900)
     assert "REF-SERVE-OK" in out, out
     ranks = D.spawn(tmp, port_rank, list(cases), str(path))
@@ -188,7 +194,7 @@ def _generate(model, batch, case, tokens) -> tuple:
     (STEPS + 1, B, 1, V), the caches after the prefill and the last
     step, and the collectives of each decode step."""
     from repro_torch.parallel.compat import CALLS
-    arch, d, m, s, max_len = case
+    arch, d, m, s, max_len, _ = parts(case)
     logits, cache = model.prefill(batch, max_len=max_len)
     first, lg, calls = cache, [logits], []
     for t in range(STEPS):
@@ -213,12 +219,12 @@ def port_rank(rank, cases, ref_path):
     ref = dict(np.load(ref_path))
     out = {}
     for case in cases:
-        arch, d, m, s, max_len = case
+        arch, d, m, s, max_len, sp = parts(case)
         k = key(case)
         cfg = get_smoke_config(arch).with_(compute_dtype=torch.float32)
         mesh = make_host_mesh(data=d, model=m)
-        rules = make_rules(mesh, fsdp=True, kv_heads=cfg.n_kv_heads,
-                           d_head=cfg.d_head)
+        rules = make_rules(mesh, fsdp=True, seq_parallel=sp,
+                           kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
         init = D.nest(ref, f"{arch}/init/")
         model = interop.lm_params_from_reference(init, cfg, device="cpu")
         par = shard_model(model, rules)
@@ -228,11 +234,16 @@ def port_rank(rank, cases, ref_path):
             if rank == 0 else None
         with torch.inference_mode():
             if not cfg.causal:
-                out[f"{k}/logits"] = model.score(batch).numpy()
+                with TP.residual_lengths() as lengths:
+                    out[f"{k}/logits"] = model.score(batch).numpy()
+                out[f"{k}/resid"] = np.array(sorted(lengths))
                 if whole is not None:
                     out[f"{k}/one"] = whole.score(batch).numpy()
                 continue
             tokens = ref[f"{k}/tokens"]
+            with TP.residual_lengths() as lengths:
+                model.prefill(batch, max_len=max_len)
+            out[f"{k}/resid"] = np.array(sorted(lengths))
             lg, c0, c1, calls = _generate(model, batch, case, tokens)
             out[f"{k}/logits"] = lg
             out[f"{k}/calls"] = np.array(calls)
@@ -360,7 +371,7 @@ def check_cache(ref: dict, ranks: list, case) -> None:
     from repro_torch import interop
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.transformer import _kinds
-    arch, d, m, _, _ = case
+    arch, d, m, _, _, _ = parts(case)
     k = key(case)
     cfg = get_smoke_config(arch)
     kinds = _kinds(cfg)
@@ -386,3 +397,13 @@ def check_cache(ref: dict, ranks: list, case) -> None:
                     nbytes, spec_bytes = got[f"{k}/bytes/{ph}/{i}/{n}"]
                     assert nbytes == spec_bytes, (case, ph, r, i, n, nbytes,
                                                   spec_bytes)
+
+
+def check_residual(ranks: list, case) -> None:
+    """Every block of every rank took ``ceil(prompt / tp)`` positions
+    of the residual stream in its prefill or score under sequence
+    parallelism (the whole prompt without)."""
+    arch, d, m, s, _, sp = parts(case)
+    want = -(-s // m) if sp else s
+    for r, got in enumerate(ranks):
+        assert got[f"{key(case)}/resid"].tolist() == [want], (case, r)

@@ -12,14 +12,19 @@ the port traces the same cell on ``meta`` under its counter.  Held:
 * argument bytes a device on a 2 x 2 mesh with FSDP, exactly (and on
   1 x 1);
 * flops a device on the 2 x 2 mesh within ``DEVICE_TOL`` (1 %) after
-  the known gaps.
+  the known gaps;
+* the training cell on 2 x 2 with sequence parallelism
+  (``RunConfig(seq_parallel=True)``, the reference's ``--sp``): flops a
+  device within ``DEVICE_TOL`` after the known gaps (measured: equal,
+  and equal to the cell without it on both sides) and argument bytes
+  exactly.
 """
 
 import pytest
 
-from _torch_dryrun import (DEVICE_TOL, SHAPES, known_gap, port,
+from _torch_dryrun import (DEVICE_TOL, SHAPES, SP_CELLS, known_gap, port,
                            reference)
-from repro_torch.configs.base import get_smoke_config
+from repro_torch.configs.base import RunConfig, get_smoke_config
 
 ARCH = "granite_3_2b"
 KINDS = [s[0] for s in SHAPES]
@@ -48,3 +53,19 @@ def test_device_flops_2x2(shape):
     gap = known_gap(get_smoke_config(ARCH), shape, "2x2")
     assert res["flops"] + gap == pytest.approx(ref["flops"],
                                                rel=DEVICE_TOL)
+
+
+@pytest.mark.parametrize("shape,mesh", SP_CELLS[ARCH])
+def test_seq_parallel_device_flops(shape, mesh):
+    ref = reference(ARCH)[f"{shape}/{mesh}/sp"]
+    res, _, _ = port(ARCH, shape, mesh, RunConfig(seq_parallel=True))
+    gap = known_gap(get_smoke_config(ARCH), shape, mesh)
+    assert res["flops"] + gap == pytest.approx(ref["flops"],
+                                               rel=DEVICE_TOL)
+
+
+@pytest.mark.parametrize("shape,mesh", SP_CELLS[ARCH])
+def test_seq_parallel_argument_bytes_exact(shape, mesh):
+    ref = reference(ARCH)[f"{shape}/{mesh}/sp"]
+    _, _, mem = port(ARCH, shape, mesh, RunConfig(seq_parallel=True))
+    assert mem["argument_size_in_bytes"] == ref["argument_size_in_bytes"]

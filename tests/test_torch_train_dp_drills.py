@@ -301,9 +301,11 @@ def _refusal_rank(rank, root):
             lambda: train.setup(["--arch", "granite_3_2b", "--smoke",
                                  "--device", "cpu", "--mesh-data", "3"]))
     mesh, _ = _rules(cfg, 1, model=2)
-    refused("seq_parallel", NotImplementedError, "A.11e",
-            lambda: tl.make_train_step(model, run, make_rules(
-                mesh, seq_parallel=True)))
+    sp_model, _, loss = one_step(make_rules(
+        mesh, seq_parallel=True, kv_heads=cfg.n_kv_heads,
+        d_head=cfg.d_head))
+    said["seq_parallel"] = np.array(abs(loss - base) < 1e-5 and
+                                    sp_model.parallel.seq_split)
     jamba = get_smoke_config("jamba_v01_52b")
     hybrid = build_model(jamba, device="cpu")
     tl.make_train_step(hybrid, RunConfig(), make_rules(

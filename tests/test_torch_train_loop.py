@@ -171,8 +171,9 @@ def test_data_parallel_paths_wait_for_a11c():
     run them on gloo ranks).  Here, in one process: every rank's shards
     of a (2, 2) FSDP mesh put back together give each whole leaf, and
     Mamba's ``in_proj`` shard holds the same channels of ``x`` and ``z``;
-    what still waits names ROADMAP A.11e (sequence parallelism); an
-    abstract mesh and ``--mesh-data`` past the world are refused."""
+    an abstract mesh (with sequence-parallel rules too, which the step
+    runs since A.11e, ``tests/test_torch_train_sp*.py``) and
+    ``--mesh-data`` past the world are refused."""
     from repro_torch.parallel.compat import Mesh
     from repro_torch.parallel.sharding import make_rules, mesh_axes
     from repro_torch.parallel.tensor_parallel import shard_param
@@ -212,7 +213,7 @@ def test_data_parallel_paths_wait_for_a11c():
     assert torch.equal(shard_param(w, sh.spec, frules.mesh, 1, sh.groups),
                        torch.cat([w[:, d_in // 2:d_in],
                                   w[:, d_in + d_in // 2:]], 1))
-    with pytest.raises(NotImplementedError, match="A.11e"):
+    with pytest.raises(ValueError, match="abstract mesh"):
         tl.make_train_step(model, RunConfig(), rules=make_rules(
             Mesh({"data": 1, "model": 2}), seq_parallel=True))
     with pytest.raises(ValueError, match="abstract mesh"):
