@@ -372,7 +372,14 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                2048 positions, checked), held against the same whole
                runs under the same limits, B7 still 4 and its backward
                2 a falcon rank a step, their ms, peak and collectives
-               printed beside the plain cell's;
+               printed beside the plain cell's; last, one more step of
+               the granite cell and of its SP cell on every rank under
+               the cost counter (``launch.dryrun.trace_step``), whose
+               flops, bytes and collectives by kind (counts and bytes)
+               must equal the dry-run's ``meta`` trace of rank 0 of the
+               same cell over an abstract (2, 2) mesh (same config,
+               depth and batch), printed a line a cell beside the
+               card's name and power limit;
 36. serve_tp_2x2_one_card — serving a sharded model (A.11e): 4
                processes on cuda:0 over gloo (4 ranks time-share the
                card: not multi-card figures), a (2, 2) mesh without
@@ -394,7 +401,12 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                the 2048 positions a rank, checked, its decode steps
                whole on every rank with the plain cell's collectives,
                held against the same world of one and printed beside
-               the plain cell;
+               the plain cell; last, one more prefill and one decode
+               step of each granite-34b cell (plain and SP; its cache
+               split over the slots, so the decode counts the softmax
+               combine) on every rank under the cost counter, equal to
+               the dry-run's ``meta`` trace of rank 0, a line a cell
+               beside the card's name and power limit;
 37. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
                of ``--all`` (each arch x shape its ``shapes_for``
                lists, full width, the production shapes) on the 16 x 16
@@ -402,9 +414,11 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                one process a cell, ``POD_WORKERS`` at a time, started
                after the build on the host's spare cores while the card
                phases run: the roofline table (``launch.roofline``) on
-               its own lines, then each cell's flops, bytes, argument
-               and temporary bytes a device and whether they fit the
-               card's 80 GB, and the wall time.  The 2 x 16 x 16
+               its own lines (each traced program is rank 0's, so no
+               collective term is a lower bound), then each cell's
+               flops, bytes, collective bytes by mesh axis, argument and
+               temporary bytes a device and whether they fit the card's
+               80 GB, and the wall time.  The 2 x 16 x 16
                multi-pod mesh is traced on a CPU host (it doubles the
                phase).
 
@@ -4008,6 +4022,58 @@ TP_PARAM_TOL = {"psum": 2e-3, "aer_topk": 2 * 1e-3 * TP_STEPS}
 #: updates nothing moves AdamW's every entry by about lr
 TP_OVER_SHARE = {"psum": 1e-4, "aer_topk": 2e-3}
 TP_NOTE = "4 ranks time-share one card; not a multi-card figure"
+#: the training cells whose every rank runs one more step under the cost
+#: counter, held to the dry-run's meta trace of rank 0 of the same cell
+TP_COUNTED = ("granite_3_2b_psum", "granite_3_2b_psum_sp")
+
+
+def _tp_run(mode, sp=False):
+    """The training cells' ``RunConfig`` (FSDP on, sequence parallelism
+    as ``sp``: the flags the dry-run builds its rules from)."""
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(dp_reduce=mode, learning_rate=1e-3, warmup_steps=0,
+                     total_steps=TP_STEPS, aer_frac=DP_AER_FRAC,
+                     aer_budget=DP_AER_BUDGET, fsdp=True, seq_parallel=sp)
+
+
+def _counted(model, kind, batch, run_cfg, **kw) -> tuple:
+    """One step of ``kind`` under a fresh ``launch.cost.Counter``,
+    through the dry-run's own ``trace_step`` (``kw``: its ``rules``,
+    ``state``, ``cache``, ``seq_len``): ``({flops, bytes, collectives
+    by kind}, what the step returned)``."""
+    from repro_torch.launch import cost, dryrun
+    c = cost.Counter()
+    out = dryrun.trace_step(model, kind, batch, run_cfg, counter=c, **kw)
+    res = c.result()
+    return {"flops": res["flops"], "bytes": res["bytes_accessed"],
+            "collectives": res["collectives"]}, out
+
+
+def _meta_counted(arch, kind, seq, batch, run_cfg, layers) -> dict:
+    """The dry-run's trace on ``meta`` of rank 0 of ``arch`` at full
+    width on ``layers`` layers, float32 compute, over an abstract
+    (2, 2) mesh, in ``_counted``'s keys, and its seconds."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.compat import Mesh
+    t0 = time.perf_counter()
+    res, _, _ = dryrun.trace_cell(
+        arch, ShapeConfig(f"{kind}_tp", seq, batch, kind),
+        Mesh({"data": 2, "model": 2}), run_cfg,
+        {"n_layers": layers, "compute_dtype": torch.float32})
+    return {"flops": res["flops"], "bytes": res["bytes_accessed"],
+            "collectives": res["collectives"],
+            "trace_s": time.perf_counter() - t0}
+
+
+def _held_ranks(label, meta, ranks) -> None:
+    """Every rank's counted step equal to the meta trace: flops, bytes,
+    and each collective kind's count and bytes."""
+    want = {k: meta[k] for k in ("flops", "bytes", "collectives")}
+    for r, got in enumerate(ranks):
+        check(got == want, f"{label}: rank {r} counted {got}, the dry-run's "
+                           f"meta trace of rank 0 {want}")
 
 
 def _tp_cfg(arch):
@@ -4028,14 +4094,11 @@ def _tp_train(arch, mode, rules, rows=None):
     is made (the whole model drawn before it is cut to a rank's shards
     is not counted)."""
     import torch
-    from repro_torch.configs.base import RunConfig
     from repro_torch.models.model import build_model
     from repro_torch.parallel.compat import CALLS
     from repro_torch.runtime import train_loop as tl
     cfg = _tp_cfg(arch)
-    run = RunConfig(dp_reduce=mode, learning_rate=1e-3, warmup_steps=0,
-                    total_steps=TP_STEPS, aer_frac=DP_AER_FRAC,
-                    aer_budget=DP_AER_BUDGET)
+    run = _tp_run(mode)
     model = build_model(cfg, seed=0, device=torch.device("cuda", 0))
     state = tl.init_state(model, run, rules)
     step = tl.make_train_step(model, run, rules)
@@ -4246,6 +4309,10 @@ def _tp_train_cells(rank, out_dir, out):
         if hasattr(model.stack.blocks[0], "mamba"):
             cell["scan_channels"] = int(
                 model.stack.blocks[0].mamba.D_skip.shape[0])
+        if label in TP_COUNTED:       # one more step, counted
+            cell["counted"] = _counted(
+                model, "train", _dp_batch(cfg, TP_STEPS), _tp_run(mode, sp),
+                rules=rules, state=state)[0]
         out[label] = cell
         del model, state, want
         gc.collect()
@@ -4354,6 +4421,17 @@ def phase_train_tp_2x2_one_card():
                 k: {"sp": cells[label][k], "plain": plain[k]} for k in
                 ("step_ms_median", "peak_gb_by_rank",
                  "collectives_per_step_rank0")}
+    for arch, mode, sp, label in _tp_cells():
+        if label not in TP_COUNTED:
+            continue
+        meta = _meta_counted(arch, "train", DP_SEQ, DP_BATCH,
+                             _tp_run(mode, sp), TP_LAYERS)
+        per = [r[label]["counted"] for r in ranks]
+        _held_ranks(f"train_tp {label} counted step", meta, per)
+        cells[label]["counted_step"] = per[0]
+        emit("train_tp_2x2_one_card", counted_cell=label,
+             smi=nvidia_smi_line(), ranks_equal_meta=True, **per[0],
+             meta_trace_s=meta["trace_s"])
     emit("train_tp_2x2_one_card", mesh={"data": 2, "model": 2}, fsdp=True,
          ranks=TP_WORLD, backend="gloo", device="cuda:0 (all ranks)",
          note=TP_NOTE, smi=nvidia_smi_line(), layers=TP_LAYERS,
@@ -4381,6 +4459,9 @@ SERVE_TP_LAYERS, SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_STEPS = \
 #: every rank's logits against the world of one's, relative to the
 #: largest |logit| of the real vocabulary
 SERVE_TP_TOL = 1e-4
+#: the serving cells whose every rank runs one more prefill and decode
+#: step under the cost counter, held to the dry-run's meta trace
+SERVE_TP_COUNTED = ("granite_34b", "granite_34b_sp")
 
 
 def _tp_serve_cfg(arch):
@@ -4390,7 +4471,7 @@ def _tp_serve_cfg(arch):
                                   compute_dtype=torch.float32)
 
 
-def _tp_serve(arch, rules=None, forced=None) -> dict:
+def _tp_serve(arch, rules=None, forced=None, count=None) -> dict:
     """``arch`` at full width on SERVE_TP_LAYERS layers, seed 0, on
     cuda:0, cut by ``rules`` (``None``: whole): a warm-up prefill of the
     ``SyntheticLM`` prompts, a timed one, then SERVE_TP_STEPS decode
@@ -4400,7 +4481,9 @@ def _tp_serve(arch, rules=None, forced=None) -> dict:
     launches of the timed prefill, the collectives of the prefill and
     of each step, the lengths of the residual stream the prefill's
     blocks took, the peak memory after the model is cut, and the
-    layer-0 cache's shapes."""
+    layer-0 cache's shapes.  With ``count`` (a ``RunConfig``), one more
+    prefill of the prompt and a decode step from its cache run under the
+    cost counter (``_counted``), their tallies under ``"counted"``."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.models.model import build_model
@@ -4445,13 +4528,23 @@ def _tp_serve(arch, rules=None, forced=None) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             calls.append(dict(CALLS))
             out_logits.append(logits[:, -1].float().cpu())
+    counted = None
+    if count is not None:
+        pre, (_, c1) = _counted(model, "prefill", {"tokens": tokens}, count,
+                                seq_len=S)
+        step = {"tokens": torch.zeros((B, 1), dtype=torch.int32,
+                                      device=dev),
+                "pos": torch.full((B,), S, dtype=torch.int32, device=dev)}  # torchlint: disable=TL002 (a fill, no copy)
+        dec, _ = _counted(model, "decode", step, count, cache=c1)
+        counted = {"prefill": pre, "decode": dec}
+        del c1
     res = {"logits": torch.stack(out_logits), "fed": torch.stack(fed),
            "prefill_ms": prefill_ms, "step_ms": step_ms,
            "launches": launches, "calls": calls,
            "prefill_calls": prefill_calls, "resid": sorted(resid),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "cache0": {k: list(t.shape) for k, t in cache[0].items()},
-           "vocab": cfg.vocab}
+           "vocab": cfg.vocab, "counted": counted}
     if hasattr(model.stack.blocks[0], "mamba"):
         res["scan_channels"] = int(model.stack.blocks[0].mamba.D_skip
                                    .shape[0])
@@ -4490,7 +4583,9 @@ def _tp_serve_cells(rank, out_dir, out):
         mesh = make_host_mesh(data=2, model=2)
         rules = make_rules(mesh, fsdp=False, seq_parallel=sp,
                            kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
-        got = _tp_serve(arch, rules, forced=want["fed"])
+        got = _tp_serve(arch, rules, forced=want["fed"],
+                        count=_tp_serve_run(sp) if label in SERVE_TP_COUNTED
+                        else None)
         cell = _tp_serve_gaps(got.pop("logits"), want["logits"],
                               cfg.vocab)
         got.pop("fed")
@@ -4498,6 +4593,13 @@ def _tp_serve_cells(rank, out_dir, out):
                     ("seq" if cfg.n_kv_heads % 2 else "heads"))
         out[label] = cell
         dist.barrier()
+
+
+def _tp_serve_run(sp):
+    """The serving cells' ``RunConfig``: no FSDP, sequence parallelism
+    as ``sp`` (the flags the dry-run builds its rules from)."""
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(fsdp=False, seq_parallel=sp)
 
 
 def _tp_serve_labels() -> list:
@@ -4611,6 +4713,19 @@ def phase_serve_tp_2x2_one_card():
                 k: {"sp": cells[label][k], "plain": plain[k]} for k in
                 ("prefill_ms_by_rank", "decode_ms_per_step_by_rank",
                  "peak_gb_by_rank", "collectives_per_prefill")}
+    for arch, sp, label in _tp_serve_labels():
+        if label not in SERVE_TP_COUNTED:
+            continue
+        line = {}
+        for kind in ("prefill", "decode"):
+            meta = _meta_counted(arch, kind, SERVE_TP_PROMPT, SERVE_TP_BATCH,
+                                 _tp_serve_run(sp), SERVE_TP_LAYERS)
+            per = [r[label]["counted"][kind] for r in ranks]
+            _held_ranks(f"serve_tp {label} counted {kind}", meta, per)
+            line[kind] = dict(per[0], meta_trace_s=meta["trace_s"])
+        cells[label]["counted"] = line
+        emit("serve_tp_2x2_one_card", counted_cell=label,
+             smi=nvidia_smi_line(), ranks_equal_meta=True, **line)
     emit("serve_tp_2x2_one_card", mesh={"data": 2, "model": 2},
          fsdp=False, ranks=TP_WORLD, backend="gloo",
          device="cuda:0 (all ranks)", note=TP_NOTE, smi=nvidia_smi_line(),
@@ -4848,7 +4963,10 @@ def phase_dryrun_pod(pod: PodDryRun):
     cells = roofline.load_cells("pod", dryrun_dir=str(POD_DIR))
     check(len(cells) == len(pod.cells),
           f"dryrun_pod: {len(cells)} records for {len(pod.cells)} cells")
-    print(roofline.table(cells), flush=True)
+    table = roofline.table(cells)
+    print(table, flush=True)
+    check("≥" not in table, "dryrun_pod: a collective term is a lower "
+                            "bound")
     out = []
     for c in cells:
         mem = c["memory"]
@@ -4856,7 +4974,10 @@ def phase_dryrun_pod(pod: PodDryRun):
         out.append({"arch": c["arch"], "shape": c["shape"],
                     "flops": c["flops"], "bytes": c["bytes_accessed"],
                     "collective_bytes": c["collective_bytes_total"],
-                    "collectives_incomplete": c["collective_lower_bound"],
+                    "collective_bytes_by_axis": {
+                        a: v["bytes"] for a, v in
+                        c["collectives_by_axis"].items()},
+                    "t_collective_ms": c["t_collective_s"] * 1e3,
                     "argument_bytes": mem["argument_size_in_bytes"],
                     "temp_bytes": mem["temp_size_in_bytes"],
                     "fits_80GB": need <= H100["hbm_bytes"],

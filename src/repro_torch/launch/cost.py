@@ -23,7 +23,12 @@ count is ever unknown.  The conventions are the reference's:
   collectives      per kind, the result bytes and a ``<kind>_count``,
                    recorded by the port's collectives themselves
                    (``record_collective``), on a real process group or
-                   on the recording stand-in of an abstract mesh;
+                   on the recording stand-in of an abstract mesh; and
+                   the same bytes and counts by the mesh axis the
+                   group spans, with the group's global ranks
+                   (``collectives_by_axis``: what the roofline prices
+                   by where the ranks lie); what a collective runs to
+                   move its tensors is not counted (``uncounted``);
   peak_live_bytes  the peak, over the traced step, of the bytes of the
                    storages it created that are still alive.
 
@@ -34,9 +39,12 @@ which hides the operators inside from the counter and records the
 kernel's operand and result bytes instead: bytes and no flops, as the
 reference counts a custom call.
 
-Per device: a counter built with ``axis_sizes`` (a mesh's ``{axis:
-size}``) divides each operator's flops, bytes and new storage by the
-product of the sizes of the mesh axes its result is sharded over.  A
+A counter built without ``axis_sizes`` counts what it sees whole: one
+rank's own program (the dry-run traces rank 0's sharded step), or one
+device's.  Per device of a global program: a counter built with
+``axis_sizes`` (a mesh's ``{axis: size}``) divides each operator's
+flops, bytes, new storage and collective bytes by the product of the
+sizes of the mesh axes its result is sharded over.  A
 tensor's axes are a tag: parameters and inputs are tagged by the caller
 (``tag``), ``parallel.sharding.shard_activation`` sets the tag of an
 activation to the axes its logical names resolve to, and every other
@@ -62,7 +70,7 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 from torch.utils.weak import WeakIdKeyDictionary
 
 __all__ = ["Counter", "analyze", "active", "kernel", "record_collective",
-           "tag", "COST_KEYS", "COLLECTIVES"]
+           "tag", "uncounted", "COST_KEYS", "COLLECTIVES"]
 
 #: the keys of ``Counter.result()``, as the reference's
 #: ``hlo_cost.analyze`` names them
@@ -143,6 +151,7 @@ class Counter(TorchDispatchMode):
         self.flops = 0.0
         self.bytes = 0.0
         self.coll: dict = {}
+        self.by_axis: dict = {}
         self.ops = _Tally()
         self.kernels: dict = {}
         self.live = 0.0
@@ -270,15 +279,24 @@ class Counter(TorchDispatchMode):
         self.ops[f"kernel.{name}"] += 1
         self._track(outs, div)
 
-    def record_collective(self, kind: str, result: torch.Tensor) -> None:
+    def record_collective(self, kind: str, result: torch.Tensor, *,
+                          axis: str | None = None,
+                          ranks=None) -> None:
         """One collective of ``kind`` whose result on this device is
-        ``result`` (divided by its tag on a sharded mesh)."""
+        ``result`` (whole on a counter with no mesh, divided by its tag
+        on one with), over a group spanning the mesh axis ``axis`` (None:
+        not said) whose global ranks are ``ranks``."""
         if kind not in COLLECTIVES:
             raise ValueError(f"unknown collective {kind!r}; one of "
                              f"{COLLECTIVES}")
         nbytes = _nbytes(result) / self.divisor(self.axes_of([result]))
         self.coll[kind] = self.coll.get(kind, 0) + nbytes
         self.coll[kind + "_count"] = self.coll.get(kind + "_count", 0) + 1
+        a = self.by_axis.setdefault(str(axis), {
+            "bytes": 0, "count": 0,
+            "ranks": None if ranks is None else list(ranks)})
+        a["bytes"] += nbytes
+        a["count"] += 1
 
     # -- entering and the result ----------------------------------------
 
@@ -300,6 +318,8 @@ class Counter(TorchDispatchMode):
         return {"flops": self.flops, "bytes_accessed": self.bytes,
                 "collectives": dict(self.coll),
                 "collective_bytes_total": total,
+                "collectives_by_axis": {k: dict(v) for k, v in
+                                        sorted(self.by_axis.items())},
                 "unknown_trip_count_loops": 0,
                 "peak_live_bytes": self.peak_live,
                 "op_counts": dict(sorted(self.ops.items())),
@@ -346,11 +366,24 @@ def kernel(name: str):
         yield _KernelRegion(c, name)
 
 
-def record_collective(kind: str, result: torch.Tensor) -> None:
+def record_collective(kind: str, result: torch.Tensor, *,
+                      axis: str | None = None, ranks=None) -> None:
     """Report a collective to the active counter (none: nothing)."""
     c = active()
     if c is not None:
-        c.record_collective(kind, result)
+        c.record_collective(kind, result, axis=axis, ranks=ranks)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """A region whose operators no counter sees: what a collective runs
+    to move its tensors (its result is recorded by
+    ``record_collective`` instead)."""
+    if active() is None:
+        yield
+        return
+    with _disable_current_modes():
+        yield
 
 
 def tag(t: torch.Tensor, axes) -> torch.Tensor:

@@ -13,33 +13,47 @@ Per cell:
                 ``LM.score`` for an encoder;
   decode_*   -> one ``LM.decode_step`` against a ``seq_len``-deep cache.
 
-Per-device numbers.  The dry-run does not execute the mesh (the
-trainer, prefill, decode and scoring run a model axis and FSDP over
-process groups of ranks, not over an abstract mesh): it traces the
-global program, as the reference's SPMD program is global, and
-accounts for the mesh as that program does.
+Per-device numbers.  On a mesh of one device the dry-run traces the
+program as it is.  On a mesh of more than one it traces what one rank
+runs: the model built on ``meta`` and cut to rank 0's shards over the
+abstract mesh (``tensor_parallel.shard_model``), then rank 0's train
+step, prefill, score or decode step, exactly as a process of the mesh
+runs it, with the mesh's ``RecordingGroup``s as its data-axis and
+model-axis groups.  The counter counts that program as it stands, with
+no division (every rank of the mesh runs the same operators on shards
+of the same shapes):
 
-  memory       ``argument_size_in_bytes`` sums each argument's bytes on
-               one device (parameters, AdamW's moments, the AER
-               residuals, the batch, the cache), every dim a spec shards
-               ceil-divided by its mesh axes (the parameter specs of
-               ``param_specs``, the batch's ``_batch_axis``, the
-               reference's ``_cache_shardings``); ``temp_size_in_bytes``
-               is the counter's peak of live bytes, divided the same way;
-  flops, bytes each operator divided by the product of the mesh axes its
-               result is tagged with (``launch.cost``): parameters carry
-               their specs' axes, the batch its batch axes, activations
-               the axes the model names through ``shard_activation``;
-  collectives  only those the port's step issues: the data-parallel
-               reduction of ``dp_reduce`` and the metrics' mean, recorded
-               by the abstract mesh's ``RecordingGroup``.  The
-               all-gathers, reduce-scatters and activation all-reduces
-               that a model axis or FSDP runs in training, prefill,
-               decode and scoring (and a sequence-split cache's softmax
-               combine, and under ``--sp`` the residual stream's
-               sequence gathers and reduce-scatters) are not traced
-               (ROADMAP A.11e): such a cell's record says so in
-               ``collectives_incomplete``.
+  memory       ``argument_size_in_bytes`` sums the bytes of the rank's
+               own arguments: its parameter shards, AdamW's moments of
+               them, the AER residuals (whole leaves), the step
+               counters, its rows of the batch and its block of the
+               cache (``init_cache`` on the sharded model); this equals
+               the reference's spec-based count (each dim a spec shards
+               ceil-divided by its mesh axes: ``param_specs``,
+               ``_batch_axis``, ``_cache_shardings``; ``argument_specs``
+               and ``device_bytes`` here), which the tests hold it to;
+               ``temp_size_in_bytes`` is the counter's peak of live
+               bytes;
+  flops, bytes every operator the rank dispatches, whole;
+  collectives  every collective the rank issues, by kind and by the
+               mesh axis its group spans (``collectives_by_axis``, with
+               the group's global ranks, which the roofline prices by
+               where they lie): the FSDP all-gathers and their backward
+               reduce-scatters, Megatron's *f* and *g*, the
+               vocab-parallel embedding and cross-entropy, the
+               split-attention k/v gathers, both MoE layouts, the
+               sharded AdamW norm, under ``--sp`` the residual stream's
+               ``seq_enter`` and ``seq_exit``, a sequence-split decode
+               cache's softmax combine, and the data-parallel reduction
+               of every ``dp_reduce`` mode.
+
+The reference's program is global and its numbers are XLA's per-device
+analysis of it; the port's tests keep the global trace, every operator
+divided by the product of the mesh axes its result is tagged with
+(``_trace_global``), as the plain version the rank's trace is held
+against: equal flops a device (but for work every rank of a model group
+repeats, which the tag division spreads: counted by hand in the tests)
+and equal argument bytes.
 
 Outputs, one a cell: ``experiments/dryrun_torch/<arch>--<shape>--<mesh>
 [--tag].json`` with the reference's record keys (plus ``counter`` and
@@ -69,12 +83,13 @@ from ..configs.base import (ALL_SHAPES, ARCH_IDS, RunConfig, ShapeConfig,
 from ..models.model import build_model
 from ..parallel.sharding import (PartitionSpec, make_rules, mesh_axes,
                                  use_rules)
+from ..parallel.tensor_parallel import shard_model
 from ..runtime import train_loop as tl
 from . import cost
 from .mesh import make_production_mesh
 
-__all__ = ["OUT_DIR", "RECORD_KEYS", "MEMORY_KEYS", "INCOMPLETE",
-           "build_cell", "trace_cell", "trace_step", "argument_specs",
+__all__ = ["OUT_DIR", "RECORD_KEYS", "MEMORY_KEYS", "build_cell",
+           "trace_cell", "trace_step", "rank_arguments", "argument_specs",
            "device_bytes", "run_cell", "main"]
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -86,13 +101,9 @@ RECORD_KEYS = ("arch", "shape", "kind", "mesh", "cfg_overrides",
                "compile_s", "xla_flops_once", "xla_bytes_once", "flops",
                "bytes_accessed", "collectives", "collective_bytes_total",
                "unknown_trip_count_loops", "collectives_static_text",
-               "memory", "counter", "torch")
+               "memory", "counter", "torch", "collectives_by_axis")
 MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
                "temp_size_in_bytes", "generated_code_size_in_bytes")
-#: what a cell with a model axis past 1 or FSDP records of its
-#: collectives
-INCOMPLETE = ("the model axis's and FSDP's collectives are not traced "
-              "(ROADMAP A.11e)")
 COUNTER = "torch_dispatch_meta"
 
 
@@ -213,23 +224,22 @@ def _prompt(batch: dict) -> dict:
 
 
 def trace_step(model, kind: str, batch: dict, run_cfg: RunConfig, *,
-               counter, group=None, seq_len: int = 0, state=None,
+               counter, rules=None, seq_len: int = 0, state=None,
                cache=None):
     """Run one step of ``kind`` as the cell runs it, under ``counter``
     (entered here); the same calls whatever the device, so a count on
     the card and a count on ``meta`` see the same operators.
 
-    train:   the trainer's step over ``state`` (``init_state``; the
-             data-parallel step recorded over ``group`` when it is a
-             ``RecordingGroup``);
+    train:   the trainer's step over ``state`` (``init_state``), the
+             sharded step under ``rules`` (the model already cut by
+             them: ``make_train_step``);
     prefill: ``prefill(max_len=seq_len)``, or ``score`` for an encoder;
     decode:  ``decode_step(cache, tokens, pos)``;
     both under ``no_grad`` (where inference mode would hand the counter
     composite operators whole).
     Returns what the step returned."""
     if kind == "train":
-        step = tl.make_train_step(model, run_cfg) if group is None else \
-            tl.make_recorded_step(model, run_cfg, group)
+        step = tl.make_train_step(model, run_cfg, rules)
         with counter:
             return step(state, batch)
     with torch.no_grad(), counter:
@@ -238,6 +248,94 @@ def trace_step(model, kind: str, batch: dict, run_cfg: RunConfig, *,
                 return model.score(batch)
             return model.prefill(_prompt(batch), max_len=seq_len)
         return model.decode_step(cache, batch["tokens"], batch["pos"])
+
+
+def _read(model, kind: str, batch: dict) -> dict:
+    """The batch tensors the program of ``kind`` takes: all of a train
+    batch; a prefill's or a score's prompt; a decode step's tokens, and
+    their positions where a self-attention layer reads them (the
+    reference's jit drops an argument nothing reads)."""
+    if kind == "train":
+        return batch
+    if kind == "decode":
+        return {k: batch[k] for k in ("tokens", "pos")
+                if k == "tokens" or any(blk.kind.startswith("attn")
+                                        for blk in model.stack.blocks)}
+    return _prompt(batch)
+
+
+def _setup(model, shape, run_cfg, rules=None) -> tuple:
+    """``(state, cache)`` of a cell's program: the train state (the
+    rank's, under ``rules``), or the decode cache (the rank's block on a
+    sharded model)."""
+    if shape.kind == "train":
+        return tl.init_state(model, run_cfg, rules), None
+    if shape.kind == "decode":
+        return None, model.init_cache(shape.global_batch, shape.seq_len)
+    return None, None
+
+
+def rank_arguments(model, kind: str, read: dict, *, state=None,
+                   cache=None) -> list:
+    """The tensors that a rank of a sharded ``model``'s program of
+    ``kind`` takes as arguments: its parameter shards (or its train
+    state: the shards, both moments, the AER residuals and the two step
+    counters), its rows of each ``read`` tensor (the train step's block
+    of ``rows / dp``; ``Parallel.rows`` of a prefill, a score or a
+    decode step), its cache."""
+    par = model.parallel
+    out = list(model.parameters())
+    if state is not None:
+        out += list(state.opt.mu.values()) + list(state.opt.nu.values())
+        if state.aer is not None:
+            out += [s.residual for s in state.aer.values()]
+        out += [state.opt.step, state.step]
+    for t in read.values():
+        n = t.shape[0]
+        m = n // par.dp
+        out.append(t[par.rows(n) if kind != "train" else
+                     slice(par.dp_rank * m, (par.dp_rank + 1) * m)])
+    for layer in cache or ():
+        out += list(layer.values())
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _outputs(out) -> list:
+    return [t for t in torch.utils._pytree.tree_flatten(out)[0]
+            if isinstance(t, torch.Tensor)]
+
+
+def trace_cell(arch: str, shape_name, mesh, run_cfg: RunConfig,
+               cfg_overrides: dict | None = None):
+    """Trace one cell on ``meta``: ``(cost result, meta, memory)``, the
+    numbers of one device of ``mesh``: on a mesh of more than one
+    device, rank 0's program (its shards, its rows, its collectives),
+    counted whole; on one device, the program."""
+    if mesh.size == 1:
+        return _trace_global(arch, shape_name, mesh, run_cfg,
+                             cfg_overrides)
+    model, cfg, rules, shape, batch, meta = build_cell(
+        arch, shape_name, mesh, run_cfg, cfg_overrides)
+    shard_model(model, rules)         # rank 0's shards: no process groups
+    state, cache = _setup(model, shape, run_cfg, rules)
+    args = rank_arguments(model, shape.kind,
+                          _read(model, shape.kind, batch), state=state,
+                          cache=cache)
+    counter = cost.Counter()
+    out = trace_step(model, shape.kind, batch, run_cfg, counter=counter,
+                     rules=rules, seq_len=shape.seq_len, state=state,
+                     cache=cache)
+    res = counter.result()
+    memory = {
+        "argument_size_in_bytes": sum(map(_nbytes, args)),
+        "output_size_in_bytes": sum(map(_nbytes, _outputs(out))),
+        "temp_size_in_bytes": int(res["peak_live_bytes"]),
+        "generated_code_size_in_bytes": None}
+    return res, meta, memory
 
 
 @contextlib.contextmanager
@@ -259,59 +357,41 @@ def _grad_tags(model, counter, rules, axes):
             h.remove()
 
 
-def trace_cell(arch: str, shape_name: str, mesh, run_cfg: RunConfig,
-               cfg_overrides: dict | None = None):
-    """Trace one cell on ``meta``: ``(cost result, meta, memory)``, the
-    numbers per device of ``mesh``."""
+def _trace_global(arch: str, shape_name, mesh, run_cfg: RunConfig,
+                  cfg_overrides: dict | None = None):
+    """The plain version of ``trace_cell``: the global program (the
+    whole model, the global batch, the one-device train step, so no
+    collective) traced on ``meta``, each operator divided by the product
+    of the mesh axes its result is tagged with, the arguments counted
+    from their specs (``argument_specs``, ``device_bytes``).  ``(cost
+    result, meta, memory)``, per device of ``mesh``.  On one device it
+    is the dry-run's trace."""
     model, cfg, rules, shape, batch, meta = build_cell(
         arch, shape_name, mesh, run_cfg, cfg_overrides)
     sharded = mesh.size > 1
     counter = cost.Counter(dict(mesh.shape) if sharded else None)
-    axes = model.param_axes()
-    state = cache = group = None
-    read = batch
-    if shape.kind == "train":
-        state = tl.init_state(model, run_cfg)
-        if mesh.dp_size > 1:
-            group = mesh.dp_group
-    elif shape.kind == "decode":
-        cache = model.init_cache(shape.global_batch, shape.seq_len)
-        # only self-attention reads the position; the reference's jit
-        # drops an argument nothing reads
-        read = {k: batch[k] for k in ("tokens", "pos")
-                if k == "tokens" or any(blk.kind.startswith("attn")
-                                        for blk in model.stack.blocks)}
-    else:
-        read = _prompt(batch)
-    args = argument_specs(model, rules, mesh, read, state=state,
+    state, cache = _setup(model, shape, run_cfg)
+    args = argument_specs(model, rules, mesh,
+                          _read(model, shape.kind, batch), state=state,
                           cache=cache)
     for t, spec in args:
         counter.tag(t, mesh_axes(spec))
-    tagging = _grad_tags(model, counter, rules, axes) \
+    tagging = _grad_tags(model, counter, rules, model.param_axes()) \
         if shape.kind == "train" and sharded else contextlib.nullcontext()
     with use_rules(rules), tagging:
-        out = trace_step(model, shape.kind, batch, run_cfg, group=group,
+        out = trace_step(model, shape.kind, batch, run_cfg,
                          seq_len=shape.seq_len, counter=counter,
                          state=state, cache=cache)
     res = counter.result()
-    outs = [t for t in torch.utils._pytree.tree_flatten(out)[0]
-            if isinstance(t, torch.Tensor)]
     memory = {
         "argument_size_in_bytes": sum(device_bytes(t, s, mesh)
                                       for t, s in args),
         "output_size_in_bytes": int(sum(
-            t.numel() * t.element_size() / counter.divisor(
-                counter.axes_of([t])) for t in outs)),
+            _nbytes(t) / counter.divisor(counter.axes_of([t]))
+            for t in _outputs(out))),
         "temp_size_in_bytes": int(res["peak_live_bytes"]),
         "generated_code_size_in_bytes": None}
     return res, meta, memory
-
-
-def _incomplete(mesh, run_cfg) -> bool:
-    """A model axis past 1, or FSDP over a data axis past 1."""
-    model_axes = any(n > 1 for a, n in mesh.shape.items()
-                     if a not in ("pod", "data"))
-    return model_axes or (run_cfg.fsdp and mesh.shape.get("data", 1) > 1)
 
 
 def run_cell(arch, shape_name, mesh_kind, run_cfg, cfg_overrides=None,
@@ -336,6 +416,7 @@ def run_cell(arch, shape_name, mesh_kind, run_cfg, cfg_overrides=None,
         "bytes_accessed": res["bytes_accessed"],
         "collectives": res["collectives"],
         "collective_bytes_total": res["collective_bytes_total"],
+        "collectives_by_axis": res["collectives_by_axis"],
         "unknown_trip_count_loops": res["unknown_trip_count_loops"],
         "collectives_static_text": res["collectives"],
         "memory": memory,
@@ -343,8 +424,6 @@ def run_cell(arch, shape_name, mesh_kind, run_cfg, cfg_overrides=None,
         "torch": torch.__version__,
         "kernels": res["kernels"],
     })
-    if _incomplete(mesh, run_cfg):
-        rec["collectives_incomplete"] = INCOMPLETE
     os.makedirs(out_dir, exist_ok=True)
     name = f"{arch}--{meta['shape']}--{mesh_kind}" \
         f"{('--' + tag) if tag else ''}"

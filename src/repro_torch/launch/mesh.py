@@ -32,10 +32,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh({"data": 16, "model": 16})
 
 
-def make_host_mesh(data: int = 1, model: int = 1):
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1):
     """A small ``(data, model)`` mesh over the world's first
-    ``data * model`` ranks, with its process groups (every process of
-    the world calls it, as it creates groups)."""
+    ``data * model`` ranks, or ``(pod, data, model)`` where ``pod`` is
+    past 1, with its process groups (every process of the world calls
+    it, as it creates groups)."""
     n = dist.get_world_size()
-    assert data * model <= n, (data, model, n)
+    assert pod * data * model <= n, (pod, data, model, n)
+    if pod > 1:
+        return make_mesh((pod, data, model), ("pod", "data", "model"))
     return make_mesh((data, model), ("data", "model"))

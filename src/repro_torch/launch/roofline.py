@@ -6,13 +6,18 @@ Reads ``experiments/dryrun_torch/<arch>--<shape>--<mesh>[--tag].json``
 
   compute term    = flops a device / PEAK_FLOPS
   memory term     = bytes a device / HBM_BW
-  collective term = collective bytes a device / LINK_BW
+  collective term = the sum, over the mesh axes a device's collectives
+                    span (``collectives_by_axis``), of their bytes over
+                    the rate of that axis's group: LINK_BW when the
+                    group's global ranks lie in one host of
+                    HOST_CARDS cards (ranks row-major, 8 a host), else
+                    HOST_BW
 
 plus MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE) and the useful
-share of the counted flops.  A cell whose record carries
-``collectives_incomplete`` (a model axis past 1, or FSDP: the dry-run
-does not trace their collectives yet, ROADMAP A.11e) prints its
-collective term as a lower bound, ``≥``.
+share of the counted flops.  The dry-run traces every collective a
+rank issues, so each term is the rank's own.  A record without
+``collectives_by_axis`` (a one-device cell, which has none) prices its
+collective bytes at LINK_BW.
 
 The constants are NVIDIA H100 80GB HBM3 SXM data-sheet figures (dense,
 at the 700 W limit), none measured here and none a TPU's:
@@ -20,11 +25,9 @@ at the 700 W limit), none measured here and none a TPU's:
   PEAK_FLOPS  989e12 FLOP/s, bf16 on the tensor cores;
   HBM_BW      3.35e12 B/s;
   LINK_BW     450e9 B/s, one direction of NVLink 4 (900 GB/s both
-              ways), assuming every device of the mesh reaches every
-              other at that rate, as the 8 cards of one NVLink-switched
-              host do; a pod of 256 spans hosts, whose 400 Gb/s NICs
-              give 50e9 B/s a card, so between hosts the term is 9x
-              larger.
+              ways), between the 8 cards of one NVLink-switched host;
+  HOST_BW     50e9 B/s, a 400 Gb/s NIC a card, between hosts (on the
+              16 x 16 pod both of a rank's groups span hosts).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh pod]
@@ -43,13 +46,15 @@ from ..models.layers import padded_vocab
 from ..models.transformer import pattern_for
 from .dryrun import OUT_DIR
 
-__all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "DRYRUN_DIR",
-           "analyze_cell", "load_cells", "table", "_active_params",
-           "_ssm_state_flops_per_token"]
+__all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "HOST_BW", "HOST_CARDS",
+           "DRYRUN_DIR", "link_rate", "analyze_cell", "load_cells", "table",
+           "_active_params", "_ssm_state_flops_per_token"]
 
 PEAK_FLOPS = H100["bf16_flops_s"]  # bf16 / card (data sheet)
 HBM_BW = H100["hbm_bytes_s"]       # B/s (data sheet)
 LINK_BW = 450e9                    # B/s a direction: NVLink 4 (data sheet)
+HOST_BW = 50e9                     # B/s a card: a 400 Gb/s NIC (data sheet)
+HOST_CARDS = 8                     # cards a host, NVLink-switched
 
 DRYRUN_DIR = OUT_DIR
 
@@ -110,16 +115,33 @@ def _ssm_state_flops_per_token(arch: str) -> float:
     return 9.0 * 3.0 * n_mamba * d_in * cfg.mamba.d_state
 
 
+def link_rate(ranks) -> float:
+    """B/s of a collective over the global ``ranks``: LINK_BW within
+    one host, HOST_BW across hosts."""
+    return LINK_BW if len({r // HOST_CARDS for r in ranks}) <= 1 \
+        else HOST_BW
+
+
 def analyze_cell(rec: dict) -> dict:
     """The record with its three terms, the dominant one, the bound time
     and the compute share of it; for a train cell, MODEL_FLOPS and the
     useful share of the counted flops (with the scan's state arithmetic
-    added for SSMs)."""
+    added for SSMs).  A record that says its collectives are incomplete
+    (a dry-run older than the rank's trace) is refused."""
+    if "collectives_incomplete" in rec:
+        raise ValueError(f"{rec['arch']}--{rec['shape']}: a record without "
+                         f"the model axis's and FSDP's collectives; trace "
+                         f"the cell again (launch.dryrun)")
     n_dev = rec["n_devices"]
     flops_dev = rec["flops"]
     t_compute = flops_dev / PEAK_FLOPS
     t_memory = rec["bytes_accessed"] / HBM_BW
-    t_coll = rec.get("collective_bytes_total", 0.0) / LINK_BW
+    by_axis = rec.get("collectives_by_axis")
+    if by_axis is None:
+        t_coll = rec.get("collective_bytes_total", 0.0) / LINK_BW
+    else:
+        t_coll = sum(a["bytes"] / link_rate(a["ranks"] or ())
+                     for a in by_axis.values())
     terms = {"compute": t_compute, "memory": t_memory,
              "collective": t_coll}
     dominant = max(terms, key=terms.get)
@@ -130,7 +152,6 @@ def analyze_cell(rec: dict) -> dict:
         "t_collective_s": t_coll, "dominant": dominant,
         "bound_time_s": bound,
         "roofline_fraction": t_compute / bound if bound > 0 else 0.0,
-        "collective_lower_bound": "collectives_incomplete" in rec,
     })
     if rec["kind"] == "train":
         sh = ALL_SHAPES[rec["shape"]]
@@ -165,15 +186,12 @@ def load_cells(mesh="pod", tag=None, dryrun_dir=DRYRUN_DIR) -> list:
 
 
 def table(cells) -> str:
-    """A markdown table a cell; ``≥`` marks a collective term that
-    lacks the model axis's and FSDP's collectives."""
+    """A markdown table a cell."""
     hdr = ["arch", "shape", "dominant", "t_comp(ms)", "t_mem(ms)",
            "t_coll(ms)", "roofline", "useful"]
     lines = ["| " + " | ".join(hdr) + " |", "|" + "---|" * len(hdr)]
     for c in sorted(cells, key=lambda c: (c["arch"], c["shape"])):
         coll = f"{c['t_collective_s'] * 1e3:.2f}"
-        if c["collective_lower_bound"]:
-            coll = "≥ " + coll
         lines.append("| " + " | ".join([
             c["arch"], c["shape"], c["dominant"],
             f"{c['t_compute_s'] * 1e3:.2f}", f"{c['t_memory_s'] * 1e3:.2f}",

@@ -63,8 +63,11 @@ laid out as ``par.kv_cache`` says (the reference's ``_cache_shardings``):
   reference's ``(batch, None)`` spec keeps it.
 - ``None``: the whole cache on every rank.
 
-A cross-attention cache (the image tokens' keys and values) splits by
-kv heads under ``"heads"`` and is whole on every rank otherwise.
+A cross-attention cache (the image tokens' keys and values) splits as
+a self-attention cache does: by kv heads under ``"heads"``, by its
+image tokens under ``"seq"`` (every one of a block's real tokens is
+valid, and the softmax is combined the same way), whole under
+``None``.
 """
 
 from __future__ import annotations
@@ -465,28 +468,52 @@ def slot_block(par, t: torch.Tensor, fill=0) -> torch.Tensor:
     return t[:, par.tp_rank * c:(par.tp_rank + 1) * c].contiguous()
 
 
+def _whole_heads(par, H: int) -> bool:
+    """Whether ``H`` query heads do not split over the model group
+    (``H % tp``, e.g. 40 heads on 16 ranks): every rank then runs all H
+    heads, its column block of ``x @ wq`` gathered over the group
+    (``_project_q``), and keeps its block of the output's columns for
+    the row-parallel ``wo`` (``_out_block``), the blocks ``wq`` and
+    ``wo`` are cut by."""
+    return par is not None and par.tp > 1 and H % par.tp != 0
+
+
+def _project_q(p: Attention, cfg, x, par=None) -> torch.Tensor:
+    """q (B, S, H', dh): ``x @ wq`` in the compute dtype, H' the rank's
+    H / tp heads over a model axis, or all H where they do not split
+    (``_whole_heads``)."""
+    q = linear(p.wq.w, x, cfg.compute_dtype)
+    if _whole_heads(par, cfg.n_heads):
+        q = par.gather(q, -1)
+    return q.reshape(*q.shape[:2], q.shape[-1] // cfg.d_head, cfg.d_head)
+
+
+def _out_block(par, out: torch.Tensor, H: int) -> torch.Tensor:
+    """An attention output (B, S, ...) flattened to (B, S, H'·dh) for
+    ``wo``: where every rank ran all H heads (``_whole_heads``), this
+    rank's block of its columns."""
+    out = out.reshape(*out.shape[:2], -1)
+    if _whole_heads(par, H):
+        c = out.shape[-1] // par.tp
+        out = out.narrow(-1, par.tp_rank * c, c)
+    return out
+
+
 def _project_qkv(p: Attention, cfg, x, kv_src, positions,
                  use_rope: bool = True, par=None):
     """q (B, S, H, dh) from ``x``, k and v (B, S, K, dh) from ``kv_src``,
     in the compute dtype, after qk-norm and (``use_rope``, self-attention
     only) RoPE at ``positions``.  Over a model axis (``par``), this
-    rank's H / tp query heads, and k and v as ``_project_kv`` gives them
-    (this rank's kv heads, or all K: ``_local_kv`` picks the ones its
-    query heads read)."""
-    B = x.shape[0]
-    H, dh = cfg.n_heads, cfg.d_head
-    cd = cfg.compute_dtype
+    rank's H / tp query heads (all H where they do not split,
+    ``_project_q``), and k and v as ``_project_kv`` gives them (this
+    rank's kv heads, or all K: ``_local_kv`` picks the ones its query
+    heads read)."""
     tp = par is not None and par.tp > 1
     qn, kn = getattr(p, "qn", None), getattr(p, "kn", None)
-    if tp:
-        if H % par.tp:
-            raise ValueError(f"{H} query heads do not split over "
-                             f"{par.tp} model-axis ranks")
-        if cfg.qk_norm:
-            qn = types.SimpleNamespace(scale=par.copy(qn.scale))
-            kn = types.SimpleNamespace(scale=par.copy(kn.scale))
-    q = linear(p.wq.w, x, cd)
-    q = q.reshape(B, -1, q.shape[-1] // dh, dh)
+    if tp and cfg.qk_norm:
+        qn = types.SimpleNamespace(scale=par.copy(qn.scale))
+        kn = types.SimpleNamespace(scale=par.copy(kn.scale))
+    q = _project_q(p, cfg, x, par)
     k, v = _project_kv(p, cfg, kv_src, par)
     if cfg.qk_norm:
         q = rmsnorm(qn, q, cfg.norm_eps)
@@ -521,8 +548,8 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_src if cross else x, positions,
                            use_rope=not cross, par=par)
-    kq, vq = (_local_kv(par, k, H, K), _local_kv(par, v, H, K)) if tp \
-        else (k, v)
+    kq, vq = (_local_kv(par, k, H, K), _local_kv(par, v, H, K)) \
+        if tp and not _whole_heads(par, H) else (k, v)
     Hl = q.shape[2]                  # this rank's query heads
     q = q.reshape(B, S, kq.shape[2], Hl // kq.shape[2], dh)
     qc = cfg.q_chunk or min(1024, S)
@@ -530,7 +557,7 @@ def _attn(p: Attention, cfg, x, positions, *, causal=None, kv_src=None,
     out = flash_attention(q, kq, vq, causal=causal and not cross,
                           window=cfg.sliding_window, q_chunk=qc,
                           kv_chunk=kc)
-    out = linear(p.wo.w, out.reshape(B, S, Hl * dh), cfg.compute_dtype)
+    out = linear(p.wo.w, _out_block(par, out, H), cfg.compute_dtype)
     if tp:
         out = par.seq_exit(out) if par.sp else par.reduce(out)
     return shard(out, ("batch", "seq_sp", "embed")), k, v
@@ -545,17 +572,19 @@ def attn_apply(p: Attention, cfg, x, positions, *, causal=None,
                  par=par)[0]
 
 
-def _decode_attention_seq(par, q, k_cache, v_cache, valid):
+def _decode_attention_seq(par, q, k_cache, v_cache, valid, H: int):
     """``decode_attention`` over a sequence-split cache: q (B, 1, H /
-    tp, dh) this rank's query heads; k, v (B, c, K, dh) this rank's
-    block of slots; ``valid`` (B, c).  The scores of every query head
-    over the rank's slots, then the softmax combined over the model
-    group in float32 (maximum, sum, weighted values), each rank left
-    with its own query heads' output (B, 1, H / tp, dh)."""
+    tp, dh) this rank's query heads (all H where they do not split,
+    ``_whole_heads``); k, v (B, c, K, dh) this rank's block of slots;
+    ``valid`` (B, c).  The scores of every query head over the rank's
+    slots, then the softmax combined over the model group in float32
+    (maximum, sum, weighted values), each rank left with its own query
+    heads' output (B, 1, H / tp, dh), or its block of the output's
+    H·dh columns."""
     B, _, _, dh = q.shape
     K = k_cache.shape[2]
-    qa = par.gather(q, 2)                               # (B, 1, H, dh)
-    H = qa.shape[2]
+    whole = _whole_heads(par, H)
+    qa = q if whole else par.gather(q, 2)               # (B, 1, H, dh)
     s = torch.einsum("bokgd,bskd->bkgos",
                      _scaled(qa).reshape(B, 1, K, H // K, dh).float(),
                      k_cache.float())
@@ -566,7 +595,8 @@ def _decode_attention_seq(par, q, k_cache, v_cache, valid):
     p = p / par.total(p.sum(-1, keepdim=True)).clamp(min=1e-30)
     out = torch.einsum("bkgos,bskd->bokgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return par.scatter(out.reshape(B, 1, H, dh), 2).to(q.dtype)
+    out = out.reshape(B, 1, H * dh) if whole else out.reshape(B, 1, H, dh)
+    return par.scatter(out, 2).to(q.dtype)
 
 
 def _write_slot(par, c: torch.Tensor, slot, new: torch.Tensor,
@@ -612,16 +642,20 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None,
     if kv_src is not None:
         k, v = cache["k"], cache["v"]
         qn = getattr(p, "qn", None)
-        q = linear(p.wq.w, x, cd)
-        q = q.reshape(B, 1, q.shape[-1] // dh, dh)
+        q = _project_q(p, cfg, x, par)
         if cfg.qk_norm:
             if tp:
                 qn = types.SimpleNamespace(scale=par.copy(qn.scale))
             q = rmsnorm(qn, q, cfg.norm_eps)
-        valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
-                           device=x.device)
+        seq = layout == "seq"
+        if seq:          # this rank's block of the image tokens
+            idx = torch.arange(k.shape[1], device=x.device) \
+                + par.tp_rank * k.shape[1]
+            valid = (idx < cfg.n_img_tokens).expand(B, -1)
+        else:
+            valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
+                               device=x.device)
         new_cache = cache
-        seq = False
     else:
         pos = torch.as_tensor(pos, device=x.device).long()  # torchlint: disable=TL002 (pos is a device tensor)
         q, kn, vn = _project_qkv(p, cfg, x, x, pos[:, None], par=par)
@@ -658,13 +692,14 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, kv_src=None,
         k = shard(k, ("batch", "kv_seq", "heads_kv", None))
         v = shard(v, ("batch", "kv_seq", "heads_kv", None))
     if seq:
-        out = _decode_attention_seq(par, q, k, v, valid)
+        out = _decode_attention_seq(par, q, k, v, valid, H)
     else:
-        if tp:
+        if tp and not _whole_heads(par, H):
             k, v = _local_kv(par, k, H, K), _local_kv(par, v, H, K)
         Hl = q.shape[2]
-        out = decode_attention(q.reshape(B, 1, k.shape[2], Hl // k.shape[2],
-                                         dh), k, v, valid)
+        out = _out_block(par, decode_attention(
+            q.reshape(B, 1, k.shape[2], Hl // k.shape[2], dh), k, v, valid),
+            H)
     out = linear(p.wo.w, out.reshape(B, 1, -1), cd)
     if tp:
         out = par.reduce(out)
@@ -785,10 +820,13 @@ def head_init(p: Head, cfg, generator: torch.Generator) -> None:
 def mask_padded_vocab(logits: torch.Tensor, vocab: int,
                       offset: int = 0) -> torch.Tensor:
     """Padded ids (global id ``offset + i`` at or past ``vocab``) to
-    -1e9; ``offset`` places a vocab-parallel shard of the logits."""
-    v_pad = logits.shape[-1]
-    if offset + v_pad <= vocab:
+    -1e9; ``offset`` places a vocab-parallel shard of the logits.  A
+    vocabulary with padded ids is masked in every shard, those without
+    one too (they add zeros), so that every rank of a model group runs
+    the same operators."""
+    if padded_vocab(vocab) == vocab:
         return logits
+    v_pad = logits.shape[-1]
     live = torch.arange(offset, offset + v_pad, device=logits.device) < vocab
     return logits + torch.where(live, 0.0, -1e9).to(logits.dtype)
 

@@ -38,8 +38,9 @@ axis.  ``stack_prefill`` and ``stack_decode`` take ``par`` the same way,
 each block viewed through ``par.view``, and keep each layer's cache as
 this rank's part of the reference's ``_cache_shardings``
 (``layers``' docstring): an attention layer's by kv heads or by slots,
-a cross-attention layer's by kv heads (whole when they do not split),
-a Mamba layer's state by its channels.  ``init_cache`` and
+a cross-attention layer's by kv heads or, when they do not split, by
+its image tokens (slots, as an attention layer's), a Mamba layer's
+state by its channels.  ``init_cache`` and
 ``precompute_cross_cache`` build the same parts.
 
 Under sequence parallelism (``par.sp``, a ``Parallel.for_sequence``
@@ -266,10 +267,12 @@ def stack_apply(stack: Stack, cfg, x: torch.Tensor, positions, img=None,
 
 
 def _cross_cache(cfg, batch: int, *, device=None, par=None) -> dict:
-    K = cfg.n_kv_heads
+    K, slots = cfg.n_kv_heads, cfg.n_img_tokens
     if par is not None and par.tp > 1 and par.kv_cache == "heads":
         K //= par.tp
-    shape = (batch, cfg.n_img_tokens, K, cfg.d_head)
+    elif par is not None and par.tp > 1 and par.kv_cache == "seq":
+        slots = -(-slots // par.tp)
+    shape = (batch, slots, K, cfg.d_head)
     return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
             for name in ("k", "v")}
 
@@ -297,11 +300,14 @@ def _cross_kv(attn: L.Attention, cfg, img: torch.Tensor, par=None) -> dict:
     ``img @ wk`` and ``img @ wv`` in the compute dtype, (B, n_img, K,
     dh).  As in the reference, no ``kn`` qk-norm is applied here, though
     ``attn_apply``'s keys get it (ROADMAP queue C).  Over a model axis
-    (``par``) this rank's kv heads when they split, else all of them."""
+    (``par``) this rank's kv heads when they split, else all of them on
+    its block of the image tokens (``L.slot_block``)."""
     k, v = L._project_kv(attn, cfg, img, par)
     K = cfg.n_kv_heads
-    return {"k": L.cache_kv_heads(par, k, K),
-            "v": L.cache_kv_heads(par, v, K)}
+    k, v = L.cache_kv_heads(par, k, K), L.cache_kv_heads(par, v, K)
+    if par is not None and par.tp > 1 and par.kv_cache == "seq":
+        k, v = L.slot_block(par, k), L.slot_block(par, v)
+    return {"k": k, "v": v}
 
 
 def precompute_cross_cache(stack: Stack, cfg, cache: list,

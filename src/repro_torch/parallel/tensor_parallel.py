@@ -23,7 +23,9 @@ collectives itself:
   is the whole sum on every rank.  ``Parallel.gather`` is an all-gather
   over the model group whose backward reduce-scatters (the keys and
   values when the kv heads do not split over the model axis but their
-  weights do).
+  weights do; the queries when the query heads do not split, 40 on 16
+  ranks: every rank then runs all heads and keeps its block of the
+  output's columns for ``wo``).
 
 A dimension may hold interleaved groups (``sharding.Axes``): each rank's
 shard of Mamba's ``in_proj`` is its block of ``x``'s channels followed by
@@ -108,13 +110,20 @@ def _axis_kind(entry, mesh: Mesh):
     on_dp = {a in DP_AXES for a in names if mesh.shape[a] > 1}
     if len(on_dp) != 1:
         raise ValueError(f"spec entry {entry!r} mixes data and model axes")
-    dp_axes = {a for a in DP_AXES if mesh.shape.get(a, 1) > 1}
-    if on_dp == {True} and {a for a in names if mesh.shape[a] > 1} \
-            != dp_axes:
-        raise ValueError(f"spec entry {entry!r} splits over part of the "
-                         f"data axes {sorted(dp_axes)}; the data group "
-                         f"spans all of them")
     return "dp" if on_dp == {True} else "tp"
+
+
+def _group_for(entry, mesh: Mesh):
+    """The group a spec entry splits over: the model group, the data
+    group, or (FSDP over part of the data axes, e.g. ``"data"`` on a
+    ``(pod, data, model)`` mesh: each pod holds the whole leaf) the
+    group along those axes."""
+    if _axis_kind(entry, mesh) == "tp":
+        return mesh.model_group
+    names = {a for a in _names(entry) if mesh.shape[a] > 1}
+    if names == {a for a in DP_AXES if mesh.shape.get(a, 1) > 1}:
+        return mesh.dp_group
+    return mesh.group_along(names)
 
 
 class Split(NamedTuple):
@@ -181,10 +190,6 @@ def whole_shape(shape, sharding: NamedSharding) -> tuple:
                  for n, e in zip(shape, sharding.spec))
 
 
-def _group_of(kind: str, mesh: Mesh):
-    return mesh.dp_group if kind == "dp" else mesh.model_group
-
-
 def unshard_param(local: torch.Tensor, sharding: NamedSharding,
                   full_shape) -> torch.Tensor:
     """The whole leaf from every rank's ``local`` shard (a collective
@@ -196,8 +201,7 @@ def unshard_param(local: torch.Tensor, sharding: NamedSharding,
     for d, entry in enumerate(sharding.spec):
         if out.shape[d] == full_shape[d]:
             continue
-        kind = _axis_kind(entry, sharding.mesh)
-        group = _group_of(kind, sharding.mesh)
+        group = _group_for(entry, sharding.mesh)
         n = axis_size(group)
         g = sharding.groups[d] if sharding.groups else 1
         out = all_gather_dim(out, d, group)
@@ -216,7 +220,10 @@ def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
     out = t.float() if t.dtype in (torch.bfloat16, torch.float16) \
         else t.clone()
     all_reduce(out, group)
-    return out.to(t.dtype)
+    # a tensor of its own (a view): a backend may hold ``out`` a moment
+    # after the collective returns, and autograd copies a gradient that
+    # something else holds, so the work of a step would depend on when
+    return out.to(t.dtype).view_as(out)
 
 
 class _Copy(torch.autograd.Function):
@@ -340,6 +347,7 @@ class Parallel:
         self.kv_cache = "heads" if heads else "seq" if seq else None
         self.seq_split = self.pieces("seq_sp") > 1
         self.seq_len = None
+        self._along: dict = {}
 
     def for_sequence(self, S: int) -> "Parallel":
         """The context a full-sequence call of ``S`` positions runs
@@ -405,11 +413,14 @@ class Parallel:
     def seq_at(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """Position ``i`` of the whole sequence (B, 1, ...) from this
         rank's block ``x``, on every rank (no gradient): the rank
-        holding it adds it, the others zeros."""
+        holding it adds it, the others zeros (selected in place of a row
+        of their own, so that every rank runs the same operators)."""
         c = x.shape[1]
         j = i - self.tp_rank * c
-        row = x[:, j:j + 1] if 0 <= j < c else torch.zeros_like(x[:, :1])
-        return self.total(row)
+        row = x[:, min(max(j, 0), c - 1)].unsqueeze(1)
+        owner = torch.full((), 0 <= j < c, dtype=torch.bool,
+                           device=x.device)
+        return self.total(torch.where(owner, row, 0))
 
     def pieces(self, name: str) -> int:
         """The model-axis pieces the activation axis ``name`` splits
@@ -470,8 +481,33 @@ class Parallel:
         all_reduce(out, self.data)
         return out / self.dp
 
+    def fsdp_group(self, split: Split):
+        """The group a leaf's FSDP dimension splits over: the data
+        group, or the group along part of the data axes (``"data"`` of
+        a ``(pod, data, model)`` mesh)."""
+        entry = split.sharding.spec[split.dp_dim]
+        key = _names(entry)
+        if key not in self._along:
+            self._along[key] = _group_for(entry, self.mesh)
+        return self._along[key]
+
+    def fsdp_rest(self, split: Split):
+        """The group along the data axes a leaf's FSDP dimension does not
+        split over (the ``"pod"`` group of ``fsdp_group``'s example),
+        which hold the same shard; ``None`` when it splits over them
+        all."""
+        names = {a for a in _names(split.sharding.spec[split.dp_dim])
+                 if self.mesh.shape[a] > 1}
+        rest = {a for a in DP_AXES if self.mesh.shape.get(a, 1) > 1} - names
+        if not rest:
+            return None
+        key = tuple(sorted(rest))
+        if key not in self._along:
+            self._along[key] = self.mesh.group_along(rest)
+        return self._along[key]
+
     def fsdp(self, p: torch.Tensor) -> torch.Tensor:
-        """``p`` gathered over the data group along its FSDP dimension
+        """``p`` gathered over its FSDP group along its FSDP dimension
         (``p`` itself when no spec splits it over data, or when it is
         already whole there, as in the manual modes' step)."""
         split = getattr(p, SPLIT_ATTR, None)
@@ -480,7 +516,7 @@ class Parallel:
         d = split.dp_dim
         if p.shape[d] == split.full[d]:
             return p
-        return _Gather.apply(p, d, self.data)
+        return _Gather.apply(p, d, self.fsdp_group(split))
 
     def view(self, module: nn.Module):
         """``module``, or a namespace mirroring its attributes with every
@@ -512,8 +548,10 @@ def shard_model(model: nn.Module, rules):
     same on every rank) to this process's shards by ``rules``' specs, in
     place: each split parameter becomes a new ``nn.Parameter`` of the
     shard's shape, and every parameter carries its ``Split``.  Sets and
-    returns ``model.parallel``.  A model already cut by the same rules
-    is left as it is; by others, refused."""
+    returns ``model.parallel``.  On an abstract mesh (no process groups)
+    the shards are rank 0's and the groups its ``RecordingGroup``s.  A
+    model already cut by the same rules is left as it is; by others,
+    refused."""
     mesh = rules.mesh
     axes = model.param_axes()
     par = getattr(model, "parallel", None)
@@ -523,10 +561,9 @@ def shard_model(model: nn.Module, rules):
             raise ValueError("the model is already sharded by other rules; "
                              "build it anew to shard it again")
         return par
-    if mesh.groups is None:
-        raise ValueError("the rules' mesh has no process groups (an "
-                         "abstract mesh): build it with make_host_mesh")
-    rank = dist.get_rank()
+    # an abstract mesh (no process groups): rank 0's shards, the program
+    # the dry-run traces
+    rank = 0 if mesh.groups is None else dist.get_rank()
     splits = {}
     with torch.no_grad():
         for name, p in list(model.named_parameters()):

@@ -28,8 +28,10 @@ The gradients are then reduced over the data group with
 
 - ``psum`` is the reference's GSPMD step: an FSDP leaf's gradient
   comes out of its gather's backward already summed over the data
-  group (a reduce-scatter) and is divided by its size; every other
-  leaf's is all-reduced (``all_reduce``) to the mean;
+  group (a reduce-scatter) and is divided by its size (on an abstract
+  ``(pod, data, model)`` mesh FSDP splits over ``"data"`` alone, and
+  the sum is completed by an all-reduce over the pod group); every
+  other leaf's is all-reduced (``all_reduce``) to the mean;
 - ``ring``, ``bidir_ring`` (``core/halfduplex``) and ``aer_topk`` (the
   event-sparse all-reduce, B5 and B6 once a reference leaf) follow the
   reference's manual region, whose state is replicated over the data
@@ -65,12 +67,11 @@ stream between the blocks is each model-group rank's block of
 positions, ``parallel.tensor_parallel``), under FSDP or not and under
 every ``dp_reduce`` mode.
 
-``make_recorded_step(model, run_cfg, group)`` is the step the dry-run
-traces over an abstract mesh (``launch.dryrun``): ``group`` is the
-mesh's ``RecordingGroup``, the step takes the global batch (the view of
-the reference's SPMD program, which the counter divides per device), and
-its reduction and ``pmean`` are recorded by the active counter, not
-executed.
+Over an abstract mesh (``parallel.compat.Mesh`` with no process
+groups) the step is rank 0's: its shards, its rows, and its
+collectives recorded by the active ``launch.cost`` counter over the
+mesh's ``RecordingGroup``s, not executed; this is the program the
+dry-run traces (``launch.dryrun``).
 
 Determinism: a run restarted from a checkpoint must end bit-identical
 to an uninterrupted one.  On the card the step runs under
@@ -97,7 +98,7 @@ import torch
 from ..core import sparse_collectives as sc
 from ..models.transformer import KINDS, n_periods, pattern_for
 from ..optim import adamw
-from ..parallel.compat import RecordingGroup, all_reduce, axis_size
+from ..parallel.compat import all_reduce, axis_size
 from ..parallel.sharding import NamedSharding, PartitionSpec, \
     partition_params
 from ..parallel.tensor_parallel import shard_model, shard_param, \
@@ -107,8 +108,7 @@ from ..parallel.tensor_parallel import shard_model, shard_param, \
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 __all__ = ["METRIC_KEYS", "DP_MODES", "TrainState", "ReferenceLeaves",
-           "init_state", "make_train_step", "make_recorded_step",
-           "state_shardings"]
+           "init_state", "make_train_step", "state_shardings"]
 
 METRIC_KEYS = ("nll", "aux_loss", "z_loss", "drop_frac", "loss",
                "grad_norm", "lr", "wire_words")
@@ -272,15 +272,11 @@ SHARDED_KINDS = KINDS
 
 def _sharded_mesh(model, run_cfg, rules):
     """``model`` cut to this rank's shards over ``rules.mesh`` (its
-    ``Parallel``), after refusing an unknown mode or an abstract
-    mesh."""
-    mesh = rules.mesh
+    ``Parallel``; rank 0's on an abstract mesh), after refusing an
+    unknown mode."""
     if run_cfg.dp_reduce not in DP_MODES:
         raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
                          f"of {DP_MODES}")
-    if mesh.groups is None:
-        raise ValueError("the rules' mesh has no process groups (an "
-                         "abstract mesh): build it with make_host_mesh")
     return shard_model(model, rules)
 
 
@@ -309,24 +305,7 @@ def make_train_step(model, run_cfg, rules=None, *, deterministic=None):
     shards first, unless ``init_state`` did it); every rank of the mesh
     calls it together."""
     par = None if rules is None else _sharded_mesh(model, run_cfg, rules)
-    return _make_step(model, run_cfg, par, None if par is None else par.data,
-                      deterministic)
-
-
-def make_recorded_step(model, run_cfg, group: RecordingGroup):
-    """The data-parallel step over an abstract mesh's ``RecordingGroup``,
-    as the dry-run traces it: the global batch, every parameter whole
-    (the reference's SPMD program, which the counter divides per device,
-    so a model axis past 1 and FSDP are counted, not executed), and the
-    ``run_cfg.dp_reduce`` reduction and ``pmean`` recorded by the active
-    counter.  Its collectives raise without one."""
-    if not isinstance(group, RecordingGroup):
-        raise TypeError(f"make_recorded_step takes a RecordingGroup, got "
-                        f"{group!r}; use make_train_step to run a step")
-    if run_cfg.dp_reduce not in DP_MODES:
-        raise ValueError(f"unknown dp_reduce {run_cfg.dp_reduce!r}; one "
-                         f"of {DP_MODES}")
-    return _make_step(model, run_cfg, None, group, False)
+    return _make_step(model, run_cfg, par, deterministic)
 
 
 def _shape_with(t: torch.Tensor, split, dim) -> tuple:
@@ -345,27 +324,31 @@ def _local(t: torch.Tensor, split, par) -> torch.Tensor:
     return shard_param(t, spec, par.mesh, par.rank, split.sharding.groups)
 
 
-def _make_step(model, run_cfg, par, group, deterministic):
+def _make_step(model, run_cfg, par, deterministic):
+    group = None if par is None else par.data
     own = dict(model.named_parameters())
     det = (next(iter(own.values())).device.type == "cuda"
            if deterministic is None else deterministic)
     mode = run_cfg.dp_reduce
     leaves = ReferenceLeaves(model) if group is not None and \
         mode == "aer_topk" else None
-    split = group is not None and not isinstance(group, RecordingGroup)
     splits = {} if par is None else par.splits
     # FSDP leaves: made whole over the data group for the manual modes'
     # step, else reduced by their gather's reduce-scatter
     fsdp = [k for k, sp in splits.items() if sp.dp_dim is not None]
     manual_whole = fsdp if mode != "psum" else []
-    split_over = {k: tuple(g for g, d in ((par.data, sp.dp_dim),
-                                          (par.model, sp.tp_dim))
-                           if d is not None)
+    split_over = {k: ((par.fsdp_group(sp),) if sp.dp_dim is not None
+                      else ()) + ((par.model,) if sp.tp_dim is not None
+                                  else ())
                   for k, sp in splits.items() if sp.split}
 
     def reduce(grads: dict, aer):
         if mode == "psum":
             rest = {k: g for k, g in grads.items() if k not in fsdp}
+            for k in fsdp:     # the data axes the leaf is whole over
+                over = par.fsdp_rest(splits[k])
+                if over is not None:
+                    all_reduce(grads[k], over)
             red = {k: grads[k] / par.dp for k in fsdp}
             words = torch.zeros((), dtype=torch.int32)
             if rest:
@@ -401,7 +384,7 @@ def _make_step(model, run_cfg, par, group, deterministic):
         with _deterministic(det):
             for p in own.values():
                 p.grad = None
-            if split:                     # this rank's block of rows
+            if par is not None:           # this rank's block of rows
                 batch = _split(batch, par.dp,
                                "data-parallel ranks")[par.dp_rank]
             held = {}

@@ -6,8 +6,9 @@ a child process, and the port's on 4 gloo processes (``mp.spawn``, as
 module's cases.
 
 A case is ``(arch, data, model, fsdp, mode[, sp[, seq]])``: the smoke
-config of ``arch`` in float32 compute, the mesh ``make_host_mesh(data,
-model)``, ``make_rules(mesh, fsdp=fsdp, seq_parallel=sp)`` and
+config ``arch`` names (``smoke``: an arch, or a variant of one) in
+float32 compute, the mesh ``make_host_mesh(data, model)`` (``data`` a
+pair ``(pod, data)``: the ``(pod, data, model)`` mesh, ``mesh_shape``), ``make_rules(mesh, fsdp=fsdp, seq_parallel=sp)`` and
 ``RunConfig(dp_reduce=mode)``, 3 steps of ``_torch_dp``'s run on its
 ``SyntheticLM`` batches of ``seq`` positions (default ``_torch_dp.SEQ``)
 from the reference's initial parameters.  ``sp`` defaults to off, and a
@@ -28,7 +29,11 @@ stream its blocks took (``residual_lengths``), and its own copies (or FSDP
 shards) of the parameters no spec splits over the model axis (the norm
 scales, the router, the embedding where the vocabulary does not
 split), which must be bit-equal across the ranks of a model group: a
-wrong *f* or *g* leaves their gradients partial.
+wrong *f* or *g* leaves their gradients partial.  Last, each rank runs
+one more step under a ``launch.cost.Counter`` (``counted``, through the
+dry-run's ``trace_step``), whose flops, bytes and collectives by kind
+``check_counted`` holds equal to the dry-run's ``meta`` trace of rank 0
+of the same cell (``meta_cell``).
 
 Imported as ``_torch_tp`` (the tests directory is on the path).
 """
@@ -36,6 +41,7 @@ Imported as ``_torch_tp`` (the tests directory is on the path).
 from __future__ import annotations
 
 import contextlib
+import math
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -71,6 +77,7 @@ from repro.runtime.train_loop import TrainState, make_train_step
 CASES, STEPS, RUN = {cases!r}, {steps!r}, {run!r}
 INIT = dict(np.load({init!r}))
 out = {{}}
+{smoke}
 
 def initial(model, arch, rules, mode):
     # the first child's initial parameters (the port's too), in a state
@@ -103,10 +110,12 @@ def flat(tree, prefix):
         out[prefix + key] = np.asarray(leaf)
 
 for key, arch, d, m, fsdp, mode, sp, seq in CASES:
-    cfg = get_smoke_config(arch).with_(compute_dtype=jnp.float32)
+    cfg = smoke(arch)
     model = build_model(cfg)
-    mesh = make_mesh((d, m), ("data", "model"),
-                     axis_types=(AXIS_TYPE_AUTO,) * 2)
+    dims = {{"pod": d[0], "data": d[1]}} if isinstance(d, tuple) \
+        else {{"data": d}}
+    mesh = make_mesh((*dims.values(), m), (*dims, "model"),
+                     axis_types=(AXIS_TYPE_AUTO,) * (len(dims) + 1))
     rules = make_rules(mesh, fsdp=fsdp, seq_parallel=sp,
                        kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
     data = SyntheticLM(cfg.vocab, seq, {batch!r}, seed={seed!r},
@@ -139,16 +148,25 @@ def parts(case) -> tuple:
     return arch, d, m, fsdp, mode, sp, seq
 
 
+def mesh_shape(d, m) -> dict:
+    """The mesh a case's ``d`` (data ranks, or ``(pod, data)``) and
+    ``m`` (model ranks) give, axis by axis."""
+    pod, data = d if isinstance(d, tuple) else (1, d)
+    return {**({"pod": pod} if pod > 1 else {}), "data": data, "model": m}
+
+
 def key(case) -> str:
     arch, d, m, fsdp, mode, sp, seq = parts(case)
-    return f"{arch}/{d}x{m}/{int(fsdp)}/{mode}" + ("/sp" if sp else "") \
+    return f"{arch}/{'x'.join(map(str, mesh_shape(d, m).values()))}" \
+        f"/{int(fsdp)}/{mode}" + ("/sp" if sp else "") \
         + (f"/s{seq}" if seq != D.SEQ else "")
 
 
 def _reference(cases, init, path) -> dict:
     out = run_with_devices(REF.format(
         cases=[(key(c), *parts(c)) for c in cases], steps=STEPS, run=RUN,
-        init=str(init), batch=D.BATCH, seed=D.SEED, path=str(path)),
+        init=str(init), batch=D.BATCH, seed=D.SEED, path=str(path),
+        smoke=SMOKE_REF),
         D.WORLD, timeout=900)
     assert "REF-TP-OK" in out, out
     return dict(np.load(path))
@@ -163,7 +181,8 @@ def runs(tmp, ref_cases, port_cases, *, ckpt: str | None = None) -> tuple:
     init = tmp / "init.npz"
     archs = sorted({c[0] for c in port_cases} | {c[0] for c in ref_cases})
     run_with_devices(_INIT.format(archs=archs, xgate=XGATE,
-                                  path=str(init)), 1, timeout=300)
+                                  path=str(init), smoke=SMOKE_REF), 1,
+                     timeout=300)
     with ThreadPoolExecutor(1) as pool:
         ref = pool.submit(_reference, ref_cases, init, tmp / "ref.npz")
         ranks = D.spawn(tmp, port_rank, list(port_cases), str(init), ckpt,
@@ -176,8 +195,9 @@ import jax, jax.numpy as jnp, numpy as np
 from repro.configs.base import get_smoke_config
 from repro.models.model import build_model
 out = {{}}
+{smoke}
 for arch in {archs!r}:
-    cfg = get_smoke_config(arch).with_(compute_dtype=jnp.float32)
+    cfg = smoke(arch)
     model = build_model(cfg)
     params = jax.jit(lambda k: model.init(k)[0])(jax.random.PRNGKey(0))
     for blk in params["stack"].values():
@@ -191,6 +211,26 @@ np.savez({path!r}, **out)
 """
 
 
+#: ``smoke`` on the reference's side, pasted into each child's script
+SMOKE_REF = r"""
+def smoke(name):
+    arch, *over = name.split("+")
+    return get_smoke_config(arch).with_(compute_dtype=jnp.float32, **{
+        k: int(v) for k, v in (o.split("=") for o in over)})
+"""
+
+
+def smoke(name: str):
+    """The smoke config a case names, in float32 compute: an arch of the
+    reference, or a variant ``arch+field=int+...`` of it (e.g.
+    ``granite_3_2b+n_heads=3+n_kv_heads=1``, query heads that a model
+    axis of 2 does not split)."""
+    from repro_torch.configs.base import get_smoke_config
+    arch, *over = name.split("+")
+    return get_smoke_config(arch).with_(compute_dtype=torch.float32, **{
+        k: int(v) for k, v in (o.split("=") for o in over)})
+
+
 # --- the port's ranks ---------------------------------------------------
 
 def _whole(model) -> set:
@@ -202,16 +242,16 @@ def _whole(model) -> set:
 
 def _setup(arch, d, m, fsdp, mode, sp, init, rules=True):
     """A model from the reference's initial parameters, its state and
-    step on ``make_host_mesh(d, m)`` (every rank creates the mesh's
+    step on ``make_host_mesh`` of ``mesh_shape(d, m)`` (every rank creates the mesh's
     groups; ``(None, mesh)`` on a rank off the mesh), sequence-parallel
     where ``sp``."""
     from repro_torch import interop
-    from repro_torch.configs.base import RunConfig, get_smoke_config
+    from repro_torch.configs.base import RunConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import make_rules
     from repro_torch.runtime import train_loop as tl
-    cfg = get_smoke_config(arch).with_(compute_dtype=torch.float32)
-    mesh = make_host_mesh(data=d, model=m)
+    cfg = smoke(arch)
+    mesh = make_host_mesh(**mesh_shape(d, m))
     if torch.distributed.get_rank() >= mesh.size:
         return None, mesh
     r = make_rules(mesh, fsdp=fsdp, seq_parallel=sp,
@@ -281,7 +321,72 @@ def port_rank(rank, cases, init_path, ckpt=None, ckpt_dir=None):
         if k == ckpt:
             out.update(_round_trip(rank, case, model, rules, state, init,
                                    ckpt_dir))
+        b = {k2: torch.from_numpy(v) for k2, v in data.batch(STEPS).items()}
+        out.update(counted(f"{k}/counted", model, "train", b,
+                           _run(case), rules=rules, state=state)[0])
     return out
+
+
+def _run(case):
+    """The case's ``RunConfig``, its FSDP and SP flags included."""
+    from repro_torch.configs.base import RunConfig
+    arch, d, m, fsdp, mode, sp, _ = parts(case)
+    return RunConfig(dp_reduce=mode, **{**RUN, "fsdp": fsdp,
+                                        "seq_parallel": sp})
+
+
+def counted(prefix: str, model, kind: str, batch: dict, run, **kw) -> tuple:
+    """One step of ``kind`` under a fresh ``launch.cost.Counter``,
+    through the dry-run's ``trace_step`` (``kw``: its ``rules``,
+    ``state``, ``cache``, ``seq_len``): ``({prefix/flops, prefix/bytes,
+    prefix/<collective kind>[_count]: arrays}, what the step
+    returned)``."""
+    from repro_torch.launch import cost, dryrun
+    c = cost.Counter()
+    ret = dryrun.trace_step(model, kind, batch, run, counter=c, **kw)
+    res = c.result()
+    tally = {"flops": res["flops"], "bytes": res["bytes_accessed"],
+             **res["collectives"]}
+    return {f"{prefix}/{n}": np.array(v) for n, v in tally.items()}, ret
+
+
+def meta_cell(arch: str, kind: str, batch: int, seq: int, d: int, m: int,
+              run) -> dict:
+    """The dry-run's trace of rank 0 of the cell on ``meta`` (the smoke
+    config ``arch`` names, ``smoke``, over the abstract mesh of
+    ``mesh_shape(d, m)``), in ``counted``'s keys (no prefix)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.compat import Mesh
+    cfg = smoke(arch)
+    over = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
+    res, _, _ = dryrun.trace_cell(arch.split("+")[0],
+                                  ShapeConfig(kind, seq, batch, kind),
+                                  Mesh(mesh_shape(d, m)), run, over)
+    return {"flops": res["flops"], "bytes": res["bytes_accessed"],
+            **res["collectives"]}
+
+
+def check_counted(ranks: list, prefix: str, want: dict, n: int) -> None:
+    """The ``counted`` tally under ``prefix`` of each of the ``n`` ranks
+    that ran it equal to ``want`` (``meta_cell``): flops, bytes, and
+    each collective kind's count and bytes."""
+    want = {k: float(v) for k, v in want.items()}
+    on = [r for r in ranks if f"{prefix}/flops" in r]
+    assert len(on) == n, (prefix, len(on))
+    for r, got in enumerate(on):
+        tally = {k[len(prefix) + 1:]: float(v) for k, v in got.items()
+                 if k.startswith(prefix + "/")}
+        assert tally == want, (prefix, r, tally, want)
+
+
+def check_counted_step(ranks: list, case) -> None:
+    """The extra counted step of a training case on every rank of its
+    mesh against the dry-run's trace of rank 0 of the same cell."""
+    arch, d, m, _, _, _, seq = parts(case)
+    check_counted(ranks, f"{key(case)}/counted",
+                  meta_cell(arch, "train", D.BATCH, seq, d, m, _run(case)),
+                  math.prod(mesh_shape(d, m).values()))
 
 
 def _leaves(state) -> dict:
@@ -351,11 +456,10 @@ def ref_want(ref: dict, case) -> dict:
     """The reference's run of ``case``: losses, wire words (its first
     device's) and parameters by the port's names."""
     from repro_torch import interop
-    from repro_torch.configs.base import get_smoke_config
     k = key(case)
     return {"loss": ref[f"{k}/loss"], "words": ref[f"{k}/words"],
             "gnorm": ref[f"{k}/gnorm"], "params": {n: np.asarray(v) for n, v in interop._lm_leaves(
-                D.nest(ref, f"{k}/params/"), get_smoke_config(case[0]))
+                D.nest(ref, f"{k}/params/"), smoke(case[0]))
                 .items()}}
 
 
@@ -379,8 +483,9 @@ def check_case(want: dict, ranks: list, case, *, loss_tol=LOSS_TOL,
     the ranks of each model group."""
     arch, d, m, fsdp, mode, _, _ = parts(case)
     k = key(case)
+    dp = math.prod(mesh_shape(d, m).values()) // m
     on = [r for r in ranks if f"{k}/loss" in r]
-    assert len(on) == d * m, (case, len(on))
+    assert len(on) == dp * m, (case, len(on))
     for r, got in enumerate(on):
         np.testing.assert_allclose(got[f"{k}/loss"], want["loss"], rtol=0,
                                    atol=loss_tol, err_msg=(case, r))
@@ -398,7 +503,7 @@ def check_case(want: dict, ranks: list, case, *, loss_tol=LOSS_TOL,
         for n, w in want["params"].items():
             np.testing.assert_allclose(got[f"{k}/params/{n}"], w, rtol=0,
                                        atol=tol, err_msg=(case, r, n))
-    for dc in range(d):                  # global ranks dc·m .. dc·m + m-1
+    for dc in range(dp):                 # global ranks dc·m .. dc·m + m-1
         group = on[dc * m:(dc + 1) * m]
         names = [n for n in group[0] if n.startswith(f"{k}/whole/")]
         assert names, case

@@ -27,7 +27,9 @@ of one).
 
 Each port rank returns, per case: its logits (gathered, the global
 batch's), the lengths of the residual stream its blocks took in the
-prefill or the score (``_torch_tp.residual_lengths``), the world of one's on rank 0, its cache shards after the
+prefill or the score (``_torch_tp.residual_lengths``), the world of one's on rank 0, a prefill and a decode step
+counted under the cost counter (``check_counted`` holds them to the
+dry-run's ``meta`` trace of rank 0), its cache shards after the
 prefill and after the last step with their bytes beside
 ``launch.dryrun.device_bytes`` under ``_cache_spec`` of the whole
 leaf, the collectives a decode step ran, the tokens of
@@ -75,6 +77,7 @@ from repro.parallel.sharding import make_rules, partition_params, use_rules
 CASES, STEPS, B, SEED, XGATE = {cases!r}, {steps!r}, {batch!r}, {seed!r}, {xgate!r}
 INPUTS = {inputs!r}
 out = {{}}
+{smoke}
 
 def flat(tree, prefix):
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
@@ -83,7 +86,7 @@ def flat(tree, prefix):
         out[prefix + key] = np.asarray(leaf)
 
 for key, arch, d, m, S, max_len, sp in CASES:
-    cfg = get_smoke_config(arch).with_(compute_dtype=jnp.float32)
+    cfg = smoke(arch)
     model = build_model(cfg)
     box = {{}}
 
@@ -172,7 +175,8 @@ def runs(tmp, cases) -> tuple:
     path = tmp / "ref.npz"
     out = run_with_devices(REF.format(
         cases=[(key(c), *parts(c)) for c in cases], steps=STEPS, batch=BATCH, seed=SEED,
-        xgate=XGATE, inputs=INPUTS, path=str(path)), D.WORLD, timeout=900)
+        xgate=XGATE, inputs=INPUTS, path=str(path), smoke=TP.SMOKE_REF),
+        D.WORLD, timeout=900)
     assert "REF-SERVE-OK" in out, out
     ranks = D.spawn(tmp, port_rank, list(cases), str(path))
     return dict(np.load(path)), ranks
@@ -210,7 +214,6 @@ def _generate(model, batch, case, tokens) -> tuple:
 def port_rank(rank, cases, ref_path):
     """Every case on this rank, and the world of one's on rank 0."""
     from repro_torch import interop
-    from repro_torch.configs.base import get_smoke_config
     from repro_torch.launch import dryrun, serve
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
@@ -221,7 +224,7 @@ def port_rank(rank, cases, ref_path):
     for case in cases:
         arch, d, m, s, max_len, sp = parts(case)
         k = key(case)
-        cfg = get_smoke_config(arch).with_(compute_dtype=torch.float32)
+        cfg = TP.smoke(arch)
         mesh = make_host_mesh(data=d, model=m)
         rules = make_rules(mesh, fsdp=True, seq_parallel=sp,
                            kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
@@ -230,6 +233,7 @@ def port_rank(rank, cases, ref_path):
         par = shard_model(model, rules)
         out[f"{k}/coords"] = np.array([par.dp_rank, par.tp_rank])
         batch = _inputs(cfg, s)
+        out.update(_counted(k, model, batch, sp, s, cfg.causal))
         whole = interop.lm_params_from_reference(init, cfg, device="cpu") \
             if rank == 0 else None
         with torch.inference_mode():
@@ -278,7 +282,39 @@ def port_rank(rank, cases, ref_path):
     return out
 
 
+def _counted(k: str, model, batch: dict, sp: bool, s: int,
+             causal: bool) -> dict:
+    """A prefill of ``s`` positions (a score for an encoder) and, from
+    its cache, one decode step, each under the cost counter
+    (``_torch_tp.counted``)."""
+    from repro_torch.configs.base import RunConfig
+    run = RunConfig(fsdp=True, seq_parallel=sp)
+    out, ret = TP.counted(f"{k}/counted/prefill", model, "prefill", batch,
+                          run, seq_len=s)
+    if causal:
+        step = {"tokens": torch.zeros((BATCH, 1), dtype=torch.int32),
+                "pos": torch.full((BATCH,), s, dtype=torch.int32)}
+        out.update(TP.counted(f"{k}/counted/decode", model, "decode", step,
+                              run, cache=ret[1])[0])
+    return out
+
+
 # --- the checks ---------------------------------------------------------
+
+def check_counted(ranks: list, case) -> None:
+    """Every rank's counted prefill (or score) and decode step equal to
+    the dry-run's ``meta`` trace of rank 0 of the same cells: a prefill
+    of the prompt, a decode step against a cache of its length."""
+    from repro_torch.configs.base import RunConfig
+    arch, d, m, s, _, sp = parts(case)
+    run = RunConfig(fsdp=True, seq_parallel=sp)
+    kinds = ["prefill"] + (["decode"] if TP.smoke(arch).causal
+                           else [])
+    for kind in kinds:
+        TP.check_counted(ranks, f"{key(case)}/counted/{kind}",
+                         TP.meta_cell(arch, kind, BATCH, s, d, m, run),
+                         d * m)
+
 
 def _rank_part(cfg, kind: str, name: str, t: np.ndarray, dc: int, d: int,
                mc: int, m: int) -> np.ndarray:
@@ -286,8 +322,8 @@ def _rank_part(cfg, kind: str, name: str, t: np.ndarray, dc: int, d: int,
     ``m``'s part of the whole cache leaf ``t`` under the reference's
     ``_cache_shardings``: its rows (when ``d`` divides them), then its
     kv heads, or its block of slots zero-padded to ``m`` blocks (a
-    cross-attention cache whole when the kv heads do not split), or its
-    Mamba channels."""
+    cross-attention cache's slots are its image tokens), or its Mamba
+    channels."""
     if t.shape[0] % d == 0:
         b = t.shape[0] // d
         t = t[dc * b:(dc + 1) * b]
@@ -295,8 +331,6 @@ def _rank_part(cfg, kind: str, name: str, t: np.ndarray, dc: int, d: int,
     if name in ("k", "v"):
         if K % m == 0:
             return t[:, :, mc * K // m:(mc + 1) * K // m]
-        if kind.startswith("xattn"):
-            return t
         c = -(-t.shape[1] // m)
         pad = np.zeros((t.shape[0], c * m - t.shape[1], *t.shape[2:]),
                        t.dtype)
@@ -316,9 +350,8 @@ def check_logits(ref: dict, ranks: list, case) -> None:
     reference's (``_atol``; the padded ids below -1e8 on both), its
     greedy tokens equal wherever the reference's top-2 margin exceeds
     ``MARGIN``, and the world of one's within ``TOL`` of rank 0's."""
-    from repro_torch.configs.base import get_smoke_config
     k = key(case)
-    V = get_smoke_config(case[0]).vocab
+    V = TP.smoke(case[0]).vocab
     whole = ref[f"{k}/logits"]
     want = whole[..., :V]
     assert (whole[..., V:] < -1e8).all(), case
@@ -345,9 +378,8 @@ def check_generate(ref: dict, ranks: list, case) -> None:
     on every rank, and in each row the reference's greedy tokens up to
     the first step whose top-2 margin is within ``MARGIN`` (a near tie
     may go either way, and the rest of the row follows it)."""
-    from repro_torch.configs.base import get_smoke_config
     k = key(case)
-    V = get_smoke_config(case[0]).vocab
+    V = TP.smoke(case[0]).vocab
     want = ref[f"{k}/logits"][:, :, -1, :V]             # (steps, B, V)
     top2 = np.sort(want, -1)[..., -2:]
     sure = np.cumprod((top2[..., 1] - top2[..., 0]) > MARGIN, 0).T
@@ -369,11 +401,10 @@ def check_cache(ref: dict, ranks: list, case) -> None:
     (``_rank_part``; a padded slot holds zeros), and its bytes equal to
     ``dryrun.device_bytes`` under ``_cache_spec``."""
     from repro_torch import interop
-    from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.transformer import _kinds
     arch, d, m, _, _, _ = parts(case)
     k = key(case)
-    cfg = get_smoke_config(arch)
+    cfg = TP.smoke(arch)
     kinds = _kinds(cfg)
     for ph in ("cache0", "cache1"):
         whole = interop.lm_cache_from_reference(

@@ -216,7 +216,9 @@ def test_smoke_train_step_counted_on_cpu_equals_meta(arch):
 def test_every_kind_traces_on_meta(arch, tmp_path):
     """``--all``-style: each kind of a smoke arch traced on meta over a
     2 x 2 abstract mesh (a host read would raise there), its record
-    written with the reference's keys."""
+    written with the reference's keys, no record saying its collectives
+    are incomplete, and the model axis's collectives present (over
+    ranks 0 and 1)."""
     cfg = B.get_smoke_config(arch)
     mesh = compat.Mesh({"data": 2, "model": 2})
     kinds = ["train", "prefill"] + (["decode"] if cfg.causal else [])
@@ -230,7 +232,11 @@ def test_every_kind_traces_on_meta(arch, tmp_path):
         assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
         assert rec["memory"]["argument_size_in_bytes"] > 0
         assert rec["unknown_trip_count_loops"] == 0
-        assert rec["collectives_incomplete"] == dryrun.INCOMPLETE
+        # rank 0's own program: its model axis's collectives are traced
+        assert "collectives_incomplete" not in rec
+        model = rec["collectives_by_axis"]["model"]
+        assert model["count"] > 0 and model["bytes"] > 0
+        assert model["ranks"] == [0, 1]
         if kind == "train":
             assert rec["collectives"]["all-gather_count"] > 0
         name = f"{arch}--{SMALL[kind].name}--pod"

@@ -11,8 +11,10 @@ the port traces the same cell on ``meta`` under its counter.  Held:
   ROADMAP queue C), within 1e-9 (float sums);
 * argument bytes a device on a 2 x 2 mesh with FSDP, exactly (and on
   1 x 1);
+* a decode step's all-reduce bytes on the 2 x 2 mesh, 5,120 B on both
+  sides;
 * flops a device on the 2 x 2 mesh within ``DEVICE_TOL`` (1 %) after
-  the known gaps;
+  the known gaps (the port's are rank 0's traced program);
 * the training cell on 2 x 2 with sequence parallelism
   (``RunConfig(seq_parallel=True)``, the reference's ``--sp``): flops a
   device within ``DEVICE_TOL`` after the known gaps (measured: equal,
@@ -69,3 +71,15 @@ def test_seq_parallel_argument_bytes_exact(shape, mesh):
     ref = reference(ARCH)[f"{shape}/{mesh}/sp"]
     _, _, mem = port(ARCH, shape, mesh, RunConfig(seq_parallel=True))
     assert mem["argument_size_in_bytes"] == ref["argument_size_in_bytes"]
+
+
+def test_decode_all_reduce_bytes_2x2():
+    """What the two programs share of their collectives: a decode step's
+    all-reduces on the 2 x 2 mesh, 5,120 B a device on both sides (the
+    rank's trace counts the port's; the rest of the two tallies differ
+    by design, ROADMAP queue C)."""
+    ref = reference(ARCH)["decode_s/2x2"]["collectives"]
+    res, _, _ = port(ARCH, "decode_s", "2x2")
+    assert res["collectives"]["all-reduce"] == ref["all-reduce"] == 5120
+    assert res["collectives"]["all-reduce_count"] == \
+        ref["all-reduce_count"] == 5

@@ -13,7 +13,7 @@ the port traces the same cell on ``meta`` under its counter.  Held:
 * argument bytes a device on a 2 x 2 mesh with FSDP, exactly (and on
   1 x 1);
 * flops a device on the 2 x 2 mesh within ``DEVICE_TOL`` (1 %) after
-  the known gaps.
+  the known gaps (the port's are rank 0's traced program).
 """
 
 import pytest

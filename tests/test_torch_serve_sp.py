@@ -91,3 +91,11 @@ def test_decode_collectives_as_without_sp(runs):
         np.testing.assert_array_equal(r[f"{S.key(CASES[0])}/calls"],
                                       r[f"{S.key(PLAIN)}/calls"])
     S.check_logits(ref, ranks, PLAIN)
+
+
+@pytest.mark.parametrize("case", CASES, ids=S.key)
+def test_counted_prefill_and_decode_equal_meta_trace(runs, case):
+    """A prefill (a score for an encoder) and a decode step on every
+    rank under the cost counter: flops, bytes and collectives by kind
+    equal to the dry-run's ``meta`` trace of rank 0 of the same cell."""
+    S.check_counted(runs[1], case)

@@ -13,7 +13,12 @@ model)`` meshes of 4 forced host devices, teacher-forced for 6 steps.
   on ``(1, 4)``, by slots;
 - mixtral-8x22b's window-16 ring cache on ``(1, 4)``, split over its 16
   slots (``slot_pos`` whole on every rank), a prompt of 20 so the ring
-  wraps, and the ``tp`` expert layout at decode shapes.
+  wraps, and the ``tp`` expert layout at decode shapes;
+- a granite-3-2b variant with 3 query heads and 1 kv head on ``(2,
+  2)``: the query heads do not split over the model axis, so every rank
+  runs all 3 (the prefill's attention, and the decode's softmax
+  combined over the cache's slot blocks) and keeps its block of the
+  output's columns for ``wo``.
 
 Every rank's logits within 1e-5 of the reference's, its greedy tokens
 equal where the reference's top-2 margin exceeds 1e-4, the world of
@@ -28,7 +33,8 @@ import pytest
 import _torch_tp_serve as S
 
 CASES = [("granite_34b", 1, 4, 12, 21), ("granite_3_2b", 2, 2, 12, 20),
-         ("granite_3_2b", 1, 4, 12, 20), ("mixtral_8x22b", 1, 4, 20, 32)]
+         ("granite_3_2b", 1, 4, 12, 20), ("mixtral_8x22b", 1, 4, 20, 32),
+         ("granite_3_2b+n_heads=3+n_kv_heads=1", 2, 2, 12, 20)]
 
 
 @pytest.fixture(scope="module")
@@ -77,3 +83,11 @@ def test_reference_refuses_an_uneven_cache_split(runs):
     said = {c: str(ref[f"{S.key(c)}/placed"]) for c in CASES}
     assert "divisible by 4" in said[CASES[0]], said
     assert all(v == "" for c, v in said.items() if c != CASES[0]), said
+
+
+@pytest.mark.parametrize("case", CASES, ids=S.key)
+def test_counted_prefill_and_decode_equal_meta_trace(runs, case):
+    """A prefill (a score for an encoder) and a decode step on every
+    rank under the cost counter: flops, bytes and collectives by kind
+    equal to the dry-run's ``meta`` trace of rank 0 of the same cell."""
+    S.check_counted(runs[1], case)

@@ -16,14 +16,18 @@ under this JAX, ROADMAP queue C) and of its launcher's ``--mesh-data``:
 - the launcher under ``torchrun`` (2 processes, ``--mesh-data 2
   --device cpu``), printing from rank 0 only;
 - the refusals, and what took their place: rows that do not split over
-  the ranks, an abstract mesh, ``--mesh-data`` other than the world's
-  size and sequence parallelism (ROADMAP A.11e) are refused; a model
+  the ranks and ``--mesh-data`` other than the world's size are
+  refused; an abstract mesh gives rank 0's step, whose collectives
+  raise without a cost counter to record them; sequence parallelism
+  (ROADMAP A.11e) trains; a model
   axis past 1 and a spec that splits a parameter (FSDP) now train (a
   step's loss equal to the data-only step's on the same rows), a whole
   checkpoint restores onto FSDP shards (each leaf bit-equal to its
-  shard), jamba's hybrid block kinds build a step on a model axis, and
-  a sharded model scores (its logits within 1e-5 of the whole
-  model's).
+  shard), jamba's hybrid block kinds build a step on a model axis, a
+  sharded model scores (its logits within 1e-5 of the whole
+  model's), and query heads that do not split over the model axis (3
+  on 2 ranks) train, every rank running all of them (loss within 1e-5
+  and gradient norm within 1e-5 relative of the world of one's).
 """
 
 import os
@@ -294,9 +298,14 @@ def _refusal_rank(rank, root):
         fsdp_state.params[k], shard_param(saved[k], sh.spec, mesh, rank,
                                           sh.groups))
         for k, sh in sharded.params.items()))
+    # an abstract mesh: rank 0's step (the dry-run's program), whose
+    # collectives need a cost counter to record them
     abstract = make_rules(Mesh({"data": 2, "model": 1}), fsdp=False)
-    refused("abstract", ValueError, "abstract mesh",
-            lambda: tl.make_train_step(model, run, abstract))
+    rank0 = build_model(f32, seed=0, device="cpu")
+    rank0_step = tl.make_train_step(rank0, run, abstract)
+    refused("abstract", RuntimeError, "launch.cost.Counter",
+            lambda: rank0_step(tl.init_state(rank0, run, abstract), batch))
+    said["abstract"] &= np.array(rank0.parallel.rank == 0)
     refused("mesh_data", ValueError, "needs 3 processes",
             lambda: train.setup(["--arch", "granite_3_2b", "--smoke",
                                  "--device", "cpu", "--mesh-data", "3"]))
@@ -306,6 +315,18 @@ def _refusal_rank(rank, root):
         d_head=cfg.d_head))
     said["seq_parallel"] = np.array(abs(loss - base) < 1e-5 and
                                     sp_model.parallel.seq_split)
+    # query heads that do not split over the model axis (3 on 2 ranks):
+    # every rank runs all of them on its gathered query block
+    uneven = f32.with_(n_heads=3, n_kv_heads=1)
+
+    def step_of(rules):
+        m = build_model(uneven, seed=0, device="cpu")
+        st = tl.init_state(m, run, rules)
+        return tl.make_train_step(m, run, rules)(st, batch)[1]
+    got, want = step_of(_rules(uneven, 1, model=2)[1]), step_of(None)
+    said["whole_heads"] = np.array(
+        abs(float(got["loss"]) - float(want["loss"])) < 1e-5 and
+        abs(float(got["grad_norm"]) / float(want["grad_norm"]) - 1) < 1e-5)
     jamba = get_smoke_config("jamba_v01_52b")
     hybrid = build_model(jamba, device="cpu")
     tl.make_train_step(hybrid, RunConfig(), make_rules(
@@ -322,7 +343,7 @@ def test_refusals(tmp_path):
         assert sorted(got) == sorted(["rows", "model_axis", "fsdp",
                                       "restore", "abstract", "mesh_data",
                                       "seq_parallel", "kinds",
-                                      "serve_sharded"])
+                                      "serve_sharded", "whole_heads"])
         assert all(bool(v) for v in got.values()), {k: bool(v) for k, v in got.items()}
 
 

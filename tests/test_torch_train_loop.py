@@ -171,9 +171,11 @@ def test_data_parallel_paths_wait_for_a11c():
     run them on gloo ranks).  Here, in one process: every rank's shards
     of a (2, 2) FSDP mesh put back together give each whole leaf, and
     Mamba's ``in_proj`` shard holds the same channels of ``x`` and ``z``;
-    an abstract mesh (with sequence-parallel rules too, which the step
-    runs since A.11e, ``tests/test_torch_train_sp*.py``) and
-    ``--mesh-data`` past the world are refused."""
+    on an abstract mesh (sequence-parallel rules too, which the step
+    runs since A.11e, ``tests/test_torch_train_sp*.py``) the step is rank
+    0's, the dry-run's program, whose collectives only a cost counter
+    records (without one they raise); ``--mesh-data`` past the world is
+    refused."""
     from repro_torch.parallel.compat import Mesh
     from repro_torch.parallel.sharding import make_rules, mesh_axes
     from repro_torch.parallel.tensor_parallel import shard_param
@@ -213,12 +215,18 @@ def test_data_parallel_paths_wait_for_a11c():
     assert torch.equal(shard_param(w, sh.spec, frules.mesh, 1, sh.groups),
                        torch.cat([w[:, d_in // 2:d_in],
                                   w[:, d_in + d_in // 2:]], 1))
-    with pytest.raises(ValueError, match="abstract mesh"):
-        tl.make_train_step(model, RunConfig(), rules=make_rules(
-            Mesh({"data": 1, "model": 2}), seq_parallel=True))
-    with pytest.raises(ValueError, match="abstract mesh"):
-        tl.make_train_step(model, RunConfig(), rules=make_rules(
-            Mesh({"data": 2, "model": 1}), fsdp=False))
+    batch = {k: torch.zeros((2, 8), dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    for mesh, kw in (({"data": 1, "model": 2}, {"seq_parallel": True}),
+                     ({"data": 2, "model": 1}, {"fsdp": False})):
+        rank0 = build_model(pcfg, seed=0, device=CPU)
+        r = make_rules(Mesh(mesh), **kw)
+        step = tl.make_train_step(rank0, RunConfig(), rules=r)
+        par = rank0.parallel
+        assert (par.rank, par.tp_rank, par.dp_rank) == (0, 0, 0)
+        assert (par.tp, par.dp) == (mesh["model"], mesh["data"])
+        with pytest.raises(RuntimeError, match="Counter"):
+            step(tl.init_state(rank0, RunConfig(), r), batch)
     state = tl.init_state(model, RunConfig())
     sh = tl.state_shardings(state, model.param_axes(), make_rules(
         Mesh({"data": 2, "model": 1}), fsdp=False))

@@ -71,3 +71,11 @@ def test_residual_stream_is_the_rank_block(runs, case):
     want = -(-seq // m) if sp else seq
     for r in on:
         assert r[f"{T.key(case)}/resid"].tolist() == [want], case
+
+
+@pytest.mark.parametrize("case", CASES, ids=T.key)
+def test_counted_step_equals_meta_trace(runs, case):
+    """One more step on every rank under the cost counter: its flops,
+    bytes and collectives by kind equal to the dry-run's ``meta`` trace
+    of rank 0 of the same cell."""
+    T.check_counted_step(runs[1], case)

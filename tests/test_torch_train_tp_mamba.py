@@ -29,3 +29,11 @@ def runs(tmp_path_factory):
 def test_case_matches_reference(runs, case):
     ref, ranks = runs
     T.check_case(T.ref_want(ref, case), ranks, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=T.key)
+def test_counted_step_equals_meta_trace(runs, case):
+    """One more step on every rank under the cost counter: its flops,
+    bytes and collectives by kind equal to the dry-run's ``meta`` trace
+    of rank 0 of the same cell."""
+    T.check_counted_step(runs[1], case)
