@@ -136,6 +136,21 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                ticks): 50 B4 launches, finite bus figures, ms per tick;
 12. profile_cosim — torch.profiler windows of the closed loop and of
                the Fig. 6 array: device-busy share and time by kernel;
+12a. examples — the eight fabric and co-simulation examples
+               (examples/torch_*.py: multi_chip_fabric,
+               heterogeneous_links, multicast_fanout, lossless_hotspot,
+               adaptive_hotspot, monte_carlo_sweep with its 64 seeds,
+               closed_loop_snn, snn_chip_array), each through its
+               ``main(["--device", "cuda"])`` with every assert of the
+               script live, from an empty runner cache: a line a script
+               with its wall seconds, the port kernels' launches (one B4
+               launch a membrane update in the two co-simulations, 160
+               and 24; none in the six fabric scripts, which take the
+               ring engine) and the numbers it printed (its report in
+               build/examples_torch/); then each fabric script's first
+               scenario (the Monte-Carlo script's first seed) again under
+               ``engine="pallas"``: max_steps launches of B1 and of B2,
+               equal to the ring run field for field;
 13. aer      — the AER encoder (B5) and decoder (B6) against their plain
                versions on the card, bit for bit with NaN where NaN, on
                every case of tests/_torch_cases.py::aer_cases (float32
@@ -2249,6 +2264,117 @@ def phase_snn_fig6():
           "snn_fig6: non-finite figures")
     check(float(ticks["spikes"].sum()) > 0, "snn_fig6 never spiked")
     return launches["lif_step"], wall / T * 1e3
+
+
+#: the port's fabric and co-simulation examples (``examples/torch_*.py``),
+#: each run by its ``main`` on the card; the last two launch B4 a tick
+EXAMPLES = ("multi_chip_fabric", "heterogeneous_links", "multicast_fanout",
+            "lossless_hotspot", "adaptive_hotspot", "monte_carlo_sweep",
+            "closed_loop_snn", "snn_chip_array")
+COSIM_EXAMPLES = ("closed_loop_snn", "snn_chip_array")
+EXAMPLES_OUT = ROOT / "build" / "examples_torch"
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _scalars(d: dict, depth: int = 2) -> dict:
+    """The numbers and words of an example's returned dict (nested dicts
+    to ``depth``), for its JSON line."""
+    import numpy as np
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, (np.integer, np.floating, np.bool_)):
+            v = v.item()
+        if isinstance(v, (bool, int, float, str)):
+            out[k] = v
+        elif isinstance(v, dict) and depth > 1:
+            sub = _scalars(v, depth - 1)
+            if sub:
+                out[k] = sub
+    return out
+
+
+def phase_examples():
+    """Each of the eight examples' ``main(["--device", "cuda"])`` on the
+    card, every assert of the script live, from an empty runner cache as
+    in a fresh process (the Monte-Carlo script counts its batched
+    runners): wall seconds and the port kernels' launches of each run
+    (B4 once a membrane update in the two co-simulations, no port kernel
+    in the six fabric scripts, which take the ring engine); then each
+    fabric script's first scenario (the Monte-Carlo script's first seed)
+    again under ``engine="pallas"``, B1 and B2 once a step from the step
+    graph, equal to the script's ring run field for field.  Each script's
+    printed report goes to ``build/examples_torch/<name>.txt``."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.core import network as net
+    from repro_torch.core.fabric import Fabric
+    dev = torch.device("cuda", torch.cuda.current_device())
+    EXAMPLES_OUT.mkdir(parents=True, exist_ok=True)
+    saved, net._RUNNERS = net._RUNNERS, {}
+    t_phase = time.perf_counter()
+    rows = {}
+    try:
+        for name in EXAMPLES:
+            mod = _example(name)
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            _counts_zero()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = mod.main(["--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            text = buf.getvalue()
+            (EXAMPLES_OUT / f"{name}.txt").write_text(text)
+            want = {k: 0 for k in launches}
+            if name in COSIM_EXAMPLES:
+                want["lif_step"] = out["ticks_run"]
+            row = {"wall_s": wall, "launches": launches,
+                   "last_line": text.strip().splitlines()[-1],
+                   "report": str(EXAMPLES_OUT / f"{name}.txt"),
+                   "summary": _scalars(out)}
+            check(launches == want,
+                  f"examples/{name}: launches {launches}, expected {want}")
+            if name not in COSIM_EXAMPLES:
+                r = out["replay"]
+                fab = Fabric(**r["fabric"], engine="pallas", device=dev)
+                steps = fab._plan(r["spec"], None).max_steps
+                torch.cuda.synchronize()
+                _counts_zero()
+                t1 = time.perf_counter()
+                got = fab.run(r["spec"])
+                torch.cuda.synchronize()
+                replay = _counts()
+                net.assert_results_equal(r["result"], got,
+                                         f"examples/{name}: pallas replay")
+                row.update(replay_wall_s=time.perf_counter() - t1,
+                           replay_steps=steps, replay_launches=replay,
+                           replay_equal=True)
+                check(replay == {**{k: 0 for k in replay},
+                                 "fabric_queue_step": steps,
+                                 "fabric_queue_update": steps},
+                      f"examples/{name}: pallas replay launches {replay}, "
+                      f"expected {steps} of B1 and of B2")
+            emit(f"examples_{name}", **row)
+            rows[name] = row
+    finally:
+        net._RUNNERS = saved
+    emit("examples", phase_s=time.perf_counter() - t_phase,
+         wall_s={n: r["wall_s"] for n, r in rows.items()},
+         lif_step={n: rows[n]["launches"]["lif_step"]
+                   for n in COSIM_EXAMPLES})
+    return rows
 
 
 COSIM_GROUPS = {"lif_step (B4)": ("lif_step",),
@@ -5069,6 +5195,8 @@ def _main_phases(name, smi, t_start, pod) -> int:
     torch.cuda.synchronize()
     phase_profile_cosim()
     torch.cuda.synchronize()
+    examples = phase_examples()
+    torch.cuda.synchronize()
     ktimes.update(phase_aer_kernels())
     torch.cuda.synchronize()
     aer_launches, aer_ms = phase_aer_layer()
@@ -5210,6 +5338,14 @@ def _main_phases(name, smi, t_start, pod) -> int:
             "launches_per_rank_prefill"]["selective_scan"],
         serve_tp_2x2_channels_per_rank=serve_tp["falcon_mamba_7b"][
             "scan_channels_per_rank"])
+    # launches in the examples phase: B4 in the two co-simulations, B1
+    # and B2 in each fabric script's engine="pallas" replay
+    by_name["lif_step"]["examples_launches"] = {
+        n: examples[n]["launches"]["lif_step"] for n in COSIM_EXAMPLES}
+    for kname in ("fabric_queue_step", "fabric_queue_update"):
+        by_name[kname]["examples_replay_launches"] = {
+            n: r["replay_launches"][kname] for n, r in examples.items()
+            if "replay_launches" in r}
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],
                        cosim_closed_ms_per_tick=closed_ms,

@@ -25,6 +25,7 @@ from repro_torch.core.router import (AddressSpec, line_topology,
 from repro_torch.cosim.engine import _MAX_BASE_NS
 from repro_torch.cosim.traffic_bridge import SNN_PATTERNS, spike_traffic
 from repro_torch.models import snn as tsnn
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

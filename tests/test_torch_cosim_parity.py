@@ -35,6 +35,7 @@ from repro_torch.core.link import SERIAL_LVDS_TIMING
 from repro_torch.core.router import AddressSpec, ring_topology
 from repro_torch.cosim import traffic_bridge as ttb
 from repro_torch.models import snn as tsnn
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 TOL = 1e-6

@@ -33,6 +33,7 @@ from repro_torch.core import network as tnet
 from repro_torch.core import protocol_sim as tps
 from repro_torch.core import router as trt
 from repro_torch.core.telemetry import link_load as t_link_load
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 BIG = 2**30
 CPU = "cpu"

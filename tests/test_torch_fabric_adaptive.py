@@ -35,6 +35,7 @@ from repro_torch.core import fabric as tfab
 from repro_torch.core import network as tnet
 from repro_torch.core import router as trt
 from repro_torch.core.telemetry import link_load as t_link_load
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 #: the reference benchmark's ADAPTIVE_RING (benchmarks/fabric_sweep.py)

@@ -29,6 +29,7 @@ from repro_torch.core import adaptive as tad
 from repro_torch.core import fabric as tfab
 from repro_torch.core import network as tnet
 from repro_torch.core import router as trt
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

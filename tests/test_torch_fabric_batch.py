@@ -33,6 +33,7 @@ from repro_torch.core import network as tnet
 from repro_torch.core import router as trt
 from repro_torch.core import telemetry as ttm
 from repro_torch.core import traffic as ttr
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

@@ -30,6 +30,7 @@ from repro_torch.core import router as trt
 
 from _torch_cases import (anchor_arrays, hot_spot_arrays,
                           mesh_multicast_case, spec_of)
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 G = tnet.GRAPH_STEPS
 M = tnet.GRAPH_MIN_REPLAYS

@@ -40,6 +40,7 @@ import _torch_multistep as M
 from _torch_cases import (carry_err, clone, hot_spot_arrays,
                           mesh_multicast_case, multistep_operands,
                           run_schedule)
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

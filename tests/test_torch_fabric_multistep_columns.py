@@ -8,6 +8,7 @@ import pytest
 
 import _torch_multistep as M
 from _torch_cases import multistep_cases
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", [c[0] for c in multistep_cases()

@@ -7,6 +7,7 @@ that no file takes more than ~400 s on one worker)."""
 import pytest
 
 import _torch_multistep as M
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", M.MESH)

@@ -23,6 +23,7 @@ from repro_torch.kernels import ref as tref
 
 from _torch_cases import BIG, scan_case, update_case
 from _torch_cases import planes as _planes
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 SHAPES = [(4, 7), (2, 5), (16, 96), (32, 768)]
 SCAN_OUTS = ("pend", "r_min", "nxt", "amin", "busy", "head_route")

@@ -32,6 +32,7 @@ from repro_torch.core import protocol_sim as tps
 from repro_torch.core import router as trt
 
 from _torch_cases import hot_spot_arrays, mesh_multicast_case
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

@@ -36,6 +36,7 @@ from repro_torch.core import network as tnet
 from repro_torch.core import router as trt
 
 from _torch_cases import mesh_multicast_case
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 BIG = 2**30

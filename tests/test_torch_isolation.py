@@ -73,6 +73,62 @@ def test_sources_import_neither(path):
     assert not IMPORT_RE.search(text), path
 
 
+#: the port's examples: neither JAX, the reference, nor the reference's
+#: benchmarks (which import JAX)
+EXAMPLES = sorted(p.name for p in (ROOT / "examples").glob("torch_*.py"))
+EXAMPLE_RE = re.compile(
+    IMPORT_RE.pattern.replace("jax|jaxlib|repro", "jax|jaxlib|repro|"
+                              "benchmarks"), re.M)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_import_neither(name):
+    text = (ROOT / "examples" / name).read_text()
+    assert not EXAMPLE_RE.search(text), name
+    assert not re.search(r"^sys\.path\.insert\(0, \"\.\"\)", text, re.M), \
+        f"{name} puts the repository root (benchmarks/) on the path"
+
+
+def test_examples_load_neither():
+    """Loading every ``examples/torch_*.py`` (its ``main`` not run)
+    pulls in no module of JAX, the reference or its benchmarks."""
+    code = ("import importlib.util, sys\n"
+            f"for name in {EXAMPLES!r}:\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        name[:-3], 'examples/' + name)\n"
+            "    spec.loader.exec_module(\n"
+            "        importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks'))\nprint(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: the examples that drive the fabric and co-simulation (their ``main``
+#: takes ``--device``; without it they run on the card)
+FABRIC_EXAMPLES = ("multi_chip_fabric", "heterogeneous_links",
+                   "multicast_fanout", "lossless_hotspot",
+                   "adaptive_hotspot", "monte_carlo_sweep",
+                   "closed_loop_snn", "snn_chip_array")
+
+
+@pytest.mark.parametrize("name", FABRIC_EXAMPLES)
+def test_example_default_device_needs_cuda(monkeypatch, name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(argv)
+
+
 def test_default_device_needs_cuda(monkeypatch):
     """``device=None`` means the card: without CUDA every entry point
     raises instead of quietly running on the CPU."""

@@ -20,6 +20,7 @@ from repro.core import transceiver as jx
 from repro.core.link import PAPER_TIMING, link_timing_arrays
 from repro_torch.core import protocol_sim as tps
 from repro_torch.core import transceiver as tx
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _eq(jax_arr, torch_t, what=""):
