@@ -47,11 +47,13 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                hot_frac 0.65, capacity 64, credit flow): the per-step
                kernel engine, replayed from the CUDA graph that compile
                captured for its bucket (runners are shared by bucket),
-               against ``engine="reference"`` (the eager loop
-               of the plain step) on the card, field for field, every
-               event delivered, no drops, and exactly max_steps
+               every event delivered, no drops, and exactly max_steps
                launches of each kernel; then an 8-chip in-fabric
-               multicast run with K > 1, compared the same way; each
+               multicast run with K > 1; each against
+               ``engine="reference"`` (the eager loop of the plain
+               step) field for field, run on the host in a process of
+               its own while the card phases go on and compared before
+               the card's last line (``<cell>_reference``); each
                with its graph's replays, capture and instantiate seconds,
                the replays' span on the card (CUDA events) beside the
                host time that issued them, and peak memory; then the
@@ -114,7 +116,13 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                per-step path also over its graph replays alone, where
                the profiler must record exactly GRAPH_STEPS B1 and B2
                calls a replay and the wrappers must count 2 + 8 *
-               GRAPH_STEPS launches each;
+               GRAPH_STEPS launches each; the run profiled is the
+               profiler schedule's second step, after a warm-up step
+               that starts the device tracing, and is followed in the
+               recorded step by TAIL_KERNELS spin kernels, so its own
+               records are neither the first nor the last of the
+               window (the tail's records, and B1's and B2's over the
+               whole profile, are reported);
 9. lif       — the LIF kernel (B4) against its plain version on the card
                (tests/_torch_cases.py::lif_cases at the test shapes,
                (32, 128) and (65536, 128), with the threshold and
@@ -131,7 +139,9 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                > 0, divergence from the open loop >= 16, 24 B4 launches
                and sum(ceil(max_steps_t / 128)) B3 launches, no B1/B2;
                the three busiest ticks replayed through
-               ``engine="reference"`` field for field; ms per tick;
+               ``engine="reference"`` on the host, as phase 6's cells
+               are (``cosim_tick<n>_reference``), field for field; ms
+               per tick;
 11. snn_fig6 — the Fig. 6 chip array (4x4 chips of 256 neurons, 50
                ticks): 50 B4 launches, finite bus figures, ms per tick;
 12. profile_cosim — torch.profiler windows of the closed loop and of
@@ -150,7 +160,15 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                build/examples_torch/); then each fabric script's first
                scenario (the Monte-Carlo script's first seed) again under
                ``engine="pallas"``: max_steps launches of B1 and of B2,
-               equal to the ring run field for field;
+               equal to the ring run field for field; then the two LM
+               examples through their ``main``, asserts live:
+               torch_train_lm_100m at TRAIN_EXAMPLE_ARGV (one restart
+               from its checkpoint, no port kernel) and
+               torch_sparse_allreduce_demo with no flag, on the card:
+               its 8 ranks share the card over gloo (NCCL with 8
+               cards), rank 0's B5 and B6 one a reference leaf a step
+               under aer_topk and none under psum and bidir_ring, the
+               ring's final loss within DEMO_RING_TOL of psum's;
 13. aer      — the AER encoder (B5) and decoder (B6) against their plain
                versions on the card, bit for bit with NaN where NaN, on
                every case of tests/_torch_cases.py::aer_cases (float32
@@ -272,6 +290,27 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                another seed's image;
 26. serve_consistency_vision — phase 18's check on llama's weights with
                the gates at 1.0, on the first prompt and its image;
+26a. serve_minitron_8b, serve_qwen3_14b — the dense family's other two
+               at their full published widths and depth: minitron-8b
+               (32 layers, d_model 4096, 32 / 8 heads, a squared-ReLU
+               FFN of 16384, an untied 256,000-token head; 7.73 B
+               float32 parameters) and qwen3-14b (40 layers, d_model
+               5120, 40 / 8 heads of 128 with qk-norm in prefill and
+               decode, d_ff 17408, vocab 151,936; 14.77 B), 4 prompts of
+               2048 tokens and 32 greedy tokens each: phase 19's fields,
+               no port kernel; each followed by phase 18's check on its
+               first prompt (serve_consistency_minitron, _qwen3);
+26b. serve_moonshot_v1_16b_a3b_l16 — fine-grained MoE: moonshot-v1-16b-
+               a3b at its full widths (d_model 2048, 16 / 16 heads, 64
+               experts of d_ff 1408, top-6, vocab 163,840) with the
+               depth cut from 48 layers to 16 (``reduced``; all 48 are
+               112.2 GB of float32 weights), 4 prompts of 2048 tokens,
+               32 greedy tokens: phase 21's fields; then its first MoE
+               layer on the first prompt row, on the card and on the
+               host in float32 compute on the same input
+               (``_dispatch_vs_host``: both drop the same share unless
+               a top-6 choice differs); then phase 22's check
+               (serve_consistency_moonshot);
 27. score_hubert_xlarge — the encoder family through ``LM.score``:
                hubert-xlarge at its full widths and depth (48 layers,
                d_model 1280, 16 heads, GELU MLP 5120, vocab 504 padded
@@ -422,6 +461,8 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                combine) on every rank under the cost counter, equal to
                the dry-run's ``meta`` trace of rank 0, a line a cell
                beside the card's name and power limit;
+36a. card_phases_done — the seconds from the start to the end of the
+               card's last phase, before the pod dry-run is collected;
 37. dryrun_pod — ``python -m repro_torch.launch.dryrun`` on every cell
                of ``--all`` (each arch x shape its ``shapes_for``
                lists, full width, the production shapes) on the 16 x 16
@@ -433,7 +474,8 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                collective term is a lower bound), then each cell's
                flops, bytes, collective bytes by mesh axis, argument and
                temporary bytes a device and whether they fit the card's
-               80 GB, and the wall time.  The 2 x 16 x 16
+               80 GB, the wall time, and when its last cell ended
+               (``ended_at_s``, seconds since the start).  The 2 x 16 x 16
                multi-pod mesh is traced on a CPU host (it doubles the
                phase).
 
@@ -1001,13 +1043,61 @@ def _per_step(graph):
     return g
 
 
-def _run_pair(fab_kw, spec, label):
-    """One spec through the kernel engine and the plain engine on the
-    card; returns (kernel result, bucket, launches, wall seconds)."""
+def _host_reference(fab_kw, spec):
+    """``spec`` through ``engine="reference"`` (the eager loop of the
+    plain step) on the host, one intra-op thread: ``(result, s)``.  Run
+    in a process of its own by ``HostReference``."""
+    import torch
+    from repro_torch.core.fabric import Fabric
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = Fabric(**fab_kw, engine="reference", device="cpu").run(spec)
+    return res, time.perf_counter() - t0
+
+
+class HostReference:
+    """Reference runs (``engine="reference"``) of card results, each in
+    a process of its own on the host while the card phases go on: on
+    the card the eager plain step is bound by the host's operator
+    dispatch (4–9 ms a step on an H100's host, minutes for the full
+    cells), and one host core runs it faster without holding up the
+    card.  ``check`` waits for each and holds the card's result to it
+    field for field; ``stop`` ends any still running."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.pool = ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"))
+        self.runs: dict = {}
+
+    def submit(self, label, fab_kw, spec):
+        self.runs[label] = self.pool.submit(_host_reference, fab_kw, spec)
+
+    def check(self, results: dict) -> None:
+        from repro_torch.core import network as net
+        for label, fut in self.runs.items():
+            ref, secs = fut.result()
+            res = results[label]
+            net.assert_results_equal(res, ref,
+                                     f"{label} against the host's reference")
+            emit(f"{label}_reference", device="cpu", wall_s=secs,
+                 equals_card=True, delivered=int(ref.delivered))
+        self.pool.shutdown()
+
+    def stop(self):
+        self.pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _run_pair(fab_kw, spec, label, host_ref):
+    """One spec through the kernel engine on the card, with its
+    reference run handed to ``host_ref`` first; returns (kernel result,
+    bucket, launches, wall seconds)."""
     import torch
     from repro_torch.core import network as net
     from repro_torch.core.fabric import Fabric
     from repro_torch.kernels import fabric_queue as fq
+    host_ref.submit(label, fab_kw, spec)
     fab = Fabric(**fab_kw, engine="pallas")
     cf = fab.compile(spec)
     torch.cuda.synchronize()
@@ -1020,20 +1110,13 @@ def _run_pair(fab_kw, spec, label):
     launches = {"fabric_queue_step": fq.fabric_queue_step.launches,
                 "fabric_queue_update": fq.fabric_queue_update.launches}
     peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    ref = Fabric(**fab_kw, engine="reference").run(spec)
-    torch.cuda.synchronize()
-    ref_wall = time.perf_counter() - t0
-    net.assert_results_equal(res, ref, label)
     steps = cf.bucket[4]
     RUN_WALL_S["step", label] = wall
     emit(label, bucket=list(cf.bucket), steps=steps,
          delivered=int(res.delivered), injected=res.injected,
          drops=int(res.drops), launches=launches, wall_s=wall,
          us_per_step=wall / steps * 1e6, graph=_per_step(cf.graph),
-         peak_memory_bytes=peak, reference_wall_s=ref_wall,
-         reference_us_per_step=ref_wall / steps * 1e6,
-         equals_reference=True,
+         peak_memory_bytes=peak,
          thr_mev_s=float(net.fabric_throughput_mev_s(res)),
          latency=net.latency_stats(res))
     check(all(v == steps for v in launches.values()),
@@ -1044,7 +1127,7 @@ def _run_pair(fab_kw, spec, label):
     return res, cf, launches, wall
 
 
-def phase_full():
+def phase_full(host_ref: HostReference):
     from repro_torch.core.fabric import MulticastPolicy, QueuePolicy
     from repro_torch.core.router import (AddressSpec, MulticastTable,
                                          mesh2d_topology, ring_topology)
@@ -1052,7 +1135,8 @@ def phase_full():
     spec = spec_of(*hot_spot_arrays(16, 48, 300.0, 0.65, seed=2))
     kw = dict(topo=ring_topology(16),
               queues=QueuePolicy(capacity=64, flow="credit"))
-    res, cf, launches, _ = _run_pair(kw, spec, "full_ring16_credit")
+    res, cf, launches, _ = _run_pair(kw, spec, "full_ring16_credit",
+                                     host_ref)
     bucket = cf.bucket
     check(int(res.delivered) == res.injected and int(res.drops) == 0,
           "credit flow lost events")
@@ -1064,7 +1148,7 @@ def phase_full():
     mspec = spec_of(*arrays)
     mkw = dict(topo=mesh2d_topology(2, 4), addr=AddressSpec(),
                mcast=MulticastPolicy("in_fabric", MulticastTable(members)))
-    mres, mcf, _, _ = _run_pair(mkw, mspec, "multicast_mesh2x4")
+    mres, mcf, _, _ = _run_pair(mkw, mspec, "multicast_mesh2x4", host_ref)
     mbucket = mcf.bucket
     check(mbucket[7] > 1, f"multicast K = {mbucket[7]}, expected > 1")
     check(int(mres.delivered) == mres.injected, "multicast lost events")
@@ -1945,26 +2029,71 @@ def _replay_window(prof, steps: int) -> dict:
     the runner's replay range (from its first kernel to its last: the
     capture before it ran nothing on the card, and the run has no eager
     tail), the kernels' device time in it, a step, and the per-step
-    kernels' calls there."""
+    kernels' calls there, and, to say where any records went missing,
+    those kernels' calls over the whole profile (the eager steps too),
+    the first kernel's distance from the replay range's opening and the
+    tail's records (``_profiled_run``)."""
     from torch.autograd import DeviceType
     from repro_torch.core.network import REPLAY_RANGE
     evs = prof.events()
     opened = min(e.time_range.start for e in evs
                  if e.name == REPLAY_RANGE)
-    rows = [e for e in evs if e.device_type == DeviceType.CUDA
-            and e.time_range.start >= opened and e.name != REPLAY_RANGE]
+    cuda = [e for e in evs if e.device_type == DeviceType.CUDA
+            and e.name != REPLAY_RANGE]
+    tail = sum(TAIL_KERNEL in e.name for e in cuda)
+    cuda = [e for e in cuda if TAIL_KERNEL not in e.name]
+    rows = [e for e in cuda if e.time_range.start >= opened]
     if not rows:
         return {"device_busy": "not measured"}
     t0 = min(e.time_range.start for e in rows)
     t1 = max(e.time_range.end for e in rows)
     busy = sum(e.time_range.elapsed_us() for e in rows)
+    names = ("fabric_queue_step", "fabric_queue_update")
     return {"steps": steps, "window_us": t1 - t0,
             "device_us_per_step": busy / steps,
             "profiled_busy_share": busy / (t1 - t0),
             "kernels_per_step": len(rows) / steps,
             "calls": {k: sum(k + "_kernel" in e.name for e in rows)
-                      for k in ("fabric_queue_step",
-                                "fabric_queue_update")}}
+                      for k in names},
+            "calls_whole_profile": {k: sum(k + "_kernel" in e.name
+                                           for e in cuda) for k in names},
+            "first_kernel_after_open_us": t0 - opened,
+            "tail_records": tail}
+
+
+#: kernels launched after the profiled run, inside the recorded window:
+#: the last records of a window can go undelivered when the tracing
+#: stops (one run's window once lacked 18 B1 and 19 B2 records of 256,
+#: a count only the end of its replays explains), so the run's own
+#: must never be the last
+TAIL_KERNELS = 8192
+TAIL_KERNEL = "spin_kernel"        # torch.cuda._sleep's
+
+
+def _profiled_run(cf, spec, steps):
+    """``cf.run`` under torch.profiler, as the schedule's second step:
+    after a warm-up step that starts the device tracing (kernels
+    launched as the tracing starts can go unrecorded), and followed
+    inside the recorded step by TAIL_KERNELS one-cycle spin kernels
+    (the last records before the tracing stops can go undelivered).
+    ``(profile, wall s of the run alone)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        cf.run(spec, max_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for _ in range(TAIL_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        prof.step()
+    return prof, wall
 
 
 def phase_profile(spec, kw, engine="pallas", steps=None, label="profile"):
@@ -1976,9 +2105,10 @@ def phase_profile(spec, kw, engine="pallas", steps=None, label="profile"):
     B1 and of B2 a replay: the replays' launches, which the wrappers do
     not see.  The profiler slows replays down, so this window's busy
     share is the profiled one only; the full cells' phases give the
-    replays' unprofiled span (CUDA events)."""
+    replays' unprofiled span (CUDA events).  The run is padded on both
+    sides inside the recorded window (``_profiled_run``); the device
+    time by kernel leaves the tail's spin kernels out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import network as net
     from repro_torch.core.fabric import Fabric
     from repro_torch.kernels import fabric_queue as fq
@@ -1990,23 +2120,18 @@ def phase_profile(spec, kw, engine="pallas", steps=None, label="profile"):
     cf.run(spec, max_steps=steps)            # warm the allocator
     torch.cuda.synchronize()
     fq.fabric_queue_step.launches = fq.fabric_queue_update.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        cf.run(spec, max_steps=steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, wall = _profiled_run(cf, spec, steps)
     counted = {"fabric_queue_step": fq.fabric_queue_step.launches,
                "fabric_queue_update": fq.fabric_queue_update.launches}
     steps = cf.bucket[4]
-    rows = _device_rows(prof)
+    rows = [r for r in _device_rows(prof) if TAIL_KERNEL not in r[1]]
     busy_us = sum(r[0] for r in rows)
     extra = {}
     if per_step:
         replayed = net.GRAPH_STEPS * cf.graph["replays"]
         rep = _replay_window(prof, replayed)
         extra = {"graph": _per_step(cf.graph), "wrapper_launches": counted,
-                 "replays": rep,
+                 "replays": rep, "tail_kernels": TAIL_KERNELS,
                  "host_ops_per_step_whole_run": aten_ops_per_step(fab,
                                                                   spec)}
     ops = aten_ops_per_step(fab, spec, steps=steps)
@@ -2133,15 +2258,16 @@ def _cosim_cell():
                                        addr=AddressSpec())
 
 
-def phase_cosim():
+def phase_cosim(host_ref: HostReference):
     """COSIM_RING open and closed loop on the card (the closed loop is the
     main path of B4 and of the cosim's transport), then three ticks
-    replayed through the plain engine."""
+    handed to ``host_ref`` for the plain engine: the launches, the ms a
+    tick closed and open, and the three ticks' card results by label."""
     import numpy as np
     import torch
-    from repro_torch import interop
-    from repro_torch.core import network as net
-    from repro_torch.core.fabric import EngineSpec, QueuePolicy
+    from repro_torch.core.fabric import (EngineSpec, MulticastPolicy,
+                                         QueuePolicy)
+    from repro_torch.core.traffic import TrafficSpec
     from repro_torch.cosim import CosimConfig, CosimEngine, reference_rollout
     cfg, pl = _cosim_cell()
     T = cfg["ticks"]
@@ -2191,17 +2317,18 @@ def phase_cosim():
     want_b3 = sum(-(-b[4] // b[9]) for b in buckets)
     divergence = int(np.abs(cls.spikes - opn.spikes).sum())
     steps = sum(b[4] for b in buckets)
-    # replay the three ticks with the most events through the plain engine
+    # the three ticks with the most events through the plain engine, on
+    # the host (``HostReference``), held to the card's before its end
     busiest = sorted(cls.events, key=lambda e: -e.n_events)[:3]
-    ref_fab = pl.fabric(engine="reference", queues=queues)
     by_tick = dict(cls.fabric_results)
-    t1 = time.perf_counter()
+    ref_kw = dict(topo=pl.topo, addr=pl.addr, queues=queues)
+    if pl.mcast is not None:
+        ref_kw["mcast"] = MulticastPolicy("in_fabric", pl.mcast)
+    replays = {}
     for e in busiest:
-        net.assert_results_equal(
-            by_tick[e.tick], interop.result_to_numpy(ref_fab.run(e.spec)),
-            f"cosim tick {e.tick}")
-    torch.cuda.synchronize()
-    replay_s = time.perf_counter() - t1
+        host_ref.submit(f"cosim_tick{e.tick}", ref_kw,
+                        TrafficSpec(*(a.cpu() for a in e.spec)))
+        replays[f"cosim_tick{e.tick}"] = by_tick[e.tick]
     emit("cosim_closed", ticks=T, spikes=cls.total_spikes,
          offered=int(cls.offered.sum()), injected=int(cls.injected.sum()),
          delivered=int(cls.delivered.sum()), drops=int(cls.drops.sum()),
@@ -2212,7 +2339,6 @@ def phase_cosim():
          us_per_fabric_step=wall / steps * 1e6,
          replayed_ticks=[e.tick for e in busiest],
          replayed_events=[e.n_events for e in busiest],
-         replay_reference_s=replay_s, replay_equal=True,
          latency=({"p50_ns": float(np.percentile(cls.latency_ns, 50)),
                    "p99_ns": float(np.percentile(cls.latency_ns, 99)),
                    "max_ns": int(cls.latency_ns.max())}
@@ -2231,7 +2357,7 @@ def phase_cosim():
                        "selective_scan": 0, "selective_scan_bwd": 0},
           f"cosim: launches {launches}, expected {T} lif_step and "
           f"{want_b3} fabric_queue_multistep, no other kernel")
-    return launches, wall / T * 1e3, open_wall / T * 1e3
+    return launches, wall / T * 1e3, open_wall / T * 1e3, replays
 
 
 def phase_snn_fig6():
@@ -2370,10 +2496,119 @@ def phase_examples():
             rows[name] = row
     finally:
         net._RUNNERS = saved
+    rows.update(_lm_examples())
     emit("examples", phase_s=time.perf_counter() - t_phase,
          wall_s={n: r["wall_s"] for n, r in rows.items()},
          lif_step={n: rows[n]["launches"]["lif_step"]
                    for n in COSIM_EXAMPLES})
+    return rows
+
+
+#: the LM examples' flags on the card: their tiny sizes.  At their
+#: defaults the training example (a ~100 M-parameter model, 300 steps of
+#: 16 x 256 tokens) took 98.8 s and the demo (40 steps a mode) 184.2 s
+#: on one H100 (700 W), past the script's time limit with the rest
+TRAIN_EXAMPLE_ARGV = ["--tiny"]
+DEMO_STEPS = 4
+DEMO_ARGV = ["--steps", str(DEMO_STEPS)]
+#: |bidir_ring - psum| final loss of the demo: the same sums in another
+#: order (the script's own words: "must be ~float noise"), grown over
+#: 40 AdamW steps to 0.00146 on 8 gloo ranks on the CPU (aer_topk's:
+#: 0.0227) and 0.00024 on 8 sharing one H100
+DEMO_RING_TOL = 5e-3
+
+
+def _lm_examples() -> dict:
+    """The two LM examples on the card, each through its ``main`` with
+    its asserts live: ``torch_train_lm_100m`` (training with a
+    checkpoint, an injected failure and a restart; no port kernel) and
+    ``torch_sparse_allreduce_demo`` with no device, so on the card: its
+    8 ranks share this card over gloo (NCCL where 8 cards are),
+    DEMO_STEPS steps a mode; rank 0's B5 and B6 launches one a
+    reference leaf a step under ``aer_topk`` and none under ``psum`` and
+    ``bidir_ring``, and the ring's final loss within DEMO_RING_TOL of
+    ``psum``'s.  The demo's ranks run in their own processes, so this
+    process counts no launch of theirs."""
+    import contextlib
+    import importlib
+    import io
+    import math
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import ReferenceLeaves
+    rows = {}
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        for name, argv in (("train_lm_100m", TRAIN_EXAMPLE_ARGV),
+                           ("sparse_allreduce_demo", DEMO_ARGV)):
+            mod = importlib.import_module(f"torch_{name}")
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            _counts_zero()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            text = buf.getvalue()
+            (EXAMPLES_OUT / f"{name}.txt").write_text(text)
+            check(all(v == 0 for v in launches.values()),
+                  f"examples/{name}: launches {launches} in this process, "
+                  f"expected none")
+            row = {"wall_s": wall, "argv": argv, "launches": launches,
+                   "last_line": text.strip().splitlines()[-1],
+                   "report": str(EXAMPLES_OUT / f"{name}.txt")}
+            if name == "train_lm_100m":
+                state, info = out
+                row.update(steps=int(state.step),
+                           restarts=info["restarts"],
+                           checkpoints=info["checkpoints"],
+                           last_loss=info["last_loss"],
+                           stragglers=len(info["straggler_events"]))
+            else:
+                modes = out["modes"]
+                want = "nccl" if torch.cuda.device_count() >= mod.WORLD \
+                    else "gloo"
+                check(out["device"] == "cuda" and out["backend"] == want,
+                      f"examples/{name}: ran on {out['device']} over "
+                      f"{out['backend']}, expected cuda over {want}")
+                leaves = len(ReferenceLeaves(build_model(
+                    get_smoke_config("granite_3_2b"), device="meta"))
+                    .members)
+                steps = DEMO_STEPS
+                for mode, r in modes.items():
+                    n = leaves * steps if mode == "aer_topk" else 0
+                    check(r["launches"] == {"aer_encode": n,
+                                            "aer_decode": n},
+                          f"examples/{name}: {mode} launched "
+                          f"{r['launches']} on rank 0, expected {n} of "
+                          f"B5 and of B6")
+                    check(len(r["losses"]) == steps
+                          and all(math.isfinite(v) for v in r["losses"]),
+                          f"examples/{name}: {mode} losses not finite")
+                gap = abs(modes["bidir_ring"]["losses"][-1]
+                          - modes["psum"]["losses"][-1])
+                check(gap <= DEMO_RING_TOL,
+                      f"examples/{name}: bidir_ring is {gap} from psum")
+                row.update(backend=out["backend"],
+                           cards=torch.cuda.device_count(),
+                           ranks=mod.WORLD, leaves=leaves,
+                           rank0_launches={m: r["launches"]
+                                           for m, r in modes.items()},
+                           final_loss={m: r["losses"][-1]
+                                       for m, r in modes.items()},
+                           ring_psum_gap=gap, steps=steps,
+                           rank0_mode_s={m: r["seconds"]
+                                         for m, r in modes.items()},
+                           wire_words_per_step={
+                               m: r["wire_words"] / steps
+                               for m, r in modes.items()})
+            emit(f"examples_{name}", **row)
+            rows[name] = row
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
     return rows
 
 
@@ -3206,6 +3441,24 @@ XGATE = 1.0
 #: 14336, ~3.8 GB each, several live at once in the SiLU) would sit
 #: beside ~53 GB of weights
 HYBRID_CHECK_PROMPT = 1024
+#: minitron-8b at its published widths and depth (32 layers, d_model
+#: 4096, 32 / 8 heads, a squared-ReLU FFN of 16384, an untied 256,000-
+#: token head; 7.73 B float32 parameters, 30.9 GB)
+MINITRON_ARGV = ["--arch", "minitron_8b", "--batch", "4", "--prompt-len",
+                 "2048", "--gen", "32", "--seed", "0"]
+#: qwen3-14b at its published widths and depth (40 layers, d_model
+#: 5120, 40 / 8 heads of 128 with qk-norm, d_ff 17408, vocab 151,936;
+#: 14.77 B float32 parameters, 59.1 GB)
+QWEN3_ARGV = ["--arch", "qwen3_14b", "--batch", "4", "--prompt-len",
+              "2048", "--gen", "32", "--seed", "0"]
+#: moonshot-v1-16b-a3b at its published widths (d_model 2048, 16 / 16
+#: heads, 64 experts of d_ff 1408, top-6, vocab 163,840) with the depth
+#: cut from 48 layers to 16: all 48 are 112.2 GB of float32 weights, 16
+#: are 9.80 B parameters, 39.2 GB
+MOONSHOT_LAYERS = 16
+MOONSHOT_ARGV = ["--arch", "moonshot_v1_16b_a3b", "--layers",
+                 str(MOONSHOT_LAYERS), "--batch", "4", "--prompt-len",
+                 "2048", "--gen", "32", "--seed", "0"]
 #: (phase, argv, depth cut, B7 launches a prefill, xgate, consistency
 #: phase, rows it checks, prompt tokens it keeps)
 LM_CELLS = (("serve_granite_3_2b", GRANITE_ARGV, None, 0, None,
@@ -3217,7 +3470,14 @@ LM_CELLS = (("serve_granite_3_2b", GRANITE_ARGV, None, 0, None,
              {"n_layers": [32, JAMBA_LAYERS]}, 7, None,
              "serve_consistency_hybrid", 1, HYBRID_CHECK_PROMPT),
             ("serve_llama32_vision_11b", LLAMA_ARGV, None, 0, XGATE,
-             "serve_consistency_vision", 1, None))
+             "serve_consistency_vision", 1, None),
+            ("serve_minitron_8b", MINITRON_ARGV, None, 0, None,
+             "serve_consistency_minitron", 1, None),
+            ("serve_qwen3_14b", QWEN3_ARGV, None, 0, None,
+             "serve_consistency_qwen3", 1, None),
+            ("serve_moonshot_v1_16b_a3b_l16", MOONSHOT_ARGV,
+             {"n_layers": [48, MOONSHOT_LAYERS]}, 0, None,
+             "serve_consistency_moonshot", 1, None))
 LM_GROUPS = {"matmul": SERVE_GROUPS["matmul"],
              "copies and casts": SERVE_GROUPS["copies and casts"],
              "reductions and softmax": ("reduce", "softmax", "Reduce"),
@@ -3423,6 +3683,86 @@ def phase_serve_lm(label, argv, reduced=None, scans=0, xgate=None):
     out["phase_s"] = time.perf_counter() - t_phase
     emit(label, **out)
     return model, batch, res.tokens, out
+
+
+#: the cells whose first MoE layer is also run on the host on the same
+#: input row (fine-grained dispatch: 64 experts, top-6)
+DISPATCH_VS_HOST = ("serve_moonshot_v1_16b_a3b_l16",)
+
+
+def phase_moe_dispatch_vs_host(label, model, batch) -> dict:
+    """The first MoE layer's capacity dispatch on the card and on the
+    host, on the same input: the layer's input on the first prompt row,
+    caught in a prefill of that row, then ``moe_apply`` in float32
+    compute on both devices (the router is float32 in any compute
+    dtype, so both route the same bits up to the products' summation
+    order): each side's dropped share of the choices, how many of the
+    row's top-k choices differ, and the outputs' largest gap.  Where no
+    choice differs the dispatch must drop the same share on both.  The
+    prefill's dropped share at every MoE layer is reported beside it."""
+    import copy
+    import torch
+    from repro_torch.models import moe as MOE
+    blk = next(b for b in model.stack.blocks if hasattr(b, "moe"))
+    seen = {}
+    apply = MOE.moe_apply
+
+    def spy(p, cfg, x, par=None):
+        if p is blk.moe and "x" not in seen:
+            seen["x"] = x.detach().clone()
+        y, aux = apply(p, cfg, x, par)
+        seen.setdefault("drops", []).append(float(aux["drop_frac"]))
+        return y, aux
+
+    MOE.moe_apply = spy
+    try:
+        with torch.no_grad():
+            model.prefill({k: v[:1] for k, v in batch.items()})
+    finally:
+        MOE.moe_apply = apply
+    x = seen["x"]
+    cfg32 = model.cfg.with_(compute_dtype=torch.float32)
+    host = copy.deepcopy(blk.moe).to("cpu")
+
+    def choices(p, xx):
+        """Each token's top-k experts, by a second router pass."""
+        probs = torch.softmax(xx.float() @ p.router, -1)
+        return MOE._top_k(probs, cfg32.moe.top_k)[1]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        y_card, aux_card = apply(blk.moe, cfg32, x)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y_host, aux_host = apply(host, cfg32, x.cpu())
+        host_s = time.perf_counter() - t0
+        choice_card = choices(blk.moe, x).cpu()
+        choice_host = choices(host, x.cpu())
+    # the dropped share is a float32 mean over the row's S·k choices,
+    # summed in another order on each device: compare the counts
+    n_choices = x.shape[0] * x.shape[1] * cfg32.moe.top_k
+    out = {"tokens": list(x.shape[:2]),
+           "experts": cfg32.moe.num_experts, "top_k": cfg32.moe.top_k,
+           "capacity_factor": cfg32.moe.capacity_factor,
+           "slots_an_expert": MOE._capacity(cfg32, x.shape[1]),
+           "choices": n_choices,
+           "drop_frac_card": float(aux_card["drop_frac"]),
+           "drop_frac_host": float(aux_host["drop_frac"]),
+           "dropped_card": round(float(aux_card["drop_frac"]) * n_choices),
+           "dropped_host": round(float(aux_host["drop_frac"]) * n_choices),
+           "choices_differ": int((choice_card != choice_host).sum()),
+           "out_max_abs_gap": float((y_card.cpu() - y_host).abs().max()),
+           "out_max_abs": float(y_host.abs().max()),
+           "card_s": card_s, "host_s": host_s,
+           "drop_frac_by_layer": seen["drops"]}
+    emit(f"{label}_dispatch_vs_host", **out)
+    check(out["dropped_card"] == out["dropped_host"]
+          or out["choices_differ"] > 0,
+          f"{label}: the card dropped {out['dropped_card']} and the host "
+          f"{out['dropped_host']} of the same {n_choices} choices")
+    del host, y_card, y_host
+    return out
 
 
 #: hubert-xlarge at its published widths and depth, 8 utterances of 1024
@@ -4892,6 +5232,8 @@ class PodDryRun:
                     "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
         self.procs: list = []
         self.stopped = False
+        #: when the last cell to end ended, in seconds since the start
+        self.ended_at_s = 0.0
         self.t0 = time.perf_counter()
         self.pool = ThreadPoolExecutor(workers)
         self.futures = [self.pool.submit(self._one, a, sh)
@@ -4910,6 +5252,7 @@ class PodDryRun:
                 stdout=f, stderr=subprocess.STDOUT)
             self.procs.append(proc)
             rc = proc.wait()
+        self.ended_at_s = max(self.ended_at_s, time.perf_counter() - T0)
         return arch, shape, time.perf_counter() - t0, rc
 
     def wait(self):
@@ -5110,7 +5453,7 @@ def phase_dryrun_pod(pod: PodDryRun):
                     "dominant": c["dominant"],
                     "trace_s": c["lower_s"]})
     emit("dryrun_pod", mesh={"data": 16, "model": 16}, cells=out,
-         wall_s=wall, workers=POD_WORKERS,
+         wall_s=wall, workers=POD_WORKERS, ended_at_s=pod.ended_at_s,
          cell_s={f"{a}--{sh}": t for a, sh, t, _ in results},
          multipod="traced on a CPU host, not here (it doubles the phase)")
     return out
@@ -5148,13 +5491,15 @@ def main() -> int:
     phase_build()
     torch.cuda.synchronize()
     pod = PodDryRun()
+    host_ref = HostReference()
     try:
-        return _main_phases(name, smi, t_start, pod)
+        return _main_phases(name, smi, t_start, pod, host_ref)
     finally:
+        host_ref.stop()
         pod.stop()
 
 
-def _main_phases(name, smi, t_start, pod) -> int:
+def _main_phases(name, smi, t_start, pod, host_ref) -> int:
     import torch
     ktimes = phase_kernels()
     torch.cuda.synchronize()
@@ -5164,7 +5509,7 @@ def _main_phases(name, smi, t_start, pod) -> int:
     torch.cuda.synchronize()
     anchor = phase_anchor()
     torch.cuda.synchronize()
-    spec, kw, bucket, launches, cells = phase_full()
+    spec, kw, bucket, launches, cells = phase_full(host_ref)
     torch.cuda.synchronize()
     ms_launches = phase_multistep_path([anchor] + cells)
     torch.cuda.synchronize()
@@ -5189,7 +5534,7 @@ def _main_phases(name, smi, t_start, pod) -> int:
     phase_profile(spec, kw, engine=ms_engine, steps=None,
                   label="profile_multistep")
     torch.cuda.synchronize()
-    cosim_launches, closed_ms, open_ms = phase_cosim()
+    cosim_launches, closed_ms, open_ms, cosim_ticks = phase_cosim(host_ref)
     torch.cuda.synchronize()
     snn_launches, snn_ms = phase_snn_fig6()
     torch.cuda.synchronize()
@@ -5219,6 +5564,9 @@ def _main_phases(name, smi, t_start, pod) -> int:
         model, batch, gen_tokens, lm_out[label] = phase_serve_lm(
             label, argv, reduced, scans=scans, xgate=xgate)
         torch.cuda.synchronize()
+        if label in DISPATCH_VS_HOST:
+            lm_out[label]["dispatch_vs_host"] = phase_moe_dispatch_vs_host(
+                label, model, batch)
         phase_serve_consistency(model, {k: v[:rows] for k, v in
                                         batch.items()},
                                 gen_tokens[:rows], label=check_label,
@@ -5245,6 +5593,10 @@ def _main_phases(name, smi, t_start, pod) -> int:
     _free()
     serve_tp = phase_serve_tp_2x2_one_card()
     _free()
+    host_ref.check({**{label: res for label, _, _, res in cells},
+                    **cosim_ticks})
+    # the card's work ends here; the pod dry-run may still be running
+    emit("card_phases_done", card_s=time.perf_counter() - t_start)
     phase_dryrun_pod(pod)
 
     csrc = "src/repro_torch/kernels/csrc/"

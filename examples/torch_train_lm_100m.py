@@ -3,6 +3,12 @@ granite-family LM for a few hundred steps on the synthetic pipeline,
 with checkpointing, a mid-run injected failure + restart, and straggler
 monitoring — the full production loop at laptop scale.
 
+It asserts what the loop promises: one restart for the one injected
+failure, the run ending at its last step, the last checkpoint at the
+last multiple of the checkpoint interval, and finite losses.  ``main``
+returns ``(state, info)``, ``info`` with the restarts, the straggler
+events, the checkpoint steps kept and the last step's loss.
+
     PYTHONPATH=src python examples/torch_train_lm_100m.py          # card
     PYTHONPATH=src python examples/torch_train_lm_100m.py --tiny --device cpu
 """
@@ -61,18 +67,29 @@ def main(argv=None):
             return {k: torch.from_numpy(v).to(dev)
                     for k, v in data.batch(s).items()}
 
+    losses = {}
+    every = max(steps // 6, 1)
     with tempfile.TemporaryDirectory() as d:
         ckpt = Checkpointer(d, keep=2)
         injector = FailureInjector(frozenset({steps // 2}))  # mid-run crash
         monitor = StragglerMonitor()
         state, info = run_with_restarts(
             n_steps=steps, state=state, train_step=step_fn,
-            data=DeviceData(), ckpt=ckpt,
-            checkpoint_every=max(steps // 6, 1), injector=injector,
-            monitor=monitor, log_every=max(steps // 12, 1))
+            data=DeviceData(), ckpt=ckpt, checkpoint_every=every,
+            injector=injector, monitor=monitor,
+            log_every=max(steps // 12, 1),
+            on_metrics=lambda s, m: losses.update({s: m["loss"]}))
+        info["checkpoints"] = ckpt.all_steps()
         print(f"finished at step {steps}: restarts={info['restarts']} "
               f"(injected 1), stragglers flagged="
               f"{len(info['straggler_events'])}")
+    info["last_loss"] = float(losses[steps])
+    assert info["restarts"] == 1, info["restarts"]
+    assert int(state.step) == steps, int(state.step)
+    assert info["checkpoints"][-1] == steps // every * every, \
+        info["checkpoints"]
+    assert sorted(losses) == list(range(1, steps + 1))
+    assert all(torch.isfinite(v).all() for v in losses.values())
     return state, info
 
 

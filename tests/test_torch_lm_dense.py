@@ -375,11 +375,14 @@ def test_lm_matches_reference_bf16(arch, bf16_ref):
 
 
 @pytest.mark.parametrize("arch", ["granite_3_2b", "mixtral_8x22b",
-                                  "minitron_8b"])
+                                  "minitron_8b", "qwen3_14b",
+                                  "moonshot_v1_16b_a3b"])
 def test_serve_greedy_tokens_match_reference(arch, monkeypatch, capsys):
     """Both ``serve.main``s on the same parameters in float32 compute
     generate the same greedy tokens; mixtral's 20-token prompts and 12
-    new tokens run past its smoke window of 16 (a ring cache)."""
+    new tokens run past its smoke window of 16 (a ring cache); qwen3
+    decodes through its qk-norm, moonshot through its capacity dispatch
+    at the default capacity factor (choices past it dropped)."""
     argv = ["--arch", arch, "--smoke", "--batch", "3", "--prompt-len", "20",
             "--gen", "12", "--seed", "0"]
     monkeypatch.setattr(ref_serve, "get_smoke_config",
@@ -482,6 +485,44 @@ def test_one_full_width_granite_layer_matches_reference():
                                       jnp.full((1,), 48, jnp.int32))
     got, _ = pm.decode_step(pcache, torch.from_numpy(toks[:, 48:49]),
                             torch.full((1,), 48, dtype=torch.int32))
+    _close(want, got)
+
+
+def test_one_full_width_qwen3_layer_matches_reference():
+    """qwen3-14b's published attention widths (d_model 5120, 40 heads /
+    8 kv heads of 128, qk-norm), one layer, its FFN cut to 512 and a
+    512-token head: forward over (1, 40), prefill of 32 tokens, the
+    cache, and one decode step through the qk-norm, float32 compute."""
+    cut = dict(n_layers=1, d_ff=512, vocab=512)
+    rcfg = ref_get_config("qwen3_14b").with_(compute_dtype=jnp.float32,
+                                             **cut)
+    pcfg = cb.get_config("qwen3_14b").with_(compute_dtype=torch.float32,
+                                            **cut)
+    assert pcfg.qk_norm and (pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads,
+                             pcfg.d_head) == (5120, 40, 8, 128)
+    rm = ref_build_model(rcfg)
+    params = jax.tree.map(np.asarray, rm.init(jax.random.PRNGKey(0))[0])
+    pm = interop.lm_params_from_reference(params, pcfg, device=CPU)
+    assert param_count(pm) == ref_param_count(params) == 76_037_376
+    blk = pm.stack.blocks[0]
+    assert blk.attn.wq.w.shape == (5120, 5120)
+    assert blk.attn.wk.w.shape == (5120, 1024)
+    toks = _tokens((1, 40), seed=8)
+    want, _ = jax.jit(rm.forward)(params, {"tokens": jnp.asarray(toks)})
+    got, _ = pm.forward({"tokens": torch.from_numpy(toks)})
+    _close(want, got)
+    want, cache = jax.jit(lambda p, b: rm.prefill(p, b, max_len=40))(
+        params, {"tokens": jnp.asarray(toks[:, :32])})
+    got, pcache = pm.prefill({"tokens": torch.from_numpy(toks[:, :32])},
+                             max_len=40)
+    _close(want, got)
+    _equal_caches(interop.lm_cache_from_reference(
+        jax.tree.map(np.asarray, cache), pcfg, device=CPU), pcache)
+    want, _ = jax.jit(rm.decode_step)(params, cache,
+                                      jnp.asarray(toks[:, 32:33]),
+                                      jnp.full((1,), 32, jnp.int32))
+    got, _ = pm.decode_step(pcache, torch.from_numpy(toks[:, 32:33]),
+                            torch.full((1,), 32, dtype=torch.int32))
     _close(want, got)
 
 
