@@ -22,7 +22,9 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                {(4, 7), (32, 768), (224, 3072)} and K in {1, 4}, with
                every edge case of the contract; then each timed at the
                ring-16 full-width shape, beside its plain version, its
-               bound and the card's launch floor (a one-element fill_);
+               bound, the card's launch floor (a one-element fill_) and
+               a load-then-store floor (one copy_ of B2's 32 lanes'
+               int32 words);
 4. multistep — the multi-step kernel (B3) against its plain version on
                packed carries of real plans (tests/_torch_cases.py):
                the three cells' specs plus ring-16 at a binding capacity
@@ -125,12 +127,15 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                whole profile, are reported);
 9. lif       — the LIF kernel (B4) against its plain version on the card
                (tests/_torch_cases.py::lif_cases at the test shapes,
-               (32, 128) and (65536, 128), with the threshold and
-               rounding edge inputs), bit for bit except where the plain
-               version's float64 route rounds twice, each such element
-               confirmed with exact rational arithmetic; then device ms
-               per launch at (16, 128) and (65536, 128) beside the bound
-               and the plain version;
+               (32, 128), (65536, 128), (33, 127) and a view 1 word past
+               a 16-byte boundary, with the threshold and rounding edge
+               inputs; every route of the kernel taken: vectors, vectors
+               with a scalar tail, the scalar loop), bit for bit except
+               where the plain version's float64 route rounds twice,
+               each such element confirmed with exact rational
+               arithmetic; then device ms per launch at (16, 128),
+               (32, 128) and (65536, 128) beside the bound, the plain
+               version and torch.add(v, i_syn, out=o) at that shape;
 10. cosim    — the co-simulation cell COSIM_RING (ring-16 recurrent SNN,
                128 neurons a chip, 24 ticks): open loop equal to
                ``reference_rollout`` bit for bit with 24 B4 launches; the
@@ -229,9 +234,10 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                bf16 compute), 4 SyntheticLM prompts of 2048 tokens
                prefilled, then 32 greedy tokens each: finite logits,
                tokens in the vocabulary, exactly 64 B7 launches in the
-               run (a second prefill alone: 64; a decode step alone: 0)
-               and no other kernel of the port; prefill ms, ms per decode
-               step, tokens/s, peak memory, and a profiled decode step's
+               run (a second prefill alone: 64, its last logits bit-equal
+               to the first's; a decode step alone: 0) and no other
+               kernel of the port; prefill ms, ms per decode step,
+               tokens/s, peak memory, and a profiled decode step's
                device-busy share;
 18. serve_consistency — the same weights in float32 compute: prefill's
                last logits and 8 teacher-forced decode steps' logits
@@ -247,7 +253,9 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                and 32 greedy tokens: finite logits, tokens in the
                vocabulary, no launch of any port kernel (attention, the
                FFN and the MoE are PyTorch ops, as the reference's are
-               jnp); prefill ms (first and again), ms per decode step,
+               jnp); prefill ms (first and again: the second prefill's
+               last logits bit-equal to the first's, in every serving
+               cell), ms per decode step,
                tokens/s, peak memory, a profiled decode step's busy
                share and time by group, and, timed apart with CUDA
                events, the step's attention core and its weight casts;
@@ -305,7 +313,10 @@ JAX or of the JAX reference package.  Phases, one JSON line each:
                experts of d_ff 1408, top-6, vocab 163,840) with the
                depth cut from 48 layers to 16 (``reduced``; all 48 are
                112.2 GB of float32 weights), 4 prompts of 2048 tokens,
-               32 greedy tokens: phase 21's fields; then its first MoE
+               32 greedy tokens: phase 21's fields, and ``serve.generate``
+               run a second time, its tokens and logits equal to the
+               first run's (``moe._combine``: a fixed order, no
+               atomics); then its first MoE
                layer on the first prompt row, on the card and on the
                host in float32 compute on the same input
                (``_dispatch_vs_host``: both drop the same share unless
@@ -728,9 +739,14 @@ def phase_kernels():
                      "plain_device_ms": device_ms(plain),
                      "plain_call_ms": time_ms(plain)}
               for name, (kern, plain) in calls.items()}
-    # the card's launch floor: device time of a one-element fill_
+    # the card's launch floor: device time of a one-element fill_; and a
+    # load-then-store floor: one copy_ of as many int32 words as B2 has
+    # lanes (one load round trip, then a store, as B2's lanes take)
     one = torch.empty(1, dtype=torch.int32, device=dev)
     floor_ms = device_ms(lambda: one.fill_(1))
+    words = lanes[0].numel() + lanes[2].numel()
+    copy_ms = copy_floor_ms(words, dev)
+    copy_kernel_ms = copy_floor_ms(words, dev, strided=True)
     # bounds from these inputs: each input read once, each output
     # written once (the update writes only its valid lanes)
     pop_q, pop_slot, app_q = (a.cpu().numpy() for a in lanes[:3])
@@ -761,10 +777,49 @@ def phase_kernels():
                      "bound_by": "bytes" if tb >= to else "operations",
                      "bytes": b, "ops": o,
                      "launch_floor_ms": floor_ms,
+                     "copy_floor_ms": copy_ms,
+                     "copy_kernel_floor_ms": copy_kernel_ms,
+                     "above_copy_floor_us": (
+                         None if tm["device_ms"] is None or copy_ms is None
+                         else (tm["device_ms"] - copy_ms) * 1e3),
                      "max_abs_err": worst[name]}
+    src = torch.arange(2 * words, dtype=torch.int32, device=dev)
+    dst = torch.empty(words, dtype=torch.int32, device=dev)
     emit("kernel_times", shape={"Q": nq, "C": nc, "Lp": lp, "La": la},
-         launch_floor_ms=floor_ms, kernels=out)
+         launch_floor_ms=floor_ms, copy_floor_ms=copy_ms,
+         copy_kernel_floor_ms=copy_kernel_ms, copy_floor_words=words,
+         copy_floor_rows={
+             "contiguous": device_row_names(
+                 lambda: dst.copy_(src[:words])),
+             "stride 2": device_row_names(lambda: dst.copy_(src[::2]))},
+         kernels=out)
     return out
+
+
+def copy_floor_ms(words: int, dev, strided: bool = False):
+    """Device ms of one ``copy_`` of ``words`` int32 words: a launch that
+    loads and then stores, B2's floor at that many lanes.  PyTorch runs
+    a contiguous copy as a device-to-device ``cudaMemcpyAsync``; from a
+    stride-2 view (``strided``), as its elementwise copy kernel."""
+    import torch
+    src = torch.arange(2 * words, dtype=torch.int32, device=dev)
+    src = src[::2] if strided else src[:words]
+    dst = torch.empty(words, dtype=torch.int32, device=dev)
+    return device_ms(lambda: dst.copy_(src))
+
+
+def device_row_names(fn, n: int = 50) -> dict:
+    """The device rows (kernels, copies) of ``n`` calls of ``fn`` in the
+    profiler: each row's name and count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {r[1][:120]: r[2] for r in _device_rows(prof)}
 
 
 def phase_multistep_kernel():
@@ -1471,6 +1526,30 @@ def phase_batch(ring_out):
     return rows
 
 
+def update_batch(rng, B, nq, nc, dev) -> tuple:
+    """B2's operands for ``B`` instances of (nq, nc) planes: the planes
+    stacked to (B·nq, nc) and each instance's pop and append lanes
+    (``update_case``, K = 1) with its queue ids offset by b·nq (ids past
+    an instance's queues stay past all of them), as int32 on ``dev``."""
+    import numpy as np
+    import torch
+    from _torch_cases import planes, update_case
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    pls = [planes(rng, nq, nc) for _ in range(B)]
+    lanes = [update_case(rng, nq, nc, 1) for _ in range(B)]
+    glob = []
+    for i in range(len(lanes[0])):
+        parts = [np.where(np.asarray(ln[i]) < nq, np.asarray(ln[i]) + b * nq,
+                          B * nq) if i in (0, 2) else np.asarray(ln[i])
+                 for b, ln in enumerate(lanes)]
+        glob.append(t(np.concatenate(parts)))
+    big = [t(np.concatenate([p[i] for p in pls])) for i in range(3)]
+    return big, glob
+
+
 def phase_batch_kernels():
     """B1, B2 and B3 timed on a batch of eight ring-16 instances, each
     against its plain version on the same operands first: B1 on the
@@ -1486,8 +1565,7 @@ def phase_batch_kernels():
     from repro_torch.kernels import fabric_queue as fq
     from repro_torch.kernels import ref
     from _torch_cases import (carry_err, clone, hot_spot_arrays,
-                              multistep_operands, planes, scan_case,
-                              update_case)
+                              multistep_operands, scan_case)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(19)
     B, nq, nc = 8, 32, 768
@@ -1502,15 +1580,7 @@ def phase_batch_kernels():
     torch.cuda.synchronize()
     err = {"fabric_queue_step": max(int((g.long() - w.long()).abs().max())
                                     for g, w in zip(got, want))}
-    pls = [planes(rng, nq, nc) for _ in range(B)]
-    lanes = [update_case(rng, nq, nc, 1) for _ in range(B)]
-    glob = []
-    for i in range(len(lanes[0])):
-        parts = [np.where(np.asarray(ln[i]) < nq, np.asarray(ln[i]) + b * nq,
-                          B * nq) if i in (0, 2) else np.asarray(ln[i])
-                 for b, ln in enumerate(lanes)]
-        glob.append(t(np.concatenate(parts)))
-    big = [t(np.concatenate([p[i] for p in pls])) for i in range(3)]
+    big, glob = update_batch(rng, B, nq, nc, dev)
     got = fq.fabric_queue_update(*[x.clone() for x in big], *glob)
     want = ref.fabric_queue_update(*[x.clone() for x in big], *glob)
     torch.cuda.synchronize()
@@ -1566,6 +1636,7 @@ def phase_batch_kernels():
     dev_us = sum(_device_us(e) for e in prof.key_averages()
                  if "fabric_queue_multistep" in e.key)
     upd = [x.clone() for x in big]
+    one = torch.empty(1, dtype=torch.int32, device=dev)
     times = {
         "fabric_queue_step": {
             "shape": f"({B}·{nq}, {nc})",
@@ -1575,7 +1646,12 @@ def phase_batch_kernels():
             "shape": f"({B}·{nq}, {nc}), {B}·16 + {B}·16 lanes",
             "device_ms": device_ms(lambda: fq.fabric_queue_update(*upd,
                                                                   *glob)),
-            "call_ms": time_ms(lambda: fq.fabric_queue_update(*upd, *glob))},
+            "call_ms": time_ms(lambda: fq.fabric_queue_update(*upd, *glob)),
+            "copy_floor_ms": copy_floor_ms(
+                glob[0].numel() + glob[2].numel(), dev),
+            "copy_kernel_floor_ms": copy_floor_ms(
+                glob[0].numel() + glob[2].numel(), dev, strided=True),
+            "launch_floor_ms": device_ms(lambda: one.fill_(1))},
         "fabric_queue_multistep": {
             "shape": f"B = {B}, ring-16 full width, 128 steps",
             "device_ms": dev_us / n / 1e3 if dev_us > 0 else None,
@@ -2180,18 +2256,25 @@ def _counts() -> dict:
     return {f.__name__: f.launches for f in _wrappers()}
 
 
+#: rows of 128 lanes at which B4 is timed: the cosim ring-16 state, the
+#: SNN Fig. 6 state (tests/_torch_cases.py::SNN_FIG6) and a large one
+LIF_TIMED_ROWS = (16, 32, 65536)
+
+
 def phase_lif_kernel():
     """B4 against its plain version on the card, then its times."""
     import numpy as np
     import torch
     from repro_torch.kernels import lif_step as lk
     from repro_torch.kernels import ref
-    from _torch_cases import (LIF_CARD_SHAPES, lif_cases,
-                              lif_double_roundings)
+    from _torch_cases import (LIF_CARD_SHAPES, LIF_PARAMS, lif_cases,
+                              lif_double_roundings, lif_on_card)
     dev = torch.device("cuda", 0)
     cases, confirmed, unexplained, worst = [], 0, 0, 0.0
-    for name, v, i, d, th, rst in lif_cases(LIF_CARD_SHAPES):
-        vt, it = (torch.from_numpy(a).to(dev) for a in (v, i))
+    shapes = [s for s in LIF_CARD_SHAPES for _ in LIF_PARAMS]
+    for shape, (name, v, i, d, th, rst) in zip(shapes,
+                                               lif_cases(LIF_CARD_SHAPES)):
+        vt, it = (lif_on_card(a, dev, shape) for a in (v, i))
         got = lk.lif_step(vt, it, decay=d, v_th=th, v_reset=rst)
         plain = ref.lif_step(vt, it, d, th, rst)
         got = tuple(t.cpu().numpy() for t in got)
@@ -2204,24 +2287,37 @@ def phase_lif_kernel():
         confirmed, unexplained = confirmed + ok, unexplained + bad
         worst = max(worst, err)
         cases.append({"case": name, "n": int(v.size),
+                      "route": ("vector" if int(v.size) % 4 == 0
+                                and vt.data_ptr() % 16 == 0 else
+                                "vector + scalar tail"
+                                if vt.data_ptr() % 16 == 0 else "scalar"),
                       "spikes": int(got[1].sum()),
                       "double_roundings": ok, "unexplained": bad,
                       "max_abs_err": err})
+    routes = sorted({c["route"] for c in cases})
     emit("lif_vs_plain", cases=cases, double_roundings=confirmed,
-         unexplained=unexplained, max_abs_err=worst,
+         unexplained=unexplained, max_abs_err=worst, routes=routes,
          equal=confirmed + unexplained == 0)
+    check(len(routes) == 3, f"LIF cases took the routes {routes}, not "
+                            f"all three (vector, tail, scalar)")
     check(unexplained == 0, f"LIF kernel disagrees with its plain version "
                             f"on {unexplained} element(s) that are not "
                             f"double roundings of the plain route")
 
-    # times: the cosim ring-16 state (16, 128) and a large (65536, 128)
+    # times: the cosim ring-16 state (16, 128), the SNN Fig. 6 state
+    # (32, 128) and a large (65536, 128), each beside one launch that
+    # moves comparable bytes (torch.add(v, i_syn, out=o): two reads, one
+    # write) and the one-element fill_ floor
     out = {}
     rng = np.random.default_rng(7)
-    for rows in (16, 65536):
+    one = torch.empty(1, dtype=torch.float32, device=dev)
+    fill_ms = device_ms(lambda: one.fill_(1.0))
+    for rows in LIF_TIMED_ROWS:
         v = torch.from_numpy(rng.uniform(-0.5, 1.2, (rows, 128))
                              .astype(np.float32)).to(dev)
         i = torch.from_numpy(rng.uniform(-0.2, 0.6, (rows, 128))
                              .astype(np.float32)).to(dev)
+        o = torch.empty_like(v)
 
         def kern():
             return lk.lif_step(v, i, decay=0.9, v_th=1.0, v_reset=0.0)
@@ -2233,21 +2329,28 @@ def phase_lif_kernel():
         byts, ops = 16 * n, 3 * n        # 2 reads + 2 writes; FMA + compare
         tb, to = byts / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
         dms, pdms = device_ms(kern), device_ms(plain)
+        add_ms = device_ms(lambda: torch.add(v, i, out=o))
         seen = dms is not None and pdms is not None
+        ms = dms if seen else time_ms(kern)
         out[f"{rows}x128"] = {
-            "ms": dms if seen else time_ms(kern),
+            "ms": ms,
             "plain_ms": pdms if seen else time_ms(plain),
             "ms_source": ("profiler device time per call" if seen
                           else "CUDA events, back-to-back calls"),
             "device_ms": dms, "plain_device_ms": pdms,
             "call_ms": time_ms(kern), "plain_call_ms": time_ms(plain),
+            "event_ms": time_ms(kern, n=200 if rows > 1024 else 2000),
             "bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": byts, "ops": ops, "library_ms": None}
+            "bound_share": max(tb, to) / ms,
+            "bytes": byts, "ops": ops, "library_ms": None,
+            "add_floor_ms": add_ms, "fill_floor_ms": fill_ms,
+            "above_add_floor_us": (None if add_ms is None or dms is None
+                                   else (dms - add_ms) * 1e3)}
     emit("lif_kernel_time", shapes=out,
          library="none: no single PyTorch call computes the LIF update")
-    return {**out["16x128"], "max_abs_err": worst, "at_65536x128": out[
-        "65536x128"]}
+    return {**out["16x128"], "max_abs_err": worst,
+            **{f"at_{k}": v for k, v in out.items() if k != "16x128"}}
 
 
 def _cosim_cell():
@@ -2926,6 +3029,35 @@ def phase_aer_kernels():
     return {k: out[k] for k in ("aer_encode", "aer_decode")}
 
 
+def _tree_libs(others, names) -> tuple:
+    """This checkout's kernel libraries ``names`` and those built from
+    the ``csrc/`` of other checkouts (``others``: their roots), with
+    their C entries' argument types: ``({"this" or root: {name: lib}},
+    {"root:name": ptxas lines})``."""
+    import ctypes
+    from repro_torch.kernels import _build
+    libs = {"this": {n: _build.load(n) for n in names}}
+    ptxas = {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for root in others:
+        libs[str(root)] = {}
+        for n in names:
+            src = Path(root) / "src/repro_torch/kernels/csrc" / f"{n}.cu"
+            so = _build.BUILD_DIR / f"turns-{abs(hash(str(src)))}-{n}.so"
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                   str(so), str(src)], check=True,
+                                  capture_output=True, text=True)
+            ptxas[f"{root}:{n}"] = [
+                ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                if "registers" in ln or "spill" in ln]
+            lib = ctypes.CDLL(str(so))
+            for fn, argtypes in _build.SIGNATURES[n].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            libs[str(root)][n] = lib
+    return libs, ptxas
+
+
 def phase_aer_turns(others, rounds: int = 5):
     """B5 and B6 of this checkout timed in turns with those built from the
     ``csrc/`` of other checkouts (``others``: their roots, e.g. a parent
@@ -2939,31 +3071,10 @@ def phase_aer_turns(others, rounds: int = 5):
         import chip_smoke as cs; cs.phase_device(); cs.phase_build();
         cs.phase_aer_turns(['build/parent'])"
     """
-    import ctypes
     import torch
-    from repro_torch.kernels import _build
     from repro_torch.kernels import ops as K
     dev = torch.device("cuda", 0)
-    libs = {"this": {n: _build.load(n) for n in ("aer_encode",
-                                                 "aer_decode")}}
-    ptxas = {}
-    for root in others:
-        libs[str(root)] = {}
-        for n in ("aer_encode", "aer_decode"):
-            src = Path(root) / "src/repro_torch/kernels/csrc" / f"{n}.cu"
-            so = _build.BUILD_DIR / f"turns-{abs(hash(str(src)))}-{n}.so"
-            _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                                   str(so), str(src)], check=True,
-                                  capture_output=True, text=True)
-            ptxas[f"{root}:{n}"] = [
-                ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                if "registers" in ln or "spill" in ln]
-            lib = ctypes.CDLL(str(so))
-            f = getattr(lib, f"{n}_launch")
-            f.argtypes = _build.SIGNATURES[n][f"{n}_launch"]
-            f.restype = ctypes.c_int
-            libs[str(root)][n] = lib
+    libs, ptxas = _tree_libs(others, ("aer_encode", "aer_decode"))
     g = torch.Generator(device=dev).manual_seed(14)
     x = torch.randn((AER_NB, AER_BLOCK), generator=g, device=dev)
     tau = K.tau_from_fraction(x, AER_FRAC)
@@ -3002,6 +3113,113 @@ def phase_aer_turns(others, rounds: int = 5):
     emit("aer_turns", order=order, rounds=rounds,
          shape={"nb": nb, "block": blk, "budget": bud}, trees=res,
          ptxas=ptxas)
+    return res
+
+
+def phase_queue_lif_turns(others, rounds: int = 5):
+    """B2 and B4 of this checkout timed in turns with those built from
+    the ``csrc/`` of other checkouts (``others``: their roots, e.g. a
+    parent commit unpacked with ``git archive``), through the same plain
+    C entry points on the same operands: B2 on the ring-16 planes (32,
+    768) with 16 + 16 lanes and on the B = 8 batch's (8·32, 768) with
+    8·16 + 8·16, B4 at (16, 128), (32, 128) and (65536, 128).  Per round
+    each other tree, this tree, this tree, each other tree, reversed, by
+    CUDA events over back-to-back launches; then each once by profiler
+    device time, beside the floors (a one-element ``fill_``, a ``copy_``
+    of B2's lanes, ``torch.add`` of B4's two inputs).  Every tree's
+    outputs must equal this tree's.  Run by hand, not by ``main``:
+
+        python -c "import sys; sys.path[:0] = ['src', 'tests'];
+        import chip_smoke as cs; cs.phase_device(); cs.phase_build();
+        cs.phase_queue_lif_turns(['build/parent'])"
+    """
+    import ctypes
+    import numpy as np
+    import torch
+    dev = torch.device("cuda", 0)
+    libs, ptxas = _tree_libs(others, ("fabric_queue", "lif_step"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(32)
+
+    def b2_call(lib, big, glob):
+        def run():
+            rc = lib.fabric_queue_update_launch(
+                *(x.data_ptr() for x in big), big[0].shape[0],
+                big[0].shape[1], glob[0].data_ptr(), glob[1].data_ptr(),
+                glob[0].numel(), *(x.data_ptr() for x in glob[2:]),
+                glob[2].numel(), stream)
+            check(rc == 0, f"B2 launch failed: {rc}")
+        return run
+
+    def b4_call(lib, v, i, out):
+        def run():
+            rc = lib.lif_step_launch(
+                v.data_ptr(), i.data_ptr(), v.numel(), ctypes.c_float(0.9),
+                ctypes.c_float(1.0), ctypes.c_float(0.0),
+                out[0].data_ptr(), out[1].data_ptr(), stream)
+            check(rc == 0, f"B4 launch failed: {rc}")
+        return run
+
+    cells, floors = {}, {}
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    fill_ms = device_ms(lambda: one.fill_(1))
+    for B in (1, 8):
+        big, glob = update_batch(rng, B, 32, 768, dev)
+        key = f"B2 ({B}·32, 768)"
+        runs, outs = {}, {}
+        for tree, ls in libs.items():
+            mine = [x.clone() for x in big]
+            runs[tree] = b2_call(ls["fabric_queue"], mine, glob)
+            outs[tree] = mine
+        cells[key] = (runs, outs)
+        words = glob[0].numel() + glob[2].numel()
+        floors[key] = {"copy_floor_ms": copy_floor_ms(words, dev),
+                       "copy_kernel_floor_ms": copy_floor_ms(
+                           words, dev, strided=True),
+                       "fill_floor_ms": fill_ms}
+    for rows in LIF_TIMED_ROWS:
+        v = torch.from_numpy(rng.uniform(-0.5, 1.2, (rows, 128))
+                             .astype(np.float32)).to(dev)
+        i = torch.from_numpy(rng.uniform(-0.2, 0.6, (rows, 128))
+                             .astype(np.float32)).to(dev)
+        key = f"B4 ({rows}, 128)"
+        runs, outs = {}, {}
+        for tree, ls in libs.items():
+            out = (torch.empty_like(v), torch.empty_like(v))
+            runs[tree] = b4_call(ls["lif_step"], v, i, out)
+            outs[tree] = out
+        cells[key] = (runs, outs)
+        o = torch.empty_like(v)
+        floors[key] = {"add_floor_ms": device_ms(
+            lambda: torch.add(v, i, out=o)), "fill_floor_ms": fill_ms,
+            "bound_ms": 16 * v.numel() / HBM_BYTES_S * 1e3}
+    for key, (runs, outs) in cells.items():
+        for tree, run in runs.items():
+            run()
+        torch.cuda.synchronize()
+        for tree in runs:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(outs["this"], outs[tree])),
+                  f"turns: {tree}'s {key} differs from this tree's")
+    keys = list(libs)
+    order = keys[1:] + ["this", "this"] + keys[1:][::-1]
+    times = {k: {c: [] for c in cells} for k in keys}
+    for _ in range(rounds):
+        for tree in order:
+            for key, (runs, _) in cells.items():
+                n = 200 if "65536" in key else 2000
+                times[tree][key].append(time_ms(runs[tree], n=n,
+                                                warm=n // 10))
+    res = {}
+    for tree in keys:
+        res[tree] = {}
+        for key, (runs, _) in cells.items():
+            v = times[tree][key]
+            res[tree][key] = {
+                "median_ms": statistics.median(v), "min_ms": min(v),
+                "max_ms": max(v), "profiler_ms": device_ms(runs[tree])}
+    emit("queue_lif_turns", order=order, rounds=rounds, trees=res,
+         floors=floors, ptxas=ptxas)
     return res
 
 
@@ -3296,6 +3514,8 @@ def phase_serve():
     prefill2_s = time.perf_counter() - t0
     prefill_launches = _counts()["selective_scan"]
     same = bool(torch.equal(logits[:, -1], res.logits[:, 0]))
+    check(same, "serve: a second prefill's last logits differ from the "
+                "first's (not bit-repeatable)")
     _counts_zero()
     tok = res.tokens[:, :1]
     with torch.no_grad():
@@ -3576,6 +3796,11 @@ def _vision_checks(label, model, cfg, args, batch, cache, tok, pos,
             "cross_cache": list(cache[cross[0]]["k"].shape)}
 
 
+#: the cells whose ``serve.generate`` runs twice, tokens and logits
+#: held equal (the top-6 MoE's combine, ``moe._combine``, in fixed order)
+GENERATE_AGAIN = ("serve_moonshot_v1_16b_a3b_l16",)
+
+
 def phase_serve_lm(label, argv, reduced=None, scans=0, xgate=None):
     """A model served through ``repro_torch.launch.serve``:
     ``serve.setup`` seeds it on the card, ``serve.generate`` prefills the
@@ -3622,6 +3847,8 @@ def phase_serve_lm(label, argv, reduced=None, scans=0, xgate=None):
     prefill_launches = _counts()
     held(prefill_launches, scans, "a prefill")
     same = bool(torch.equal(logits[:, -1], res.logits[:, 0]))
+    check(same, f"{label}: a second prefill's last logits differ from "
+                f"the first's (not bit-repeatable)")
     tok = res.tokens[:, :1]
     pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int32,
                      device=tokens.device)
@@ -3648,6 +3875,20 @@ def phase_serve_lm(label, argv, reduced=None, scans=0, xgate=None):
                               lambda: model.decode_step(cache, tok, pos),
                               1, groups=LM_GROUPS, unit="step")
     parts = _decode_breakdown(model, cache, tok, pos)
+    again = {}
+    if label in GENERATE_AGAIN:
+        res2 = serve.generate(model, batch, args.gen)
+        again = {"generate_again_equal": bool(torch.equal(res2.tokens,
+                                                          res.tokens)),
+                 "generate_again_logits_equal": bool(torch.equal(
+                     res2.logits, res.logits)),
+                 "generate_again_decode_ms_per_step":
+                     res2.decode_s / (args.gen - 1) * 1e3}
+        check(again["generate_again_equal"]
+              and again["generate_again_logits_equal"],
+              f"{label}: a second generate gave other tokens or logits "
+              f"than the first")
+        del res2
     steps = args.gen - 1
     out = {"params": n_params, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
@@ -3670,7 +3911,8 @@ def phase_serve_lm(label, argv, reduced=None, scans=0, xgate=None):
            "decode_device_busy_share": prof["device_busy_share"],
            "decode_kernels_per_step": prof.get("kernels_per_step"),
            "decode_us_by_group": prof.get("us_per_step_by_group"),
-           **parts, **vision, "seq0": res.tokens[0, :12].tolist()}
+           **parts, **vision, **again,
+           "seq0": res.tokens[0, :12].tolist()}
     if cfg.moe is not None:
         with torch.no_grad():
             _, aux = model.forward(batch)
@@ -5661,9 +5903,12 @@ def _main_phases(name, smi, t_start, pod, host_ref) -> int:
             batch8_launches=batch_rows[path]["launches"][kname])
     for kname in ("fabric_queue_step", "fabric_queue_update"):
         by_name[kname]["launch_floor_ms"] = ktimes[kname]["launch_floor_ms"]
+        by_name[kname]["copy_floor_ms"] = ktimes[kname]["copy_floor_ms"]
         # launches of one adaptive ring-8 run on the per-step engine
         by_name[kname]["adaptive_ring8_launches"] = \
             step_runs[-1]["launches"][kname]
+    by_name["fabric_queue_update"]["batch8_copy_floor_ms"] = \
+        batch_times["fabric_queue_update"]["copy_floor_ms"]
     by_name["fabric_queue_multistep"]["adaptive_ring16_launches"] = \
         adaptive_rows["multistep"]["launches"]["fabric_queue_multistep"]
     by_name["aer_decode"]["aer_layer_ms_per_step"] = aer_ms
@@ -5699,7 +5944,9 @@ def _main_phases(name, smi, t_start, pod, host_ref) -> int:
             n: r["replay_launches"][kname] for n, r in examples.items()
             if "replay_launches" in r}
     by_name["lif_step"].update(launches_snn_fig6=snn_launches,
+                       at_32x128=ktimes["lif_step"]["at_32x128"],
                        at_65536x128=ktimes["lif_step"]["at_65536x128"],
+                       add_floor_ms=ktimes["lif_step"]["add_floor_ms"],
                        cosim_closed_ms_per_tick=closed_ms,
                        cosim_open_ms_per_tick=open_ms,
                        snn_fig6_ms_per_tick=snn_ms)

@@ -27,7 +27,7 @@ namespace {
 constexpr int kBigNs = 1 << 30;   // empty / consumed slot sentinel
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kUpdateThreads = 256;
+constexpr int kUpdateThreads = kWarp;   // a block of fabric_queue_update
 // 16-byte vectors a thread loads per pass over a row, for each plane
 constexpr int kVecs = 8;
 
@@ -192,9 +192,29 @@ fabric_queue_step_kernel(const int* __restrict__ q_time,
   }
 }
 
-// One thread per lane: the first n_pop threads pop, the next n_app
-// append.  Writes go straight into the planes (in place); no atomics are
-// needed because append targets are unique and disjoint from pop slots.
+// fabric_queue_update: one thread per lane, the first n_pop threads pop,
+// n_app threads from the next warp boundary on append.  Bound: bytes (a few hundred), far below a
+// launch at every main-path shape (16 + 16 lanes at ring-16, 8 times
+// that for a B = 8 batch), so the design cuts the kernel's own latency
+// to one load round trip and one store, as a copy of the lanes would
+// take:
+//  * every word a lane reads is loaded before any test: an append lane's
+//    time, destination and injection time are read in the same trip as
+//    its queue and slot (they used to wait for the range test, a second
+//    dependent trip to memory);
+//  * pop lanes and append lanes in warps of their own (appends start on
+//    a warp boundary), so no warp runs both paths one after the other;
+//  * blocks of kUpdateThreads (one warp), so the lanes spread over SMs:
+//    a ring-16 step's 16 + 16 lanes take two blocks, a B = 8 batch's
+//    128 + 128 eight.
+// On an H100 that took B2 from 1.51 to 1.20 µs at ring-16 and from 1.63
+// to 1.25 µs at B = 8 (profiler, in turns; PERF.md, Findings): as fast
+// as PyTorch's own copy kernel on as many words, 0.16-0.24 µs above a
+// device-to-device memcpy of them.
+// Writes go straight into the planes (in place); no atomics are needed
+// because append targets are unique and disjoint from pop slots.  The
+// lanes stay seven arrays: the step body makes each with its own
+// operation, and packing them into one record would cost it a launch.
 __global__ void __launch_bounds__(kUpdateThreads)
 fabric_queue_update_kernel(int* __restrict__ q_time,
                            int* __restrict__ q_dest,
@@ -207,21 +227,29 @@ fabric_queue_update_kernel(int* __restrict__ q_time,
                            const int* __restrict__ app_dest,
                            const int* __restrict__ app_inj, int n_app) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_pop) {
-    const int qq = pop_q[i];
-    const int s = pop_slot[i];
-    if (qq >= 0 && qq < n_q && s >= 0 && s < n_c) {
-      q_time[static_cast<size_t>(qq) * n_c + s] = kBigNs;
-    }
-  } else if (i < n_pop + n_app) {
-    const int j = i - n_pop;
-    const int qq = app_q[j];
-    const int s = app_slot[j];
-    if (qq >= 0 && qq < n_q && s >= 0 && s < n_c) {
-      const size_t k = static_cast<size_t>(qq) * n_c + s;
-      q_time[k] = app_t[j];
-      q_dest[k] = app_dest[j];
-      q_inj[k] = app_inj[j];
+  const int pop_pad = (n_pop + kWarp - 1) / kWarp * kWarp;
+  const bool pop = i < n_pop;
+  const int j = i - pop_pad;
+  const bool app = i >= pop_pad && j < n_app;
+  // every load in flight before any test
+  int qq = -1, s = -1, t = kBigNs, d = 0, inj = 0;
+  if (pop) {
+    qq = __ldg(pop_q + i);
+    s = __ldg(pop_slot + i);
+  }
+  if (app) {
+    qq = __ldg(app_q + j);
+    s = __ldg(app_slot + j);
+    t = __ldg(app_t + j);
+    d = __ldg(app_dest + j);
+    inj = __ldg(app_inj + j);
+  }
+  if (qq >= 0 && qq < n_q && s >= 0 && s < n_c) {
+    const size_t k = static_cast<size_t>(qq) * n_c + s;
+    q_time[k] = t;              // BIG_NS for a pop
+    if (app) {
+      q_dest[k] = d;
+      q_inj[k] = inj;
     }
   }
 }
@@ -255,7 +283,7 @@ int fabric_queue_update_launch(int* q_time, int* q_dest, int* q_inj,
                                const int* app_t, const int* app_dest,
                                const int* app_inj, int n_app,
                                void* stream) {
-  const int lanes = n_pop + n_app;
+  const int lanes = (n_pop + kWarp - 1) / kWarp * kWarp + n_app;
   const int blocks = (lanes + kUpdateThreads - 1) / kUpdateThreads;
   fabric_queue_update_kernel<<<blocks, kUpdateThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(

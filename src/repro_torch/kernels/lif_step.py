@@ -7,14 +7,19 @@ own at first use.  Replaces ``lif_step_pallas``
     v2 = fma(v, decay, i_syn); spike = v2 >= v_th;
     v_next = v_reset where spike else v2; spikes = 1.0 where spike else 0.0
 
-Design: one thread per element, grid-stride, over contiguous float32
-state of any shape (the callers pass ``(rows, 128·k)``).  The fused
-multiply-add is written out (``fmaf``), because the reference runs
-under ``jax.jit``, where XLA contracts ``v * decay + i`` into one
-rounding; the plain version in ``ref.lif_step`` computes the same single
-rounding in float64.  Bound on an H100: bytes, 16 per neuron (two
-float32 reads, two writes) at 3.35 TB/s — at the cosim ring-16 shape
-(16, 128) that is 32 KB, ~0.01 µs, far below a launch.
+Design: over contiguous float32 state of any shape (the callers pass
+``(rows, 128·k)``), a thread takes four neurons a trip as 16-byte
+vectors when all four arrays are 16-byte aligned, and the 0-3 neurons
+past the last vector (or the whole array, when an operand starts
+elsewhere, such as a view at an odd storage offset) in the same
+kernel's scalar loop; the grid is at most one full wave of the card's
+SMs, each thread striding over the rest.  The fused multiply-add is
+written out (``fmaf``), because the reference runs under ``jax.jit``,
+where XLA contracts ``v * decay + i`` into one rounding; the plain
+version in ``ref.lif_step`` computes the same single rounding in
+float64.  Bound on an H100: bytes, 16 per neuron (two float32 reads,
+two writes) at 3.35 TB/s — at the cosim ring-16 shape (16, 128) that
+is 32 KB, ~0.01 µs, far below a launch.
 
 The wrapper checks its operands (CUDA, float32, contiguous, one shape),
 allocates the outputs with ``torch.empty``, launches on PyTorch's

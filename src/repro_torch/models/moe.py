@@ -8,7 +8,9 @@ combined; the residual carries the token).  Slot tables (token, valid,
 gate per (expert, slot)) are built by an indexed write of the kept
 choices, tokens are gathered into (B, E, C, D) expert buffers, the
 experts run as batched products in the compute dtype, and each slot's
-gated output is added back to its token.  The reference's expert
+gated output is added back to its token in the reference's fixed order
+(``_combine``: ascending expert, no atomics, so a run repeats bit for
+bit on the card).  The reference's expert
 sharding layouts (``cfg.moe.layout``) run the same way on one card; its
 ``shard_activation`` annotations are kept at its places (no-ops unless
 sharding rules are installed).
@@ -47,7 +49,8 @@ from torch import nn
 from ..parallel.sharding import shard_activation as shard
 from .layers import _ACTS, _normal, param
 
-__all__ = ["MoE", "moe_axes", "moe_init", "_capacity", "_top_k", "moe_apply"]
+__all__ = ["MoE", "moe_axes", "moe_init", "_capacity", "_top_k", "_combine",
+           "moe_apply"]
 
 
 class MoE(nn.Module):
@@ -98,6 +101,44 @@ def _top_k(probs: torch.Tensor, k: int):
     first among equal values (a stable descending sort keeps it)."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _combine(contrib: torch.Tensor, choice: torch.Tensor, pos: torch.Tensor,
+             valid: torch.Tensor, e0: int | None = None) -> torch.Tensor:
+    """The gated slot outputs ``contrib`` (B, E', C, D) added back to
+    their tokens: (B, S, D) in ``contrib``'s dtype.  ``choice``, ``pos``
+    and ``valid`` (B, S, K) are each token's experts, its slots in them
+    and whether a term is added; ``contrib`` holds experts ``e0`` to
+    ``e0 + E'`` (a rank's block under ``ep``, where ``valid`` must be
+    false for choices outside the block; every rank runs the same
+    operations, rank 0 too), or all of them when ``e0`` is None.
+
+    The reference scatter-adds the (expert, slot) rows in their
+    flattened order, so a token's kept terms (distinct experts) add in
+    ascending expert order, from zero, each add rounded to the dtype.
+    So does this, with no atomics: the same bits on every run and
+    device.  Each term is gathered from its slot (dropped ones zeroed)
+    and moved to its rank among its token's experts, and the ranks are
+    added in a loop over K: K + 8 launches on the card (the zeroing
+    where's fill among them), no sort."""
+    B, E, C, D = contrib.shape
+    S, K = choice.shape[1:]
+    # a term's place in the sum: how many of its token's experts are lower
+    lower = torch.empty((B, S, K, K), dtype=torch.long, device=choice.device)
+    rank = torch.lt(choice[..., None, :], choice[..., :, None],
+                    out=lower).sum(-1)
+    # its row of its batch row's (E' * C) slots; a dropped term's may be
+    # any row (it is zeroed)
+    row = torch.add(pos, choice if e0 is None else choice - e0, alpha=C)
+    row = row.clamp_(0, E * C - 1).view(B, S * K, 1).expand(B, S * K, D)
+    terms = torch.gather(contrib.reshape(B, E * C, D), 1, row)
+    terms = torch.where(valid.reshape(B, S, K, 1), terms.view(B, S, K, D), 0)
+    ordered = torch.empty_like(terms).scatter_(
+        2, rank[..., None].expand(B, S, K, D), terms)
+    out = ordered[:, :, 0] + 0.0                   # from zero: -0 -> +0
+    for k in range(1, K):
+        out = out + ordered[:, :, k]
+    return out
 
 
 def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
@@ -153,6 +194,7 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
     ep = m.layout == "ep"
     buf = shard(buf, ("batch", "experts" if ep else None, None, None))
     tp = par is not None and par.tp > 1
+    e0 = None
     if tp:
         buf = par.copy(buf)
         if ep or sp:               # combined from partial outputs
@@ -160,8 +202,7 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
         if ep:                     # this rank's block of experts
             e0 = par.tp_rank * p.wi.shape[0]
             cut = slice(e0, e0 + p.wi.shape[0])
-            buf, slot_gate, slot_tok = (buf[:, cut], slot_gate[:, cut],
-                                        slot_tok[:, cut])
+            buf, slot_gate = buf[:, cut], slot_gate[:, cut]
 
     # expert FFN (batched products)
     h = torch.einsum("becd,edf->becf", buf, p.wi.to(cd))
@@ -175,12 +216,12 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, par=None):
     y = shard(y, ("batch", "experts" if ep else None, None, None))
 
     # combine: weight each slot's output by its gate, then add it back to
-    # its token position
+    # its token position (under ep, this rank's block of experts)
     contrib = y * slot_gate[..., None].to(cd)
-    flat = (slot_tok + torch.arange(B, device=dev)[:, None, None] * S
-            ).reshape(-1)
-    out = torch.zeros((B * S, D), dtype=cd, device=dev).index_add_(
-        0, flat, contrib.reshape(-1, D)).reshape(B, S, D)
+    kept = valid
+    if tp and ep:
+        kept = valid & (choice >= e0) & (choice < e0 + p.wi.shape[0])
+    out = _combine(contrib, choice, pos, kept, e0)
     if sp:
         out = par.seq_exit(out)
     elif tp and ep:

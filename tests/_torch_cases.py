@@ -82,14 +82,15 @@ def sentinel_scan_case(nq, nc):
     return q.astype(np.int32), qd.astype(np.int32), t.astype(np.int32)
 
 
-def offset_tensor(a, device, words):
-    """``a`` as a contiguous int32 tensor whose first element lies
-    ``words`` int32 words past a 16-byte boundary (of a fresh, aligned
-    allocation)."""
+def offset_tensor(a, device, words, dtype=np.int32):
+    """``a`` as a contiguous int32 (or ``dtype``, of 4-byte words) tensor
+    whose first element lies ``words`` words past a 16-byte boundary (of
+    a fresh, aligned allocation)."""
     import torch
-    flat = torch.zeros(a.size + 4, dtype=torch.int32, device=device)
+    src = torch.from_numpy(np.ascontiguousarray(a, dtype))
+    flat = torch.zeros(a.size + 4, dtype=src.dtype, device=device)
     out = flat[words:words + a.size].view(a.shape)
-    out.copy_(torch.from_numpy(np.ascontiguousarray(a, np.int32)))
+    out.copy_(src)
     return out
 
 
@@ -367,8 +368,12 @@ def carry_err(a, b, n_log):
 LIF_PARAMS = ((0.9, 1.0, 0.0), (0.5, 0.3, 0.0), (1.0, 1.0, -0.2))
 #: (rows, lanes) of the CPU parity tests
 LIF_SHAPES = ((8, 128), (16, 128), (32, 256), (8, 384))
-#: the card's shapes: the tests', the SNN 4x4x256 state and a large one
-LIF_CARD_SHAPES = LIF_SHAPES + ((32, 128), (65536, 128))
+#: the card's shapes: the tests', the SNN 4x4x256 state, a large one,
+#: 4,191 neurons (not a multiple of 4: a scalar tail after the 16-byte
+#: vectors) and, as (rows, lanes, words), a view 1 float32 word past a
+#: 16-byte boundary (no vectors: the scalar loop over the whole array)
+LIF_CARD_SHAPES = LIF_SHAPES + ((32, 128), (65536, 128), (33, 127),
+                                (16, 128, 1))
 
 _F32 = np.float32
 
@@ -472,14 +477,25 @@ def lif_case(seed, shape, decay, v_th, v_reset):
 
 def lif_cases(shapes=LIF_SHAPES, params=LIF_PARAMS):
     """``[(name, v, i_syn, decay, v_th, v_reset)]`` over ``shapes`` x
-    ``params``, each seeded by its position."""
+    ``params``, each seeded by its position.  A shape's third entry, the
+    card's storage offset in words (``lif_on_card``), is named in the
+    case and does not change its values."""
     out = []
     for si, shape in enumerate(shapes):
+        at = f"_at{shape[2]}" if len(shape) > 2 else ""
         for pi, (d, th, rst) in enumerate(params):
-            v, i = lif_case(1000 + 10 * si + pi, shape, d, th, rst)
-            out.append((f"{shape[0]}x{shape[1]}_d{d}_th{th}_r{rst}", v, i,
-                        d, th, rst))
+            v, i = lif_case(1000 + 10 * si + pi, shape[:2], d, th, rst)
+            out.append((f"{shape[0]}x{shape[1]}{at}_d{d}_th{th}_r{rst}", v,
+                        i, d, th, rst))
     return out
+
+
+def lif_on_card(a, device, shape):
+    """``a`` as a contiguous float32 tensor on ``device`` whose first
+    element lies ``shape[2]`` words (0 when ``shape`` has two entries)
+    past a 16-byte boundary."""
+    return offset_tensor(a, device, shape[2] if len(shape) > 2 else 0,
+                         np.float32)
 
 
 def lif_exact(v, i, decay, v_th, v_reset):
@@ -510,6 +526,59 @@ def lif_double_roundings(v, i, decay, v_th, v_reset, got, plain):
         if g == want and p != want:
             ok += 1
     return ok, len(diff) - ok
+
+
+# --- the MoE combine -----------------------------------------------------
+
+#: (E, K) of the combine's cases: moonshot's top-6 of 64, mixtral's and
+#: jamba's top-2 of 8
+COMBINE_ROUTINGS = ((64, 6), (8, 2))
+
+
+def combine_case(seed, B, S, E, K, D, capacity):
+    """Seeded inputs of ``moe._combine``: ``(contrib (B, E, C, D)
+    float32, choice, pos (B, S, K) int64, valid (B, S, K) bool, slot_tok
+    (B, E, C) int32)``.  Each token picks K distinct experts in a random
+    order (not ascending), the first half of every row's tokens put
+    expert 0 first so that it overflows its C slots (those tokens keep
+    fewer than K), and positions follow the dispatch's running count over
+    the (S·K) order.  Slots no kept choice fills hold zeros (their gate
+    is 0); ``slot_tok`` is 0 there, as in the reference's slot table.
+    Row 0's tokens 0 and 1 carry the terms 1, 2^-8 and -1 in ascending
+    expert order (-1, 1, 2^-8 for token 1; zeros after them), whose
+    bfloat16 sum depends on the order and on rounding after each add."""
+    rng = np.random.default_rng(seed)
+    choice = np.stack([np.stack([rng.permutation(E)[:K] for _ in range(S)])
+                       for _ in range(B)])
+    for b in range(B):
+        for s in range(S // 2):
+            if 0 not in choice[b, s]:
+                choice[b, s, 0] = 0
+            else:
+                k = int(np.flatnonzero(choice[b, s] == 0)[0])
+                choice[b, s, [0, k]] = choice[b, s, [k, 0]]
+    pos = np.zeros((B, S, K), np.int64)
+    for b in range(B):
+        count = np.zeros(E, np.int64)
+        for s in range(S):
+            for k in range(K):
+                pos[b, s, k] = count[choice[b, s, k]]
+                count[choice[b, s, k]] += 1
+    valid = pos < capacity
+    contrib = np.zeros((B, E, capacity, D), np.float32)
+    slot_tok = np.zeros((B, E, capacity), np.int32)
+    b_i, s_i, k_i = np.nonzero(valid)
+    e_i, c_i = choice[b_i, s_i, k_i], pos[b_i, s_i, k_i]
+    contrib[b_i, e_i, c_i] = rng.standard_normal((len(b_i), D))
+    slot_tok[b_i, e_i, c_i] = s_i
+    if K >= 3:
+        for s, terms in ((0, (1.0, 2.0 ** -8, -1.0)),
+                         (1, (-1.0, 1.0, 2.0 ** -8)))[:S]:
+            ks = [k for k in np.argsort(choice[0, s]) if valid[0, s, k]]
+            for j, k in enumerate(ks):
+                contrib[0, choice[0, s, k], pos[0, s, k]] = \
+                    terms[j] if j < 3 else 0.0
+    return contrib, choice, pos, valid, slot_tok
 
 
 # --- the co-simulation and SNN phases ------------------------------------

@@ -48,10 +48,12 @@ from repro_torch.launch import serve
 from repro_torch.models import snn
 from repro_torch.models.model import LM, build_model
 
-from _torch_cases import (AER_ROUTE_CASES, LIF_CARD_SHAPES, LIF_PARAMS,
+from _torch_cases import (AER_ROUTE_CASES, COMBINE_ROUTINGS,
+                          LIF_CARD_SHAPES, LIF_PARAMS,
                           MS_BATCH, MS_STEPS, aer_arrays, aer_mismatches,
                           aer_offset_copy, aer_route_arrays, aer_specs,
-                          carry_err, clone, lif_cases, lif_double_roundings,
+                          carry_err, clone, combine_case, lif_cases,
+                          lif_double_roundings, lif_on_card,
                           multistep_cases, multistep_operands, planes,
                           offset_tensor, run_schedule, scan_arrays,
                           scan_bwd_tol, scan_case, scan_cotangents,
@@ -573,11 +575,13 @@ def test_multistep_wrapper_validates_operands(cuda):
 def test_lif_kernel_matches_plain(cuda, shape, params):
     """Bit for bit, except where the plain version's float64 route
     rounds twice: each such element must be the kernel's exact single
-    rounding (none is expected)."""
+    rounding (none is expected).  The shapes take every route of the
+    kernel: 16-byte vectors, vectors with a scalar tail (33 x 127) and
+    the scalar loop alone (a view 1 word past a 16-byte boundary)."""
     ((_, v, i, decay, v_th, v_reset),) = lif_cases((shape,), (params,))
     before = lk.lif_step.launches
-    got = lk.lif_step(torch.from_numpy(v).to(cuda),
-                      torch.from_numpy(i).to(cuda), decay=decay,
+    got = lk.lif_step(lif_on_card(v, cuda, shape),
+                      lif_on_card(i, cuda, shape), decay=decay,
                       v_th=v_th, v_reset=v_reset)
     torch.cuda.synchronize()
     assert lk.lif_step.launches == before + 1
@@ -602,6 +606,32 @@ def test_lif_wrapper_validates_operands(cuda):
         lk.lif_step(v, v[:4], decay=0.9, v_th=1.0, v_reset=0.0)
     with pytest.raises(ValueError, match="is on cpu"):
         lk.lif_step(v, v.cpu(), decay=0.9, v_th=1.0, v_reset=0.0)
+
+
+# --- the MoE combine ---------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,K", COMBINE_ROUTINGS)
+def test_moe_combine_repeats_on_the_card_and_equals_cpu(cuda, E, K, dtype):
+    """``moe._combine`` twice on the card and once on the CPU on the same
+    slot outputs (4 rows of 512 tokens, width 256, experts that
+    overflow their slots), all three bit-equal: a fixed order, no
+    atomics."""
+    from repro_torch.models import moe as M
+    B, S, D = 4, 512, 256
+    C = max(int(-(-S * K * 1.25 // E)), 1)
+    contrib, choice, pos, valid, _ = combine_case(E * K, B, S, E, K, D, C)
+    args = [torch.from_numpy(a) for a in (contrib, choice, pos, valid)]
+    args[0] = args[0].to(dtype)
+    host = M._combine(*args)
+    on_card = [a.to(cuda) for a in args]
+    first = M._combine(*on_card)
+    second = M._combine(*on_card)
+    torch.cuda.synchronize()
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(first.view(view), second.view(view))
+    assert torch.equal(first.cpu().view(view), host.view(view))
 
 
 def _ring4():

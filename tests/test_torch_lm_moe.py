@@ -3,13 +3,14 @@
 its own parameters.
 
 Tolerances: float32 to ``TOL`` = 2e-5 (output and the three aux
-scalars); bfloat16 to 2^-7 relative plus 2^-6 absolute.  With top-2
-every token's output is one bf16 sum of two gated expert outputs, the
-same in any order; with moonshot's top-6 the six are added in the
-compute dtype in an order that may differ, which the bf16 tolerance
-covers.  Routing is held exactly: ``jax.lax.top_k`` puts the lower
-expert first on ties (rows of zeros give uniform router probabilities),
-and so does the port's stable sort."""
+scalars); bfloat16 to 2^-7 relative plus 2^-6 absolute, which covers
+the expert products' rounding in the two frameworks.  The combine is
+held bit for bit on its own (``_combine``): a token's gated slot
+outputs are added in the reference scatter's order, ascending expert,
+from zero, rounded to the compute dtype after each add, for top-6 of
+64 and top-2 of 8.  Routing is held exactly: ``jax.lax.top_k`` puts the
+lower expert first on ties (rows of zeros give uniform router
+probabilities), and so does the port's stable sort."""
 
 import dataclasses
 import pathlib
@@ -26,6 +27,8 @@ from repro.models.model import build_model as ref_build_model
 from repro_torch import interop
 from repro_torch.configs import base as cb
 from repro_torch.models import moe as M
+
+from _torch_cases import COMBINE_ROUTINGS, combine_case
 
 CPU = "cpu"
 TOL = 2e-5
@@ -121,6 +124,68 @@ def test_moe_apply_matches_reference(case, dtype):
         assert abs(float(gaux[k]) - float(waux[k])) <= TOL * max(
             1.0, abs(float(waux[k]))), k
     assert (float(waux["drop_frac"]) > 0) == drops
+
+
+def _ref_combine(contrib, slot_tok, S):
+    """The reference's combine, ``scatter_back`` of
+    ``src/repro/models/moe.py:124-128``, on (B, E, C, D) slot outputs."""
+    D = contrib.shape[-1]
+
+    def scatter_back(cg, st):
+        return jnp.zeros((S, D), cg.dtype).at[st.reshape(-1)].add(
+            cg.reshape(-1, D))
+
+    return jax.vmap(scatter_back)(contrib, slot_tok)
+
+
+def _bits(a):
+    """The raw bits of a bfloat16 or float32 array or tensor."""
+    if torch.is_tensor(a):
+        return a.view(torch.int16 if a.dtype == torch.bfloat16
+                      else torch.int32).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", [False, True])
+@pytest.mark.parametrize("E,K", COMBINE_ROUTINGS)
+def test_combine_is_bit_equal_to_reference_scatter(E, K, block, dtype):
+    """``_combine`` against the reference's scatter-add on the same slot
+    outputs, bit for bit: tokens that keep fewer than K slots, and (row
+    0, tokens 0 and 1, top-6) terms whose bfloat16 sum changes with the
+    order and with a wider accumulator.  ``block`` gives the combine
+    experts E/2 to E only, a rank's block under ``ep``."""
+    B, S, D = 2, 24, 16
+    C = max(int(-(-S * K * 1.25 // E)), 1)
+    contrib, choice, pos, valid, slot_tok = combine_case(
+        E + K + block, B, S, E, K, D, C)
+    kept = valid.sum(-1)
+    assert ((kept > 0) & (kept < K)).any()
+    e0 = E // 2 if block else None
+    lo = e0 or 0
+    want = _ref_combine(jnp.asarray(contrib[:, lo:]).astype(JDT[dtype]),
+                        jnp.asarray(slot_tok[:, lo:]), S)
+    got = M._combine(torch.from_numpy(contrib[:, lo:]).to(dtype),
+                     torch.from_numpy(choice), torch.from_numpy(pos),
+                     torch.from_numpy(valid & (choice >= lo)), e0)
+    assert got.dtype == dtype and got.shape == (B, S, D)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    if K >= 3 and dtype == torch.bfloat16 and not block:
+        # the case bites: ascending order, rounded after each add, gives
+        # 0 and 2^-8 at tokens 0 and 1; one wider sum gives 2^-8 at
+        # token 0, the descending order 0 at token 1
+        def bf16_sum(terms):
+            acc = torch.zeros((), dtype=dtype)
+            for t in terms:
+                acc = acc + torch.tensor(t, dtype=dtype)
+            return float(acc)
+
+        up = ((1.0, 2 ** -8, -1.0), (-1.0, 1.0, 2 ** -8))
+        np.testing.assert_array_equal(_np(want)[0, :2, 0],
+                                      [bf16_sum(t) for t in up])
+        assert _np(want)[0, 0, 0] != sum(up[0])
+        assert _np(want)[0, 1, 0] != bf16_sum(up[1][::-1])
 
 
 def test_no_drop_capacity_keeps_every_choice():
